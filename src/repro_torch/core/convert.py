@@ -1,0 +1,117 @@
+"""Dense -> sparse parameter conversion.
+
+Twin of two reference pieces: ``repro.core.convert`` (which leaves are
+linear weights: ``default_predicate`` / ``EXCLUDE_KEYS``) and the
+single-device, ``mode="bf16"`` path of
+``repro.distributed.convert_plan.convert_concrete`` (per-leaf block fitted
+by ``_fit_block`` / ``_plan_leaf``, capacity from ``balanced_capacity``,
+layer-stacked leaves packed per layer).  There is no mesh, so no block-count
+padding.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import module as mod
+from .pruning import make_mask
+from .sparse_format import (DEFAULT_BLOCK, BlockSparseWeight,
+                            balanced_capacity, pack)
+
+# Param-name suffixes that are linear-layer weights (matmul RHS, [K, N]).
+LINEAR_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "w_in",
+               "w_out", "w_r", "w_k", "w_v", "w_g", "w_o", "w_ck", "w_cv",
+               "w_cr", "w_proj", "w1", "w2", "w3", "lm_head")
+EXCLUDE_KEYS = ("embed", "norm", "scale", "bias", "router", "pos",
+                "a_log", "dt", "mu_", "decay", "bonus")
+
+
+def default_predicate(path: str, shape: Tuple[int, ...]) -> bool:
+    if len(shape) < 2:
+        return False
+    if any(k in path for k in EXCLUDE_KEYS):
+        return False
+    name = path.rsplit("/", 1)[-1]
+    return any(name == k or name.endswith("/" + k) for k in LINEAR_KEYS)
+
+
+def _fit_block(dim: int, pref: int) -> int:
+    """Shrink the preferred block edge for small tensors; keep multiples of
+    8 so bitmaps stay word-aligned."""
+    if dim >= pref:
+        return pref
+    return max(-(-dim // 8) * 8, 8)
+
+
+def _plan_leaf(spec: mod.ParamSpec, block=DEFAULT_BLOCK) -> Tuple[int, int]:
+    k, n = spec.shape[-2:]
+    return (_fit_block(k, block[0]), _fit_block(n, block[1]))
+
+
+def _is_sparsifiable(path: str, spec) -> bool:
+    """2D weights, or layer-stacked 2D weights (leading 'layers' axis)."""
+    if not mod.is_spec(spec) or not default_predicate(path, spec.shape):
+        return False
+    if len(spec.shape) == 2:
+        return True
+    axes = spec.axes or ()
+    return len(spec.shape) == 3 and len(axes) == 3 and axes[0] == "layers"
+
+
+def _pack_one(w2: torch.Tensor, cfg, blk, cap) -> BlockSparseWeight:
+    mask = make_mask(w2, cfg.sparsity, cfg.sparse_policy, blk)
+    # packed values are bf16 whatever the model dtype (as the reference)
+    return pack(w2.to(torch.bfloat16), mask, blk, capacity=cap)
+
+
+def convert_concrete(params: Any, spec_tree: Any, cfg, mode: str = "bf16",
+                     block=DEFAULT_BLOCK,
+                     device: Optional[torch.device] = None) -> Any:
+    """Prune + pack every linear weight of ``params`` on ``device`` (the
+    CUDA device unless the caller asks for the CPU)."""
+    if mode != "bf16":
+        raise NotImplementedError(f"mode={mode!r} is not ported yet "
+                                  "(int8/int4 weights)")
+    dev = resolve_device(device)
+    density = 1.0 - cfg.sparsity
+
+    def one(path: str, pair):
+        spec, leaf = pair
+        leaf = leaf.to(dev)
+        if not _is_sparsifiable(path, spec):
+            return leaf
+        blk = _plan_leaf(spec, block)
+        cap = balanced_capacity(density, blk)
+        if leaf.ndim == 3:                  # layer-stacked: pack per layer
+            packed = [_pack_one(leaf[i], cfg, blk, cap)
+                      for i in range(leaf.shape[0])]
+            return BlockSparseWeight(
+                bitmap=torch.stack([p.bitmap for p in packed]),
+                values=torch.stack([p.values for p in packed]),
+                scale=None, shape=packed[0].shape, block=blk)
+        return _pack_one(leaf, cfg, blk, cap)
+
+    return mod.map_with_path(one, _zip(spec_tree, params),
+                             is_leaf=lambda x: isinstance(x, tuple))
+
+
+def _zip(spec_tree, params):
+    if isinstance(spec_tree, dict):
+        return {k: _zip(v, params[k]) for k, v in spec_tree.items()}
+    return (spec_tree, params)
+
+
+def sparsity_report(params: Any) -> dict:
+    """Per-leaf compression statistics for converted trees."""
+    out = {}
+
+    def one(path, leaf):
+        out[path] = {"dense_bytes": leaf.nbytes_dense(),
+                     "compressed_bytes": leaf.nbytes_compressed(),
+                     "capacity": leaf.capacity}
+        return leaf
+    mod.map_with_path(one, params,
+                      is_leaf=lambda x: isinstance(x, BlockSparseWeight))
+    return out

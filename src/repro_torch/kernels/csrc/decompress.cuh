@@ -1,0 +1,116 @@
+// Shared device helpers for the sparse kernels: the paper's Algorithm 2
+// (bitmap -> popcount -> exclusive prefix sum -> expand) written for one
+// CUDA thread block.  Counterpart of repro/kernels/common.py
+// (unpack_bits_block + decompress_block).
+//
+// Layout of one compressed block: `n_words` 32-bit bitmap words (bit b of
+// word j is flat row-major position 32*j + b) and `cap` packed values in the
+// same order.  The host side stores the words as int32 bit-views; here they
+// are read as uint32, so `>>` is a logical shift.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
+
+// dtype codes shared with the Python wrappers
+enum ReproDtype { REPRO_F32 = 0, REPRO_BF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Stage the first `n_words` words of one block in shared memory and compute
+// each word's exclusive prefix popcount (the offset of its first set bit in
+// the packed values).  Every thread of the block must call this; blockDim.x
+// must be a multiple of 32.  `s_scratch` needs 32 ints.  Ends with a
+// __syncthreads(), so the outputs are visible to the whole block.
+__device__ __forceinline__ void stage_word_offsets(
+    const uint32_t* __restrict__ words, int n_words, uint32_t* s_words,
+    int* s_off, int* s_scratch) {
+  const int nt = blockDim.x, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, nwarps = nt >> 5;
+  const int per = (n_words + nt - 1) / nt;
+  const int w0 = t * per;
+  int local = 0;
+  for (int i = 0; i < per; ++i) {
+    const int j = w0 + i;
+    if (j < n_words) {
+      const uint32_t w = words[j];
+      s_words[j] = w;
+      local += __popc(w);
+    }
+  }
+  // block-wide exclusive scan of the per-thread popcount totals
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) s_scratch[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < nwarps ? s_scratch[lane] : 0;
+    int inc = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += u;
+    }
+    if (lane < nwarps) s_scratch[lane] = inc - v;
+  }
+  __syncthreads();
+  int run = s_scratch[warp] + incl - local;
+  for (int i = 0; i < per; ++i) {
+    const int j = w0 + i;
+    if (j < n_words) {
+      s_off[j] = run;
+      run += __popc(s_words[j]);
+    }
+  }
+  __syncthreads();
+}
+
+// Dense value of flat position `p` of a staged block: 0 where the bit is
+// clear, else the packed value at the bit's rank (clamped to cap - 1, as the
+// reference clamps its gather).
+template <typename TV>
+__device__ __forceinline__ float expand_at(int p, const uint32_t* s_words,
+                                           const int* s_off,
+                                           const TV* __restrict__ values,
+                                           int cap) {
+  const uint32_t w = s_words[p >> 5];
+  const int b = p & 31;
+  if (!((w >> b) & 1u)) return 0.f;
+  int idx = s_off[p >> 5] + __popc(w & ((1u << b) - 1u));
+  idx = min(idx, cap - 1);
+  return to_f32(values[idx]);
+}
+
+// Every kernel source is built into its own shared library and includes
+// this header once, so each library exports its own copy.
+REPRO_EXPORT const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Opt a kernel into more than 48 KB of dynamic shared memory.
+template <typename K>
+static cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}

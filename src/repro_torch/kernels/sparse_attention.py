@@ -1,0 +1,133 @@
+"""Fused prefix + tail flash-decode over the pooled sparse KV cache.
+
+Replaces ``repro/kernels/sparse_attention.py:
+sparse_decode_attention_fused_pallas`` (flat branch) with the CUDA kernel
+in ``csrc/sparse_attention.cu``.  Bound on the H100: device-memory bytes —
+each slot's valid compressed K/V blocks and visible tail tokens, read
+once; the query panel's flops are far below the ridge.  The design runs
+one thread block per (kv head, slot) that loops over the valid prefix
+blocks (expanded into f32 shared memory) and the tail panels under one
+online softmax, so no log-sum-exp ever leaves the kernel.  At the serving
+shape that is only B*Hkv = 32 blocks: the kernel does not fill the card,
+and splitting the sequence loop is the known next step.
+
+CPU tensors take the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.sparse_format import BlockSparseWeight, unpack
+from . import build
+
+_SRC = "sparse_attention.cu"
+_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+         + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+         + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p,
+                                  ctypes.c_void_p])
+MAX_PANEL = 2048            # QG * D the kernel keeps in registers
+
+
+def _dense_prefix(bitmap, values, bs, d):
+    """Kernel-layout compressed blocks ``[B, Hkv, Sb, X]`` -> dense
+    ``[B, Hkv, Sb*bs, D]``."""
+    sb = bitmap.shape[2]
+    return unpack(BlockSparseWeight(bitmap[:, :, :, None], values[:, :, :, None],
+                                    None, (sb * bs, d), (bs, d)))
+
+
+def sparse_decode_attention_fused_plain(
+        q: torch.Tensor, k_bitmap: torch.Tensor, k_values: torch.Tensor,
+        v_bitmap: torch.Tensor, v_values: torch.Tensor,
+        k_tail: torch.Tensor, v_tail: torch.Tensor, bs: int,
+        sm_scale: float, n_blocks: torch.Tensor, tail_len: torch.Tensor,
+        group: Optional[int] = None) -> torch.Tensor:
+    """Plain version (twin of ``kernels/ref.py:
+    sparse_decode_attention_panel_ref`` on the kernel's operand layout):
+    one softmax over the valid prefix and the visible tail, each scored as
+    its own panel and merged through a joint max.  The softmax weights stay
+    f32 through the PV product, as in the TPU kernel (the reference oracle
+    rounds them to the cache dtype first; at f32 the two agree).  Returns
+    f32 ``[B, Hkv, QG, D]``; slots with nothing valid return zeros."""
+    b, hkv, qg, d = q.shape
+    g = group or qg
+    k = _dense_prefix(k_bitmap, k_values, bs, d)
+    v = _dense_prefix(v_bitmap, v_values, bs, d)
+    s_len, t = k.shape[2], k_tail.shape[2]
+    dev = q.device
+    # validity per (slot, query row, token); row // g is the panel query
+    valid_p = (torch.arange(s_len, device=dev)[None, None, :]
+               < (n_blocks.to(dev).long() * bs)[:, None, None])
+    valid_t = (torch.arange(t, device=dev)[None, None, :]
+               < tail_len.to(dev).long()[:, None, None]
+               + (torch.arange(qg, device=dev) // g)[None, :, None])
+    qq = q.to(torch.float32)
+
+    def panel(kx, vx, valid):
+        s = (qq @ kx.to(torch.float32).transpose(-1, -2)) * sm_scale
+        vm = valid[:, None]                                # [B, 1, QG|1, S]
+        s = torch.where(vm, s, torch.tensor(float("-inf"), device=dev))
+        m = s.amax(-1)
+        m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.where(vm, torch.exp(s - m_safe[..., None]),
+                        torch.zeros((), device=dev))
+        o = p @ vx.to(torch.float32)
+        return o, p.sum(-1), m
+
+    o1, l1, m1 = panel(k, v, valid_p)
+    o2, l2, m2 = panel(k_tail, v_tail, valid_t)
+    m = torch.maximum(m1, m2)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w1 = torch.exp(m1 - m_safe)
+    w2 = torch.exp(m2 - m_safe)
+    l_safe = torch.clamp(l1 * w1 + l2 * w2, min=1e-30)
+    o = (o1 * w1[..., None] + o2 * w2[..., None]) / l_safe[..., None]
+    return o.reshape(b, hkv, qg, d)
+
+
+def sparse_decode_attention_fused(
+        q: torch.Tensor, k_bitmap: torch.Tensor, k_values: torch.Tensor,
+        v_bitmap: torch.Tensor, v_values: torch.Tensor,
+        k_tail: torch.Tensor, v_tail: torch.Tensor, bs: int,
+        sm_scale: float, n_blocks: torch.Tensor, tail_len: torch.Tensor,
+        group: Optional[int] = None) -> torch.Tensor:
+    """q ``[B, Hkv, QG, D]`` (rows query-major within the GQA group);
+    compressed prefix ``[B, Hkv, Sb, X]``; tail ring ``[B, Hkv, Tp, D]`` with
+    ``Tp % bs == 0``; ``n_blocks`` / ``tail_len`` int32 ``[B]``.  Returns
+    f32 ``[B, Hkv, QG, D]``.  CPU tensors take the plain version."""
+    args = (q, k_bitmap, k_values, v_bitmap, v_values, k_tail, v_tail, bs,
+            sm_scale, n_blocks, tail_len, group)
+    if q.device.type == "cpu":
+        return sparse_decode_attention_fused_plain(*args)
+    b, hkv, qg, d = q.shape
+    g = group or qg
+    sb, tp = k_bitmap.shape[2], k_tail.shape[2]
+    if qg % g or tp % bs or tp < bs or (bs * d) % 32:
+        raise ValueError(f"bad geometry: QG={qg}, G={g}, tail={tp}, bs={bs}")
+    if qg * d > MAX_PANEL:
+        raise ValueError(f"query panel QG*D={qg * d} exceeds {MAX_PANEL}")
+    if k_values.dtype != k_tail.dtype or v_values.dtype != k_tail.dtype \
+            or q.dtype != k_tail.dtype or q.dtype not in build.DTYPE_CODE:
+        raise TypeError("fused attention kernel takes one f32/bf16 dtype "
+                        "for q, cache values and tail")
+    q = q.contiguous()
+    n_blocks = n_blocks.to(torch.int32).contiguous()
+    tail_len = tail_len.to(torch.int32).contiguous()
+    build.require_cuda(q, k_bitmap, k_values, v_bitmap, v_values, k_tail,
+                       v_tail, n_blocks, tail_len)
+    out = torch.empty((b, hkv, qg, d), dtype=torch.float32, device=q.device)
+    p = build.ptr
+    build.call(_SRC, "fused_attention_launch", _ARGS, p(q),
+               build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
+               p(v_bitmap), p(v_values), p(k_tail), p(v_tail),
+               build.DTYPE_CODE[k_tail.dtype], p(n_blocks), p(tail_len), b,
+               hkv, qg, g, d, sb, bs, k_values.shape[-1], v_values.shape[-1],
+               tp, float(sm_scale), p(out), build.stream())
+    sparse_decode_attention_fused.launches += 1
+    return out
+
+
+sparse_decode_attention_fused.launches = 0

@@ -1,0 +1,80 @@
+"""Shared model components: RMSNorm, RoPE, embeddings, SwiGLU MLP (twin of
+``repro.models.layers``).  Norm and RoPE compute in f32 and cast back."""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from .module import ParamSpec
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)
+            * scale.to(torch.float32)).to(x.dtype)
+
+
+def rope_angles(positions: torch.Tensor, hd: int, theta: float):
+    """positions [...] -> (cos, sin) of shape [..., hd//2] (f32)."""
+    dev = positions.device
+    freq = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=dev) / hd))
+    ang = positions.to(torch.float32)[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, D] with cos/sin [..., S, D//2] (broadcast over H)."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
+                     dim=-1).to(x.dtype)
+
+
+def embed_specs(cfg) -> Dict[str, ParamSpec]:
+    d = cfg.pdtype
+    specs = {"tok": ParamSpec((cfg.vocab, cfg.d_model), d,
+                              ("vocab", "embed"), init="embed")}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), d,
+                                     ("embed", "vocab"))
+    return specs
+
+
+def embed_apply(p, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    return F.embedding(tokens, p["tok"]).to(cfg.cdtype)
+
+
+def unembed_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    # tied: tok.T is a view, so the dense kernel reads tok's rows in place
+    w = p["tok"].T.to(cfg.cdtype) if cfg.tie_embeddings else p["lm_head"]
+    return ops.linear(x, w, out_dtype=torch.float32)
+
+
+def mlp_specs(cfg, d_in: Optional[int] = None,
+              d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
+    d_in = d_in or cfg.d_model
+    d_ff = d_ff or cfg.d_ff
+    dt = cfg.pdtype
+    return {
+        "w_gate": ParamSpec((d_in, d_ff), dt, ("embed", "ffn")),
+        "w_up": ParamSpec((d_in, d_ff), dt, ("embed", "ffn")),
+        "w_down": ParamSpec((d_ff, d_in), dt, ("ffn", "embed")),
+    }
+
+
+def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(ops.linear(x, p["w_gate"])) * ops.linear(x, p["w_up"])
+    return ops.linear(h, p["w_down"])
+
+
+def norm_spec(cfg, d: Optional[int] = None) -> ParamSpec:
+    return ParamSpec((d or cfg.d_model,), torch.float32, ("embed",),
+                     init="ones")

@@ -1,0 +1,247 @@
+"""Continuous-batching serving engine on the pooled sparse-KV cache (twin of
+``repro.serving.engine.ContinuousEngine`` with ``overlap=False``, no
+speculation, the flat pool, no mesh, no fault injection and no telemetry).
+
+One engine tick (:meth:`step`):
+
+1. **refreeze** — every slot whose tail ring is full has its tail pruned
+   and folded into its compressed prefix, in place;
+2. **admission / chunked prefill** — admitted requests get their sampling
+   lane; the oldest request owed prompt work gets one chunk prefilled
+   against its slot's frozen prefix, and the final chunk samples the
+   request's first token;
+3. **decode** — every decoding slot advances one token in one batched
+   panel forward (``Q == 1``) and the sampler draws each slot's token
+   under its own lane.
+
+Host <-> device traffic per tick is one token vector and one chosen-token
+logprob vector; slot lengths are mirrored on the host.  Arguments that
+belong to later slices of the port raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import lm
+from . import sampling
+from .cache_pool import CachePool
+from .sampling import RequestOutput, SamplingParams
+from .scheduler import Scheduler
+
+
+def params_to(tree: Any, device: torch.device) -> Any:
+    """Move a params tree (tensors and sparse weights) to ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class ContinuousEngine:
+    """Continuous-batching engine: requests stream through a
+    :class:`CachePool` of fixed-geometry slots under a :class:`Scheduler`;
+    chunked prefill interleaves with decode ticks and slots recycle on
+    completion.  Runs on the CUDA device unless ``device="cpu"``."""
+
+    def __init__(self, params, cfg, slots: int = 4, max_tokens: int = 0,
+                 bs: int = 0, prefill_chunk: Optional[int] = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 device: Optional[torch.device] = None, *,
+                 ctx=None, spec=None, mesh=None, paged: bool = False,
+                 phys_blocks: int = 0, checkify: Optional[bool] = None,
+                 capacity_slack: Optional[float] = None, max_queue: int = 0,
+                 degrade_queue: int = 0, faults=None, obs=None,
+                 overlap: bool = False):
+        later = {"ctx": ctx is not None, "spec": spec is not None,
+                 "mesh": mesh is not None, "paged": paged,
+                 "phys_blocks": bool(phys_blocks), "checkify": bool(checkify),
+                 "capacity_slack": capacity_slack is not None,
+                 "max_queue": bool(max_queue),
+                 "degrade_queue": bool(degrade_queue),
+                 "faults": faults is not None, "obs": obs is not None,
+                 "overlap": overlap}
+        unported = [k for k, v in later.items() if v]
+        if unported:
+            raise NotImplementedError(
+                f"ContinuousEngine options {unported} belong to later "
+                "slices of the port")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        max_tokens = max_tokens or 4 * cfg.kv_tail
+        if not bs:
+            # largest tail divisor <= min(128, prefill_chunk): chunks stay
+            # block-aligned and the tail folds in whole blocks
+            limit = min(128, prefill_chunk or 128, cfg.kv_tail)
+            bs = next(d for d in range(limit, 0, -1)
+                      if cfg.kv_tail % d == 0)
+        self.pool = CachePool.build(cfg, slots, max_tokens, bs=bs,
+                                    device=self.device)
+        self.state = self.pool.init_state()
+        self.lanes = sampling.init_lanes(slots, self.device)
+        # per-slot request generators (sampled requests only)
+        self._gens: List[Optional[torch.Generator]] = [None] * slots
+        self.params = params_to(params, self.device)
+        sch_kw = {} if clock is None else {"clock": clock}
+        self.scheduler = Scheduler(slots, self.pool.capacity_tokens,
+                                   self.pool.bs, chunk=prefill_chunk,
+                                   **sch_kw)
+        # host mirrors (avoid a device sync per tick)
+        self._tail_len = np.zeros(slots, np.int64)
+        self._last_tok: Dict[int, int] = {}
+        self._callbacks: Dict[int, Callable[[RequestOutput], None]] = {}
+        self._pending_release: List[int] = []
+        self._slot_live = np.zeros(slots, bool)
+
+    # -- public API ---------------------------------------------------------
+    def submit(self, prompt, params: Optional[SamplingParams] = None,
+               on_token: Optional[Callable[[RequestOutput], None]] = None
+               ) -> int:
+        """Queue a request under its own :class:`SamplingParams`; returns
+        the request id.  ``on_token`` gets a snapshot per committed token."""
+        if params is not None and (params.deadline_s is not None
+                                   or params.ttft_deadline_s is not None):
+            raise NotImplementedError("request deadlines are not ported yet")
+        toks = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        rid = self.scheduler.submit(toks, params)
+        if on_token is not None:
+            self._callbacks[rid] = on_token
+        return rid
+
+    def run(self) -> Dict[int, RequestOutput]:
+        """Tick until every submitted request finished."""
+        while not self.scheduler.done():
+            self.step()
+        return {rid: req.output()
+                for rid, req in self.scheduler.finished.items()}
+
+    def stream(self) -> Iterator[RequestOutput]:
+        """Tick until the queue drains, yielding a snapshot per token."""
+        while not self.scheduler.done():
+            yield from self.step()
+
+    def generate_batch(self, prompts, params: Optional[SamplingParams] = None
+                       ) -> np.ndarray:
+        """Submit every row of ``prompts [B, S]`` under one ``params``;
+        returns ``[B, max_new_tokens]`` int32 tokens."""
+        params = params if params is not None else SamplingParams()
+        rids = [self.submit(row, params) for row in np.asarray(prompts)]
+        out = self.run()
+        return np.asarray([out[r].token_ids for r in rids], np.int32)
+
+    # -- one tick -----------------------------------------------------------
+    def step(self) -> List[RequestOutput]:
+        """Advance one tick; returns a snapshot per token emitted.  Slots
+        freed this tick are released together at its end."""
+        try:
+            return self._step_inner()
+        finally:
+            self._flush_releases()
+
+    def _flush_releases(self) -> None:
+        if not self._pending_release:
+            return
+        seen = list(dict.fromkeys(self._pending_release))
+        self._pending_release = []
+        for s in seen:
+            self._slot_live[s] = False
+            self._gens[s] = None
+        vec = torch.full((self.pool.slots,), -1, dtype=torch.int32)
+        vec[:len(seen)] = torch.tensor(seen, dtype=torch.int32)
+        self.pool.release(self.state, vec.to(self.device))
+
+    def _step_inner(self) -> List[RequestOutput]:
+        events: List[RequestOutput] = []
+        sch = self.scheduler
+        now = sch.clock()
+        while sch.queue and sch.free_slots():
+            req = sch.admit(now)
+            if req is None:
+                break
+            sampling.set_lane(self.lanes, req.slot, req.params)
+            self._gens[req.slot] = (
+                sampling.request_generator(req.params, self.device)
+                if req.params.temperature > 0 else None)
+            self._slot_live[req.slot] = True
+
+        self._refreeze_tick()
+        self._prefill_tick(events)
+
+        slots = sch.decoding_slots()
+        if not slots:
+            return events
+        b = self.pool.slots
+        tokens = torch.zeros((b, 1), dtype=torch.long)
+        mask = [False] * b
+        for s in slots:
+            tokens[s, 0] = self._last_tok[s]
+            mask[s] = True
+        mask_t = torch.tensor(mask, device=self.device)
+        logits, _ = lm.forward_panel_pooled(
+            self.params, self.state, tokens.to(self.device), mask_t,
+            self.cfg, self.pool.bs)
+        tok, logp = sampling.sample_step(logits[:, 0], self.lanes,
+                                         self._gens, mask)
+        picked, logps = tok.tolist(), logp.tolist()
+        for s in slots:
+            if s not in sch.active:
+                continue
+            self._tail_len[s] += 1
+            self._emit(s, [picked[s]], [logps[s]], events)
+        return events
+
+    def _refreeze_tick(self) -> None:
+        """Refreeze every slot whose tail ring is full (the host mirror
+        matches the device-side ``tail_len == tail`` exactly)."""
+        full = [s for s in range(self.pool.slots)
+                if self._tail_len[s] >= self.pool.tail]
+        if not full:
+            return
+        self.pool.refreeze(self.state)
+        for s in full:
+            self._tail_len[s] = 0
+
+    def _prefill_tick(self, events: List[RequestOutput]) -> None:
+        """One prefill chunk for the oldest request still owed prompt work;
+        the final chunk samples (and syncs) the request's first token."""
+        sch = self.scheduler
+        req = sch.next_prefill()
+        if req is None:
+            return
+        chunk = sch.prefill_chunk(req)
+        final = req.prefill_done >= len(req.prompt)
+        toks = torch.tensor([chunk], dtype=torch.long, device=self.device)
+        logits, _ = lm.forward_prefill_chunk(self.params, self.state, toks,
+                                             req.slot, self.cfg, self.pool.bs)
+        # device tail_len after a chunk = chunk_len % bs (earlier chunks are
+        # block-aligned)
+        self._tail_len[req.slot] = req.prefill_done % self.pool.bs
+        if final:
+            s = req.slot
+            lane = {k: v[s:s + 1] for k, v in self.lanes.items()}
+            tok, logp = sampling.sample_step(logits, lane, [self._gens[s]],
+                                             [True])
+            self._emit(s, [int(tok[0])], [float(logp[0])], events)
+
+    def _emit(self, slot: int, toks: List[int], logprobs: List[float],
+              events: List[RequestOutput]) -> None:
+        """Commit one token for a slot; recycle the slot if that finished
+        the request."""
+        req = self.scheduler.active[slot]
+        prefill = not req.generated
+        finished = self.scheduler.record_tokens(
+            slot, toks, logprobs, decode_tick=not prefill) is not None
+        out = req.output()
+        events.append(out)
+        cb = self._callbacks.get(req.rid)
+        if cb is not None:
+            cb(out)
+        if finished:
+            self._callbacks.pop(req.rid, None)
+            self._pending_release.append(slot)
+            self._tail_len[slot] = 0
+            self._last_tok.pop(slot, None)
+        else:
+            self._last_tok[slot] = req.generated[-1]

@@ -1,0 +1,114 @@
+"""The port stands alone: importing every module of ``repro_torch``,
+serving on the CPU and importing ``chip_smoke`` load no JAX and nothing of
+the reference package; the entry points refuse to run without a CUDA card
+unless the caller asks for the CPU; ``chip_smoke.py`` fails without a card
+and without the repository around it."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+from repro_torch.launch import serve
+serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+            "--requests", "2", "--slots", "2", "--prompt-len", "24",
+            "--steps", "4", "--prefill-chunk", "16"])
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("FOREIGN", bad)
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(src=str(SRC), root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout[-2000:]
+    assert "[serve] stream: 2 requests" in out.stdout
+    assert "[serve] kernel launches:" in out.stdout
+
+
+def test_no_import_of_jax_or_the_reference_in_the_sources():
+    pat = re.compile(r"^\s*(import|from) (jax|repro)\b", re.M)
+    files = [ROOT / "chip_smoke.py", *sorted((SRC / "repro_torch").rglob(
+        "*.py"))]
+    hits = [str(f) for f in files if pat.search(f.read_text())]
+    assert not hits
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                               n_layers=1)
+
+
+@pytest.mark.parametrize("entry", ["init_params", "convert_concrete",
+                                   "engine", "pool", "serve"])
+def test_entry_points_raise_without_a_card(no_card, entry):
+    from repro_torch.core.convert import convert_concrete
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import ContinuousEngine
+    from repro_torch.serving.cache_pool import CachePool
+    cfg = _tiny()
+    params = lm.init_params(cfg, device="cpu")
+    calls = {
+        "init_params": lambda: lm.init_params(cfg),
+        "convert_concrete": lambda: convert_concrete(
+            params, lm.model_specs(cfg), cfg),
+        "engine": lambda: ContinuousEngine(params, cfg, slots=1),
+        "pool": lambda: CachePool.build(cfg, 1, 64),
+        "serve": lambda: serve.main(["--reduced", "--requests", "1"]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_entry_points_run_on_the_cpu_when_asked(no_card):
+    from repro_torch.core.convert import convert_concrete
+    from repro_torch.models import lm
+    from repro_torch.serving import ContinuousEngine, SamplingParams
+    cfg = _tiny()
+    params = convert_concrete(lm.init_params(cfg, device="cpu"),
+                              lm.model_specs(cfg), cfg, device="cpu")
+    eng = ContinuousEngine(params, cfg, slots=1, device="cpu")
+    out = eng.generate_batch([[1, 2, 3]], SamplingParams(max_new_tokens=2))
+    assert out.shape == (1, 2)
+
+
+@pytest.mark.parametrize("alone", [False, True],
+                         ids=["in_the_repository", "alone"])
+def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path, alone):
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        script, cwd = ROOT / "chip_smoke.py", ROOT
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""          # no card, even where one is
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=cwd)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
