@@ -10,19 +10,26 @@ Phases, each of which exits non-zero on failure:
 2. **build**: every CUDA source under ``src/repro_torch/kernels/csrc`` is
    compiled for ``sm_90a`` (one ``nvcc`` per source, all started together).
 3. **kernels**: each hand-written kernel is held against its plain PyTorch
-   version on the card, at the shapes the serving path of full-width
-   Qwen3-0.6B gives it, within a stated tolerance, and timed with CUDA
+   version on the card, at the shapes the serving paths of full-width
+   Qwen3-0.6B give it, within a stated tolerance, and timed with CUDA
    events beside its bound and the nearest single PyTorch call.
-4. **serve**: full-width Qwen3-0.6B (random weights from seed 0, pruned and
-   packed on the card) serves six requests through ``ContinuousEngine``.
-   Every kernel's launch counter is zeroed just before and read just after;
-   one decode tick's logits through the kernels are held against the same
-   tick through the plain versions.
+4. **serve, three configurations** of full-width Qwen3-0.6B (random weights
+   from seed 0, pruned, packed and quantised on the card), each through
+   ``ContinuousEngine`` with every kernel's launch counter zeroed just
+   before and read just after, and decode-tick logits through the kernels
+   held against the same ticks through the plain versions:
+
+   * flat pool, bf16 sparse weights: six requests;
+   * paged shared-prefix pool, int8 sparse weights: eight requests sharing
+     a 512-token prefix (prefix-cache hits and shared blocks required),
+     then the same requests on the flat pool, whose greedy tokens must be
+     identical;
+   * paged pool, int4 sparse weights: four requests sharing the prefix.
 
 The lines before the last carry the kernel table (one JSON object) and the
 serving numbers; the last line is the device JSON.  ``--out PATH`` also
 writes every measurement (per-shape kernel rows, serving, the decode
-profile) to a JSON file.  It needs one CUDA card and this repository's
+profiles) to a JSON file.  It needs one CUDA card and this repository's
 ``src/`` beside it.
 """
 from __future__ import annotations
@@ -41,11 +48,33 @@ SRC = HERE / "src"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
 SLOTS = 4
 PREFILL_CHUNK = 256
 N_REQUESTS = 6
 NEW_TOKENS = 160
 PROMPT_RANGE = (200, 600)
+# the paged phases: a shared system prefix plus each request's own suffix
+SHARED_PREFIX = 512
+SUFFIX_RANGE = (40, 200)
+PAGED_REQUESTS, PAGED_NEW_TOKENS = 8, 96
+IDENTITY_TOKENS = 32
+INT4_REQUESTS, INT4_NEW_TOKENS = 4, 32
+LOGIT_TICKS = 25
+# the decode-logits checks a serve phase runs: (name, dtype, kernels the
+# plain path keeps, gated).  On the int paths the attention kernel's f32
+# sums, in another order than its plain version's, round to bf16 a ulp
+# apart here and there; one bf16 ulp of an activation is up to half an int8
+# step, so the next linear's quantised input moves by whole steps and the
+# following layers amplify that (measured: 5.6e-2 of the logit range over
+# 25 ticks, 5.2e-2 within single ticks).  So the gated int comparison runs
+# the attention kernel in both paths, holding each of its launches to its
+# plain version on the same inputs, and the all-plain comparison is
+# reported beside it.
+FLAT_CHECKS = (("bf16", "bf16", (), True), ("f32", "f32", (), True))
+INT_CHECKS = (("bf16, attention launches held one by one", "bf16",
+               ("sparse_decode_attention_fused_paged",), True),
+              ("bf16, all plain", "bf16", (), False))
 # decode logits, kernels vs plain versions on one state: max |diff| over
 # max |plain|.  In bf16 a one-ulp rounding difference anywhere in 28 layers
 # moves the logits of a random-weight model by about 2 % of their range;
@@ -106,18 +135,23 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = BF16_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / BF16_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def values_read(bitmap, length: int, cap: int, valid=None) -> int:
-    """Packed values a decompressing kernel must read: each block's set
-    bits, at most its capacity (the gather clamps there); ``valid`` masks
-    the blocks it skips."""
+def block_nnz(bitmap, length: int, cap: int):
+    """Packed values a decompressing kernel must read per block: the set
+    bits, at most the block's capacity (the gather clamps there)."""
     from repro_torch.core.sparse_format import unpack_bits
-    nnz = unpack_bits(bitmap, length).sum(-1).clamp(max=cap)
+    return unpack_bits(bitmap, length).sum(-1).clamp(max=cap)
+
+
+def values_read(bitmap, length: int, cap: int, valid=None) -> int:
+    """Packed values over all blocks; ``valid`` masks the blocks a kernel
+    skips."""
+    nnz = block_nnz(bitmap, length, cap)
     if valid is not None:
         nnz = nnz * valid
     return int(nnz.sum())
@@ -157,15 +191,25 @@ def build_phase(build) -> float:
     return dt
 
 
-def _packed(torch, k, n, gen, sparsity=0.5):
+def _packed(torch, k, n, gen, sparsity=0.5, mode="bf16"):
+    """One random ``[k, n]`` weight packed as the converter packs it:
+    bf16 values, or int8 / nibble-packed int4 with a per-channel scale."""
+    from repro_torch.core.convert import _to_int4
     from repro_torch.core.pruning import make_mask
+    from repro_torch.core.quant import (quantize_weight_int4,
+                                        quantize_weight_int8)
     from repro_torch.core.sparse_format import (DEFAULT_BLOCK,
                                                 balanced_capacity, pack)
     w = (torch.randn((k, n), generator=gen, device="cuda")
          / k ** 0.5).to(torch.bfloat16)
     mask = make_mask(w, sparsity, "balanced", DEFAULT_BLOCK)
-    return pack(w, mask, DEFAULT_BLOCK,
-                capacity=balanced_capacity(1 - sparsity, DEFAULT_BLOCK))
+    cap = balanced_capacity(1 - sparsity, DEFAULT_BLOCK)
+    if mode == "bf16":
+        return pack(w, mask, DEFAULT_BLOCK, capacity=cap)
+    quant = quantize_weight_int8 if mode == "int8" else quantize_weight_int4
+    q, scale = quant(torch.where(mask, w, torch.zeros_like(w)))
+    sw = pack(q, mask, DEFAULT_BLOCK, capacity=cap, scale=scale)
+    return _to_int4(sw) if mode == "int4" else sw
 
 
 def _check(name, got, ref, tol, errs):
@@ -178,107 +222,189 @@ def _check(name, got, ref, tol, errs):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def kernel_phase(torch, cfg):
-    import torch.nn.functional as F
+def _layer_linears(cfg):
+    """The seven linears of one layer as (name, K, N), from the specs."""
+    from repro_torch.models import lm
+    blk = lm.model_specs(cfg)["blocks"]["l0"]
+    return [(k, s.shape[-2], s.shape[-1])
+            for part in ("mixer", "ffn") for k, s in blk[part].items()
+            if len(s.shape) == 3]
+
+
+def linear_kernels(torch, cfg, timer, gen, detail):
+    """Sparse gemv and matmul (bf16 values) and the int8 / int4 kernels at
+    every (K, N) of the layer; per-layer sums at the serving row counts."""
+    from repro_torch.core.quant import quantize_act_int8
     from repro_torch.core.sparse_format import unpack
-    from repro_torch.core.sparse_kv import freeze_chunk_blocks, pooled_view
-    from repro_torch.kernels.dense_matmul import (dense_matmul,
-                                                  dense_matmul_plain)
-    from repro_torch.kernels.sparse_attention import (
-        sparse_decode_attention_fused, sparse_decode_attention_fused_plain)
     from repro_torch.kernels.sparse_gemv import sparse_gemv, \
         sparse_gemv_plain
     from repro_torch.kernels.sparse_matmul import sparse_matmul, \
         sparse_matmul_plain
-    from repro_torch.models import lm
+    from repro_torch.kernels.sparse_matmul_int4 import (
+        sparse_matmul_int4, sparse_matmul_int4_plain)
+    from repro_torch.kernels.sparse_matmul_int8 import (
+        sparse_matmul_int8, sparse_matmul_int8_plain)
 
-    timer = Timer(torch)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    detail = []
-
-    # the seven linears of one layer, from the model's own specs
-    blk = lm.model_specs(cfg)["blocks"]["l0"]
-    linears = [(k, s.shape[-2], s.shape[-1])
-               for part in ("mixer", "ffn") for k, s in blk[part].items()
-               if len(s.shape) == 3]
+    linears = _layer_linears(cfg)
     shapes = sorted({(k, n) for _, k, n in linears})
-    weights = {kn: _packed(torch, *kn, gen) for kn in shapes}
-    dense_w = {kn: unpack(sw) for kn, sw in weights.items()}
 
-    def sparse_costs(x_rows, kn, sw):
+    def sparse_costs(x_rows, kn, sw, x_bytes, out_bytes):
         k, n = kn
-        nnz = values_read(sw.bitmap, sw.block[0] * sw.block[1],
-                          sw.values.shape[-1])
-        scale = 0 if sw.scale is None else \
-            sw.scale.numel() * sw.scale.element_size()
-        n_bytes = (x_rows * k * 2 + sw.bitmap.numel() * 4
-                   + nnz * sw.values.element_size() + scale + x_rows * n * 2)
+        nnz = values_read(sw.bitmap, sw.block[0] * sw.block[1], sw.capacity)
+        val_bytes = (nnz + 1) // 2 if sw.packed4 else \
+            nnz * sw.values.element_size()
+        scale = 0 if sw.scale is None else n * 4 + x_rows * 4
+        n_bytes = (x_rows * k * x_bytes + sw.bitmap.numel() * 4 + val_bytes
+                   + scale + x_rows * n * out_bytes)
         return n_bytes, 2.0 * x_rows * nnz
 
-    def linear_rows(name, fn, plain, m_list, per_layer_m):
+    def rows(name, mode, fn, plain, library, m_list, per_layer_m):
+        weights = {kn: _packed(torch, *kn, gen, mode=mode) for kn in shapes}
+        dense_w = {kn: unpack(sw) for kn, sw in weights.items()}
+        if mode != "bf16":
+            # the library call multiplies int8 by int8 into int32: the
+            # unpacked weight, column-major as cuBLASLt's int8 path wants it
+            dense_w = {kn: w.t().contiguous().t() for kn, w in
+                       dense_w.items()}
         errs, layer = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                           "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+                           "bytes": 0.0, "ops": 0.0}
+        per_m = {}
         for m in m_list:
+            pm = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0,
+                  "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
             for kn in shapes:
                 sw, wd = weights[kn], dense_w[kn]
                 x = torch.randn((m, kn[0]), generator=gen,
                                 device="cuda").to(torch.bfloat16)
-                got, ref = fn(x, sw), plain(x, sw)
-                torch.cuda.synchronize()
-                # both accumulate in f32 and round once to bf16: two bf16
-                # ulps of the largest output
-                tol = 2.0 ** -7 * ref.float().abs().max().item()
+                if mode == "bf16":
+                    args = (x, sw)
+                    got, ref = fn(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    # both accumulate in f32 and round once to bf16: two
+                    # bf16 ulps of the largest output
+                    tol = 2.0 ** -7 * ref.float().abs().max().item()
+                    xb, ob, rate = 2, 2, BF16_OPS_PER_S
+                else:
+                    xq, sx = quantize_act_int8(x)
+                    args = (xq, sx, sw, torch.bfloat16)
+                    got, ref = fn(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    # exact int32 sums on both sides, the same f32 epilogue
+                    # in the same order, one rounding to bf16: bit-equal
+                    tol = 0.0
+                    xb, ob, rate = 1, 2, INT8_OPS_PER_S
                 err, rel = _check(f"{name} M={m} K,N={kn}", got, ref, tol,
                                   errs)
-                t = timer(lambda: fn(x, sw))
-                tp = timer(lambda: plain(x, sw))
-                tl = timer(lambda: torch.matmul(x, wd))
-                nb, no = sparse_costs(m, kn, sw)
-                b, by = bound_ms(nb, no)
-                row = {"kernel": name, "M": m, "K": kn[0], "N": kn[1],
-                       "max_abs_err": err, "tol": tol, "ms": t,
-                       "plain_ms": tp, "library_ms": tl, "bound_ms": b,
-                       "bound_by": by}
-                detail.append(row)
-                say(f"{name} M={m} K={kn[0]} N={kn[1]}: err {err:.2e} "
-                    f"(rel {rel:.1e}, tol {tol:.2e}) kernel {t * 1e3:.1f} us, plain "
-                    f"{tp * 1e3:.1f} us, torch.matmul {tl * 1e3:.1f} us, "
+                t = timer(lambda: fn(*args))
+                tp = timer(lambda: plain(*args))
+                tl = timer(library(args, wd, m))
+                nb, no = sparse_costs(m, kn, sw, xb, ob)
+                b, by = bound_ms(nb, no, rate)
+                detail.append({"kernel": name, "M": m, "K": kn[0],
+                               "N": kn[1], "max_abs_err": err, "tol": tol,
+                               "ms": t, "plain_ms": tp, "library_ms": tl,
+                               "bound_ms": b, "bound_by": by})
+                say(f"{name} M={m} K={kn[0]} N={kn[1]}: err {err:.2e} (rel "
+                    f"{rel:.1e}, tol {tol:.2e}) kernel {t * 1e3:.1f} us, "
+                    f"plain {tp * 1e3:.1f} us, library {tl * 1e3:.1f} us, "
                     f"bound {b * 1e3:.2f} us")
-                if m == per_layer_m:
-                    count = sum(1 for _, k, n in linears if (k, n) == kn)
-                    for key, val in (("ms", t), ("plain_ms", tp),
-                                     ("library_ms", tl), ("bytes", nb),
-                                     ("ops", no)):
-                        layer[key] += count * val
-        layer["bound_ms"], layer["bound_by"] = bound_ms(layer["bytes"],
-                                                        layer["ops"])
+                count = sum(1 for _, k, n in linears if (k, n) == kn)
+                for key, val in (("ms", t), ("plain_ms", tp),
+                                 ("library_ms", tl), ("bytes", nb),
+                                 ("ops", no)):
+                    pm[key] += count * val
+            pm["bound_ms"], pm["bound_by"] = bound_ms(pm["bytes"], pm["ops"],
+                                                      rate)
+            per_m[m] = pm
+            say(f"{name} per layer at M={m}: kernel {pm['ms'] * 1e3:.1f} us, "
+                f"plain {pm['plain_ms'] * 1e3:.1f} us, library "
+                f"{pm['library_ms'] * 1e3:.1f} us, bound "
+                f"{pm['bound_ms'] * 1e3:.2f} us ({pm['bound_by']})")
+        layer = dict(per_m[per_layer_m])
         layer["max_abs_err"] = max(errs)
+        layer["per_layer"] = {str(m): v for m, v in per_m.items()}
         return layer
 
-    gemv = linear_rows("sparse_gemv", sparse_gemv, sparse_gemv_plain,
-                       (1, 4, 8), SLOTS)
-    matmul = linear_rows("sparse_matmul", sparse_matmul, sparse_matmul_plain,
-                         (PREFILL_CHUNK,), PREFILL_CHUNK)
+    def mm_library(args, wd, m):
+        x = args[0]
+        return lambda: torch.matmul(x, wd)
 
-    # -- fused decode attention at the pool's serving geometry ------------
+    def int_library(args, wd, m):
+        # torch._int_mm needs more than 16 rows: pad decode rows to 32
+        xq = args[0]
+        if m <= 16:
+            xq = torch.nn.functional.pad(xq, (0, 0, 0, 32 - m))
+        return lambda: torch._int_mm(xq, wd)
+
+    out = {}
+    out["sparse_gemv"] = rows("sparse_gemv", "bf16", sparse_gemv,
+                              sparse_gemv_plain, mm_library, (1, 4, 8),
+                              SLOTS)
+    out["sparse_matmul"] = rows("sparse_matmul", "bf16", sparse_matmul,
+                                sparse_matmul_plain, mm_library,
+                                (PREFILL_CHUNK,), PREFILL_CHUNK)
+    int_m = (1, SLOTS, 8, PREFILL_CHUNK)
+    out["sparse_matmul_int8"] = rows(
+        "sparse_matmul_int8", "int8", sparse_matmul_int8,
+        sparse_matmul_int8_plain, int_library, int_m, SLOTS)
+    out["sparse_matmul_int4"] = rows(
+        "sparse_matmul_int4", "int4", sparse_matmul_int4,
+        sparse_matmul_int4_plain, int_library, int_m, SLOTS)
+    return out
+
+
+def _attention_library(torch, q, k_pre, v_pre, tails, n_blocks, tail_len,
+                       bs, sm):
+    """SDPA over the unpacked cache (prefix + ring) with a validity mask:
+    the yardstick of both attention kernels (the port never calls it)."""
+    import torch.nn.functional as F
+    b, hkv, g, hd = q.shape
+    sp, tp = k_pre.shape[2], tails.shape[3]
+    k_all = torch.cat([k_pre, tails[0]], 2)
+    v_all = torch.cat([v_pre, tails[1]], 2)
+    pos = torch.arange(sp + tp, device="cuda")
+    valid = ((pos[None] < n_blocks[:, None] * bs)
+             | ((pos[None] >= sp) & (pos[None] - sp < tail_len[:, None])))
+    qs = q.reshape(b, hkv * g, 1, hd)
+    kr = k_all.repeat_interleave(g, 1)
+    vr = v_all.repeat_interleave(g, 1)
+    mask = valid[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, kr, vr, attn_mask=mask,
+                                                  scale=sm)
+
+
+def attention_kernels(torch, cfg, timer, gen, detail):
+    """The fused decode attention on the flat pool and on the paged arena,
+    at the serving geometry (4 slots, bs 128, a 128-token ring)."""
+    from repro_torch.core.sparse_format import unpack
+    from repro_torch.core.sparse_kv import freeze_chunk_blocks, pooled_view
+    from repro_torch.kernels.sparse_attention import (
+        gather_paged, sparse_decode_attention_fused,
+        sparse_decode_attention_fused_paged,
+        sparse_decode_attention_fused_paged_plain,
+        sparse_decode_attention_fused_plain)
+    from repro_torch.serving.cache_pool import CachePool
+
     hkv, hd, g = cfg.n_kv, cfg.hd, cfg.padded_heads // cfg.n_kv
     bs, sb, tp = 128, 7, cfg.kv_tail
     b = SLOTS
+    sm = 1.0 / hd ** 0.5
+    pool = CachePool.build(cfg, SLOTS, sb * bs, bs=bs, device="cuda")
+    words = bs * hd // 32
+    tails = torch.randn((2, b, hkv, tp, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    out = {}
+
+    # -- flat pool ---------------------------------------------------------
     kv = torch.randn((2, b, hkv, sb * bs, hd), generator=gen,
                      device="cuda").to(torch.bfloat16)
-    from repro_torch.serving.cache_pool import CachePool
-    pool = CachePool.build(cfg, SLOTS, sb * bs, bs=bs, device="cuda")
     kbm, kvl, vbm, vvl = freeze_chunk_blocks(
         kv[0], kv[1], cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs, pool.cap_k,
         pool.cap_v)
-    tails = torch.randn((2, b, hkv, tp, hd), generator=gen,
-                        device="cuda").to(torch.bfloat16)
     # empty prefix + 1 tail token; 3 blocks + full ring; full prefix + empty
     # ring; an all-empty slot
     n_blocks = torch.tensor([0, 3, sb, 0], dtype=torch.int32, device="cuda")
     tail_len = torch.tensor([1, tp, 0, 0], dtype=torch.int32, device="cuda")
-    sm = 1.0 / hd ** 0.5
     errs = []
     vmax = max(kv[1].float().abs().max().item(),
                tails[1].float().abs().max().item())
@@ -306,22 +432,12 @@ def kernel_phase(torch, cfg):
             tail_len, g)
     t = timer(lambda: sparse_decode_attention_fused(*args))
     t_plain = timer(lambda: sparse_decode_attention_fused_plain(*args))
-    # SDPA on the unpacked cache (prefix + ring) with a validity mask
-    k_all = torch.cat([unpack(pooled_view(kbm, kvl, bs, hd)), tails[0]], 2)
-    v_all = torch.cat([unpack(pooled_view(vbm, vvl, bs, hd)), tails[1]], 2)
-    pos = torch.arange(sb * bs + tp, device="cuda")
-    valid = ((pos[None] < n_blocks[:, None] * bs)
-             | ((pos[None] >= sb * bs)
-                & (pos[None] - sb * bs < tail_len[:, None])))
-    qs = q.reshape(b, hkv * g, 1, hd)
-    kr = k_all.repeat_interleave(g, 1)
-    vr = v_all.repeat_interleave(g, 1)
-    mask = valid[:, None, None, :]
-    t_lib = timer(lambda: F.scaled_dot_product_attention(
-        qs, kr, vr, attn_mask=mask, scale=sm))
+    t_lib = timer(_attention_library(
+        torch, q, unpack(pooled_view(kbm, kvl, bs, hd)),
+        unpack(pooled_view(vbm, vvl, bs, hd)), tails, n_blocks, tail_len,
+        bs, sm))
     # bytes the function needs: q, the lengths, the f32 output, the valid
     # prefix blocks' bitmap words and set values, the visible tail tokens
-    words = kbm.shape[-1]
     valid = (torch.arange(sb, device="cuda")[None]
              < n_blocks[:, None])[:, None, :]
     nnz = (values_read(kbm, bs * hd, pool.cap_k, valid)
@@ -333,17 +449,106 @@ def kernel_phase(torch, cfg):
                + hkv * int(tail_len.sum()) * hd * 2 * 2)
     n_ops = 4.0 * hd * g * hkv * tok
     bnd, bby = bound_ms(n_bytes, n_ops)
-    attn = {"ms": t, "plain_ms": t_plain, "library_ms": t_lib,
-            "bound_ms": bnd, "bound_by": bby, "max_abs_err": max(errs)}
+    out["sparse_decode_attention_fused"] = {
+        "ms": t, "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": bnd,
+        "bound_by": bby, "max_abs_err": max(errs)}
     detail.append({"kernel": "sparse_decode_attention_fused", "B": b,
                    "Hkv": hkv, "QG": g, "Sb": sb, "bs": bs, "tail": tp,
                    "n_blocks": n_blocks.tolist(),
-                   "tail_len": tail_len.tolist(), **attn})
+                   "tail_len": tail_len.tolist(),
+                   **out["sparse_decode_attention_fused"]})
     say(f"attention B={b}: kernel {t * 1e3:.1f} us, plain "
         f"{t_plain * 1e3:.1f} us, SDPA {t_lib * 1e3:.1f} us, bound "
         f"{bnd * 1e3:.2f} us")
 
-    # -- tied unembedding --------------------------------------------------
+    # -- paged arena -------------------------------------------------------
+    n_phys = 16
+    pk = torch.randn((2, n_phys, hkv, bs, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    arena = [a[:, :, 0] for a in freeze_chunk_blocks(
+        pk[0], pk[1], cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs, pool.cap_k,
+        pool.cap_v)]                                     # [n_phys, Hkv, X]
+    dead = 15
+    # slot 0: a full private prefix; slot 1 shares slot 0's first three
+    # blocks, then two of its own, then dead entries at the poisoned page;
+    # slot 2: two blocks; slot 3: no prefix at all, every entry dead
+    table = torch.tensor([[0, 1, 2, 3, 4, 5, 6],
+                          [0, 1, 2, 7, 8, dead, dead],
+                          [9, 10, dead, dead, dead, dead, dead],
+                          [dead] * sb], dtype=torch.int32, device="cuda")
+    n_blocks = torch.tensor([sb, 5, 2, 0], dtype=torch.int32, device="cuda")
+    tail_len = torch.tensor([1, tp, 37, 0], dtype=torch.int32,
+                            device="cuda")
+    poisoned = [a.clone() for a in arena]
+    for a in poisoned:            # NaN values, every bit set
+        a[dead] = -1 if a.dtype == torch.int32 else float("nan")
+    errs = []
+    for qn in (1, 2):
+        q = torch.randn((b, hkv, qn * g, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        rest = (tails[0], tails[1], bs, sm, n_blocks, tail_len, g)
+        got = sparse_decode_attention_fused_paged(q, *poisoned, table, *rest)
+        clean = sparse_decode_attention_fused_paged(q, *arena, table, *rest)
+        ref = sparse_decode_attention_fused_paged_plain(q, *arena, table,
+                                                        *rest)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"paged attention Q={qn}: a NaN-poisoned dead page reached "
+                 "the output")
+        if not torch.equal(got, clean):
+            fail(f"paged attention Q={qn}: a poisoned dead page changed the "
+                 "output")
+        err, rel = _check(f"paged attention Q={qn}", got, ref,
+                          1e-3 * vmax, errs)
+        if got[3, :, :g].abs().max().item() != 0:
+            fail("paged attention: the all-empty slot must return zeros")
+        say(f"paged attention Q={qn}: err {err:.2e} (rel {rel:.1e}, tol "
+            f"{1e-3 * vmax:.2e}); finite and unchanged with NaN in dead "
+            f"page {dead}")
+    q = torch.randn((b, hkv, g, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    args = (q, *poisoned, table, tails[0], tails[1], bs, sm, n_blocks,
+            tail_len, g)
+    t = timer(lambda: sparse_decode_attention_fused_paged(*args))
+    t_plain = timer(lambda: sparse_decode_attention_fused_paged_plain(*args))
+    gk = gather_paged(table, arena[0], arena[1], n_blocks)
+    gv = gather_paged(table, arena[2], arena[3], n_blocks)
+    t_lib = timer(_attention_library(
+        torch, q, unpack(pooled_view(*gk, bs, hd)),
+        unpack(pooled_view(*gv, bs, hd)), tails, n_blocks, tail_len, bs,
+        sm))
+    # bytes: each live page once (shared pages are stored once), the live
+    # table entries, q, lengths, output, visible tail tokens
+    live = sorted({int(table[s, i]) for s in range(b)
+                   for i in range(int(n_blocks[s]))})
+    live_t = torch.tensor(live, device="cuda", dtype=torch.long)
+    nnz = int(block_nnz(arena[0][live_t], bs * hd, pool.cap_k).sum()
+              + block_nnz(arena[2][live_t], bs * hd, pool.cap_v).sum())
+    tok = (n_blocks * bs + tail_len).sum().item()
+    n_bytes = (q.numel() * 2 + 8 * b + q.numel() * 4
+               + 4 * int(n_blocks.sum())
+               + hkv * len(live) * 2 * words * 4
+               + nnz * arena[1].element_size()
+               + hkv * int(tail_len.sum()) * hd * 2 * 2)
+    bnd, bby = bound_ms(n_bytes, 4.0 * hd * g * hkv * tok)
+    out["sparse_decode_attention_fused_paged"] = {
+        "ms": t, "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": bnd,
+        "bound_by": bby, "max_abs_err": max(errs)}
+    detail.append({"kernel": "sparse_decode_attention_fused_paged", "B": b,
+                   "Hkv": hkv, "QG": g, "Sb": sb, "bs": bs, "tail": tp,
+                   "n_phys": n_phys, "table": table.tolist(),
+                   "n_blocks": n_blocks.tolist(),
+                   "tail_len": tail_len.tolist(),
+                   **out["sparse_decode_attention_fused_paged"]})
+    say(f"paged attention B={b} ({len(live)} live pages, 3 shared): kernel "
+        f"{t * 1e3:.1f} us, plain {t_plain * 1e3:.1f} us, SDPA "
+        f"{t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us")
+    return out
+
+
+def unembed_kernel(torch, cfg, timer, gen, detail):
+    from repro_torch.kernels.dense_matmul import (dense_matmul,
+                                                  dense_matmul_plain)
     tok_w = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                          device="cuda") * 0.02).to(torch.bfloat16)
     errs = []
@@ -374,27 +579,64 @@ def kernel_phase(torch, cfg):
             f"{t * 1e3:.1f} us, plain {t_plain * 1e3:.1f} us, torch.matmul "
             f"{t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us")
     dense["max_abs_err"] = max(errs)
-    return {"sparse_gemv": gemv, "sparse_matmul": matmul,
-            "sparse_decode_attention_fused": attn,
-            "dense_matmul": dense}, detail
+    return dense
+
+
+def kernel_phase(torch, cfg):
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    detail = []
+    summary = linear_kernels(torch, cfg, timer, gen, detail)
+    summary.update(attention_kernels(torch, cfg, timer, gen, detail))
+    summary["dense_matmul"] = unembed_kernel(torch, cfg, timer, gen, detail)
+    return summary, detail
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(keep=(), held=None):
     """Route the ops layer through the plain versions, for the logits
-    comparison only (the package itself has no such switch)."""
+    comparison only (the package itself has no such switch).  Kernels named
+    in ``keep`` stay, each launch then also running its plain version on the
+    same inputs: the largest error and output go into ``held``, and an error
+    above 1e-3 of the largest output (the kernel phase's attention
+    tolerance) fails the run."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.dense_matmul import dense_matmul_plain
-    from repro_torch.kernels.sparse_attention import \
-        sparse_decode_attention_fused_plain
+    from repro_torch.kernels.sparse_attention import (
+        sparse_decode_attention_fused_paged_plain,
+        sparse_decode_attention_fused_plain)
     from repro_torch.kernels.sparse_gemv import sparse_gemv_plain
     from repro_torch.kernels.sparse_matmul import sparse_matmul_plain
+    from repro_torch.kernels.sparse_matmul_int4 import \
+        sparse_matmul_int4_plain
+    from repro_torch.kernels.sparse_matmul_int8 import \
+        sparse_matmul_int8_plain
     swap = {"_dense_kernel": dense_matmul_plain,
             "sparse_decode_attention_fused":
                 sparse_decode_attention_fused_plain,
+            "sparse_decode_attention_fused_paged":
+                sparse_decode_attention_fused_paged_plain,
             "sparse_gemv": sparse_gemv_plain,
-            "_sparse_matmul_kernel": sparse_matmul_plain}
+            "_sparse_matmul_kernel": sparse_matmul_plain,
+            "_int8_kernel": sparse_matmul_int8_plain,
+            "_int4_kernel": sparse_matmul_int4_plain}
     saved = {k: getattr(ops, k) for k in swap}
+    for name in keep:
+        def held_launch(*a, _kernel=saved[name], _plain=swap[name],
+                        _name=name, **kw):
+            out, ref = _kernel(*a, **kw), _plain(*a, **kw)
+            err = (out.float() - ref.float()).abs().max().item()
+            top = ref.float().abs().max().item()
+            if not (err <= 1e-3 * top):
+                fail(f"{_name} on the live state: max abs err {err:.3e} > "
+                     f"1e-3 of its largest output {top:.3e}")
+            held["launches"] = held.get("launches", 0) + 1
+            held["max_abs_err"] = max(held.get("max_abs_err", 0.0), err)
+            held["max_rel_err"] = max(held.get("max_rel_err", 0.0),
+                                      err / max(top, 1e-30))
+            return out
+        swap[name] = held_launch
     for k, v in swap.items():
         setattr(ops, k, v)
     try:
@@ -406,7 +648,7 @@ def plain_kernels():
 
 def _clone(tree, dtype=None):
     """Copy a state or params tree; ``dtype`` widens the floating leaves
-    (sparse weights keep their packed bf16 values and bitmaps)."""
+    (sparse weights keep their packed values, bitmaps and scales)."""
     from repro_torch.core.sparse_format import BlockSparseWeight
     if isinstance(tree, dict):
         return {k: _clone(v, dtype) for k, v in tree.items()}
@@ -417,10 +659,39 @@ def _clone(tree, dtype=None):
     return tree.clone()
 
 
-def logits_check(torch, eng, cfg, dtype=None, n_ticks=25):
+def _refreeze_copies(eng, states, tail_len):
+    """Fold the full tails of copies of the engine's state, as the engine
+    would between ticks; on the paged pool onto pages that no table row of
+    the copies references (the copies start equal, so they get the same
+    pages).  ``tail_len`` is the host mirror, updated in place."""
+    import numpy as np
+    pool = eng.pool
+    full = [s for s in range(pool.slots) if tail_len[s] >= pool.tail]
+    if not full:
+        return
+    if pool.paged:
+        tb = pool.tail // pool.bs
+        free = (states[0]["refcount"] == 0).nonzero().flatten().tolist()
+        if len(free) < len(full) * tb:
+            fail("logits check: no free arena pages to fold the tails into")
+        ids = np.zeros((pool.slots, tb), np.int64)
+        for n, s in enumerate(full):
+            ids[s] = free[n * tb:(n + 1) * tb]
+        for st in states:
+            pool.refreeze(st, ids)
+    else:
+        for st in states:
+            pool.refreeze(st)
+    for s in full:
+        tail_len[s] = 0
+
+
+def logits_check(torch, eng, cfg, dtype=None, n_ticks=LOGIT_TICKS, keep=()):
     """Teacher-forced decode ticks from the engine's live state, once
-    through the kernels and once through the plain versions, in the
-    serving dtype or (``dtype=torch.float32``) widened to f32."""
+    through the kernels and once through the plain versions (but for the
+    kernels in ``keep``, held launch by launch to their plain versions), in
+    the serving dtype or (``dtype=torch.float32``) widened to f32.  Full
+    tails are folded between ticks as the engine folds them."""
     import dataclasses
     from repro_torch.models import lm
     slots, mask, tokens = _decode_inputs(torch, eng)
@@ -430,11 +701,14 @@ def logits_check(torch, eng, cfg, dtype=None, n_ticks=25):
         cfg = dataclasses.replace(cfg, compute_dtype=name, param_dtype=name)
         params = _clone(params, dtype)
     st_k, st_p = _clone(eng.state, dtype), _clone(eng.state, dtype)
-    worst, agree, margins = 0.0, [], []
+    tail_len = eng._tail_len.copy()
+    worst, agree, margins, held = 0.0, [], [], {}
     for _ in range(n_ticks):
+        _refreeze_copies(eng, (st_k, st_p), tail_len)
+        tail_len[slots] += 1
         lk, st_k = lm.forward_panel_pooled(params, st_k, tokens, mask, cfg,
                                            eng.pool.bs)
-        with plain_kernels():
+        with plain_kernels(keep, held):
             lp, st_p = lm.forward_panel_pooled(params, st_p, tokens, mask,
                                                cfg, eng.pool.bs)
         lk, lp = lk[slots, 0].float(), lp[slots, 0].float()
@@ -448,7 +722,9 @@ def logits_check(torch, eng, cfg, dtype=None, n_ticks=25):
                     / lp.abs().max(-1).values).tolist()
         tokens[slots, 0] = lp.argmax(-1)
     clear = [a for a, m in zip(agree, margins) if m > TOP1_CLEAR]
-    return {"rel_err": worst, "top1": sum(agree) / len(agree),
+    return {"dtype": "bf16" if dtype is None else "f32", "kept": keep,
+            "held": held, "rel_err": worst,
+            "top1": sum(agree) / len(agree),
             "slot_ticks": len(agree),
             "top1_clear": sum(clear) / max(len(clear), 1),
             "clear_slot_ticks": len(clear),
@@ -527,38 +803,45 @@ def decode_profile(torch, eng, cfg, n_ticks=8):
     return res
 
 
-def serve_phase(torch, cfg):
-    import numpy as np
+def _model(torch, cfg, mode):
     from repro_torch.core.convert import convert_concrete
-    from repro_torch.data.pipeline import DataConfig, host_batch
-    from repro_torch.launch.serve import launch_counts, reset_launch_counts
     from repro_torch.models import lm
-    from repro_torch.serving import ContinuousEngine, SamplingParams
-
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
-    params = convert_concrete(params, lm.model_specs(cfg), cfg,
+    params = convert_concrete(params, lm.model_specs(cfg), cfg, mode=mode,
                               device="cuda")
     torch.cuda.synchronize()
-    say(f"serve: qwen3-0.6b full width ({cfg.n_layers} layers) initialised "
-        f"and packed on the card in {time.perf_counter() - t0:.1f} s")
-    lo, hi = PROMPT_RANGE
-    paused = [0.0]            # the checks below stop the engine's clock
-    eng = ContinuousEngine(params, cfg, slots=SLOTS,
-                           max_tokens=hi + NEW_TOKENS + cfg.kv_tail,
+    say(f"serve: qwen3-0.6b full width ({cfg.n_layers} layers), {mode} "
+        f"weights initialised and packed on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _engine(cfg, params, paused, max_tokens, paged=False):
+    from repro_torch.serving import ContinuousEngine
+    eng = ContinuousEngine(params, cfg, slots=SLOTS, max_tokens=max_tokens,
                            prefill_chunk=PREFILL_CHUNK, device="cuda",
+                           paged=paged,
                            clock=lambda: time.perf_counter() - paused[0])
     if eng.pool.bs != 128:
         fail(f"expected bs=128, got {eng.pool.bs}")
-    prompts = host_batch(DataConfig(vocab=cfg.vocab, seq_len=hi,
-                                    global_batch=N_REQUESTS), 0)["tokens"]
-    rng = np.random.default_rng(0)
-    lens = rng.integers(lo, hi + 1, N_REQUESTS)
-    params_of = [SamplingParams(max_new_tokens=NEW_TOKENS)] * (N_REQUESTS - 1)
-    params_of.append(SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
-                                    seed=1234, max_new_tokens=NEW_TOKENS))
+    return eng
 
-    # count the forwards the engine makes, to state launches per tick
+
+def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
+                 checks=FLAT_CHECKS, on_step=None, lead=False):
+    """Submit the requests and run the engine to completion with every
+    kernel counter zeroed just before and read just after.  ``lead``
+    submits the first request alone and the rest once it has its first
+    token (so a shared prefix is frozen before the others arrive).  When
+    ``ready(eng)`` first holds, the decode logits are checked (each of
+    ``checks``) and one decode tick is profiled, outside the counted and
+    timed run.  Returns the results."""
+    import torch as _torch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.serve import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+
     ticks = {"decode": 0, "prefill": 0}
     fwd_panel, fwd_chunk = lm.forward_panel_pooled, lm.forward_prefill_chunk
 
@@ -570,8 +853,6 @@ def serve_phase(torch, cfg):
         ticks["prefill"] += 1
         return fwd_chunk(*a, **k)
 
-    rids = [eng.submit(prompts[i][:lens[i]], params_of[i])
-            for i in range(N_REQUESTS)]
     check = profile = None
     steps = {"decode": [], "prefill": []}
     lm.forward_panel_pooled, lm.forward_prefill_chunk = panel, chunk
@@ -579,24 +860,26 @@ def serve_phase(torch, cfg):
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        while not eng.scheduler.done():
-            sch = eng.scheduler
-            slots = sch.decoding_slots()
-            if (check is None and len(slots) == SLOTS
-                    and max(len(sch.active[s].generated) for s in slots)
-                    >= eng.pool.tail + 12):
-                # one slot has crossed a refreeze: compare the tick's
-                # logits (outside the counted, timed main path)
-                eng._refreeze_tick()
+        pending = list(zip(prompts, params_of))
+        rids = [eng.submit(*pending.pop(0))] if lead else []
+        while pending or not eng.scheduler.done():
+            if pending and not (lead and not eng.scheduler.finished
+                                and not any(r.generated for r in
+                                            eng.scheduler.active.values())):
+                rids += [eng.submit(p, sp) for p, sp in pending]
+                pending = []
+            if check is None and ready is not None and ready(eng):
                 c0 = time.perf_counter()
                 saved = launch_counts()
                 lm.forward_panel_pooled = fwd_panel
-                check = {"bf16": logits_check(torch, eng, cfg),
-                         "f32": logits_check(torch, eng, cfg,
-                                             torch.float32)}
+                check = {name: logits_check(
+                    torch, eng, cfg,
+                    None if dt == "bf16" else _torch.float32, keep=keep)
+                    for name, dt, keep, _ in checks}
+                for name, _, _, gated in checks:
+                    check[name]["gated"] = gated
                 profile = decode_profile(torch, eng, cfg)
                 lm.forward_panel_pooled = panel
-                from repro_torch.launch import serve as serve_mod
                 for name, n in saved.items():
                     serve_mod.KERNELS[name].launches = n
                 paused[0] += time.perf_counter() - c0
@@ -605,6 +888,8 @@ def serve_phase(torch, cfg):
             eng.step()
             steps["prefill" if ticks["prefill"] > n_pre else "decode"].append(
                 time.perf_counter() - s0)
+            if on_step is not None:
+                on_step(eng)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0 - paused[0]
         counts = launch_counts()
@@ -612,63 +897,260 @@ def serve_phase(torch, cfg):
         lm.forward_panel_pooled, lm.forward_prefill_chunk = fwd_panel, \
             fwd_chunk
     out = {r: eng.scheduler.finished[r].output() for r in rids}
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"serve: kernel {name} was never launched on the main path")
+    return {"rids": rids, "out": out, "seconds": dt, "counts": counts,
+            "ticks": ticks, "steps": steps, "check": check,
+            "profile": profile}
+
+
+def check_outputs(label, run, cfg, n_tokens):
     total = 0
-    for r in rids:
-        toks = out[r].token_ids
-        if len(toks) != NEW_TOKENS or out[r].finish_reason != "length":
-            fail(f"serve: request {r} finished {out[r].finish_reason!r} with "
+    for r in run["rids"]:
+        o = run["out"][r]
+        toks = o.token_ids
+        if len(toks) != n_tokens or o.finish_reason != "length":
+            fail(f"{label}: request {r} finished {o.finish_reason!r} with "
                  f"{len(toks)} tokens")
         if min(toks) < 0 or max(toks) >= cfg.vocab:
-            fail(f"serve: request {r} has a token out of range")
+            fail(f"{label}: request {r} has a token out of range")
         total += len(toks)
+    return total
+
+
+def check_launches(label, counts, launched, idle=()):
+    """Every kernel of the path launched on it; kernels of other paths
+    not at all."""
+    for name in launched:
+        if counts[name] <= 0:
+            fail(f"{label}: kernel {name} was never launched on the path")
+    for name in idle:
+        if counts[name] != 0:
+            fail(f"{label}: kernel {name} ran {counts[name]} times on a path "
+                 "that must not reach it")
+
+
+def gate_logits(label, check):
     if check is None:
-        fail("serve: the logits comparison never ran")
+        fail(f"{label}: the logits comparison never ran")
     for name, c in check.items():
-        say(f"serve: decode logits kernels vs plain ({name}) over "
+        tol = LOGIT_TOL[c["dtype"]]
+        say(f"{label}: decode logits kernels vs plain ({name}"
+            f"{'' if c['gated'] else ', reported, not gated'}) over "
             f"{c['slot_ticks']} slot-ticks: max|diff|/max|plain| "
-            f"{c['rel_err']:.2e} (tol {LOGIT_TOL[name]}), top-1 agreement "
+            f"{c['rel_err']:.2e} (tol {tol}), top-1 agreement "
             f"{c['top1']:.3f}; {c['top1_clear']:.3f} over the "
             f"{c['clear_slot_ticks']} with a top-1 margin above "
             f"{TOP1_CLEAR} of max|logit| (min {TOP1_MIN}); smallest margin "
             f"{c['top1_margin_min']:.2e}, margins of the flips "
-            f"{[float(f'{m:.2e}') for m in c['flip_margins']]}")
-        if not (c["rel_err"] <= LOGIT_TOL[name]):
-            fail(f"serve: {name} decode logits through the kernels disagree "
-                 "with the plain versions")
+            f"{[float(f'{m:.2e}') for m in c['flip_margins']]}"
+            + (f"; {c['held']['launches']} launches of "
+               f"{', '.join(c['kept'])} each within 1e-3 of its plain "
+               f"version on the same inputs (worst {c['held']['max_rel_err']:.1e})"
+               if c["kept"] else ""))
+        if not c["gated"]:
+            continue
+        if not (c["rel_err"] <= tol):
+            fail(f"{label}: {name} decode logits through the kernels "
+                 "disagree with the plain versions")
         if c["clear_slot_ticks"] < TOP1_MIN_COUNTED:
-            fail(f"serve: {name}: only {c['clear_slot_ticks']} slot-ticks "
+            fail(f"{label}: {name}: only {c['clear_slot_ticks']} slot-ticks "
                  f"with a top-1 margin above {TOP1_CLEAR}")
         if c["top1_clear"] < TOP1_MIN:
-            fail(f"serve: {name} top-1 agreement below {TOP1_MIN} where the "
-                 "margin is clear of rounding noise")
-    if check["f32"]["top1"] < TOP1_MIN:
-        fail(f"serve: f32 top-1 agreement below {TOP1_MIN}")
+            fail(f"{label}: {name} top-1 agreement below {TOP1_MIN} where "
+                 "the margin is clear of rounding noise")
+    if "f32" in check and check["f32"]["top1"] < TOP1_MIN:
+        fail(f"{label}: f32 top-1 agreement below {TOP1_MIN}")
+
+
+def report(label, run, total, n_req):
+    out = run["out"]
     ttft = sorted(o.metrics.ttft for o in out.values())
     tpot = sorted(o.metrics.tpot for o in out.values())
-    step_ms = {k: statistics.median(v) * 1e3 for k, v in steps.items() if v}
-    res = {"requests": N_REQUESTS, "tokens": total, "seconds": dt,
+    step_ms = {k: statistics.median(v) * 1e3 for k, v in run["steps"].items()
+               if v}
+    dt, ticks, profile = run["seconds"], run["ticks"], run["profile"]
+    res = {"requests": n_req, "tokens": total, "seconds": dt,
            "tok_s": total / dt, "ttft_p50_s": statistics.median(ttft),
            "ttft_max_s": ttft[-1], "tpot_p50_s": statistics.median(tpot),
            "decode_ticks": ticks["decode"],
-           "prefill_chunks": ticks["prefill"], "launches": counts,
+           "prefill_chunks": ticks["prefill"], "launches": run["counts"],
            "median_step_ms": step_ms, "decode_profile": profile,
-           "prompt_lens": [int(x) for x in lens], "logits_check": check}
-    say(f"[serve] stream: {N_REQUESTS} requests, {total} tokens in "
-        f"{dt:.2f}s ({total / dt:.1f} tok/s) on {SLOTS} slots; ttft p50 "
+           "logits_check": run["check"]}
+    say(f"[{label}] stream: {n_req} requests, {total} tokens in {dt:.2f}s "
+        f"({total / dt:.1f} tok/s) on {SLOTS} slots; tpot p50 "
+        f"{res['tpot_p50_s'] * 1e3:.1f} ms; ttft p50 "
         f"{res['ttft_p50_s'] * 1e3:.0f} ms max {ttft[-1] * 1e3:.0f} ms; "
         f"{ticks['decode']} decode ticks, {ticks['prefill']} prefill chunks")
-    say(f"serve: kernel launches {counts}; median step ms {step_ms}")
-    dev = profile.get("device")
-    say(f"serve: decode tick ({profile['slots']} slots) wall "
-        f"{profile['wall_ms']:.2f} ms, " + (dev if dev else
-        f"device busy {profile['device_ms']:.2f} ms (idle share "
-        f"{profile['idle_share']:.2f}); top: " + ", ".join(
-            f"{r['kernel'][:40]} {r['ms_per_tick']:.2f} ms x{r['per_tick']}"
-            for r in profile["top"][:4])))
+    say(f"{label}: kernel launches {run['counts']}; median step ms {step_ms}")
+    if profile is not None:
+        dev = profile.get("device")
+        say(f"{label}: decode tick ({profile['slots']} slots) wall "
+            f"{profile['wall_ms']:.2f} ms, " + (dev if dev else
+            f"device busy {profile['device_ms']:.2f} ms (idle share "
+            f"{profile['idle_share']:.2f}); top: " + ", ".join(
+                f"{r['kernel'][:40]} {r['ms_per_tick']:.2f} ms "
+                f"x{r['per_tick']}" for r in profile["top"][:5])))
     return res
+
+
+def serve_phase(torch, cfg):
+    """The flat pool with bf16 sparse weights (the first slice's path)."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.serving import SamplingParams
+
+    params = _model(torch, cfg, "bf16")
+    lo, hi = PROMPT_RANGE
+    paused = [0.0]            # the checks below stop the engine's clock
+    eng = _engine(cfg, params, paused, hi + NEW_TOKENS + cfg.kv_tail)
+    prompts = host_batch(DataConfig(vocab=cfg.vocab, seq_len=hi,
+                                    global_batch=N_REQUESTS), 0)["tokens"]
+    rng = np.random.default_rng(0)
+    lens = rng.integers(lo, hi + 1, N_REQUESTS)
+    params_of = [SamplingParams(max_new_tokens=NEW_TOKENS)] * (N_REQUESTS - 1)
+    params_of.append(SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                    seed=1234, max_new_tokens=NEW_TOKENS))
+
+    def ready(e):
+        # every slot decoding and one has crossed a refreeze: refreeze now
+        # so the checked ticks start from fresh tails
+        sch = e.scheduler
+        slots = sch.decoding_slots()
+        if (len(slots) == SLOTS and max(len(sch.active[s].generated)
+                                        for s in slots) >= e.pool.tail + 12):
+            e._refreeze_tick()
+            return True
+        return False
+
+    run = serve_stream(torch, eng, cfg,
+                       [prompts[i][:lens[i]] for i in range(N_REQUESTS)],
+                       params_of, paused, ready, checks=FLAT_CHECKS)
+    check_launches("serve", run["counts"],
+                   ("sparse_gemv", "sparse_decode_attention_fused",
+                    "sparse_matmul", "dense_matmul"),
+                   ("sparse_decode_attention_fused_paged",
+                    "sparse_matmul_int8", "sparse_matmul_int4"))
+    total = check_outputs("serve", run, cfg, NEW_TOKENS)
+    gate_logits("serve", run["check"])
+    res = report("serve", run, total, N_REQUESTS)
+    res["prompt_lens"] = [int(x) for x in lens]
+    return res
+
+
+def _shared_prompts(cfg, n):
+    """``n`` prompts: one shared 512-token system prefix, each with its own
+    suffix of 40-200 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, cfg.vocab, SHARED_PREFIX).tolist()
+    lo, hi = SUFFIX_RANGE
+    return [shared + rng.integers(0, cfg.vocab,
+                                  int(rng.integers(lo, hi + 1))).tolist()
+            for _ in range(n)]
+
+
+def paged_phase(torch, cfg, mode, n_req, new_tokens, kernel):
+    """The paged shared-prefix pool with int8 or int4 sparse weights:
+    prefix-cache hits and blocks shared by live requests required, every
+    kernel of the path launched, decode logits held to the bf16 gates."""
+    from repro_torch.serving import SamplingParams
+
+    params = _model(torch, cfg, mode)
+    prompts = _shared_prompts(cfg, n_req)
+    paused = [0.0]
+    max_tokens = SHARED_PREFIX + SUFFIX_RANGE[1] + new_tokens + cfg.kv_tail
+    eng = _engine(cfg, params, paused, max_tokens, paged=True)
+    params_of = [SamplingParams(max_new_tokens=new_tokens)] * (n_req - 1)
+    params_of.append(SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                    seed=1234, max_new_tokens=new_tokens))
+    label = f"paged {mode}"
+    hits, shared = [], [0]
+    admit = eng._admit_paged
+
+    def admit_counting(now):
+        req = admit(now)
+        if req is not None:
+            hits.append(req.prefill_done // eng.pool.bs)
+        return req
+    eng._admit_paged = admit_counting
+
+    def on_step(e):
+        shared[0] = max(shared[0], int(e._alloc._ref.max()))
+
+    def ready(e):
+        # every slot decoding (after this tick's refreeze)
+        if len(e.scheduler.decoding_slots()) != SLOTS:
+            return False
+        e._refreeze_tick()
+        # the device refcounts mirror the host allocator's
+        rc = e.state["refcount"].cpu().numpy()
+        if not (rc == e._alloc._ref).all():
+            fail(f"{label}: device refcounts disagree with the allocator")
+        return True
+
+    run = serve_stream(torch, eng, cfg, prompts, params_of, paused, ready,
+                       checks=INT_CHECKS, on_step=on_step, lead=True)
+    check_launches(label, run["counts"],
+                   ("dense_matmul", "sparse_decode_attention_fused_paged",
+                    kernel),
+                   ("sparse_gemv", "sparse_matmul",
+                    "sparse_decode_attention_fused"))
+    total = check_outputs(label, run, cfg, new_tokens)
+    hit_blocks = sum(hits)
+    say(f"{label}: prefix-cache hits on {sum(1 for h in hits if h)} of "
+        f"{len(hits)} admissions ({hit_blocks} blocks of {eng.pool.bs} "
+        f"tokens skipped); largest refcount {shared[0]}; trie "
+        f"{len(eng._trie)} blocks, {eng._alloc.free_blocks()}/"
+        f"{eng.pool.n_phys} pages reclaimable at the end")
+    if hit_blocks <= 0:
+        fail(f"{label}: no prefix-cache hit")
+    if shared[0] < 2:
+        fail(f"{label}: no block was shared by two live requests")
+    gate_logits(label, run["check"])
+    res = report(label, run, total, n_req)
+    res.update(prefix_hit_blocks=hit_blocks, admissions=len(hits),
+               max_refcount=shared[0], n_phys=eng.pool.n_phys)
+    return res, params, prompts, run
+
+
+def identity_phase(torch, cfg, params, prompts, paged_run):
+    """The paged int8 run's requests again on the flat pool (same int8
+    weights), first 32 tokens: the greedy requests' tokens must equal the
+    paged run's, since only the address of the prefix blocks differs."""
+    from repro_torch.launch.serve import launch_counts, reset_launch_counts
+    from repro_torch.serving import SamplingParams
+    paused = [0.0]
+    max_tokens = SHARED_PREFIX + SUFFIX_RANGE[1] + IDENTITY_TOKENS + \
+        cfg.kv_tail
+    eng = _engine(cfg, params, paused, max_tokens)
+    n = len(prompts)
+    params_of = [SamplingParams(max_new_tokens=IDENTITY_TOKENS)] * (n - 1)
+    params_of.append(SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                    seed=1234,
+                                    max_new_tokens=IDENTITY_TOKENS))
+    reset_launch_counts()
+    rids = [eng.submit(p, sp) for p, sp in zip(prompts, params_of)]
+    out = eng.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches("flat int8", counts,
+                   ("dense_matmul", "sparse_decode_attention_fused",
+                    "sparse_matmul_int8"),
+                   ("sparse_decode_attention_fused_paged",))
+    same = 0
+    for i, (r, pr) in enumerate(zip(rids, paged_run["rids"])):
+        flat = list(out[r].token_ids)
+        paged = list(paged_run["out"][pr].token_ids[:IDENTITY_TOKENS])
+        if i < n - 1 and flat != paged:
+            first = next(j for j, (a, b) in enumerate(zip(flat, paged))
+                         if a != b)
+            fail(f"paged vs flat: greedy request {i} differs at token "
+                 f"{first}: {flat[first]} vs {paged[first]}")
+        same += flat == paged
+    say(f"paged vs flat int8: the {n - 1} greedy requests' first "
+        f"{IDENTITY_TOKENS} tokens are identical ({same} of {n} requests "
+        f"identical, the seeded one included); flat launches {counts}")
+    return {"identical_requests": same, "requests": n,
+            "tokens": IDENTITY_TOKENS, "launches": counts}
 
 
 SOURCES = {
@@ -681,7 +1163,20 @@ SOURCES = {
                       "src/repro/kernels/sparse_matmul.py:46"),
     "dense_matmul": ("src/repro_torch/kernels/csrc/dense_matmul.cu",
                      "src/repro/kernels/dense_matmul.py:40"),
+    "sparse_decode_attention_fused_paged": (
+        "src/repro_torch/kernels/csrc/sparse_attention.cu",
+        "src/repro/kernels/sparse_attention.py:226"),
+    "sparse_matmul_int8": ("src/repro_torch/kernels/csrc/sparse_matmul_int8.cu",
+                           "src/repro/kernels/sparse_matmul_int8.py:42"),
+    "sparse_matmul_int4": ("src/repro_torch/kernels/csrc/sparse_matmul_int8.cu",
+                           "src/repro/kernels/sparse_matmul_int4.py:49"),
 }
+# the path whose run each kernel's launch count is read from
+PATH_OF = {"sparse_gemv": "serve", "sparse_decode_attention_fused": "serve",
+           "sparse_matmul": "serve", "dense_matmul": "serve",
+           "sparse_decode_attention_fused_paged": "paged_int8",
+           "sparse_matmul_int8": "paged_int8",
+           "sparse_matmul_int4": "paged_int4"}
 
 
 def main() -> int:
@@ -702,30 +1197,42 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
     card = card_phase(torch, build)
     t_build = build_phase(build)
     cfg = get_config("qwen3-0.6b")
     t0 = time.perf_counter()
     summary, detail = kernel_phase(torch, cfg)
-    say(f"kernels: all four agree with their plain versions "
+    say(f"kernels: all {len(SOURCES)} agree with their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
-    serve = serve_phase(torch, cfg)
+    serve = {"serve": serve_phase(torch, cfg)}
+    serve["paged_int8"], params8, prompts, run8 = paged_phase(
+        torch, cfg, "int8", PAGED_REQUESTS, PAGED_NEW_TOKENS,
+        "sparse_matmul_int8")
+    serve["identity"] = identity_phase(torch, cfg, params8, prompts, run8)
+    del params8, run8
+    serve["paged_int4"] = paged_phase(
+        torch, cfg, "int4", INT4_REQUESTS, INT4_NEW_TOKENS,
+        "sparse_matmul_int4")[0]
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         s = summary[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": serve["launches"][name],
+            "replaces": replaces,
+            "launches": serve[PATH_OF[name]]["launches"][name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+    say(f"total {time.perf_counter() - t_start:.1f} s")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
             {"card": card, "build_s": t_build, "kernels": kernels,
-             "detail": detail, "serve": serve}, indent=1))
+             "summary": summary, "detail": detail, "serve": serve},
+            indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,12 @@
 
 Twin of two reference pieces: ``repro.core.convert`` (which leaves are
 linear weights: ``default_predicate`` / ``EXCLUDE_KEYS``) and the
-single-device, ``mode="bf16"`` path of
-``repro.distributed.convert_plan.convert_concrete`` (per-leaf block fitted
-by ``_fit_block`` / ``_plan_leaf``, capacity from ``balanced_capacity``,
-layer-stacked leaves packed per layer).  There is no mesh, so no block-count
-padding.
+single-device path of ``repro.distributed.convert_plan.convert_concrete``
+(per-leaf block fitted by ``_fit_block`` / ``_plan_leaf``, capacity from
+``balanced_capacity``, layer-stacked leaves packed per layer) in its three
+modes: ``"bf16"`` values, ``"int8"`` values with a per-channel f32 scale,
+and ``"int4"`` (the int8 path quantised to ``[-7, 7]`` and nibble-packed).
+There is no mesh, so no block-count padding.
 """
 from __future__ import annotations
 
@@ -17,8 +18,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import module as mod
 from .pruning import make_mask
+from .quant import quantize_weight_int4, quantize_weight_int8
 from .sparse_format import (DEFAULT_BLOCK, BlockSparseWeight,
-                            balanced_capacity, pack)
+                            balanced_capacity, pack, pack_nibbles)
+
+MODES = ("bf16", "int8", "int4")
 
 # Param-name suffixes that are linear-layer weights (matmul RHS, [K, N]).
 LINEAR_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "w_in",
@@ -60,20 +64,34 @@ def _is_sparsifiable(path: str, spec) -> bool:
     return len(spec.shape) == 3 and len(axes) == 3 and axes[0] == "layers"
 
 
-def _pack_one(w2: torch.Tensor, cfg, blk, cap) -> BlockSparseWeight:
+def _to_int4(sw: BlockSparseWeight) -> BlockSparseWeight:
+    """int8-valued packed weight -> nibble-packed int4 (the capacity is a
+    multiple of 128, hence even)."""
+    return BlockSparseWeight(sw.bitmap, pack_nibbles(sw.values), sw.scale,
+                             sw.shape, sw.block, packed4=True)
+
+
+def _pack_one(w2: torch.Tensor, cfg, blk, cap, mode: str
+              ) -> BlockSparseWeight:
     mask = make_mask(w2, cfg.sparsity, cfg.sparse_policy, blk)
-    # packed values are bf16 whatever the model dtype (as the reference)
-    return pack(w2.to(torch.bfloat16), mask, blk, capacity=cap)
+    if mode == "bf16":
+        # packed values are bf16 whatever the model dtype (as the reference)
+        return pack(w2.to(torch.bfloat16), mask, blk, capacity=cap)
+    quant = quantize_weight_int8 if mode == "int8" else quantize_weight_int4
+    q, scale = quant(torch.where(mask, w2, torch.zeros((), dtype=w2.dtype,
+                                                       device=w2.device)))
+    sw = pack(q, mask, blk, capacity=cap, scale=scale)
+    return _to_int4(sw) if mode == "int4" else sw
 
 
 def convert_concrete(params: Any, spec_tree: Any, cfg, mode: str = "bf16",
                      block=DEFAULT_BLOCK,
                      device: Optional[torch.device] = None) -> Any:
-    """Prune + pack every linear weight of ``params`` on ``device`` (the
-    CUDA device unless the caller asks for the CPU)."""
-    if mode != "bf16":
-        raise NotImplementedError(f"mode={mode!r} is not ported yet "
-                                  "(int8/int4 weights)")
+    """Prune + pack (and for ``mode="int8"|"int4"`` quantise) every linear
+    weight of ``params`` on ``device`` (the CUDA device unless the caller
+    asks for the CPU)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown conversion mode {mode!r}")
     dev = resolve_device(device)
     density = 1.0 - cfg.sparsity
 
@@ -85,13 +103,16 @@ def convert_concrete(params: Any, spec_tree: Any, cfg, mode: str = "bf16",
         blk = _plan_leaf(spec, block)
         cap = balanced_capacity(density, blk)
         if leaf.ndim == 3:                  # layer-stacked: pack per layer
-            packed = [_pack_one(leaf[i], cfg, blk, cap)
+            packed = [_pack_one(leaf[i], cfg, blk, cap, mode)
                       for i in range(leaf.shape[0])]
             return BlockSparseWeight(
                 bitmap=torch.stack([p.bitmap for p in packed]),
                 values=torch.stack([p.values for p in packed]),
-                scale=None, shape=packed[0].shape, block=blk)
-        return _pack_one(leaf, cfg, blk, cap)
+                scale=(None if packed[0].scale is None
+                       else torch.stack([p.scale for p in packed])),
+                shape=packed[0].shape, block=blk,
+                packed4=packed[0].packed4)
+        return _pack_one(leaf, cfg, blk, cap, mode)
 
     return mod.map_with_path(one, _zip(spec_tree, params),
                              is_leaf=lambda x: isinstance(x, tuple))

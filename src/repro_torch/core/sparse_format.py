@@ -35,7 +35,8 @@ class BlockSparseWeight:
     scale:   optional f32 ``[N_pad]`` per-output-channel scale (int8 mode).
     shape:   logical (un-padded) ``(K, N)``.
     block:   ``(bk, bn)``.
-    packed4: nibble-packed int4 values (not served by this port yet).
+    packed4: values hold two int4 nibbles per uint8 byte, low nibble
+             first (the paper's §8 int4 extension).
     """
     bitmap: torch.Tensor
     values: torch.Tensor
@@ -84,6 +85,31 @@ class BlockSparseWeight:
         for d in self.lead_shape:
             lead *= d
         return lead * k * n * self.values.element_size()
+
+
+# ---------------------------------------------------------------------------
+# int4 nibble packing (paper §8: int4 values are dequantised to int8 before
+# the product)
+# ---------------------------------------------------------------------------
+
+def pack_nibbles(v: torch.Tensor) -> torch.Tensor:
+    """int8 ``[..., C]`` in ``[-8, 7]`` -> uint8 ``[..., C//2]`` (lo | hi<<4)."""
+    if v.shape[-1] % 2 != 0:
+        raise ValueError(f"nibble packing needs an even channel dim, got "
+                         f"{v.shape[-1]}")
+    u = v.to(torch.uint8) & 0xF
+    lo, hi = u[..., 0::2], u[..., 1::2]
+    return lo | (hi << 4)
+
+
+def unpack_nibbles(b: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_nibbles` -> int8 ``[..., 2C]``, each nibble
+    sign-extended by ``(x ^ 8) - 8``."""
+    lo = (b & 0xF).to(torch.int8)
+    hi = (b >> 4).to(torch.int8)
+    sext = lambda x: (x ^ 8) - 8
+    out = torch.stack([sext(lo), sext(hi)], dim=-1)
+    return out.reshape(*b.shape[:-1], b.shape[-1] * 2)
 
 
 # ---------------------------------------------------------------------------
@@ -219,16 +245,15 @@ def block_gather_indices(bitmap: torch.Tensor, block: Tuple[int, int]):
 
 
 def unpack(sw: BlockSparseWeight, trim: bool = True) -> torch.Tensor:
-    """Decompress to a dense ``[..., K, N]`` weight (leading dims broadcast)."""
-    if sw.packed4:
-        raise NotImplementedError("int4 nibble-packed weights are not "
-                                  "ported yet")
+    """Decompress to a dense ``[..., K, N]`` weight (leading dims broadcast);
+    nibble-packed int4 values come back as int8."""
     mask, idx = block_gather_indices(sw.bitmap, sw.block)
     idx = idx.clamp(max=sw.capacity - 1)
-    dense_flat = torch.gather(sw.values, -1, idx)
+    values = unpack_nibbles(sw.values) if sw.packed4 else sw.values
+    dense_flat = torch.gather(values, -1, idx)
     dense_flat = torch.where(mask > 0, dense_flat,
-                             torch.zeros((), dtype=sw.values.dtype,
-                                         device=sw.values.device))
+                             torch.zeros((), dtype=values.dtype,
+                                         device=values.device))
     shape = sw.shape if trim else sw.padded_shape
     return _from_blocks(dense_flat, sw.block, shape)
 

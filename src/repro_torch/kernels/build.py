@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sparse_gemv.cu", "sparse_matmul.cu", "sparse_attention.cu",
-           "dense_matmul.cu")
+           "dense_matmul.cu", "sparse_matmul_int8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # src/repro_torch/kernels/build.py -> repository root

@@ -84,20 +84,28 @@ __device__ __forceinline__ void stage_word_offsets(
   __syncthreads();
 }
 
-// Dense value of flat position `p` of a staged block: 0 where the bit is
-// clear, else the packed value at the bit's rank (clamped to cap - 1, as the
-// reference clamps its gather).
+// Rank of flat position `p` of a staged block among the block's set bits,
+// i.e. the index of its packed value (clamped to cap - 1, as the reference
+// clamps its gather), or -1 where the bit is clear.  Independent of the
+// value type: a bf16 block reads values[rank], an int8 block the byte at
+// rank, a nibble-packed int4 block the nibble at rank.
+__device__ __forceinline__ int packed_rank(int p, const uint32_t* s_words,
+                                           const int* s_off, int cap) {
+  const uint32_t w = s_words[p >> 5];
+  const int b = p & 31;
+  if (!((w >> b) & 1u)) return -1;
+  return min(s_off[p >> 5] + __popc(w & ((1u << b) - 1u)), cap - 1);
+}
+
+// Dense value of flat position `p` of a staged block of f32/bf16 values: 0
+// where the bit is clear, else the packed value at the bit's rank.
 template <typename TV>
 __device__ __forceinline__ float expand_at(int p, const uint32_t* s_words,
                                            const int* s_off,
                                            const TV* __restrict__ values,
                                            int cap) {
-  const uint32_t w = s_words[p >> 5];
-  const int b = p & 31;
-  if (!((w >> b) & 1u)) return 0.f;
-  int idx = s_off[p >> 5] + __popc(w & ((1u << b) - 1u));
-  idx = min(idx, cap - 1);
-  return to_f32(values[idx]);
+  const int idx = packed_rank(p, s_words, s_off, cap);
+  return idx < 0 ? 0.f : to_f32(values[idx]);
 }
 
 // Every kernel source is built into its own shared library and includes

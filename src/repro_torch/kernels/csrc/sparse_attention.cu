@@ -1,6 +1,17 @@
 // Fused prefix + tail flash-decode over the pooled sparse KV cache.
 // Replaces repro/kernels/sparse_attention.py:
-// sparse_decode_attention_fused_pallas (flat branch, _fused_kernel).
+// sparse_decode_attention_fused_pallas, both branches: the flat pool
+// (_fused_kernel) and the paged pool (_fused_kernel_paged), as two
+// instantiations of one template.
+//
+// Paged: the compressed prefix lives once in a pool-global arena
+// [n_phys, Hkv, X] and slot b reaches its logical block i through
+// phys = table[b * Sb + i]; the block is then addressed as (phys * Hkv + h)
+// where the flat pool addresses (b * Hkv + h) * Sb + i.  The TPU kernel
+// gets the table by scalar prefetch; here each thread block loads its own
+// entries, and only for i < n_blocks[b]: entries past it are dead (in range,
+// but pointing at pages another request may be rewriting) and neither they
+// nor the pages they name are ever read.
 //
 // One online softmax runs over each slot's valid compressed prefix blocks
 // (bitmap + packed values per (bs, D) block, skipped past n_blocks[b]) and
@@ -50,14 +61,15 @@ struct Layout {
   }
 };
 
-template <typename TQ, typename TC>
+template <typename TQ, typename TC, bool PAGED>
 __global__ void __launch_bounds__(NT) fused_decode_attention(
     const TQ* __restrict__ q, const uint32_t* __restrict__ kbm,
     const TC* __restrict__ kval, const uint32_t* __restrict__ vbm,
     const TC* __restrict__ vval, const TC* __restrict__ ktail,
     const TC* __restrict__ vtail, const int* __restrict__ n_blocks,
-    const int* __restrict__ tail_len, int H, int QG, int G, int D, int Sb,
-    int bs, int ck, int cv, int Tp, float sm_scale, float* __restrict__ out) {
+    const int* __restrict__ tail_len, const int* __restrict__ table,
+    int n_phys, int H, int QG, int G, int D, int Sb, int bs, int ck, int cv,
+    int Tp, float sm_scale, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(QG, D, bs);
   float* s_q = reinterpret_cast<float*>(smem + L.q);
@@ -101,7 +113,12 @@ __global__ void __launch_bounds__(NT) fused_decode_attention(
     if (prefix && step >= nb) continue;
     if (!prefix && !(base < tl + qn - 1)) continue;
     if (prefix) {
-      const size_t blk = bh * Sb + step;
+      // step < nb here: a live table entry (clamped into the arena)
+      const size_t blk =
+          PAGED ? static_cast<size_t>(min(max(table[static_cast<size_t>(b) *
+                                                        Sb + step], 0),
+                                          n_phys - 1)) * H + h
+                : bh * Sb + step;
       stage_word_offsets(kbm + blk * W, W, s_kw, s_ko, s_scr);
       stage_word_offsets(vbm + blk * W, W, s_vw, s_vo, s_scr);
       const TC* kv = kval + blk * ck;
@@ -185,15 +202,15 @@ __global__ void __launch_bounds__(NT) fused_decode_attention(
   }
 }
 
-template <typename TQ, typename TC>
+template <typename TQ, typename TC, bool PAGED>
 cudaError_t run(const void* q, const void* kbm, const void* kval,
                 const void* vbm, const void* vval, const void* ktail,
                 const void* vtail, const void* n_blocks, const void* tail_len,
-                int B, int H, int QG, int G, int D, int Sb, int bs, int ck,
-                int cv, int Tp, float sm_scale, void* out,
-                cudaStream_t stream) {
+                const void* table, int n_phys, int B, int H, int QG, int G,
+                int D, int Sb, int bs, int ck, int cv, int Tp, float sm_scale,
+                void* out, cudaStream_t stream) {
   const Layout L(QG, D, bs);
-  auto kern = fused_decode_attention<TQ, TC>;
+  auto kern = fused_decode_attention<TQ, TC, PAGED>;
   cudaError_t e = allow_smem(kern, L.bytes);
   if (e != cudaSuccess) return e;
   kern<<<dim3(H, B), NT, L.bytes, stream>>>(
@@ -201,9 +218,35 @@ cudaError_t run(const void* q, const void* kbm, const void* kval,
       static_cast<const TC*>(kval), static_cast<const uint32_t*>(vbm),
       static_cast<const TC*>(vval), static_cast<const TC*>(ktail),
       static_cast<const TC*>(vtail), static_cast<const int*>(n_blocks),
-      static_cast<const int*>(tail_len), H, QG, G, D, Sb, bs, ck, cv, Tp,
-      sm_scale, static_cast<float*>(out));
+      static_cast<const int*>(tail_len), static_cast<const int*>(table),
+      n_phys, H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale,
+      static_cast<float*>(out));
   return cudaGetLastError();
+}
+
+template <bool PAGED>
+int dispatch(const void* q, int q_dtype, const void* kbm, const void* kval,
+             const void* vbm, const void* vval, const void* ktail,
+             const void* vtail, int c_dtype, const void* n_blocks,
+             const void* tail_len, const void* table, int n_phys, int B,
+             int H, int QG, int G, int D, int Sb, int bs, int ck, int cv,
+             int Tp, float sm_scale, void* out, void* stream) {
+  if (QG * D > NT * MAXACC || G < 1 || QG % G != 0 || Tp % bs != 0 ||
+      (bs * D) % 32 != 0 || (PAGED && n_phys < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (q_dtype == REPRO_BF16 && c_dtype == REPRO_BF16)
+    e = run<__nv_bfloat16, __nv_bfloat16, PAGED>(
+        q, kbm, kval, vbm, vval, ktail, vtail, n_blocks, tail_len, table,
+        n_phys, B, H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale, out, s);
+  else if (q_dtype == REPRO_F32 && c_dtype == REPRO_F32)
+    e = run<float, float, PAGED>(q, kbm, kval, vbm, vval, ktail, vtail,
+                                 n_blocks, tail_len, table, n_phys, B, H, QG,
+                                 G, D, Sb, bs, ck, cv, Tp, sm_scale, out, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -218,21 +261,22 @@ REPRO_EXPORT int fused_attention_launch(
     int c_dtype, const void* n_blocks, const void* tail_len, int B, int H,
     int QG, int G, int D, int Sb, int bs, int ck, int cv, int Tp,
     float sm_scale, void* out, void* stream) {
-  if (QG * D > NT * MAXACC || G < 1 || QG % G != 0 || Tp % bs != 0 ||
-      (bs * D) % 32 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (q_dtype == REPRO_BF16 && c_dtype == REPRO_BF16)
-    e = run<__nv_bfloat16, __nv_bfloat16>(q, kbm, kval, vbm, vval, ktail,
-                                          vtail, n_blocks, tail_len, B, H, QG,
-                                          G, D, Sb, bs, ck, cv, Tp, sm_scale,
-                                          out, s);
-  else if (q_dtype == REPRO_F32 && c_dtype == REPRO_F32)
-    e = run<float, float>(q, kbm, kval, vbm, vval, ktail, vtail, n_blocks,
-                          tail_len, B, H, QG, G, D, Sb, bs, ck, cv, Tp,
-                          sm_scale, out, s);
-  else
-    e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
+  return dispatch<false>(q, q_dtype, kbm, kval, vbm, vval, ktail, vtail,
+                         c_dtype, n_blocks, tail_len, nullptr, 0, B, H, QG, G,
+                         D, Sb, bs, ck, cv, Tp, sm_scale, out, stream);
+}
+
+// The paged pool: kbm/vbm [n_phys, H, bs*D/32] words and kval/vval
+// [n_phys, H, ck|cv] are the shared arena; table int32 [B, Sb] holds each
+// slot's physical block ids (entries at or past n_blocks[b] are never
+// read).  Everything else as fused_attention_launch.
+REPRO_EXPORT int fused_attention_paged_launch(
+    const void* q, int q_dtype, const void* kbm, const void* kval,
+    const void* vbm, const void* vval, const void* ktail, const void* vtail,
+    int c_dtype, const void* n_blocks, const void* tail_len,
+    const void* table, int n_phys, int B, int H, int QG, int G, int D, int Sb,
+    int bs, int ck, int cv, int Tp, float sm_scale, void* out, void* stream) {
+  return dispatch<true>(q, q_dtype, kbm, kval, vbm, vval, ktail, vtail,
+                        c_dtype, n_blocks, tail_len, table, n_phys, B, H, QG,
+                        G, D, Sb, bs, ck, cv, Tp, sm_scale, out, stream);
 }

@@ -5,6 +5,9 @@ plain version only for CPU tensors, so the device of the operands is the
 only switch.  The dispatch rules are the reference's:
 
 * at most 8 rows go to the gemv kernel (``ops.py:87``), more to the matmul;
+* int8 and int4 weights take the int kernel at every row count (the
+  reference has no gemv split for them); the activations are quantised
+  per row in plain PyTorch first, outside the kernel, as in the reference;
 * a ``Q == 1`` attention panel squeezes onto the single-query dispatch;
 * the tail ring is zero-padded to whole ``bs``-token panels;
 * ``n_blocks = prefix_len // bs``;
@@ -17,11 +20,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import quantize_act_int8
 from repro_torch.core.sparse_format import BlockSparseWeight
 from .dense_matmul import dense_matmul as _dense_kernel
-from .sparse_attention import sparse_decode_attention_fused
+from .sparse_attention import (sparse_decode_attention_fused,
+                               sparse_decode_attention_fused_paged)
 from .sparse_gemv import MAX_ROWS, sparse_gemv
 from .sparse_matmul import sparse_matmul as _sparse_matmul_kernel
+from .sparse_matmul_int4 import sparse_matmul_int4 as _int4_kernel
+from .sparse_matmul_int8 import sparse_matmul_int8 as _int8_kernel
 
 
 def _flatten_leading(x: torch.Tensor):
@@ -48,15 +55,75 @@ def sparse_matmul(x: torch.Tensor, sw: BlockSparseWeight,
     return out.reshape(*lead, out.shape[-1])
 
 
+def sparse_matmul_int8(x: torch.Tensor, sw: BlockSparseWeight,
+                       out_dtype=None) -> torch.Tensor:
+    """``x @ dequant(sw)`` for int8 or nibble-packed int4 values: per-row
+    int8 activation quantisation, then the int kernel (``packed4`` picks
+    the int4 instantiation)."""
+    if not ((sw.values.dtype == torch.int8 or sw.packed4)
+            and sw.scale is not None):
+        raise ValueError("int path needs int8/int4 values and a scale")
+    out_dtype = out_dtype or x.dtype
+    x2, lead = _flatten_leading(x)
+    xq, sx = quantize_act_int8(x2)
+    kernel = _int4_kernel if sw.packed4 else _int8_kernel
+    out = kernel(xq, sx, sw, out_dtype)
+    return out.reshape(*lead, out.shape[-1])
+
+
 def linear(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
-    """A linear layer whose weight is dense or sparse-bf16: callers never
-    branch on the storage format."""
+    """A linear layer whose weight is dense, sparse-bf16, or sparse-int8 /
+    int4: callers never branch on the storage format."""
     if isinstance(w, BlockSparseWeight):
         if w.packed4 or w.values.dtype == torch.int8:
-            raise NotImplementedError("int8/int4 sparse weights are not "
-                                      "ported yet")
+            return sparse_matmul_int8(x, w, out_dtype)
         return sparse_matmul(x, w, out_dtype)
     return dense_matmul(x, w, out_dtype)
+
+
+def _panel_rows(q: torch.Tensor, hkv: int):
+    """q ``[B, Hq, D]`` or ``[B, Q, Hq, D]`` -> the kernel's query rows
+    ``[B, Hkv, Q*G, D]``, query-major within each GQA group (row // G is
+    the panel index), and ``(Q, G)``."""
+    if q.dim() == 4:
+        b, qn, hq, d = q.shape
+        g = hq // hkv
+        return (q.reshape(b, qn, hkv, g, d).permute(0, 2, 1, 3, 4)
+                .reshape(b, hkv, qn * g, d)), qn, g
+    b, hq, d = q.shape
+    return q.reshape(b, hkv, hq // hkv, d), 1, hq // hkv
+
+
+def _panel_out(o: torch.Tensor, q: torch.Tensor, qn: int, g: int
+               ) -> torch.Tensor:
+    """The kernel's f32 rows back to the layout and dtype of ``q``."""
+    b, hkv, _, d = o.shape
+    if q.dim() == 4:
+        return (o.reshape(b, hkv, qn, g, d).permute(0, 2, 1, 3, 4)
+                .reshape(b, qn, hkv * g, d).to(q.dtype))
+    return o.reshape(b, hkv * g, d).to(q.dtype)
+
+
+def _lengths(b: int, sb: int, bs: int, k_tail, v_tail, tail_len,
+             prefix_len, dev):
+    """Per-slot ``n_blocks = prefix_len // bs`` and visible tail lengths,
+    and the ring zero-padded to whole ``bs``-token panels (the padding is
+    masked by the tail length)."""
+    if prefix_len is None:
+        n_blocks = torch.full((b,), sb, dtype=torch.int32, device=dev)
+    else:
+        n_blocks = torch.broadcast_to(
+            torch.as_tensor(prefix_len, device=dev).to(torch.int32) // bs,
+            (b,))
+    t = k_tail.shape[2]
+    tl = torch.broadcast_to(torch.as_tensor(
+        t if tail_len is None else tail_len, device=dev).to(torch.int32),
+        (b,))
+    pad = -t % bs
+    if pad:
+        k_tail = F.pad(k_tail, (0, 0, 0, pad))
+        v_tail = F.pad(v_tail, (0, 0, 0, pad))
+    return n_blocks, tl, k_tail, v_tail
 
 
 def sparse_decode_attention(q: torch.Tensor,
@@ -85,48 +152,59 @@ def sparse_decode_attention(q: torch.Tensor,
         o = sparse_decode_attention(q[:, 0], k_sp, v_sp, hkv, sm_scale,
                                     k_tail, v_tail, tail_len, prefix_len)
         return o[:, None]
-    panel = q.dim() == 4
-    if panel:
-        b, qn, hq, d = q.shape
-    else:
-        b, hq, d = q.shape
-        qn = 1
-    g = hq // hkv
+    d = q.shape[-1]
+    b = q.shape[0]
     bs = k_sp.block[0]
     if k_sp.block[1] != d:
         raise ValueError(f"KV block width {k_sp.block[1]} must equal head "
                          f"dim {d}")
     words = k_sp.bitmap.shape[-1]
     sb = k_sp.bitmap.shape[2]
-    if panel:
-        # query-major rows within each GQA group: row // g = panel index
-        qg = (q.reshape(b, qn, hkv, g, d).permute(0, 2, 1, 3, 4)
-              .reshape(b, hkv, qn * g, d))
-    else:
-        qg = q.reshape(b, hkv, g, d)
+    qg, qn, g = _panel_rows(q, hkv)
     kbm = k_sp.bitmap.reshape(b, hkv, sb, words)
     kvv = k_sp.values.reshape(b, hkv, sb, k_sp.capacity)
     vbm = v_sp.bitmap.reshape(b, hkv, sb, words)
     vvv = v_sp.values.reshape(b, hkv, sb, v_sp.capacity)
-    dev = q.device
-    if prefix_len is None:
-        n_blocks = torch.full((b,), sb, dtype=torch.int32, device=dev)
-    else:
-        n_blocks = torch.broadcast_to(
-            torch.as_tensor(prefix_len, device=dev).to(torch.int32) // bs,
-            (b,))
-    t = k_tail.shape[2]
-    tl = torch.broadcast_to(torch.as_tensor(
-        t if tail_len is None else tail_len, device=dev).to(torch.int32),
-        (b,))
-    # pad the ring to whole (bs,)-token panels; padding is masked by tl
-    pad = -t % bs
-    if pad:
-        k_tail = F.pad(k_tail, (0, 0, 0, pad))
-        v_tail = F.pad(v_tail, (0, 0, 0, pad))
+    n_blocks, tl, k_tail, v_tail = _lengths(b, sb, bs, k_tail, v_tail,
+                                            tail_len, prefix_len, q.device)
     o = sparse_decode_attention_fused(qg, kbm, kvv, vbm, vvv, k_tail, v_tail,
                                       bs, sm_scale, n_blocks, tl, group=g)
-    if panel:
-        return (o.reshape(b, hkv, qn, g, d).permute(0, 2, 1, 3, 4)
-                .reshape(b, qn, hq, d).to(q.dtype))
-    return o.reshape(b, hq, d).to(q.dtype)
+    return _panel_out(o, q, qn, g)
+
+
+def sparse_decode_attention_paged(q: torch.Tensor,
+                                  k_bitmap: torch.Tensor,
+                                  k_values: torch.Tensor,
+                                  v_bitmap: torch.Tensor,
+                                  v_values: torch.Tensor,
+                                  table: torch.Tensor,
+                                  hkv: int,
+                                  sm_scale: float,
+                                  bs: int,
+                                  k_tail: torch.Tensor,
+                                  v_tail: torch.Tensor,
+                                  tail_len: Optional[torch.Tensor] = None,
+                                  prefix_len: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Paged twin of :func:`sparse_decode_attention` (``repro/kernels/
+    ops.py:249-321``): the compressed prefix lives once in a pool-global
+    arena ``k_bitmap [n_phys, Hkv, w]`` / ``k_values [n_phys, Hkv, Ck]``
+    (same for v) and slot ``b`` reaches its logical block ``i`` through
+    ``table[b, i]`` (int32 ``[B, Sb]``; entries past ``prefix_len // bs``
+    are dead but in range).  q, tail and lengths as the flat entry, with the
+    same ``Q == 1`` squeeze; paging changes only where prefix blocks are
+    fetched from."""
+    if q.dim() == 4 and q.shape[1] == 1:
+        o = sparse_decode_attention_paged(
+            q[:, 0], k_bitmap, k_values, v_bitmap, v_values, table, hkv,
+            sm_scale, bs, k_tail, v_tail, tail_len, prefix_len)
+        return o[:, None]
+    b = q.shape[0]
+    qg, qn, g = _panel_rows(q, hkv)
+    n_blocks, tl, k_tail, v_tail = _lengths(b, table.shape[1], bs, k_tail,
+                                            v_tail, tail_len, prefix_len,
+                                            q.device)
+    o = sparse_decode_attention_fused_paged(
+        qg, k_bitmap, k_values, v_bitmap, v_values, table, k_tail, v_tail,
+        bs, sm_scale, n_blocks, tl, group=g)
+    return _panel_out(o, q, qn, g)

@@ -1,8 +1,11 @@
 """Fused prefix + tail flash-decode over the pooled sparse KV cache.
 
 Replaces ``repro/kernels/sparse_attention.py:
-sparse_decode_attention_fused_pallas`` (flat branch) with the CUDA kernel
-in ``csrc/sparse_attention.cu``.  Bound on the H100: device-memory bytes —
+sparse_decode_attention_fused_pallas`` — the flat branch
+(:func:`sparse_decode_attention_fused`) and the paged branch
+(:func:`sparse_decode_attention_fused_paged`, whose prefix blocks come out
+of a pool-global arena through a per-slot block table) — with the two
+instantiations of the CUDA kernel in ``csrc/sparse_attention.cu``.  Bound on the H100: device-memory bytes —
 each slot's valid compressed K/V blocks and visible tail tokens, read
 once; the query panel's flops are far below the ridge.  The design runs
 one thread block per (kv head, slot) that loops over the valid prefix
@@ -28,6 +31,10 @@ _ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
          + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
          + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p,
                                   ctypes.c_void_p])
+_PAGED_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+               + [ctypes.c_int] + [ctypes.c_void_p] * 3
+               + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p,
+                                        ctypes.c_void_p])
 MAX_PANEL = 2048            # QG * D the kernel keeps in registers
 
 
@@ -88,6 +95,29 @@ def sparse_decode_attention_fused_plain(
     return o.reshape(b, hkv, qg, d)
 
 
+def _check(q, k_bitmap, k_values, v_bitmap, v_values, k_tail, v_tail, bs,
+           n_blocks, tail_len, group):
+    """Geometry and dtype checks shared by both kernel entries; returns the
+    int32 length vectors and the contiguous query."""
+    b, hkv, qg, d = q.shape
+    g = group or qg
+    tp = k_tail.shape[2]
+    if qg % g or tp % bs or tp < bs or (bs * d) % 32:
+        raise ValueError(f"bad geometry: QG={qg}, G={g}, tail={tp}, bs={bs}")
+    if qg * d > MAX_PANEL:
+        raise ValueError(f"query panel QG*D={qg * d} exceeds {MAX_PANEL}")
+    if k_values.dtype != k_tail.dtype or v_values.dtype != k_tail.dtype \
+            or q.dtype != k_tail.dtype or q.dtype not in build.DTYPE_CODE:
+        raise TypeError("fused attention kernel takes one f32/bf16 dtype "
+                        "for q, cache values and tail")
+    q = q.contiguous()
+    n_blocks = n_blocks.to(torch.int32).contiguous()
+    tail_len = tail_len.to(torch.int32).contiguous()
+    build.require_cuda(q, k_bitmap, k_values, v_bitmap, v_values, k_tail,
+                       v_tail, n_blocks, tail_len)
+    return q, n_blocks, tail_len, g
+
+
 def sparse_decode_attention_fused(
         q: torch.Tensor, k_bitmap: torch.Tensor, k_values: torch.Tensor,
         v_bitmap: torch.Tensor, v_values: torch.Tensor,
@@ -102,22 +132,11 @@ def sparse_decode_attention_fused(
             sm_scale, n_blocks, tail_len, group)
     if q.device.type == "cpu":
         return sparse_decode_attention_fused_plain(*args)
+    q, n_blocks, tail_len, g = _check(
+        q, k_bitmap, k_values, v_bitmap, v_values, k_tail, v_tail, bs,
+        n_blocks, tail_len, group)
     b, hkv, qg, d = q.shape
-    g = group or qg
     sb, tp = k_bitmap.shape[2], k_tail.shape[2]
-    if qg % g or tp % bs or tp < bs or (bs * d) % 32:
-        raise ValueError(f"bad geometry: QG={qg}, G={g}, tail={tp}, bs={bs}")
-    if qg * d > MAX_PANEL:
-        raise ValueError(f"query panel QG*D={qg * d} exceeds {MAX_PANEL}")
-    if k_values.dtype != k_tail.dtype or v_values.dtype != k_tail.dtype \
-            or q.dtype != k_tail.dtype or q.dtype not in build.DTYPE_CODE:
-        raise TypeError("fused attention kernel takes one f32/bf16 dtype "
-                        "for q, cache values and tail")
-    q = q.contiguous()
-    n_blocks = n_blocks.to(torch.int32).contiguous()
-    tail_len = tail_len.to(torch.int32).contiguous()
-    build.require_cuda(q, k_bitmap, k_values, v_bitmap, v_values, k_tail,
-                       v_tail, n_blocks, tail_len)
     out = torch.empty((b, hkv, qg, d), dtype=torch.float32, device=q.device)
     p = build.ptr
     build.call(_SRC, "fused_attention_launch", _ARGS, p(q),
@@ -131,3 +150,80 @@ def sparse_decode_attention_fused(
 
 
 sparse_decode_attention_fused.launches = 0
+
+
+def gather_paged(table: torch.Tensor, bitmap: torch.Tensor,
+                 values: torch.Tensor, n_blocks: torch.Tensor):
+    """Arena ``[n_phys, Hkv, X]`` + block table ``[B, Sb]`` -> each slot's
+    logical prefix in the flat kernel layout ``[B, Hkv, Sb, X]`` (twin of
+    ``kernels/ref.py:gather_paged_prefix``).  Blocks at or past
+    ``n_blocks[b]`` come back with an empty bitmap, so their pages — dead,
+    possibly rewritten or poisoned — never reach the arithmetic, as in the
+    kernel, which does not read them at all."""
+    idx = table.long().clamp(0, bitmap.shape[0] - 1)
+    sb = table.shape[1]
+    live = (torch.arange(sb, device=table.device)[None]
+            < n_blocks.to(table.device).long()[:, None])      # [B, Sb]
+    bm = bitmap[idx].permute(0, 2, 1, 3)
+    bm = torch.where(live[:, None, :, None], bm, torch.zeros((), dtype=bm.dtype,
+                                                             device=bm.device))
+    return bm, values[idx].permute(0, 2, 1, 3)
+
+
+def sparse_decode_attention_fused_paged_plain(
+        q: torch.Tensor, k_bitmap: torch.Tensor, k_values: torch.Tensor,
+        v_bitmap: torch.Tensor, v_values: torch.Tensor, table: torch.Tensor,
+        k_tail: torch.Tensor, v_tail: torch.Tensor, bs: int,
+        sm_scale: float, n_blocks: torch.Tensor, tail_len: torch.Tensor,
+        group: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the paged entry: gather each slot's blocks out of
+    the arena (:func:`gather_paged`), then the flat plain version — paged
+    attention is gather-then-flat attention."""
+    kbm, kvl = gather_paged(table, k_bitmap, k_values, n_blocks)
+    vbm, vvl = gather_paged(table, v_bitmap, v_values, n_blocks)
+    return sparse_decode_attention_fused_plain(
+        q, kbm, kvl, vbm, vvl, k_tail, v_tail, bs, sm_scale, n_blocks,
+        tail_len, group)
+
+
+def sparse_decode_attention_fused_paged(
+        q: torch.Tensor, k_bitmap: torch.Tensor, k_values: torch.Tensor,
+        v_bitmap: torch.Tensor, v_values: torch.Tensor, table: torch.Tensor,
+        k_tail: torch.Tensor, v_tail: torch.Tensor, bs: int,
+        sm_scale: float, n_blocks: torch.Tensor, tail_len: torch.Tensor,
+        group: Optional[int] = None) -> torch.Tensor:
+    """The paged pool's entry: compressed prefix in a shared arena
+    ``[n_phys, Hkv, X]``, reached through ``table`` int32 ``[B, Sb]``
+    (entries at or past ``n_blocks`` are dead but in range); q, tail and
+    lengths as :func:`sparse_decode_attention_fused`.  Returns f32
+    ``[B, Hkv, QG, D]``.  CPU tensors take the plain version."""
+    args = (q, k_bitmap, k_values, v_bitmap, v_values, table, k_tail,
+            v_tail, bs, sm_scale, n_blocks, tail_len, group)
+    if q.device.type == "cpu":
+        return sparse_decode_attention_fused_paged_plain(*args)
+    if k_bitmap.dim() != 3 or table.dim() != 2 \
+            or table.shape[0] != q.shape[0]:
+        raise ValueError(f"paged attention takes a [n_phys, Hkv, X] arena "
+                         f"and a [B, Sb] table, got {tuple(k_bitmap.shape)} "
+                         f"and {tuple(table.shape)}")
+    q, n_blocks, tail_len, g = _check(
+        q, k_bitmap, k_values, v_bitmap, v_values, k_tail, v_tail, bs,
+        n_blocks, tail_len, group)
+    table = table.to(torch.int32).contiguous()
+    build.require_cuda(q, table)
+    b, hkv, qg, d = q.shape
+    sb, tp = table.shape[1], k_tail.shape[2]
+    out = torch.empty((b, hkv, qg, d), dtype=torch.float32, device=q.device)
+    p = build.ptr
+    build.call(_SRC, "fused_attention_paged_launch", _PAGED_ARGS, p(q),
+               build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
+               p(v_bitmap), p(v_values), p(k_tail), p(v_tail),
+               build.DTYPE_CODE[k_tail.dtype], p(n_blocks), p(tail_len),
+               p(table), k_bitmap.shape[0], b, hkv, qg, g, d, sb, bs,
+               k_values.shape[-1], v_values.shape[-1], tp, float(sm_scale),
+               p(out), build.stream())
+    sparse_decode_attention_fused_paged.launches += 1
+    return out
+
+
+sparse_decode_attention_fused_paged.launches = 0

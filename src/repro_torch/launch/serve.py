@@ -1,6 +1,8 @@
 """Serving launcher, stream mode: sparse weights + sparse KV through the
 continuous-batching engine (twin of ``repro.launch.serve`` without the
-later slices' flags).
+later slices' flags).  ``--int8`` serves int8 block-sparse weights,
+``--paged`` the shared-prefix paged pool (``--phys-blocks`` sizes its
+arena), as in the reference.
 
 Initialises the model from a seed on the device, prunes and packs every
 linear weight there, and drives a stream of requests with mixed prompt and
@@ -9,6 +11,9 @@ the pooled sparse-KV cache.
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b --device cuda \\
       --requests 8 --slots 4 --prompt-len 256 --steps 64 --prefill-chunk 256
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --device cuda \\
+      --paged --int8 --requests 8 --slots 4 --prompt-len 256 --steps 64 \\
+      --prefill-chunk 256
   python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
       --device cpu --requests 4 --slots 2 --prompt-len 48 --steps 12
 """
@@ -26,17 +31,23 @@ from repro_torch.configs import get_config
 from repro_torch.core.convert import convert_concrete, sparsity_report
 from repro_torch.data.pipeline import DataConfig, host_batch
 from repro_torch.kernels.dense_matmul import dense_matmul
-from repro_torch.kernels.sparse_attention import \
-    sparse_decode_attention_fused
+from repro_torch.kernels.sparse_attention import (
+    sparse_decode_attention_fused, sparse_decode_attention_fused_paged)
 from repro_torch.kernels.sparse_gemv import sparse_gemv
 from repro_torch.kernels.sparse_matmul import sparse_matmul
+from repro_torch.kernels.sparse_matmul_int4 import sparse_matmul_int4
+from repro_torch.kernels.sparse_matmul_int8 import sparse_matmul_int8
 from repro_torch.models import lm
 from repro_torch.serving import ContinuousEngine, SamplingParams
 
 KERNELS = {"sparse_gemv": sparse_gemv,
            "sparse_decode_attention_fused": sparse_decode_attention_fused,
            "sparse_matmul": sparse_matmul,
-           "dense_matmul": dense_matmul}
+           "dense_matmul": dense_matmul,
+           "sparse_decode_attention_fused_paged":
+               sparse_decode_attention_fused_paged,
+           "sparse_matmul_int8": sparse_matmul_int8,
+           "sparse_matmul_int4": sparse_matmul_int4}
 
 
 def launch_counts() -> dict:
@@ -60,6 +71,18 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="prompt tokens prefilled per tick (0 = whole)")
     ap.add_argument("--sparsity", type=float, default=0.5)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 block-sparse weights (per-channel scale)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged shared-prefix pool: compressed blocks live "
+                         "once in a pool-global arena behind per-slot block "
+                         "tables; prompts sharing a block-aligned prefix "
+                         "store and prefill it once (needs --prefill-chunk "
+                         "for prefix-cache hits)")
+    ap.add_argument("--phys-blocks", type=int, default=0,
+                    help="with --paged: physical blocks in the shared arena "
+                         "(default: slots * max_blocks, the flat pool's "
+                         "footprint)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -74,7 +97,9 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, sparsity=args.sparsity)
     params = lm.init_params(cfg, seed=0, device=dev)
-    params = convert_concrete(params, lm.model_specs(cfg), cfg, device=dev)
+    params = convert_concrete(params, lm.model_specs(cfg), cfg,
+                              mode="int8" if args.int8 else "bf16",
+                              device=dev)
     rep = sparsity_report(params)
     tot_d = sum(r["dense_bytes"] for r in rep.values())
     tot_c = sum(r["compressed_bytes"] for r in rep.values())
@@ -88,7 +113,12 @@ def main(argv=None) -> int:
     eng = ContinuousEngine(
         params, cfg, slots=args.slots,
         max_tokens=args.prompt_len + args.steps + cfg.kv_tail,
-        prefill_chunk=args.prefill_chunk or None, device=dev)
+        prefill_chunk=args.prefill_chunk or None, device=dev,
+        paged=args.paged, phys_blocks=args.phys_blocks)
+    if args.paged:
+        print(f"[serve] paged pool: {eng.pool.n_phys} physical blocks of "
+              f"{eng.pool.bs} tokens behind {args.slots}x"
+              f"{eng.pool.max_blocks} block tables")
 
     rng = np.random.default_rng(0)
     reset_launch_counts()
@@ -115,6 +145,9 @@ def main(argv=None) -> int:
         print(f"[serve] ttft p50={np.median(ttfts)*1e3:.0f}ms "
               f"max={max(ttfts)*1e3:.0f}ms; finish: "
               f"{ {o.finish_reason for o in out.values()} }")
+    if args.paged:
+        print(f"[serve] paged: prefix trie holds {len(eng._trie)} blocks; "
+              f"{eng._alloc.free_blocks()}/{eng.pool.n_phys} reclaimable")
     print("[serve] sample:", list(out[rids[0]].token_ids[:16]))
     print(f"[serve] kernel launches: {launch_counts()}")
     return 0

@@ -2,7 +2,7 @@
 ``repro.models.attention``)."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,14 +51,18 @@ def _project_kv(p, x, cfg):
 def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
                       positions: torch.Tensor, prefix_blocks: torch.Tensor,
                       tail_len: torch.Tensor, slot_mask: torch.Tensor,
-                      bs: int) -> torch.Tensor:
+                      bs: int, table: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """One ``[B, Qn]`` query panel per slot over one layer's pooled cache.
 
     The ``Qn`` fresh K/V land in each live slot's tail ring **in place**
     (``kv`` holds this layer's views of the pool storage); inactive slots
     write nothing.  Panel query ``j`` sees the frozen prefix, the existing
-    tail and panel tokens ``<= j``.  Returns the attention output projected
-    by ``wo``, ``[B, Qn, d]``."""
+    tail and panel tokens ``<= j``.  ``table`` (int32 ``[B, Sb]``, paged
+    pool only) switches the frozen prefix to the pool-global arena: ``kv``'s
+    compressed leaves are then ``[n_phys, Hkv, X]`` and each slot reaches
+    its blocks through its table row.  Returns the attention output
+    projected by ``wo``, ``[B, Qn, d]``."""
     b, qn, _ = x.shape
     hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
     q = _project_q(p, x, cfg)                                 # [B,Qn,Hq,hd]
@@ -74,26 +78,35 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
     append_tail_panel(kv["v_tail"], v_new.transpose(1, 2), tail_len, n_valid)
     # panel query 0 sees its own token; each later query j sees j more
     t_att = tail_len + live
-    k_sp = pooled_view(kv["k_bitmap"], kv["k_values"], bs, hd)
-    v_sp = pooled_view(kv["v_bitmap"], kv["v_values"], bs, hd)
-    o = ops.sparse_decode_attention(q, k_sp, v_sp, hkv, sm, kv["k_tail"],
-                                    kv["v_tail"], t_att,
-                                    prefix_len=prefix_blocks * bs)
+    if table is not None:
+        o = ops.sparse_decode_attention_paged(
+            q, kv["k_bitmap"], kv["k_values"], kv["v_bitmap"],
+            kv["v_values"], table, hkv, sm, bs, kv["k_tail"], kv["v_tail"],
+            t_att, prefix_len=prefix_blocks * bs)
+    else:
+        k_sp = pooled_view(kv["k_bitmap"], kv["k_values"], bs, hd)
+        v_sp = pooled_view(kv["v_bitmap"], kv["v_values"], bs, hd)
+        o = ops.sparse_decode_attention(q, k_sp, v_sp, hkv, sm,
+                                        kv["k_tail"], kv["v_tail"], t_att,
+                                        prefix_len=prefix_blocks * bs)
     return ops.linear(o.reshape(b, qn, hq * hd).to(x.dtype), p["wo"])
 
 
 def pooled_attn_prefill_chunk(p, x: torch.Tensor,
                               kv: Dict[str, torch.Tensor], cfg,
                               positions: torch.Tensor, ctx_len: torch.Tensor,
-                              bs: int
+                              bs: int, table_row: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Chunked-prefill attention for ONE slot: causal within the chunk plus
     full attention over the slot's valid frozen prefix (decompressed here;
     the chunk path is off the per-token loop).  ``x [1, C, d]``; ``kv`` the
-    slot's compressed leaves ``[1, Hkv, Sb, X]``.  Returns ``(out [1, C, d],
-    k_chunk, v_chunk [1, Hkv, C, hd])`` post-RoPE for the caller to
-    freeze."""
+    slot's compressed leaves ``[1, Hkv, Sb, X]``, or with ``table_row``
+    (int32 ``[Sb]``, paged pool only) the shared arena ``[n_phys, Hkv, X]``,
+    from which the slot's prefix is gathered through its table row (a
+    prefix-cache hit means these are blocks another request froze).
+    Returns ``(out [1, C, d], k_chunk, v_chunk [1, Hkv, C, hd])`` post-RoPE
+    for the caller to freeze."""
     b, c, _ = x.shape
     hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
     g = hq // hkv
@@ -104,8 +117,16 @@ def pooled_attn_prefill_chunk(p, x: torch.Tensor,
     k = apply_rope(k, cos[None], sin[None]).transpose(1, 2)  # [1,Hkv,C,hd]
     v = v.transpose(1, 2)
 
-    k_ctx = unpack(pooled_view(kv["k_bitmap"], kv["k_values"], bs, hd))
-    v_ctx = unpack(pooled_view(kv["v_bitmap"], kv["v_values"], bs, hd))
+    if table_row is not None:
+        # entries are in range by construction; clamped as the reference's
+        # explicit clip-mode gather
+        idx = table_row.long().clamp(0, kv["k_bitmap"].shape[0] - 1)
+        comp = {k: kv[k][idx].transpose(0, 1)[None]
+                for k in ("k_bitmap", "k_values", "v_bitmap", "v_values")}
+    else:
+        comp = kv
+    k_ctx = unpack(pooled_view(comp["k_bitmap"], comp["k_values"], bs, hd))
+    v_ctx = unpack(pooled_view(comp["v_bitmap"], comp["v_values"], bs, hd))
     s_ctx = k_ctx.shape[2]
     dev = x.device
     kv_valid = torch.cat([torch.arange(s_ctx, device=dev) < ctx_len,

@@ -115,6 +115,8 @@ def forward_panel_pooled(params, state: Dict[str, Any],
         qn, dtype=state["pos"].dtype, device=tokens.device)[None, :]
     prefix_blocks = state["prefix_blocks"]
     tail_len = state["tail_len"]
+    # paged pool: the block table is pool-level state every layer reads
+    table = state.get("table")
     n_periods = cfg.n_layers // len(kinds)
     for i in range(n_periods):
         pp = _layer(params["blocks"], i)
@@ -123,7 +125,7 @@ def forward_panel_pooled(params, state: Dict[str, Any],
             kv = {k: a[i] for k, a in state["layers"][f"l{j}"]["kv"].items()}
             h = pooled_attn_panel(pj["mixer"], rms_norm(x, pj["ln1"]), kv,
                                   cfg, positions, prefix_blocks, tail_len,
-                                  slot_mask, bs)
+                                  slot_mask, bs, table=table)
             x = x + h
             x = x + _pooled_ffn(pj, rms_norm(x, pj["ln2"]))
     x = rms_norm(x, params["final_norm"])
@@ -134,8 +136,14 @@ def forward_panel_pooled(params, state: Dict[str, Any],
     return logits, state
 
 
+# the compressed leaves of a layer's kv tree: per-slot grids on the flat
+# pool, the shared arena on the paged pool (tails are per-slot either way)
+ARENA_KEYS = ("k_bitmap", "k_values", "v_bitmap", "v_values")
+
+
 def forward_prefill_chunk(params, state: Dict[str, Any],
-                          tokens: torch.Tensor, slot: int, cfg, bs: int
+                          tokens: torch.Tensor, slot: int, cfg, bs: int,
+                          new_ids: Optional[List[int]] = None
                           ) -> Tuple[torch.Tensor, Dict]:
     """Prefill one prompt chunk ``tokens [1, C]`` for pool slot ``slot``.
 
@@ -143,10 +151,17 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
     its full ``bs``-token blocks are pruned and packed into the slot's next
     prefix blocks and a trailing remainder (< bs tokens, last chunk only)
     lands at the head of the tail ring.  Returns ``(last-token logits
-    [1, V] f32, state)``."""
+    [1, V] f32, state)``.
+
+    Paged pool (``state`` carries a block table): the slot attends to its
+    prefix through its table row, and the chunk's ``C // bs`` new blocks
+    are frozen into the fresh arena pages ``new_ids`` (host-allocated),
+    appended to the table row with refcount 1 — never into shared storage,
+    which is the copy-on-write guarantee."""
     c = tokens.shape[1]
     nb_new, rem = divmod(c, bs)
     kinds = _attn_kinds(cfg)
+    paged = "table" in state
     x = embed_apply(params["embed"], tokens, cfg)            # [1, C, d]
     dev = tokens.device
     start = state["pos"][slot].clone()
@@ -154,16 +169,25 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
     positions = start + torch.arange(c, dtype=start.dtype, device=dev)
     ctx_len = pb0 * bs
     new_blocks = pb0 + torch.arange(nb_new, dtype=torch.long, device=dev)
+    table_row = None
+    if paged:
+        if nb_new and (new_ids is None or len(new_ids) != nb_new):
+            raise ValueError("paged prefill needs one fresh arena id per "
+                             "full block of the chunk")
+        table_row = state["table"][slot]
+        ids = torch.as_tensor(list(new_ids or []), dtype=torch.long,
+                              device=dev)
     n_periods = cfg.n_layers // len(kinds)
     for i in range(n_periods):
         pp = _layer(params["blocks"], i)
         for j in range(len(kinds)):
             pj = pp[f"l{j}"]
             kvl = state["layers"][f"l{j}"]["kv"]
-            slot_kv = {k: a[i, slot:slot + 1] for k, a in kvl.items()}
+            slot_kv = {k: (a[i] if paged and k in ARENA_KEYS
+                           else a[i, slot:slot + 1]) for k, a in kvl.items()}
             h, k_c, v_c = pooled_attn_prefill_chunk(
                 pj["mixer"], rms_norm(x, pj["ln1"]), slot_kv, cfg, positions,
-                ctx_len, bs)
+                ctx_len, bs, table_row=table_row)
             x = x + h
             x = x + mlp_apply(pj["ffn"], rms_norm(x, pj["ln2"]))
             # this layer's attention has read the slot's prefix: freeze the
@@ -173,10 +197,14 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
                     k_c[:, :, :nb_new * bs], v_c[:, :, :nb_new * bs],
                     cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs,
                     kvl["k_values"].shape[-1], kvl["v_values"].shape[-1])
-                for key, upd in zip(("k_bitmap", "k_values", "v_bitmap",
-                                     "v_values"), frozen):
-                    dst = kvl[key][i, slot]                  # [Hkv, Sb, X]
-                    dst.index_copy_(1, new_blocks, upd[0].to(dst.dtype))
+                for key, upd in zip(ARENA_KEYS, frozen):
+                    if paged:
+                        dst = kvl[key][i]                # [n_phys, Hkv, X]
+                        dst.index_copy_(0, ids, upd[0].transpose(0, 1)
+                                        .to(dst.dtype))
+                    else:
+                        dst = kvl[key][i, slot]          # [Hkv, Sb, X]
+                        dst.index_copy_(1, new_blocks, upd[0].to(dst.dtype))
             if rem:
                 for key, src in (("k_tail", k_c), ("v_tail", v_c)):
                     dst = kvl[key][i, slot]                  # [Hkv, T, hd]
@@ -186,4 +214,9 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
     state["pos"][slot] = start + c
     state["prefix_blocks"][slot] = pb0 + nb_new
     state["tail_len"][slot] = rem
+    if paged and nb_new:
+        state["table"][slot].index_copy_(0, new_blocks,
+                                         ids.to(state["table"].dtype))
+        state["refcount"].index_add_(
+            0, ids, torch.ones_like(ids, dtype=state["refcount"].dtype))
     return logits, state

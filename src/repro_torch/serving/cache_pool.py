@@ -1,5 +1,6 @@
-"""Slot-pooled sparse-KV cache for continuous batching, flat mode (twin of
-``repro.serving.cache_pool.CachePool`` without the paged arena).
+"""Slot-pooled sparse-KV cache for continuous batching (twin of
+``repro.serving.cache_pool``: ``CachePool`` flat and paged, and the host
+``BlockAllocator``).
 
 Storage is sized once, data moves within it: per layer every slot owns a
 fixed grid of ``max_blocks`` compressed sequence blocks (bitmap words +
@@ -7,21 +8,34 @@ packed values at a static per-block capacity) and a dense ``tail`` ring.
 Occupancy lives in three int32 ``[slots]`` vectors (``pos``,
 ``prefix_blocks``, ``tail_len``); validity is masked, never re-shaped.
 
+**Paged mode** (``paged=True``): compressed blocks live once in a
+pool-global arena ``[P, n_phys, Hkv, X]``; each slot's prefix is a row of
+the int32 ``table [slots, max_blocks]`` and ``refcount [n_phys]`` counts
+the rows that point at each block.  Requests whose prompts share a
+block-aligned prefix point at the same physical blocks.  Frozen blocks are
+immutable: refreeze and prefill write only fresh ids handed out by the
+host :class:`BlockAllocator` (copy-on-write at the divergence block by
+construction).
+
 The transitions update the state dict's tensors **in place** (the pool is
 the largest state on the card; the reference's functional copies would
-double its traffic) and return the same dict.
+double its traffic) and return the same dict.  The sanitized
+``checkify`` mode and the arena snapshot helpers belong to a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.sparse_format import LANE, _ceil_to
 from repro_torch.core.sparse_kv import append_tail_panel, freeze_chunk_blocks
 from repro_torch.models import lm
+from repro_torch.models.lm import ARENA_KEYS
 
 # per-block packed capacity over the nominal density (the reference's
 # ``capacity_slack`` default)
@@ -39,13 +53,20 @@ class CachePool:
     cap_k: int               # packed K values per block (static)
     cap_v: int
     device: torch.device = torch.device("cpu")
+    paged: bool = False      # pool-global arena + per-slot block table
+    n_phys: int = 0          # physical blocks in the paged arena
 
     @classmethod
     def build(cls, cfg, slots: int, max_tokens: int, bs: int = 0,
-              device: Optional[torch.device] = None) -> "CachePool":
+              device: Optional[torch.device] = None, paged: bool = False,
+              n_phys: int = 0) -> "CachePool":
         """Size a pool for ``slots`` requests of up to ``max_tokens`` context
         each; per-block capacity is the nominal density times the block
-        size, times :data:`CAPACITY_SLACK`, rounded to the lane size."""
+        size, times :data:`CAPACITY_SLACK`, rounded to the lane size.
+
+        ``paged=True`` stores compressed blocks in a shared arena of
+        ``n_phys`` blocks (default ``slots * max_blocks``, the flat pool's
+        prefix bytes) behind per-slot block tables."""
         lm._attn_kinds(cfg)
         bs = bs or min(128, cfg.kv_tail)
         if cfg.kv_tail % bs != 0:
@@ -62,10 +83,13 @@ class CachePool:
             return min(_ceil_to(int(round(density * l * CAPACITY_SLACK)),
                                 LANE), l)
         max_blocks = max(-(-int(max_tokens) // bs), 1)
+        if paged:
+            n_phys = n_phys or slots * max_blocks
         return cls(cfg=cfg, slots=slots, max_blocks=max_blocks, bs=bs,
                    tail=cfg.kv_tail, cap_k=cap(cfg.kv_k_sparsity),
                    cap_v=cap(cfg.kv_v_sparsity),
-                   device=resolve_device(device))
+                   device=resolve_device(device), paged=paged,
+                   n_phys=n_phys if paged else 0)
 
     @property
     def capacity_tokens(self) -> int:
@@ -74,8 +98,10 @@ class CachePool:
 
     def init_state(self) -> Dict[str, Any]:
         """Zeroed pool state.  Layer leaves carry a leading period axis:
-        compressed ``[P, slots, Hkv, max_blocks, X]``, tails
-        ``[P, slots, Hkv, tail, hd]``; bitmaps are int32 bit-views."""
+        compressed ``[P, slots, Hkv, max_blocks, X]`` (paged: the arena
+        ``[P, n_phys, Hkv, X]`` plus ``table [slots, max_blocks]`` and
+        ``refcount [n_phys]`` int32), tails ``[P, slots, Hkv, tail, hd]``;
+        bitmaps are int32 bit-views."""
         cfg = self.cfg
         n_periods = cfg.n_layers // lm.period_len(cfg)
         hkv, hd, dt = cfg.n_kv, cfg.hd, cfg.cdtype
@@ -83,38 +109,58 @@ class CachePool:
         z = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
                                              device=self.device)
 
+        grid = ((n_periods, self.n_phys, hkv) if self.paged
+                else (n_periods, b, hkv, sb))
+
         def kv_leaf():
             return {
-                "k_bitmap": z((n_periods, b, hkv, sb, w), torch.int32),
-                "k_values": z((n_periods, b, hkv, sb, self.cap_k), dt),
-                "v_bitmap": z((n_periods, b, hkv, sb, w), torch.int32),
-                "v_values": z((n_periods, b, hkv, sb, self.cap_v), dt),
+                "k_bitmap": z(grid + (w,), torch.int32),
+                "k_values": z(grid + (self.cap_k,), dt),
+                "v_bitmap": z(grid + (w,), torch.int32),
+                "v_values": z(grid + (self.cap_v,), dt),
                 "k_tail": z((n_periods, b, hkv, self.tail, hd), dt),
                 "v_tail": z((n_periods, b, hkv, self.tail, hd), dt),
             }
-        return {
+        state = {
             "pos": z((b,), torch.int32),
             "prefix_blocks": z((b,), torch.int32),
             "tail_len": z((b,), torch.int32),
             "layers": {f"l{j}": {"kv": kv_leaf()}
                        for j in range(lm.period_len(cfg))},
         }
+        if self.paged:
+            state["table"] = z((b, sb), torch.int32)
+            state["refcount"] = z((self.n_phys,), torch.int32)
+        return state
 
-    def refreeze(self, state: Dict[str, Any]) -> Dict[str, Any]:
+    def refreeze(self, state: Dict[str, Any],
+                 new_ids=None) -> Dict[str, Any]:
         """Fold every full tail into its slot's next free prefix blocks.
 
         Only full slots are compressed (the reference compresses every slot
         and keeps the full ones; the thresholds are per (slot, block), so
         the kept result is the same).  Slots whose tail is not full are
         untouched.  The caller guarantees no full slot overflows
-        ``max_blocks`` (scheduler admission)."""
+        ``max_blocks`` (scheduler admission).
+
+        Paged pool: ``new_ids`` ``[slots, tail // bs]`` carries a fresh
+        physical id per (full slot, tail block) from the host allocator;
+        rows of slots that are not full are ignored.  The blocks land at
+        those ids in the arena and in each full slot's table row, and the
+        ids' refcounts go to 1."""
         cfg = self.cfg
         t, tb = self.tail, self.tail // self.bs
+        if self.paged and new_ids is None:
+            raise ValueError("paged refreeze needs fresh ids")
         full = (state["tail_len"] >= t).nonzero().flatten()
         if full.numel() == 0:
             return state
         offsets = state["prefix_blocks"][full].tolist()
         slots = full.tolist()
+        if self.paged:
+            ids = torch.as_tensor(np.asarray(new_ids), dtype=torch.long,
+                                  device=self.device)[full]     # [F, tb]
+            flat_ids = ids.reshape(-1)
         for leaf in state["layers"].values():
             kv = leaf["kv"]
             p_, _, hkv, _, hd = kv["k_tail"].shape
@@ -124,14 +170,49 @@ class CachePool:
                 flat(kv["k_tail"]), flat(kv["v_tail"]),
                 cfg.kv_k_sparsity, cfg.kv_v_sparsity, self.bs,
                 self.cap_k, self.cap_v)
-            for key, upd in zip(("k_bitmap", "k_values", "v_bitmap",
-                                 "v_values"), frozen):
+            for key, upd in zip(ARENA_KEYS, frozen):
                 upd = upd.reshape(p_, f, hkv, tb, -1)
+                if self.paged:
+                    # [P, F, Hkv, tb, X] -> [P, F*tb, Hkv, X] rows at the
+                    # fresh ids of the arena's physical-block axis
+                    rows = upd.permute(0, 1, 3, 2, 4).reshape(
+                        p_, f * tb, hkv, -1)
+                    kv[key].index_copy_(1, flat_ids, rows.to(kv[key].dtype))
+                    continue
                 for n, (s, off) in enumerate(zip(slots, offsets)):
                     kv[key][:, s, :, off:off + tb] = upd[:, n].to(
                         kv[key].dtype)
+        if self.paged:
+            for n, (s, off) in enumerate(zip(slots, offsets)):
+                state["table"][s, off:off + tb] = ids[n].to(torch.int32)
+            state["refcount"].index_add_(
+                0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int32))
         state["prefix_blocks"][full] += tb
         state["tail_len"][full] = 0
+        return state
+
+    def assign_blocks(self, state: Dict[str, Any], slot: int, ids,
+                      n: int) -> Dict[str, Any]:
+        """Point a freshly admitted slot's table row at ``n`` existing
+        physical blocks (a prefix-cache hit): entries ``[0, n)`` become
+        ``ids[:n]`` (the rest 0), the blocks' refcounts increment and the
+        slot's lengths jump to the shared prefix (``n`` blocks, empty
+        tail) — the prefill those blocks would have needed is skipped.
+        Paged pools only."""
+        if not self.paged:
+            raise ValueError("assign_blocks is a paged-pool transition")
+        n = int(n)
+        hit = torch.as_tensor(np.asarray(ids, np.int64)[:n],
+                              device=self.device)
+        row = torch.zeros(self.max_blocks, dtype=torch.int32,
+                          device=self.device)
+        row[:n] = hit.to(torch.int32)
+        state["table"][slot] = row
+        state["refcount"].index_add_(
+            0, hit, torch.ones_like(hit, dtype=torch.int32))
+        state["pos"][slot] = n * self.bs
+        state["prefix_blocks"][slot] = n
+        state["tail_len"][slot] = 0
         return state
 
     def append_many(self, state: Dict[str, Any], panels: Dict[str, Any],
@@ -165,11 +246,129 @@ class CachePool:
 
     def release(self, state: Dict[str, Any], slot) -> Dict[str, Any]:
         """Recycle one or many slots (``-1`` entries match nothing): zero
-        their lengths; stale storage stays, fully masked.  Idempotent."""
+        their lengths; stale storage stays, fully masked.  Paged pool: each
+        released slot's live table entries decrement their blocks'
+        refcounts (shared blocks once per referencing slot) and its table
+        row resets to 0; the host allocator decides what a refcount-0 block
+        becomes.  Idempotent: a free slot has no live entries."""
         slot = torch.atleast_1d(torch.as_tensor(slot, dtype=torch.int32,
                                                 device=self.device))
         rel = (slot[:, None] == torch.arange(
             self.slots, dtype=torch.int32, device=self.device)[None]).any(0)
+        if self.paged:
+            live = rel[:, None] & (
+                torch.arange(self.max_blocks, device=self.device)[None]
+                < state["prefix_blocks"][:, None])
+            ids = state["table"].long()[live]
+            state["refcount"].index_add_(
+                0, ids, torch.full_like(ids, -1, dtype=torch.int32))
+            state["table"].masked_fill_(rel[:, None], 0)
         for key in ("pos", "prefix_blocks", "tail_len"):
             state[key].masked_fill_(rel, 0)
         return state
+
+
+class BlockAllocator:
+    """Host-side physical-block lifecycle of the paged pool (a copy of the
+    reference's, numpy only).
+
+    The device transitions are pure data motion; this object decides which
+    ids they move (the snapshot export and restore of the reference belong
+    to a later slice).  Three populations partition ``[0, n_phys)``:
+
+    * **free** — never used or fully reclaimed; a LIFO stack;
+    * **live** — refcount > 0: referenced by at least one slot's table row;
+    * **cached** — refcount 0 but still holding a registered
+      (content-hashed) block, kept in an LRU so that a later prompt sharing
+      the prefix can revive it.  ``alloc`` evicts from the LRU's cold end
+      only when the free stack runs dry, invalidating the hash through
+      ``on_evict`` (the engine points it at its prefix index).
+
+    It mirrors the refcounts so admission can reason about availability
+    without a device sync; the device ``refcount`` vector carries the same
+    counts.
+    """
+
+    def __init__(self, n_phys: int,
+                 on_evict: Optional[Callable[[int], None]] = None):
+        self.n_phys = n_phys
+        self.on_evict = on_evict
+        self.evictions = 0               # lifetime LRU evictions
+        self._free: List[int] = list(range(n_phys - 1, -1, -1))
+        self._ref = np.zeros(n_phys, np.int64)
+        self._cached: "OrderedDict[int, int]" = OrderedDict()  # id -> hash
+        self._hash2id: Dict[int, int] = {}
+
+    # -- queries ------------------------------------------------------------
+    def free_blocks(self) -> int:
+        """Blocks an ``alloc`` could hand out right now (free + evictable)."""
+        return len(self._free) + len(self._cached)
+
+    def refcount(self, bid: int) -> int:
+        return int(self._ref[bid])
+
+    def lookup(self, h: int) -> Optional[int]:
+        """Physical id of the block registered under chained hash ``h``."""
+        return self._hash2id.get(h)
+
+    def hash_of(self, bid: int) -> Optional[int]:
+        for h, i in self._hash2id.items():
+            if i == bid:
+                return h
+        return None
+
+    # -- lifecycle ----------------------------------------------------------
+    def alloc(self, n: int) -> List[int]:
+        """Hand out ``n`` fresh ids at refcount 1, evicting the LRU's cold
+        end when the free stack runs dry.  Admission reservations guarantee
+        this never runs out; failure is a bookkeeping bug."""
+        ids = []
+        for _ in range(n):
+            if self._free:
+                bid = self._free.pop()
+            else:
+                if not self._cached:
+                    raise RuntimeError(
+                        "BlockAllocator exhausted: admission reservations "
+                        "must cover every alloc")
+                bid, h = self._cached.popitem(last=False)      # LRU evict
+                del self._hash2id[h]
+                self.evictions += 1
+                if self.on_evict is not None:
+                    self.on_evict(h)
+            self._ref[bid] = 1
+            ids.append(bid)
+        return ids
+
+    def register(self, bid: int, h: int) -> bool:
+        """Associate a live block with its chained content hash so later
+        prompts can share it.  First writer wins; returns whether the hash
+        was recorded."""
+        if h in self._hash2id:
+            return False
+        self._hash2id[h] = bid
+        return True
+
+    def incref(self, ids: Sequence[int]) -> None:
+        """Take shared references (a prefix-cache hit); revives cached
+        refcount-0 blocks out of the eviction LRU."""
+        for bid in ids:
+            if self._ref[bid] == 0:
+                self._cached.pop(bid, None)
+            self._ref[bid] += 1
+
+    def decref(self, ids: Sequence[int]) -> None:
+        """Drop references (slot release).  A block reaching refcount 0
+        parks in the LRU if its hash is registered (revivable), else
+        returns to the free stack."""
+        for bid in ids:
+            if not self._ref[bid] > 0:
+                raise RuntimeError(f"double free of block {bid}")
+            self._ref[bid] -= 1
+            if self._ref[bid] == 0:
+                h = self.hash_of(bid)
+                if h is None:
+                    self._free.append(bid)
+                else:
+                    self._cached[bid] = h
+                    self._cached.move_to_end(bid)

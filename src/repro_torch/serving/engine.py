@@ -1,6 +1,7 @@
 """Continuous-batching serving engine on the pooled sparse-KV cache (twin of
 ``repro.serving.engine.ContinuousEngine`` with ``overlap=False``, no
-speculation, the flat pool, no mesh, no fault injection and no telemetry).
+speculation, no mesh, no fault injection and no telemetry; the flat pool
+or, with ``paged=True``, the shared-prefix paged pool).
 
 One engine tick (:meth:`step`):
 
@@ -17,6 +18,13 @@ One engine tick (:meth:`step`):
 Host <-> device traffic per tick is one token vector and one chosen-token
 logprob vector; slot lengths are mirrored on the host.  Arguments that
 belong to later slices of the port raise ``NotImplementedError``.
+
+Paged pool: a host :class:`~.cache_pool.BlockAllocator` hands out physical
+block ids and a :class:`~.scheduler.PrefixTrie` indexes the blocks frozen
+by full-width prefill chunks under their chained content hashes.
+Admission reserves each request's worst-case page demand (deferring the
+queue head with backoff when the arena cannot cover it) and points a
+prompt's already-frozen prefix at the shared blocks, skipping its prefill.
 """
 from __future__ import annotations
 
@@ -28,9 +36,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import lm
 from . import sampling
-from .cache_pool import CachePool
+from .cache_pool import BlockAllocator, CachePool
 from .sampling import RequestOutput, SamplingParams
-from .scheduler import Scheduler
+from .scheduler import PrefixTrie, Scheduler, block_hashes
 
 
 def params_to(tree: Any, device: torch.device) -> Any:
@@ -56,8 +64,7 @@ class ContinuousEngine:
                  degrade_queue: int = 0, faults=None, obs=None,
                  overlap: bool = False):
         later = {"ctx": ctx is not None, "spec": spec is not None,
-                 "mesh": mesh is not None, "paged": paged,
-                 "phys_blocks": bool(phys_blocks), "checkify": bool(checkify),
+                 "mesh": mesh is not None, "checkify": bool(checkify),
                  "capacity_slack": capacity_slack is not None,
                  "max_queue": bool(max_queue),
                  "degrade_queue": bool(degrade_queue),
@@ -78,7 +85,8 @@ class ContinuousEngine:
             bs = next(d for d in range(limit, 0, -1)
                       if cfg.kv_tail % d == 0)
         self.pool = CachePool.build(cfg, slots, max_tokens, bs=bs,
-                                    device=self.device)
+                                    device=self.device, paged=paged,
+                                    n_phys=phys_blocks)
         self.state = self.pool.init_state()
         self.lanes = sampling.init_lanes(slots, self.device)
         # per-slot request generators (sampled requests only)
@@ -94,6 +102,16 @@ class ContinuousEngine:
         self._callbacks: Dict[int, Callable[[RequestOutput], None]] = {}
         self._pending_release: List[int] = []
         self._slot_live = np.zeros(slots, bool)
+        # paged pool: host-side id lifecycle + prefix index.  Sharing needs
+        # deterministic block content, which needs deterministic chunk
+        # boundaries: the trie indexes only blocks frozen by full-width
+        # chunks, so it is active iff prefill is chunked.
+        self._trie = PrefixTrie() if paged else None
+        self._alloc = (BlockAllocator(self.pool.n_phys,
+                                      on_evict=self._trie.drop)
+                       if paged else None)
+        self._blocks: Dict[int, List[int]] = {}       # slot -> table row ids
+        self._reserved: Dict[int, int] = {}           # slot -> pages owed
 
     # -- public API ---------------------------------------------------------
     def submit(self, prompt, params: Optional[SamplingParams] = None,
@@ -151,15 +169,62 @@ class ContinuousEngine:
         vec = torch.full((self.pool.slots,), -1, dtype=torch.int32)
         vec[:len(seen)] = torch.tensor(seen, dtype=torch.int32)
         self.pool.release(self.state, vec.to(self.device))
+        if self._alloc is not None:
+            for s in seen:
+                ids = self._blocks.pop(s, [])
+                if ids:
+                    self._alloc.decref(ids)
+                self._reserved.pop(s, None)
+
+    def _admit_paged(self, now: float):
+        """Reservation + prefix-hit admission of the queue's head.
+
+        Returns the admitted request, or None (the request stays queued,
+        backing off) when the arena cannot guarantee its worst-case page
+        demand on top of every admitted request's outstanding reservation —
+        the paged analogue of running out of slots.  On admission a
+        prefix-trie hit points the slot's table row at the shared blocks
+        and skips their prefill."""
+        sch, bs, alloc = self.scheduler, self.pool.bs, self._alloc
+        nxt = sch.queue[0]
+        plen = len(nxt.prompt)
+        hits: List[int] = []
+        if sch.chunk is not None:
+            hits = self._trie.match(block_hashes(nxt.prompt, bs))
+            # a full-prompt hit would leave no token to produce the first
+            # logits; hits are quantised down to whole chunks so the rest
+            # of the prefill keeps the chunk boundaries the shared blocks
+            # were hashed under
+            cw = sch.chunk // bs
+            n_hit = min(len(hits), (plen - 1) // bs) // cw * cw
+            hits = hits[:n_hit]
+        revived = sum(1 for i in hits if alloc.refcount(i) == 0)
+        need = -(-(plen + nxt.params.max_new_tokens) // bs) - len(hits)
+        outstanding = sum(self._reserved.values())
+        if need + revived + outstanding > alloc.free_blocks():
+            sch.defer_admission(now)       # head-of-line: FIFO preserved
+            return None
+        req = sch.admit(now)
+        self._reserved[req.slot] = need
+        self._blocks[req.slot] = list(hits)
+        if hits:
+            alloc.incref(hits)
+            self.pool.assign_blocks(self.state, req.slot, hits, len(hits))
+            req.prefill_done = len(hits) * bs   # shared prefix: no prefill
+            self._tail_len[req.slot] = 0
+        return req
 
     def _step_inner(self) -> List[RequestOutput]:
         events: List[RequestOutput] = []
         sch = self.scheduler
         now = sch.clock()
         while sch.queue and sch.free_slots():
-            req = sch.admit(now)
+            if sch.queue[0].next_admit > now:
+                break                          # head backing off: FIFO waits
+            req = (sch.admit(now) if self._alloc is None
+                   else self._admit_paged(now))
             if req is None:
-                break
+                break                          # arena full: wait for releases
             sampling.set_lane(self.lanes, req.slot, req.params)
             self._gens[req.slot] = (
                 sampling.request_generator(req.params, self.device)
@@ -199,7 +264,17 @@ class ContinuousEngine:
                 if self._tail_len[s] >= self.pool.tail]
         if not full:
             return
-        self.pool.refreeze(self.state)
+        if self._alloc is not None:
+            tb = self.pool.tail // self.pool.bs
+            ids = np.zeros((self.pool.slots, tb), np.int64)
+            for s in full:
+                fresh = self._alloc.alloc(tb)    # CoW: never shared pages
+                ids[s] = fresh
+                self._blocks.setdefault(s, []).extend(fresh)
+                self._reserved[s] = max(0, self._reserved.get(s, 0) - tb)
+            self.pool.refreeze(self.state, ids)
+        else:
+            self.pool.refreeze(self.state)
         for s in full:
             self._tail_len[s] = 0
 
@@ -210,11 +285,32 @@ class ContinuousEngine:
         req = sch.next_prefill()
         if req is None:
             return
+        off0 = req.prefill_done
         chunk = sch.prefill_chunk(req)
         final = req.prefill_done >= len(req.prompt)
         toks = torch.tensor([chunk], dtype=torch.long, device=self.device)
+        fresh = None
+        if self._alloc is not None:
+            nb_new = len(chunk) // self.pool.bs
+            fresh = self._alloc.alloc(nb_new) if nb_new else []
         logits, _ = lm.forward_prefill_chunk(self.params, self.state, toks,
-                                             req.slot, self.cfg, self.pool.bs)
+                                             req.slot, self.cfg, self.pool.bs,
+                                             new_ids=fresh)
+        if fresh is not None:
+            self._blocks.setdefault(req.slot, []).extend(fresh)
+            self._reserved[req.slot] = max(
+                0, self._reserved.get(req.slot, 0) - len(fresh))
+            # content-address the new blocks only when the chunk ran at
+            # full width: block bytes depend on the whole token prefix AND
+            # the chunk boundaries, so only full-width-chunk blocks are
+            # reproducible by a later prompt prefilled the same way
+            if sch.chunk is not None and len(chunk) == sch.chunk:
+                hs = block_hashes(req.prompt[:req.prefill_done],
+                                  self.pool.bs)
+                for i, bid in enumerate(fresh):
+                    h = hs[off0 // self.pool.bs + i]
+                    if self._alloc.register(bid, h):
+                        self._trie.insert(h, bid)
         # device tail_len after a chunk = chunk_len % bs (earlier chunks are
         # block-aligned)
         self._tail_len[req.slot] = req.prefill_done % self.pool.bs

@@ -1,6 +1,6 @@
 """Request scheduler for the continuous-batching engine (host-side
-bookkeeping; a copy of ``repro.serving.scheduler`` without the paged-pool
-prefix index, which arrives with the paged pool).
+bookkeeping; a copy of ``repro.serving.scheduler``, with the paged pool's
+prefix index: :func:`block_hashes` and :class:`PrefixTrie`).
 
 The scheduler owns the request lifecycle (queued -> prefilling ->
 decoding -> finished), maps live requests onto pool slots, splits prompts
@@ -64,6 +64,58 @@ class Request:
                                    num_generated=len(self.generated),
                                    admitted_time=self.admitted_time),
             logprobs=tuple(self.logprobs))
+
+
+def block_hashes(tokens: Sequence[int], bs: int) -> List[int]:
+    """Chained content hashes of ``tokens``' full ``bs``-token blocks.
+
+    ``h[i] = hash((h[i-1], block_i))``: each hash commits to the whole
+    token prefix up to its block's end, so a flat ``hash -> block id`` dict
+    behaves as a prefix trie — two prompts share hash ``i`` iff their first
+    ``(i + 1) * bs`` tokens are identical.  A trailing partial block is not
+    hashed: only frozen, block-aligned content is shareable.  (Hashes of
+    tuples of ints do not depend on the interpreter's hash seed.)
+    """
+    out: List[int] = []
+    parent = bs                      # domain-separate from user token values
+    for i in range(len(tokens) // bs):
+        parent = hash((parent, tuple(tokens[i * bs:(i + 1) * bs])))
+        out.append(parent)
+    return out
+
+
+class PrefixTrie:
+    """Host-side prefix index: chained block hash -> physical block id.
+
+    Because the hashes chain (:func:`block_hashes`), a flat dict is a trie:
+    :meth:`match` walks a prompt's hash list until the first miss, which is
+    the longest shared block-aligned prefix already frozen in the arena.
+    The trie owns no blocks: the :class:`~.cache_pool.BlockAllocator` counts
+    references and evicts, and calls :meth:`drop` (its ``on_evict``) when a
+    cached block's storage is reclaimed.
+    """
+
+    def __init__(self) -> None:
+        self._map: Dict[int, int] = {}
+
+    def match(self, hashes: Sequence[int]) -> List[int]:
+        """Physical ids of the longest indexed prefix of ``hashes``."""
+        ids: List[int] = []
+        for h in hashes:
+            bid = self._map.get(h)
+            if bid is None:
+                break
+            ids.append(bid)
+        return ids
+
+    def insert(self, h: int, bid: int) -> None:
+        self._map.setdefault(h, bid)     # first writer wins
+
+    def drop(self, h: int) -> None:
+        self._map.pop(h, None)
+
+    def __len__(self) -> int:
+        return len(self._map)
 
 
 def _matches_stop(generated: List[int],

@@ -26,6 +26,9 @@ from repro_torch.launch import serve
 serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
             "--requests", "2", "--slots", "2", "--prompt-len", "24",
             "--steps", "4", "--prefill-chunk", "16"])
+serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+            "--requests", "2", "--slots", "2", "--prompt-len", "40",
+            "--steps", "4", "--prefill-chunk", "16", "--paged", "--int8"])
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -40,8 +43,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout[-2000:]
-    assert "[serve] stream: 2 requests" in out.stdout
+    assert out.stdout.count("[serve] stream: 2 requests") == 2
     assert "[serve] kernel launches:" in out.stdout
+    assert "[serve] paged: prefix trie holds" in out.stdout
 
 
 def test_no_import_of_jax_or_the_reference_in_the_sources():
@@ -65,7 +69,9 @@ def _tiny():
 
 
 @pytest.mark.parametrize("entry", ["init_params", "convert_concrete",
-                                   "engine", "pool", "serve"])
+                                   "convert_int8", "convert_int4", "engine",
+                                   "engine_paged", "pool", "pool_paged",
+                                   "serve", "serve_paged_int8"])
 def test_entry_points_raise_without_a_card(no_card, entry):
     from repro_torch.core.convert import convert_concrete
     from repro_torch.launch import serve
@@ -78,9 +84,18 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "init_params": lambda: lm.init_params(cfg),
         "convert_concrete": lambda: convert_concrete(
             params, lm.model_specs(cfg), cfg),
+        "convert_int8": lambda: convert_concrete(
+            params, lm.model_specs(cfg), cfg, mode="int8"),
+        "convert_int4": lambda: convert_concrete(
+            params, lm.model_specs(cfg), cfg, mode="int4"),
         "engine": lambda: ContinuousEngine(params, cfg, slots=1),
+        "engine_paged": lambda: ContinuousEngine(params, cfg, slots=1,
+                                                 paged=True),
         "pool": lambda: CachePool.build(cfg, 1, 64),
+        "pool_paged": lambda: CachePool.build(cfg, 1, 64, paged=True),
         "serve": lambda: serve.main(["--reduced", "--requests", "1"]),
+        "serve_paged_int8": lambda: serve.main(
+            ["--reduced", "--requests", "1", "--paged", "--int8"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -96,6 +111,21 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
     eng = ContinuousEngine(params, cfg, slots=1, device="cpu")
     out = eng.generate_batch([[1, 2, 3]], SamplingParams(max_new_tokens=2))
     assert out.shape == (1, 2)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_paged_int_entry_points_run_on_the_cpu_when_asked(no_card, mode):
+    from repro_torch.core.convert import convert_concrete
+    from repro_torch.models import lm
+    from repro_torch.serving import ContinuousEngine, SamplingParams
+    cfg = _tiny()
+    params = convert_concrete(lm.init_params(cfg, device="cpu"),
+                              lm.model_specs(cfg), cfg, mode=mode,
+                              device="cpu")
+    eng = ContinuousEngine(params, cfg, slots=1, device="cpu", paged=True)
+    out = eng.generate_batch([[1, 2, 3]], SamplingParams(max_new_tokens=2))
+    assert out.shape == (1, 2)
+    assert int(eng.state["refcount"].sum()) == 0     # released at the end
 
 
 @pytest.mark.parametrize("alone", [False, True],

@@ -257,12 +257,14 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
 
 
 def test_unported_paths_raise():
+    """The tail-less prefix attention is not ported; an int8 weight without
+    its per-channel scale is refused as the reference refuses it."""
     jsw, tsw = _sparse(256, 128, jnp.float32, seed=12)
     x = torch.from_numpy(rand((2, 256), 13))
     int8 = bridge.params_from_numpy(
         {"w": {**to_numpy(jsw), "values": np.zeros(
             np.asarray(jsw.values).shape, np.int8)}}, None)["w"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="scale"):
         tops.linear(x, int8)
     _, tx = _pooled()
     q = torch.from_numpy(rand((B, HKV * G, D), 14))
