@@ -13,17 +13,30 @@ Phases, each of which exits non-zero on failure:
    version on the card, at the shapes the serving paths of full-width
    Qwen3-0.6B give it, within a stated tolerance, and timed with CUDA
    events beside its bound and the nearest single PyTorch call.
-4. **serve, three configurations** of full-width Qwen3-0.6B (random weights
-   from seed 0, pruned, packed and quantised on the card), each through
-   ``ContinuousEngine`` with every kernel's launch counter zeroed just
-   before and read just after, and decode-tick logits through the kernels
-   held against the same ticks through the plain versions:
+4. **serve** full-width Qwen3-0.6B (random weights from seed 0, pruned,
+   packed and quantised on the card) through ``ContinuousEngine``, with
+   every kernel's launch counter zeroed just before each path and read just
+   after, and decode-tick logits through the kernels held against the same
+   ticks through the plain versions:
 
    * flat pool, bf16 sparse weights: six requests;
+   * speculative decoding, flat bf16, ``SpecConfig(k=4)``: four prompts of
+     a repeated motif and two random ones, timed beside the same traffic
+     without speculation, every verify tick's attention launch at
+     ``(k+1) * G`` query rows, and accepted drafts required;
+   * the two-pass decode at f32 (the prefix-only partial kernel, a grouped
+     tail partial and an lse merge, this script's own dispatch) against
+     the fused f32 engine: logits from one shared state per tick, and
+     greedy tokens identical but where the fused path's top-1 margin is a
+     near-tie; then flat f32 ``k=4`` against flat f32 without speculation
+     under the same rule;
    * paged shared-prefix pool, int8 sparse weights: eight requests sharing
      a 512-token prefix (prefix-cache hits and shared blocks required),
      then the same requests on the flat pool, whose greedy tokens must be
      identical;
+   * paged int8 ``k=3`` against paged int8 without speculation on the
+     shared-prefix requests, under the near-tie rule, with prefix-cache
+     hits;
    * paged pool, int4 sparse weights: four requests sharing the prefix.
 
 The lines before the last carry the kernel table (one JSON object) and the
@@ -49,6 +62,7 @@ SRC = HERE / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
+F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 SLOTS = 4
 PREFILL_CHUNK = 256
 N_REQUESTS = 6
@@ -61,6 +75,22 @@ PAGED_REQUESTS, PAGED_NEW_TOKENS = 8, 96
 IDENTITY_TOKENS = 32
 INT4_REQUESTS, INT4_NEW_TOKENS = 4, 32
 LOGIT_TICKS = 25
+# the two-pass phase (f32): prompts whose remainder past the last 128-token
+# block is over 80 tokens, so 48 new tokens fill the ring and refreeze
+TWO_PASS_LENS = (230, 360, 490, 240)
+TWO_PASS_TOKENS = 48
+TWO_PASS_TICKS = 16
+TWO_PASS_TOL = 1e-5         # max|two-pass - fused| / max|fused logit|
+# a greedy divergence between two f32 paths is a near-tie, not a fault,
+# only where the reference's top-1 margin is below this share of its
+# largest |logit| (random-weight top-1 margins reach down to about 1e-3)
+TIE_MARGIN = 1e-4
+# the spec phase: 4 prompts of a 24-token motif repeated 8 times (n-gram
+# hits) and 2 random ones (misses)
+SPEC_K, SPEC_TOKENS, SPEC_IDENTITY_TOKENS = 4, 128, 48
+SPEC_LOGIT_TICKS = 10       # verify ticks of the spec phase's logits check
+MOTIF, MOTIF_REPEATS, N_MOTIF, N_RANDOM = 24, 8, 4, 2
+PAGED_SPEC_K, PAGED_SPEC_TOKENS = 3, 32
 # the decode-logits checks a serve phase runs: (name, dtype, kernels the
 # plain path keeps, gated).  On the int paths the attention kernel's f32
 # sums, in another order than its plain version's, round to bf16 a ulp
@@ -232,14 +262,15 @@ def _layer_linears(cfg):
 
 
 def linear_kernels(torch, cfg, timer, gen, detail):
-    """Sparse gemv and matmul (bf16 values) and the int8 / int4 kernels at
-    every (K, N) of the layer; per-layer sums at the serving row counts."""
+    """Sparse gemv and matmul (bf16 values; bf16 or, for an engine served
+    at f32, f32 activations) and the int8 / int4 kernels at every (K, N) of
+    the layer; per-layer sums at the serving row counts."""
     from repro_torch.core.quant import quantize_act_int8
     from repro_torch.core.sparse_format import unpack
     from repro_torch.kernels.sparse_gemv import sparse_gemv, \
         sparse_gemv_plain
     from repro_torch.kernels.sparse_matmul import sparse_matmul, \
-        sparse_matmul_plain
+        sparse_matmul_f32, sparse_matmul_plain
     from repro_torch.kernels.sparse_matmul_int4 import (
         sparse_matmul_int4, sparse_matmul_int4_plain)
     from repro_torch.kernels.sparse_matmul_int8 import (
@@ -259,9 +290,14 @@ def linear_kernels(torch, cfg, timer, gen, detail):
         return n_bytes, 2.0 * x_rows * nnz
 
     def rows(name, mode, fn, plain, library, m_list, per_layer_m):
-        weights = {kn: _packed(torch, *kn, gen, mode=mode) for kn in shapes}
+        # f32 activations meet the served bf16 values
+        weights = {kn: _packed(torch, *kn, gen,
+                               mode="bf16" if mode == "f32" else mode)
+                   for kn in shapes}
         dense_w = {kn: unpack(sw) for kn, sw in weights.items()}
-        if mode != "bf16":
+        if mode == "f32":
+            dense_w = {kn: w.float() for kn, w in dense_w.items()}
+        elif mode != "bf16":
             # the library call multiplies int8 by int8 into int32: the
             # unpacked weight, column-major as cuBLASLt's int8 path wants it
             dense_w = {kn: w.t().contiguous().t() for kn, w in
@@ -274,8 +310,9 @@ def linear_kernels(torch, cfg, timer, gen, detail):
                   "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
             for kn in shapes:
                 sw, wd = weights[kn], dense_w[kn]
-                x = torch.randn((m, kn[0]), generator=gen,
-                                device="cuda").to(torch.bfloat16)
+                x = torch.randn((m, kn[0]), generator=gen, device="cuda")
+                if mode != "f32":
+                    x = x.to(torch.bfloat16)
                 if mode == "bf16":
                     args = (x, sw)
                     got, ref = fn(*args), plain(*args)
@@ -284,6 +321,15 @@ def linear_kernels(torch, cfg, timer, gen, detail):
                     # bf16 ulps of the largest output
                     tol = 2.0 ** -7 * ref.float().abs().max().item()
                     xb, ob, rate = 2, 2, BF16_OPS_PER_S
+                elif mode == "f32":
+                    args = (x, sw)
+                    got, ref = fn(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    if got.dtype != torch.float32:
+                        fail(f"{name}: output is not f32")
+                    # f32 products summed in another order over K <= 3072
+                    tol = 1e-4 * ref.abs().max().item()
+                    xb, ob, rate = 4, 4, F32_OPS_PER_S
                 else:
                     xq, sx = quantize_act_int8(x)
                     args = (xq, sx, sw, torch.bfloat16)
@@ -340,10 +386,15 @@ def linear_kernels(torch, cfg, timer, gen, detail):
     out["sparse_gemv"] = rows("sparse_gemv", "bf16", sparse_gemv,
                               sparse_gemv_plain, mm_library, (1, 4, 8),
                               SLOTS)
+    # the prefill chunk, and the verify panels of the spec phases
     out["sparse_matmul"] = rows("sparse_matmul", "bf16", sparse_matmul,
                                 sparse_matmul_plain, mm_library,
-                                (PREFILL_CHUNK,), PREFILL_CHUNK)
-    int_m = (1, SLOTS, 8, PREFILL_CHUNK)
+                                (SLOTS * (SPEC_K + 1), PREFILL_CHUNK),
+                                PREFILL_CHUNK)
+    out["sparse_matmul_f32"] = rows(
+        "sparse_matmul_f32", "f32", sparse_matmul_f32, sparse_matmul_plain,
+        mm_library, (SLOTS * (SPEC_K + 1), PREFILL_CHUNK), PREFILL_CHUNK)
+    int_m = (1, SLOTS, 8, SLOTS * (PAGED_SPEC_K + 1), PREFILL_CHUNK)
     out["sparse_matmul_int8"] = rows(
         "sparse_matmul_int8", "int8", sparse_matmul_int8,
         sparse_matmul_int8_plain, int_library, int_m, SLOTS)
@@ -371,6 +422,16 @@ def _attention_library(torch, q, k_pre, v_pre, tails, n_blocks, tail_len,
     mask = valid[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(qs, kr, vr, attn_mask=mask,
                                                   scale=sm)
+
+
+def _panel_times(timer, detail, name, qn, g, kernel, plain):
+    """Time a verify panel (more than two queries) beside its plain
+    version, into the detail rows; the decode tick is timed below."""
+    if qn <= 2:
+        return ""
+    t, tp = timer(kernel), timer(plain)
+    detail.append({"kernel": name, "QG": qn * g, "ms": t, "plain_ms": tp})
+    return f"; kernel {t * 1e3:.1f} us, plain {tp * 1e3:.1f} us"
 
 
 def attention_kernels(torch, cfg, timer, gen, detail):
@@ -408,7 +469,8 @@ def attention_kernels(torch, cfg, timer, gen, detail):
     errs = []
     vmax = max(kv[1].float().abs().max().item(),
                tails[1].float().abs().max().item())
-    for qn in (1, 2):            # the decode tick and a 2-query panel
+    # the decode tick, a 2-query panel and the spec phase's verify panel
+    for qn in (1, 2, SPEC_K + 1):
         q = torch.randn((b, hkv, qn * g, hd), generator=gen,
                         device="cuda").to(torch.bfloat16)
         args = (q, kbm, kvl, vbm, vvl, tails[0], tails[1], bs, sm,
@@ -425,7 +487,10 @@ def attention_kernels(torch, cfg, timer, gen, detail):
                 or got[3, :, :g].abs().max().item() != 0):
             fail("attention: the all-empty slot must return zeros")
         say(f"attention Q={qn}: err {err:.2e} (rel {rel:.1e}, tol "
-            f"{tol:.2e})")
+            f"{tol:.2e})" + _panel_times(
+                timer, detail, "sparse_decode_attention_fused", qn, g,
+                lambda: sparse_decode_attention_fused(*args),
+                lambda: sparse_decode_attention_fused_plain(*args)))
     q = torch.randn((b, hkv, g, hd), generator=gen,
                     device="cuda").to(torch.bfloat16)
     args = (q, kbm, kvl, vbm, vvl, tails[0], tails[1], bs, sm, n_blocks,
@@ -483,7 +548,7 @@ def attention_kernels(torch, cfg, timer, gen, detail):
     for a in poisoned:            # NaN values, every bit set
         a[dead] = -1 if a.dtype == torch.int32 else float("nan")
     errs = []
-    for qn in (1, 2):
+    for qn in (1, 2, PAGED_SPEC_K + 1):
         q = torch.randn((b, hkv, qn * g, hd), generator=gen,
                         device="cuda").to(torch.bfloat16)
         rest = (tails[0], tails[1], bs, sm, n_blocks, tail_len, g)
@@ -504,7 +569,12 @@ def attention_kernels(torch, cfg, timer, gen, detail):
             fail("paged attention: the all-empty slot must return zeros")
         say(f"paged attention Q={qn}: err {err:.2e} (rel {rel:.1e}, tol "
             f"{1e-3 * vmax:.2e}); finite and unchanged with NaN in dead "
-            f"page {dead}")
+            f"page {dead}" + _panel_times(
+                timer, detail, "sparse_decode_attention_fused_paged", qn, g,
+                lambda: sparse_decode_attention_fused_paged(q, *poisoned,
+                                                            table, *rest),
+                lambda: sparse_decode_attention_fused_paged_plain(
+                    q, *arena, table, *rest)))
     q = torch.randn((b, hkv, g, hd), generator=gen,
                     device="cuda").to(torch.bfloat16)
     args = (q, *poisoned, table, tails[0], tails[1], bs, sm, n_blocks,
@@ -543,6 +613,105 @@ def attention_kernels(torch, cfg, timer, gen, detail):
     say(f"paged attention B={b} ({len(live)} live pages, 3 shared): kernel "
         f"{t * 1e3:.1f} us, plain {t_plain * 1e3:.1f} us, SDPA "
         f"{t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us")
+    return out
+
+
+def partial_kernel(torch, cfg, timer, gen, detail):
+    """The prefix-only partial at the live serving shape (4 slots, bs 128,
+    the serving KV sparsity), one slot empty, one partial, one full, one a
+    single block; in bf16 and widened to f32."""
+    import torch.nn.functional as F
+    from repro_torch.core.sparse_format import unpack
+    from repro_torch.core.sparse_kv import freeze_chunk_blocks, pooled_view
+    from repro_torch.kernels.sparse_attention import (
+        sparse_decode_attention_partial,
+        sparse_decode_attention_partial_plain)
+    from repro_torch.serving.cache_pool import CachePool
+
+    hkv, hd, g = cfg.n_kv, cfg.hd, cfg.padded_heads // cfg.n_kv
+    bs, sb, b = 128, 7, SLOTS
+    sm = 1.0 / hd ** 0.5
+    pool = CachePool.build(cfg, SLOTS, sb * bs, bs=bs, device="cuda")
+    n_blocks = torch.tensor([0, 3, sb, 1], dtype=torch.int32, device="cuda")
+    errs, res = [], {}
+    for dt in (torch.float32, torch.bfloat16):
+        kv = torch.randn((2, b, hkv, sb * bs, hd), generator=gen,
+                         device="cuda").to(dt)
+        kbm, kvl, vbm, vvl = freeze_chunk_blocks(
+            kv[0], kv[1], cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs,
+            pool.cap_k, pool.cap_v)
+        q = torch.randn((b, hkv, g, hd), generator=gen, device="cuda").to(dt)
+        args = (q, kbm, kvl, vbm, vvl, bs, sm, n_blocks)
+        o, lse = sparse_decode_attention_partial(*args)
+        po, plse = sparse_decode_attention_partial_plain(*args)
+        torch.cuda.synchronize()
+        name = f"partial attention {str(dt).split('.')[-1]}"
+        # f32 expansion, scores and sums on both sides, in another order
+        tol = 1e-3 * po.abs().max().item()
+        err, rel = _check(name, o, po, tol, errs)
+        live = n_blocks > 0
+        dl = (lse[live] - plse[live]).abs()
+        lse_ok = dl <= 1e-4 + 1e-5 * plse[live].abs()
+        if not bool(lse_ok.all()):
+            fail(f"{name}: live lse differs by {dl.max().item():.3e}")
+        for nm, oo, ll in (("kernel", o, lse), ("plain", po, plse)):
+            if oo[~live].abs().max().item() != 0 or \
+                    ll[~live].max().item() > -1e29:
+                fail(f"{name}: the empty slot's {nm} output is not o = 0, "
+                     "lse <= -1e29")
+        # a NaN-poisoned block past n_blocks (every bitmap bit set, NaN
+        # values) must never be read
+        dead = 1
+        kbm_p, kvl_p, vbm_p, vvl_p = (a.clone() for a in (kbm, kvl, vbm,
+                                                           vvl))
+        for a in (kbm_p, vbm_p):
+            a[3, :, dead:] = -1
+        for a in (kvl_p, vvl_p):
+            a[3, :, dead:] = float("nan")
+        o2, lse2 = sparse_decode_attention_partial(
+            q, kbm_p, kvl_p, vbm_p, vvl_p, bs, sm, n_blocks)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o2).all() and torch.equal(o2, o)
+                and torch.equal(lse2, lse)):
+            fail(f"{name}: a NaN-poisoned dead block changed the output")
+        say(f"{name}: o err {err:.2e} (rel {rel:.1e}, tol {tol:.2e}); live "
+            f"lse err {dl.max().item():.2e} (tol 1e-4 + 1e-5 |lse|); empty "
+            f"slot o = 0, lse {lse[~live].max().item():.3e}; finite and "
+            f"unchanged with NaN in dead blocks")
+        res[dt] = (args, kbm, kvl, vbm, vvl, q, dl.max().item())
+    args, kbm, kvl, vbm, vvl, q, lse_err = res[torch.bfloat16]
+    t = timer(lambda: sparse_decode_attention_partial(*args))
+    t_plain = timer(lambda: sparse_decode_attention_partial_plain(*args))
+    # the library call: SDPA over the unpacked valid prefix (o only; it
+    # returns no lse)
+    k_pre = unpack(pooled_view(kbm, kvl, bs, hd)).repeat_interleave(g, 1)
+    v_pre = unpack(pooled_view(vbm, vvl, bs, hd)).repeat_interleave(g, 1)
+    mask = (torch.arange(sb * bs, device="cuda")[None]
+            < n_blocks[:, None] * bs)[:, None, None, :]
+    qs = q.reshape(b, hkv * g, 1, hd)
+    t_lib = timer(lambda: F.scaled_dot_product_attention(
+        qs, k_pre, v_pre, attn_mask=mask, scale=sm))
+    # bytes: q, n_blocks, o and lse (f32), the valid blocks' bitmap words
+    # and set values
+    valid = (torch.arange(sb, device="cuda")[None]
+             < n_blocks[:, None])[:, None, :]
+    nnz = (values_read(kbm, bs * hd, pool.cap_k, valid)
+           + values_read(vbm, bs * hd, pool.cap_v, valid))
+    words = bs * hd // 32
+    n_bytes = (q.numel() * 2 + 4 * b + q.numel() * 4 + b * hkv * g * 4
+               + hkv * int(n_blocks.sum()) * 2 * words * 4
+               + nnz * kvl.element_size())
+    n_ops = 4.0 * hd * g * hkv * int(n_blocks.sum()) * bs
+    bnd, bby = bound_ms(n_bytes, n_ops)
+    out = {"ms": t, "plain_ms": t_plain, "library_ms": t_lib,
+           "bound_ms": bnd, "bound_by": bby, "max_abs_err": max(errs),
+           "max_lse_err": lse_err}
+    detail.append({"kernel": "sparse_decode_attention_partial", "B": b,
+                   "Hkv": hkv, "QG": g, "Sb": sb, "bs": bs,
+                   "n_blocks": n_blocks.tolist(), **out})
+    say(f"partial attention B={b}: kernel {t * 1e3:.1f} us, plain "
+        f"{t_plain * 1e3:.1f} us, SDPA on the unpacked prefix (o only) "
+        f"{t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({bby})")
     return out
 
 
@@ -589,6 +758,8 @@ def kernel_phase(torch, cfg):
     detail = []
     summary = linear_kernels(torch, cfg, timer, gen, detail)
     summary.update(attention_kernels(torch, cfg, timer, gen, detail))
+    summary["sparse_decode_attention_partial"] = partial_kernel(
+        torch, cfg, timer, gen, detail)
     summary["dense_matmul"] = unembed_kernel(torch, cfg, timer, gen, detail)
     return summary, detail
 
@@ -687,14 +858,22 @@ def _refreeze_copies(eng, states, tail_len):
 
 
 def logits_check(torch, eng, cfg, dtype=None, n_ticks=LOGIT_TICKS, keep=()):
-    """Teacher-forced decode ticks from the engine's live state, once
-    through the kernels and once through the plain versions (but for the
-    kernels in ``keep``, held launch by launch to their plain versions), in
-    the serving dtype or (``dtype=torch.float32``) widened to f32.  Full
-    tails are folded between ticks as the engine folds them."""
+    """Teacher-forced ticks from the engine's live state, once through the
+    kernels and once through the plain versions (but for the kernels in
+    ``keep``, held launch by launch to their plain versions), in the serving
+    dtype or (``dtype=torch.float32``) widened to f32.  A speculating
+    engine's ticks are verify panels: ``k + 1`` rows of the last token and
+    the drafter's proposals (clamped to the tail headroom, as the engine
+    clamps them), accepted greedily against the plain logits, both states
+    then rolled back alike.  Every row within the headroom is compared.
+    Full tails are folded between ticks as the engine folds them."""
     import dataclasses
     from repro_torch.models import lm
     slots, mask, tokens = _decode_inputs(torch, eng)
+    pool, k = eng.pool, (eng._spec.k if eng._spec is not None else 0)
+    sch = eng.scheduler
+    hist = {s: list(sch.active[s].prompt) + list(sch.active[s].generated)
+            for s in slots}
     params = eng.params
     if dtype is not None:
         name = str(dtype).split(".")[-1]
@@ -705,25 +884,50 @@ def logits_check(torch, eng, cfg, dtype=None, n_ticks=LOGIT_TICKS, keep=()):
     worst, agree, margins, held = 0.0, [], [], {}
     for _ in range(n_ticks):
         _refreeze_copies(eng, (st_k, st_p), tail_len)
-        tail_len[slots] += 1
-        lk, st_k = lm.forward_panel_pooled(params, st_k, tokens, mask, cfg,
-                                           eng.pool.bs)
+        panel = torch.zeros((pool.slots, k + 1), dtype=torch.long,
+                            device="cuda")
+        panel[:, 0] = tokens[:, 0]
+        drafts = {}
+        for s in slots:
+            cap = min(k, pool.tail - 1 - int(tail_len[s]))
+            drafts[s] = eng.drafter.propose(hist[s], cap) if cap > 0 else []
+            if drafts[s]:
+                panel[s, 1:1 + len(drafts[s])] = torch.tensor(drafts[s])
+        lk, st_k = lm.forward_panel_pooled(params, st_k, panel, mask, cfg,
+                                           pool.bs)
         with plain_kernels(keep, held):
-            lp, st_p = lm.forward_panel_pooled(params, st_p, tokens, mask,
-                                               cfg, eng.pool.bs)
-        lk, lp = lk[slots, 0].float(), lp[slots, 0].float()
+            lp, st_p = lm.forward_panel_pooled(params, st_p, panel, mask,
+                                               cfg, pool.bs)
+        n_rows = [1 + min(k, pool.tail - 1 - int(tail_len[s]))
+                  for s in slots]
+        lk = torch.cat([lk[s, :n].float() for s, n in zip(slots, n_rows)])
+        lp = torch.cat([lp[s, :n].float() for s, n in zip(slots, n_rows)])
         if not torch.isfinite(lk).all():
-            fail("decode logits through the kernels are not finite")
+            fail("logits through the kernels are not finite")
         worst = max(worst, ((lk - lp).abs().max()
                             / lp.abs().max()).item())
         agree += (lk.argmax(-1) == lp.argmax(-1)).tolist()
         top2 = lp.topk(2, -1).values
         margins += ((top2[:, 0] - top2[:, 1])
                     / lp.abs().max(-1).values).tolist()
-        tokens[slots, 0] = lp.argmax(-1)
+        # greedy acceptance against the plain logits
+        best = lp.argmax(-1).tolist()
+        roll = torch.zeros(pool.slots, dtype=torch.int32)
+        row = 0
+        for s, n in zip(slots, n_rows):
+            d, am = drafts[s], best[row:row + n]
+            a = next((i for i, t in enumerate(d) if t != am[i]), len(d))
+            hist[s] += d[:a] + [am[a]]
+            tokens[s, 0] = am[a]
+            tail_len[s] += a + 1
+            roll[s] = k - a
+            row += n
+        if k:
+            pool.rollback(st_k, roll)
+            pool.rollback(st_p, roll)
     clear = [a for a, m in zip(agree, margins) if m > TOP1_CLEAR]
     return {"dtype": "bf16" if dtype is None else "f32", "kept": keep,
-            "held": held, "rel_err": worst,
+            "panel": k + 1, "held": held, "rel_err": worst,
             "top1": sum(agree) / len(agree),
             "slot_ticks": len(agree),
             "top1_clear": sum(clear) / max(len(clear), 1),
@@ -748,19 +952,33 @@ def decode_profile(torch, eng, cfg, n_ticks=8):
     """Wall time per decode tick through the kernels (forward, sampler and
     the token sync, from a copy of the live state), and the device time of
     the same ticks from a ``torch.profiler`` trace: the device's busy and
-    idle shares."""
+    idle shares.  A speculating engine's tick is a verify panel of ``k + 1``
+    rows (no drafts: the work does not depend on them) with the accept and
+    a rollback of the whole panel, so the copy's state stays put."""
     from repro_torch.models import lm
     from repro_torch.serving import sampling
     slots, mask, tokens = _decode_inputs(torch, eng)
     live = mask.tolist()
     st = _clone(eng.state)
+    k = eng._spec.k if eng._spec is not None else 0
+    panel = tokens.repeat(1, k + 1)
+    no_drafts = torch.zeros(len(live), dtype=torch.long)
 
     def tick():
-        logits, _ = lm.forward_panel_pooled(eng.params, st, tokens, mask, cfg,
+        if not k:
+            logits, _ = lm.forward_panel_pooled(eng.params, st, tokens, mask,
+                                                cfg, eng.pool.bs)
+            tok, _ = sampling.sample_step(logits[:, 0], eng.lanes,
+                                          [None] * len(live), live)
+            tok.tolist()
+            return
+        logits, _ = lm.forward_panel_pooled(eng.params, st, panel, mask, cfg,
                                             eng.pool.bs)
-        tok, _ = sampling.sample_step(logits[:, 0], eng.lanes,
-                                      [None] * len(live), live)
-        tok.tolist()
+        tok, _, nc = sampling.accept_step(logits, panel, no_drafts,
+                                          eng.lanes, [None] * len(live),
+                                          live)
+        eng.pool.rollback(st, (k + 1) * mask.to(torch.int32))
+        tok.tolist(), nc.tolist()
 
     tick()
     torch.cuda.synchronize()
@@ -768,7 +986,8 @@ def decode_profile(torch, eng, cfg, n_ticks=8):
     for _ in range(n_ticks):
         tick()
     wall = (time.perf_counter() - t0) / n_ticks
-    res = {"ticks": n_ticks, "slots": len(slots), "wall_ms": wall * 1e3}
+    res = {"ticks": n_ticks, "slots": len(slots), "panel": k + 1,
+           "wall_ms": wall * 1e3}
     # the profiler is a measurement, not a check: its own failures are
     # reported; a failing tick fails the run
     try:
@@ -817,11 +1036,12 @@ def _model(torch, cfg, mode):
     return params
 
 
-def _engine(cfg, params, paused, max_tokens, paged=False):
-    from repro_torch.serving import ContinuousEngine
+def _engine(cfg, params, paused, max_tokens, paged=False, spec_k=0):
+    from repro_torch.serving import ContinuousEngine, SpecConfig
     eng = ContinuousEngine(params, cfg, slots=SLOTS, max_tokens=max_tokens,
                            prefill_chunk=PREFILL_CHUNK, device="cuda",
                            paged=paged,
+                           spec=SpecConfig(k=spec_k) if spec_k else None,
                            clock=lambda: time.perf_counter() - paused[0])
     if eng.pool.bs != 128:
         fail(f"expected bs=128, got {eng.pool.bs}")
@@ -829,14 +1049,16 @@ def _engine(cfg, params, paused, max_tokens, paged=False):
 
 
 def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
-                 checks=FLAT_CHECKS, on_step=None, lead=False):
+                 checks=FLAT_CHECKS, on_step=None, lead=False,
+                 check_ticks=LOGIT_TICKS, rows=None):
     """Submit the requests and run the engine to completion with every
     kernel counter zeroed just before and read just after.  ``lead``
     submits the first request alone and the rest once it has its first
     token (so a shared prefix is frozen before the others arrive).  When
-    ``ready(eng)`` first holds, the decode logits are checked (each of
-    ``checks``) and one decode tick is profiled, outside the counted and
-    timed run.  Returns the results."""
+    ``ready(eng)`` first holds, the logits of ``check_ticks`` ticks are
+    checked (each of ``checks``) and one tick is profiled, outside the
+    counted and timed run (``rows``, a ``panel_rows`` count, included).
+    Returns the results."""
     import torch as _torch
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import launch_counts, reset_launch_counts
@@ -871,10 +1093,12 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
             if check is None and ready is not None and ready(eng):
                 c0 = time.perf_counter()
                 saved = launch_counts()
+                saved_rows = dict(rows or {})
                 lm.forward_panel_pooled = fwd_panel
                 check = {name: logits_check(
                     torch, eng, cfg,
-                    None if dt == "bf16" else _torch.float32, keep=keep)
+                    None if dt == "bf16" else _torch.float32,
+                    n_ticks=check_ticks, keep=keep)
                     for name, dt, keep, _ in checks}
                 for name, _, _, gated in checks:
                     check[name]["gated"] = gated
@@ -882,6 +1106,9 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                 lm.forward_panel_pooled = panel
                 for name, n in saved.items():
                     serve_mod.KERNELS[name].launches = n
+                if rows is not None:
+                    rows.clear()
+                    rows.update(saved_rows)
                 paused[0] += time.perf_counter() - c0
             n_pre = ticks["prefill"]
             s0 = time.perf_counter()
@@ -933,9 +1160,12 @@ def gate_logits(label, check):
         fail(f"{label}: the logits comparison never ran")
     for name, c in check.items():
         tol = LOGIT_TOL[c["dtype"]]
-        say(f"{label}: decode logits kernels vs plain ({name}"
+        rows = ("slot-ticks" if c["panel"] == 1 else
+                f"rows of {c['panel']}-query verify panels")
+        say(f"{label}: {'decode' if c['panel'] == 1 else 'verify'} logits "
+            f"kernels vs plain ({name}"
             f"{'' if c['gated'] else ', reported, not gated'}) over "
-            f"{c['slot_ticks']} slot-ticks: max|diff|/max|plain| "
+            f"{c['slot_ticks']} {rows}: max|diff|/max|plain| "
             f"{c['rel_err']:.2e} (tol {tol}), top-1 agreement "
             f"{c['top1']:.3f}; {c['top1_clear']:.3f} over the "
             f"{c['clear_slot_ticks']} with a top-1 margin above "
@@ -983,7 +1213,9 @@ def report(label, run, total, n_req):
     say(f"{label}: kernel launches {run['counts']}; median step ms {step_ms}")
     if profile is not None:
         dev = profile.get("device")
-        say(f"{label}: decode tick ({profile['slots']} slots) wall "
+        tick = ("decode tick" if profile["panel"] == 1 else
+                f"verify tick of {profile['panel']} rows")
+        say(f"{label}: {tick} ({profile['slots']} slots) wall "
             f"{profile['wall_ms']:.2f} ms, " + (dev if dev else
             f"device busy {profile['device_ms']:.2f} ms (idle share "
             f"{profile['idle_share']:.2f}); top: " + ", ".join(
@@ -1028,12 +1260,13 @@ def serve_phase(torch, cfg):
                    ("sparse_gemv", "sparse_decode_attention_fused",
                     "sparse_matmul", "dense_matmul"),
                    ("sparse_decode_attention_fused_paged",
-                    "sparse_matmul_int8", "sparse_matmul_int4"))
+                    "sparse_matmul_int8", "sparse_matmul_int4",
+                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
     total = check_outputs("serve", run, cfg, NEW_TOKENS)
     gate_logits("serve", run["check"])
     res = report("serve", run, total, N_REQUESTS)
     res["prompt_lens"] = [int(x) for x in lens]
-    return res
+    return res, params
 
 
 def _shared_prompts(cfg, n):
@@ -1093,7 +1326,8 @@ def paged_phase(torch, cfg, mode, n_req, new_tokens, kernel):
                    ("dense_matmul", "sparse_decode_attention_fused_paged",
                     kernel),
                    ("sparse_gemv", "sparse_matmul",
-                    "sparse_decode_attention_fused"))
+                    "sparse_decode_attention_fused",
+                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
     total = check_outputs(label, run, cfg, new_tokens)
     hit_blocks = sum(hits)
     say(f"{label}: prefix-cache hits on {sum(1 for h in hits if h)} of "
@@ -1153,6 +1387,463 @@ def identity_phase(torch, cfg, params, prompts, paged_run):
             "tokens": IDENTITY_TOKENS, "launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# the two-pass decode and speculative decoding
+# ---------------------------------------------------------------------------
+
+def two_pass_attention(q, k_sp, v_sp, hkv, sm_scale, k_tail=None,
+                       v_tail=None, tail_len=None, prefix_len=None):
+    """This script's copy of the pre-fusion decode dispatch (as
+    ``tests/test_fused_decode.py`` keeps one): the prefix-only partial
+    kernel, the grouped tail partial and the lse merge.  Decode ticks only
+    (a ``Q == 1`` panel squeezes)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_attention import (
+        gqa_partial, len_valid, merge_attn, sparse_decode_attention_partial)
+    if q.dim() == 4:
+        if q.shape[1] != 1:
+            fail(f"two-pass dispatch got a {q.shape[1]}-query panel")
+        return two_pass_attention(q[:, 0], k_sp, v_sp, hkv, sm_scale, k_tail,
+                                  v_tail, tail_len, prefix_len)[:, None]
+    b, hq, d = q.shape
+    g = hq // hkv
+    bs = k_sp.block[0]
+    words, sb = k_sp.bitmap.shape[-1], k_sp.bitmap.shape[2]
+    qg = q.reshape(b, hkv, g, d)
+    n_blocks = ops._n_blocks(b, sb, bs, prefix_len, q.device)
+    o, lse = sparse_decode_attention_partial(
+        qg, k_sp.bitmap.reshape(b, hkv, sb, words),
+        k_sp.values.reshape(b, hkv, sb, k_sp.capacity),
+        v_sp.bitmap.reshape(b, hkv, sb, words),
+        v_sp.values.reshape(b, hkv, sb, v_sp.capacity), bs, sm_scale,
+        n_blocks)
+    # an empty prefix gives o = 0 and lse = -1e30 (the kernel's NEG_INF)
+    o, lse = o.reshape(b, hq, d), lse.reshape(b, hq)
+    if k_tail is not None and k_tail.shape[2] > 0:
+        t = k_tail.shape[2]
+        valid = len_valid(t, tail_len if tail_len is not None else t, b)
+        o2, lse2 = gqa_partial(qg, k_tail, v_tail, sm_scale, valid)
+        o2, lse2 = o2.reshape(b, hq, d), lse2.reshape(b, hq)
+        empty = ~valid.any(-1)
+        lse2 = torch.where(empty[:, None],
+                           torch.tensor(float("-inf"), device=q.device),
+                           lse2)
+        lse2 = torch.where(torch.isfinite(lse2), lse2, lse.min() - 60.0)
+        o, _ = merge_attn(o, lse, o2, lse2)
+    return o.to(q.dtype)
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """Swap one attribute of a package module for this script's run only
+    (the package has no such switch)."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def two_pass_dispatch():
+    from repro_torch.kernels import ops
+    return patched(ops, "sparse_decode_attention", two_pass_attention)
+
+
+@contextlib.contextmanager
+def record_margins(eng, margins):
+    """Record the top-1 margin (top-1 minus top-2 over the largest |logit|)
+    of every token the engine samples at ``Q == 1`` (decode ticks and final
+    prefill chunks), keyed ``(request id, position)``."""
+    from repro_torch.models import lm
+    panel, chunk = lm.forward_panel_pooled, lm.forward_prefill_chunk
+
+    def note(keys, logits):
+        logits = logits.float()
+        top2 = logits.topk(2, -1).values
+        rel = (top2[:, 0] - top2[:, 1]) / logits.abs().amax(-1)
+        margins.update(zip(keys, rel.tolist()))
+
+    def rec_panel(params, state, tokens, *a, **k):
+        sch = eng.scheduler
+        live = [(s, (sch.active[s].rid, len(sch.active[s].generated)))
+                for s in sch.decoding_slots()]
+        logits, st = panel(params, state, tokens, *a, **k)
+        if tokens.shape[1] == 1 and live:
+            note([key for _, key in live], logits[[s for s, _ in live], 0])
+        return logits, st
+
+    def rec_chunk(params, state, tokens, slot, *a, **k):
+        logits, st = chunk(params, state, tokens, slot, *a, **k)
+        req = eng.scheduler.active.get(slot)
+        if req is not None and req.prefill_done >= len(req.prompt):
+            note([(req.rid, 0)], logits)
+        return logits, st
+
+    with patched(lm, "forward_panel_pooled", rec_panel), \
+            patched(lm, "forward_prefill_chunk", rec_chunk):
+        yield margins
+
+
+def gate_identity(label, got, want, want_rids, margins):
+    """Greedy token lists of two paths: identical, or the first divergence
+    of a request lies where the reference path's top-1 margin is below
+    ``TIE_MARGIN`` of its largest |logit| (an honest near-tie flip)."""
+    same, flips = 0, []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            same += 1
+            continue
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        m = margins.get((want_rids[i], j))
+        flips.append({"request": i, "position": j, "margin": m})
+        say(f"{label}: request {i} first differs at token {j} "
+            f"({a[j:j + 1]} vs {b[j:j + 1]}); the reference's top-1 margin "
+            f"there is {m} of its largest |logit| (tie below {TIE_MARGIN})")
+        if m is None or not m < TIE_MARGIN:
+            fail(f"{label}: request {i} differs at token {j} where the "
+                 f"reference's margin {m} is no near-tie")
+    say(f"{label}: {same} of {len(got)} requests token-identical; "
+        f"{len(flips)} near-tie divergences")
+    return {"identical": same, "requests": len(got), "divergences": flips}
+
+
+@contextlib.contextmanager
+def panel_rows():
+    """Count the attention kernels' launches by query rows (``Q * G``), for
+    the verify-panel check (the kernels' own counters are unchanged)."""
+    from repro_torch.kernels import ops
+    rows = {}
+
+    def counting(name):
+        fn = getattr(ops, name)
+
+        def run(q, *a, **k):
+            key = (name, q.shape[2])
+            rows[key] = rows.get(key, 0) + 1
+            return fn(q, *a, **k)
+        return run
+    names = ("sparse_decode_attention_fused",
+             "sparse_decode_attention_fused_paged")
+    saved = {n: getattr(ops, n) for n in names}
+    for n in names:
+        setattr(ops, n, counting(n))
+    try:
+        yield rows
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def device_ms_per_call(torch, fn, n=20):
+    """Device time per call of ``fn`` from a ``torch.profiler`` trace (every
+    kernel ``fn`` launches), or a "not measured" reason."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if "CUDA" in str(e.device_type))
+    except Exception as e:
+        return f"not measured: {type(e).__name__}: {e}"
+    if busy <= 0:
+        return "not measured: the trace holds no device time"
+    return busy / n / 1e3
+
+
+def attention_times(torch, eng, cfg, timer):
+    """One layer's decode attention on the live state, fused against the
+    two-pass dispatch: CUDA-event time (L2 flushed) and traced device time
+    per call."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    slots, mask, tokens = _decode_inputs(torch, eng)
+    captured = []
+    fused = ops.sparse_decode_attention
+
+    def capture(*a, **k):
+        if not captured:
+            captured.append((a, k))
+        return fused(*a, **k)
+    with patched(ops, "sparse_decode_attention", capture):
+        lm.forward_panel_pooled(eng.params, _clone(eng.state), tokens, mask,
+                                cfg, eng.pool.bs)
+    a, k = captured[0]
+    res = {}
+    for name, fn in (("fused", fused), ("two_pass", two_pass_attention)):
+        res[name] = {"event_ms": timer(lambda: fn(*a, **k)),
+                     "device_ms": device_ms_per_call(
+                         torch, lambda: fn(*a, **k))}
+    return res
+
+
+def two_pass_logits(torch, eng, cfg, n_ticks=TWO_PASS_TICKS):
+    """Teacher-forced decode ticks from the live state: each tick starts
+    both paths from one shared state (the fused path's), and the two-pass
+    logits are held to the fused ones within ``TWO_PASS_TOL`` of the
+    largest |logit|."""
+    from repro_torch.models import lm
+    slots, mask, tokens = _decode_inputs(torch, eng)
+    st = _clone(eng.state)
+    tail_len = eng._tail_len.copy()
+    worst = 0.0
+    for _ in range(n_ticks):
+        _refreeze_copies(eng, (st,), tail_len)
+        tail_len[slots] += 1
+        alt = _clone(st)
+        with two_pass_dispatch():
+            lp, _ = lm.forward_panel_pooled(eng.params, alt, tokens, mask,
+                                            cfg, eng.pool.bs)
+        lk, st = lm.forward_panel_pooled(eng.params, st, tokens, mask, cfg,
+                                         eng.pool.bs)
+        lk, lp = lk[slots, 0], lp[slots, 0]
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            fail("two-pass: decode logits are not finite")
+        worst = max(worst, ((lk - lp).abs().max()
+                            / lk.abs().max()).item())
+        tokens[slots, 0] = lk.argmax(-1)
+    if not worst <= TWO_PASS_TOL:
+        fail(f"two-pass: logits differ from the fused path's by {worst:.3e} "
+             f"of the largest |logit| (tol {TWO_PASS_TOL})")
+    return {"ticks": n_ticks, "slots": len(slots), "rel_err": worst}
+
+
+def _widened(torch, cfg, params):
+    """The served model widened to f32 (sparse weights keep their bf16
+    values; activations, cache and dense leaves are f32)."""
+    import dataclasses
+    return (dataclasses.replace(cfg, compute_dtype="float32",
+                                param_dtype="float32"),
+            _clone(params, torch.float32))
+
+
+def two_pass_phase(torch, cfg32, params32, timer):
+    """The flat f32 engine decoding through the two-pass dispatch (the
+    prefix-partial kernel, the grouped tail partial, the lse merge) against
+    the fused f32 engine: logits from one shared state per tick, and greedy
+    tokens under the near-tie rule."""
+    import numpy as np
+    from repro_torch.launch.serve import launch_counts, reset_launch_counts
+    from repro_torch.serving import SamplingParams
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg32.vocab, n).tolist()
+               for n in TWO_PASS_LENS]
+    sp = SamplingParams(max_new_tokens=TWO_PASS_TOKENS)
+    max_tokens = max(TWO_PASS_LENS) + TWO_PASS_TOKENS + cfg32.kv_tail
+    eng = _engine(cfg32, params32, [0.0], max_tokens)
+    margins, check, times = {}, None, None
+    with record_margins(eng, margins):
+        rids = [eng.submit(p, sp) for p in prompts]
+        while not eng.scheduler.done():
+            if check is None and \
+                    len(eng.scheduler.decoding_slots()) == SLOTS:
+                check = two_pass_logits(torch, eng, cfg32)
+                times = attention_times(torch, eng, cfg32, timer)
+            eng.step()
+    if check is None:
+        fail("two-pass: the slots never all decoded together")
+    fused = [eng.scheduler.finished[r].generated for r in rids]
+
+    eng2 = _engine(cfg32, params32, [0.0], max_tokens)
+    refreezes = [0]
+    refreeze = eng2._refreeze_tick
+
+    def counting_refreeze():
+        refreezes[0] += int((eng2._tail_len >= eng2.pool.tail).sum())
+        refreeze()
+    eng2._refreeze_tick = counting_refreeze
+    with two_pass_dispatch():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        rids2 = [eng2.submit(p, sp) for p in prompts]
+        eng2.run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    check_launches("two-pass", counts,
+                   ("sparse_decode_attention_partial", "sparse_gemv",
+                    "sparse_matmul_f32", "dense_matmul"),
+                   ("sparse_decode_attention_fused",
+                    "sparse_decode_attention_fused_paged", "sparse_matmul",
+                    "sparse_matmul_int8", "sparse_matmul_int4"))
+    if refreezes[0] < 1:
+        fail("two-pass: no slot refroze")
+    two = [eng2.scheduler.finished[r].generated for r in rids2]
+    ident = gate_identity("two-pass vs fused f32", two, fused, rids, margins)
+    per_layer = {k: {"event_us": v["event_ms"] * 1e3,
+                     "device_us": (v["device_ms"] * 1e3
+                                   if isinstance(v["device_ms"], float)
+                                   else v["device_ms"])}
+                 for k, v in times.items()}
+    say(f"two-pass: logits within {check['rel_err']:.2e} of the fused "
+        f"path's over {check['ticks']} ticks x {check['slots']} slots (tol "
+        f"{TWO_PASS_TOL}); {refreezes[0]} slot refreezes; launches {counts}")
+    say(f"two-pass: one layer's decode attention on the live state (4 "
+        f"slots, f32): fused {per_layer['fused']}, two-pass (partial kernel "
+        f"+ tail + merge) {per_layer['two_pass']} (us)")
+    return {"logits": check, "identity": ident, "launches": counts,
+            "refreezes": refreezes[0], "attention_per_layer": per_layer,
+            "prompt_lens": list(TWO_PASS_LENS), "tokens": TWO_PASS_TOKENS}
+
+
+def _spec_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(3)
+    motifs = [rng.integers(0, cfg.vocab, MOTIF).tolist() * MOTIF_REPEATS
+              for _ in range(N_MOTIF)]
+    rand = [rng.integers(0, cfg.vocab, MOTIF * MOTIF_REPEATS).tolist()
+            for _ in range(N_RANDOM)]
+    return motifs + rand
+
+
+def _verify_rows(label, rows, name, qg, verify_ticks, layers):
+    """Every verify tick launched the attention kernel once per layer with
+    ``Q * G = qg`` query rows, and no launch had another width."""
+    want = {(name, qg): verify_ticks * layers}
+    if rows != want:
+        fail(f"{label}: attention launches by (kernel, Q*G) {rows}, "
+             f"expected {want}")
+
+
+def spec_phase(torch, cfg, params):
+    """Flat bf16 with ``SpecConfig(k=4)`` on motif and random traffic,
+    timed beside the same traffic without speculation."""
+    from repro_torch.serving import SamplingParams
+    prompts = _spec_prompts(cfg)
+    n = len(prompts)
+    params_of = [SamplingParams(max_new_tokens=SPEC_TOKENS)] * n
+    max_tokens = MOTIF * MOTIF_REPEATS + SPEC_TOKENS + cfg.kv_tail
+    paused0 = [0.0]
+    eng0 = _engine(cfg, params, paused0, max_tokens)
+    off = serve_stream(torch, eng0, cfg, prompts, params_of, paused0)
+    total_off = check_outputs("spec off", off, cfg, SPEC_TOKENS)
+    paused = [0.0]
+    eng = _engine(cfg, params, paused, max_tokens, spec_k=SPEC_K)
+    g = cfg.padded_heads // cfg.n_kv
+
+    def ready(e):
+        return len(e.scheduler.decoding_slots()) == SLOTS
+
+    with panel_rows() as rows:
+        run = serve_stream(torch, eng, cfg, prompts, params_of, paused,
+                           ready, checks=FLAT_CHECKS,
+                           check_ticks=SPEC_LOGIT_TICKS, rows=rows)
+    gate_logits("spec", run["check"])
+    verify_ticks = run["ticks"]["decode"]
+    _verify_rows("spec", rows, "sparse_decode_attention_fused",
+                 (SPEC_K + 1) * g, verify_ticks, cfg.n_layers)
+    check_launches("spec", run["counts"],
+                   ("sparse_decode_attention_fused", "sparse_matmul",
+                    "dense_matmul"),
+                   ("sparse_decode_attention_fused_paged",
+                    "sparse_matmul_int8", "sparse_matmul_int4",
+                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
+    total = check_outputs("spec", run, cfg, SPEC_TOKENS)
+    hist = eng.spec_hist.tolist()
+    if sum(hist[1:]) <= 0:
+        fail("spec: no draft was ever accepted")
+    per_tick = (sum((i + 1) * h for i, h in enumerate(hist))
+                / max(sum(hist), 1))
+    res = report("spec", run, total, n)
+    res_off = report("spec off", off, total_off, n)
+    same = sum(list(run["out"][a].token_ids) == list(off["out"][b].token_ids)
+               for a, b in zip(run["rids"], off["rids"]))
+    verify_ms = statistics.median(run["steps"]["decode"]) * 1e3
+    decode_ms = statistics.median(off["steps"]["decode"]) * 1e3
+    say(f"spec: k={SPEC_K}, {verify_ticks} verify ticks ({(SPEC_K + 1) * g} "
+        f"query rows per attention launch on each); accepted-draft "
+        f"histogram {hist}; {per_tick:.2f} tokens per slot per verify tick; "
+        f"median verify tick {verify_ms:.1f} ms against the spec-off decode "
+        f"tick {decode_ms:.1f} ms; {res['tok_s']:.1f} tok/s against "
+        f"{res_off['tok_s']:.1f} tok/s without speculation; {same} of {n} "
+        f"requests bf16-identical to spec off (reported, not gated)")
+    res.update(spec_hist=hist, tokens_per_verify_tick=per_tick,
+               verify_tick_ms=verify_ms, spec_off_decode_tick_ms=decode_ms,
+               spec_off=res_off, identical_to_spec_off=same,
+               attention_rows=(SPEC_K + 1) * g)
+    return res
+
+
+def spec_identity_f32(torch, cfg32, params32):
+    """Flat f32 ``k=4`` against flat f32 spec off on the spec traffic:
+    greedy tokens under the near-tie rule (untimed)."""
+    from repro_torch.serving import SamplingParams
+    prompts = _spec_prompts(cfg32)
+    sp = SamplingParams(max_new_tokens=SPEC_IDENTITY_TOKENS)
+    max_tokens = MOTIF * MOTIF_REPEATS + SPEC_IDENTITY_TOKENS + cfg32.kv_tail
+    eng0 = _engine(cfg32, params32, [0.0], max_tokens)
+    margins = {}
+    with record_margins(eng0, margins):
+        rids0 = [eng0.submit(p, sp) for p in prompts]
+        eng0.run()
+    eng = _engine(cfg32, params32, [0.0], max_tokens, spec_k=SPEC_K)
+    rids = [eng.submit(p, sp) for p in prompts]
+    eng.run()
+    got = [eng.scheduler.finished[r].generated for r in rids]
+    want = [eng0.scheduler.finished[r].generated for r in rids0]
+    res = gate_identity("spec f32 vs spec off", got, want, rids0, margins)
+    res["spec_hist"] = eng.spec_hist.tolist()
+    return res
+
+
+def spec_paged_phase(torch, cfg, params, prompts):
+    """Paged int8 ``k=3`` against paged int8 spec off on the shared-prefix
+    prompts (the first submitted alone): greedy tokens under the near-tie
+    rule, prefix-cache hits, and every verify tick's paged attention launch
+    at ``Q * G = 8`` rows (untimed)."""
+    from repro_torch.serving import SamplingParams
+    n = len(prompts)
+    params_of = [SamplingParams(max_new_tokens=PAGED_SPEC_TOKENS)] * n
+    max_tokens = SHARED_PREFIX + SUFFIX_RANGE[1] + PAGED_SPEC_TOKENS + \
+        cfg.kv_tail
+    eng0 = _engine(cfg, params, [0.0], max_tokens, paged=True)
+    margins = {}
+    with record_margins(eng0, margins):
+        off = serve_stream(torch, eng0, cfg, prompts, params_of, [0.0],
+                           lead=True)
+    eng = _engine(cfg, params, [0.0], max_tokens, paged=True,
+                  spec_k=PAGED_SPEC_K)
+    hits = []
+    admit = eng._admit_paged
+
+    def admit_counting(now):
+        req = admit(now)
+        if req is not None:
+            hits.append(req.prefill_done // eng.pool.bs)
+        return req
+    eng._admit_paged = admit_counting
+    with panel_rows() as rows:
+        run = serve_stream(torch, eng, cfg, prompts, params_of, [0.0],
+                           lead=True)
+    g = cfg.padded_heads // cfg.n_kv
+    _verify_rows("paged spec", rows, "sparse_decode_attention_fused_paged",
+                 (PAGED_SPEC_K + 1) * g, run["ticks"]["decode"],
+                 cfg.n_layers)
+    check_launches("paged spec", run["counts"],
+                   ("sparse_decode_attention_fused_paged",
+                    "sparse_matmul_int8", "dense_matmul"),
+                   ("sparse_decode_attention_fused", "sparse_gemv",
+                    "sparse_matmul", "sparse_decode_attention_partial",
+                    "sparse_matmul_f32"))
+    if sum(hits) <= 0:
+        fail("paged spec: no prefix-cache hit")
+    got = [list(run["out"][r].token_ids) for r in run["rids"]]
+    want = [list(off["out"][r].token_ids) for r in off["rids"]]
+    res = gate_identity("paged int8 spec vs spec off", got, want,
+                        off["rids"], margins)
+    res.update(spec_hist=eng.spec_hist.tolist(), prefix_hit_blocks=sum(hits),
+               verify_ticks=run["ticks"]["decode"],
+               attention_rows=(PAGED_SPEC_K + 1) * g)
+    say(f"paged spec: k={PAGED_SPEC_K}, {run['ticks']['decode']} verify "
+        f"ticks at {(PAGED_SPEC_K + 1) * g} query rows; prefix-cache hits "
+        f"{sum(hits)} blocks; accepted-draft histogram {res['spec_hist']}")
+    return res
+
+
 SOURCES = {
     "sparse_gemv": ("src/repro_torch/kernels/csrc/sparse_gemv.cu",
                     "src/repro/kernels/sparse_gemv.py:47"),
@@ -1170,13 +1861,21 @@ SOURCES = {
                            "src/repro/kernels/sparse_matmul_int8.py:42"),
     "sparse_matmul_int4": ("src/repro_torch/kernels/csrc/sparse_matmul_int8.cu",
                            "src/repro/kernels/sparse_matmul_int4.py:49"),
+    "sparse_decode_attention_partial": (
+        "src/repro_torch/kernels/csrc/sparse_attention.cu",
+        "src/repro/kernels/sparse_attention.py:108"),
+    # row 3's TPU kernel at f32 activations (an engine served at f32)
+    "sparse_matmul_f32": ("src/repro_torch/kernels/csrc/sparse_matmul.cu",
+                          "src/repro/kernels/sparse_matmul.py:46"),
 }
 # the path whose run each kernel's launch count is read from
 PATH_OF = {"sparse_gemv": "serve", "sparse_decode_attention_fused": "serve",
            "sparse_matmul": "serve", "dense_matmul": "serve",
            "sparse_decode_attention_fused_paged": "paged_int8",
            "sparse_matmul_int8": "paged_int8",
-           "sparse_matmul_int4": "paged_int4"}
+           "sparse_matmul_int4": "paged_int4",
+           "sparse_decode_attention_partial": "two_pass",
+           "sparse_matmul_f32": "two_pass"}
 
 
 def main() -> int:
@@ -1205,11 +1904,19 @@ def main() -> int:
     summary, detail = kernel_phase(torch, cfg)
     say(f"kernels: all {len(SOURCES)} agree with their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
-    serve = {"serve": serve_phase(torch, cfg)}
+    serve = {}
+    serve["serve"], params = serve_phase(torch, cfg)
+    serve["spec"] = spec_phase(torch, cfg, params)
+    cfg32, params32 = _widened(torch, cfg, params)
+    serve["two_pass"] = two_pass_phase(torch, cfg32, params32, Timer(torch))
+    serve["spec_f32"] = spec_identity_f32(torch, cfg32, params32)
+    del params, params32
     serve["paged_int8"], params8, prompts, run8 = paged_phase(
         torch, cfg, "int8", PAGED_REQUESTS, PAGED_NEW_TOKENS,
         "sparse_matmul_int8")
     serve["identity"] = identity_phase(torch, cfg, params8, prompts, run8)
+    serve["spec_paged_int8"] = spec_paged_phase(torch, cfg, params8,
+                                                prompts)
     del params8, run8
     serve["paged_int4"] = paged_phase(
         torch, cfg, "int4", INT4_REQUESTS, INT4_NEW_TOKENS,

@@ -1,8 +1,17 @@
 // Fused prefix + tail flash-decode over the pooled sparse KV cache.
 // Replaces repro/kernels/sparse_attention.py:
 // sparse_decode_attention_fused_pallas, both branches: the flat pool
-// (_fused_kernel) and the paged pool (_fused_kernel_paged), as two
-// instantiations of one template.
+// (_fused_kernel) and the paged pool (_fused_kernel_paged), and
+// sparse_decode_attention_pallas (_kernel), the prefix-only partial, as
+// three instantiations of one template.
+//
+// Partial (PARTIAL = true): the same online softmax over the valid
+// compressed prefix blocks of the flat pool, with no tail loop; it writes
+// the normalised output and lse = m + log(l_safe) beside it, in the TPU
+// kernel's order (l_safe = max(l, 1e-30), o = acc / l_safe).  A slot with
+// n_blocks = 0 reads nothing and returns o = 0, lse = -1e30 + log(1e-30),
+// which rounds to -1e30 in f32.  Its callers merge it with other partials
+// through the lse (the two-pass decode, the context-parallel shards).
 //
 // Paged: the compressed prefix lives once in a pool-global arena
 // [n_phys, Hkv, X] and slot b reaches its logical block i through
@@ -61,7 +70,7 @@ struct Layout {
   }
 };
 
-template <typename TQ, typename TC, bool PAGED>
+template <typename TQ, typename TC, bool PAGED, bool PARTIAL>
 __global__ void __launch_bounds__(NT) fused_decode_attention(
     const TQ* __restrict__ q, const uint32_t* __restrict__ kbm,
     const TC* __restrict__ kval, const uint32_t* __restrict__ vbm,
@@ -69,7 +78,8 @@ __global__ void __launch_bounds__(NT) fused_decode_attention(
     const TC* __restrict__ vtail, const int* __restrict__ n_blocks,
     const int* __restrict__ tail_len, const int* __restrict__ table,
     int n_phys, int H, int QG, int G, int D, int Sb, int bs, int ck, int cv,
-    int Tp, float sm_scale, float* __restrict__ out) {
+    int Tp, float sm_scale, float* __restrict__ out,
+    float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(QG, D, bs);
   float* s_q = reinterpret_cast<float*>(smem + L.q);
@@ -90,9 +100,10 @@ __global__ void __launch_bounds__(NT) fused_decode_attention(
   const int W = bs * D / 32;
   const size_t bh = static_cast<size_t>(b) * H + h;
   const int nb = min(n_blocks[b], Sb);
-  const int tl = tail_len[b];
+  const int tl = PARTIAL ? 0 : tail_len[b];
   const int qn = QG / G;
-  const int tb = Tp / bs;
+  // the partial has no tail: its loop ends at the last valid block
+  const int n_steps = PARTIAL ? nb : Sb + Tp / bs;
 
   for (int i = t; i < QG * D; i += NT)
     s_q[i] = to_f32(q[bh * QG * D + i]);
@@ -105,8 +116,8 @@ __global__ void __launch_bounds__(NT) fused_decode_attention(
   for (int i = 0; i < MAXACC; ++i) acc[i] = 0.f;
   __syncthreads();
 
-  for (int step = 0; step < Sb + tb; ++step) {
-    const bool prefix = step < Sb;
+  for (int step = 0; step < n_steps; ++step) {
+    const bool prefix = PARTIAL || step < Sb;
     const int base = prefix ? 0 : (step - Sb) * bs;
     // block-uniform skips: prefix blocks past n_blocks, tail panels that no
     // panel row can see
@@ -200,17 +211,20 @@ __global__ void __launch_bounds__(NT) fused_decode_attention(
       out[bh * QG * D + idx] = acc[i] / fmaxf(s_l[row], 1e-30f);
     }
   }
+  if (PARTIAL)
+    for (int r = t; r < QG; r += NT)
+      lse[bh * QG + r] = s_m[r] + logf(fmaxf(s_l[r], 1e-30f));
 }
 
-template <typename TQ, typename TC, bool PAGED>
+template <typename TQ, typename TC, bool PAGED, bool PARTIAL>
 cudaError_t run(const void* q, const void* kbm, const void* kval,
                 const void* vbm, const void* vval, const void* ktail,
                 const void* vtail, const void* n_blocks, const void* tail_len,
                 const void* table, int n_phys, int B, int H, int QG, int G,
                 int D, int Sb, int bs, int ck, int cv, int Tp, float sm_scale,
-                void* out, cudaStream_t stream) {
+                void* out, void* lse, cudaStream_t stream) {
   const Layout L(QG, D, bs);
-  auto kern = fused_decode_attention<TQ, TC, PAGED>;
+  auto kern = fused_decode_attention<TQ, TC, PAGED, PARTIAL>;
   cudaError_t e = allow_smem(kern, L.bytes);
   if (e != cudaSuccess) return e;
   kern<<<dim3(H, B), NT, L.bytes, stream>>>(
@@ -220,30 +234,31 @@ cudaError_t run(const void* q, const void* kbm, const void* kval,
       static_cast<const TC*>(vtail), static_cast<const int*>(n_blocks),
       static_cast<const int*>(tail_len), static_cast<const int*>(table),
       n_phys, H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale,
-      static_cast<float*>(out));
+      static_cast<float*>(out), static_cast<float*>(lse));
   return cudaGetLastError();
 }
 
-template <bool PAGED>
+template <bool PAGED, bool PARTIAL>
 int dispatch(const void* q, int q_dtype, const void* kbm, const void* kval,
              const void* vbm, const void* vval, const void* ktail,
              const void* vtail, int c_dtype, const void* n_blocks,
              const void* tail_len, const void* table, int n_phys, int B,
              int H, int QG, int G, int D, int Sb, int bs, int ck, int cv,
-             int Tp, float sm_scale, void* out, void* stream) {
+             int Tp, float sm_scale, void* out, void* lse, void* stream) {
   if (QG * D > NT * MAXACC || G < 1 || QG % G != 0 || Tp % bs != 0 ||
-      (bs * D) % 32 != 0 || (PAGED && n_phys < 1))
+      (bs * D) % 32 != 0 || (PAGED && n_phys < 1) ||
+      (PARTIAL && (Tp != 0 || lse == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (q_dtype == REPRO_BF16 && c_dtype == REPRO_BF16)
-    e = run<__nv_bfloat16, __nv_bfloat16, PAGED>(
+    e = run<__nv_bfloat16, __nv_bfloat16, PAGED, PARTIAL>(
         q, kbm, kval, vbm, vval, ktail, vtail, n_blocks, tail_len, table,
-        n_phys, B, H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale, out, s);
+        n_phys, B, H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale, out, lse, s);
   else if (q_dtype == REPRO_F32 && c_dtype == REPRO_F32)
-    e = run<float, float, PAGED>(q, kbm, kval, vbm, vval, ktail, vtail,
-                                 n_blocks, tail_len, table, n_phys, B, H, QG,
-                                 G, D, Sb, bs, ck, cv, Tp, sm_scale, out, s);
+    e = run<float, float, PAGED, PARTIAL>(
+        q, kbm, kval, vbm, vval, ktail, vtail, n_blocks, tail_len, table,
+        n_phys, B, H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale, out, lse, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
@@ -261,9 +276,10 @@ REPRO_EXPORT int fused_attention_launch(
     int c_dtype, const void* n_blocks, const void* tail_len, int B, int H,
     int QG, int G, int D, int Sb, int bs, int ck, int cv, int Tp,
     float sm_scale, void* out, void* stream) {
-  return dispatch<false>(q, q_dtype, kbm, kval, vbm, vval, ktail, vtail,
-                         c_dtype, n_blocks, tail_len, nullptr, 0, B, H, QG, G,
-                         D, Sb, bs, ck, cv, Tp, sm_scale, out, stream);
+  return dispatch<false, false>(q, q_dtype, kbm, kval, vbm, vval, ktail,
+                                vtail, c_dtype, n_blocks, tail_len, nullptr,
+                                0, B, H, QG, G, D, Sb, bs, ck, cv, Tp,
+                                sm_scale, out, nullptr, stream);
 }
 
 // The paged pool: kbm/vbm [n_phys, H, bs*D/32] words and kval/vval
@@ -276,7 +292,22 @@ REPRO_EXPORT int fused_attention_paged_launch(
     int c_dtype, const void* n_blocks, const void* tail_len,
     const void* table, int n_phys, int B, int H, int QG, int G, int D, int Sb,
     int bs, int ck, int cv, int Tp, float sm_scale, void* out, void* stream) {
-  return dispatch<true>(q, q_dtype, kbm, kval, vbm, vval, ktail, vtail,
-                        c_dtype, n_blocks, tail_len, table, n_phys, B, H, QG,
-                        G, D, Sb, bs, ck, cv, Tp, sm_scale, out, stream);
+  return dispatch<true, false>(q, q_dtype, kbm, kval, vbm, vval, ktail, vtail,
+                               c_dtype, n_blocks, tail_len, table, n_phys, B,
+                               H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale, out,
+                               nullptr, stream);
+}
+
+// The prefix-only partial over the flat layout: q [B, H, QG, D], the
+// compressed prefix as fused_attention_launch, n_blocks int32 [B]; no tail.
+// out f32 [B, H, QG, D] (normalised) and lse f32 [B, H, QG].
+REPRO_EXPORT int partial_attention_launch(
+    const void* q, int q_dtype, const void* kbm, const void* kval,
+    const void* vbm, const void* vval, int c_dtype, const void* n_blocks,
+    int B, int H, int QG, int D, int Sb, int bs, int ck, int cv,
+    float sm_scale, void* out, void* lse, void* stream) {
+  return dispatch<false, true>(q, q_dtype, kbm, kval, vbm, vval, nullptr,
+                               nullptr, c_dtype, n_blocks, nullptr, nullptr,
+                               0, B, H, QG, QG, D, Sb, bs, ck, cv, 0,
+                               sm_scale, out, lse, stream);
 }

@@ -9,6 +9,8 @@ only switch.  The dispatch rules are the reference's:
   reference has no gemv split for them); the activations are quantised
   per row in plain PyTorch first, outside the kernel, as in the reference;
 * a ``Q == 1`` attention panel squeezes onto the single-query dispatch;
+* attention without a tail takes the prefix-only partial kernel, and a
+  slot whose prefix is empty gets exactly zero;
 * the tail ring is zero-padded to whole ``bs``-token panels;
 * ``n_blocks = prefix_len // bs``;
 * GQA query rows are ordered query-major within each group.
@@ -24,7 +26,8 @@ from repro_torch.core.quant import quantize_act_int8
 from repro_torch.core.sparse_format import BlockSparseWeight
 from .dense_matmul import dense_matmul as _dense_kernel
 from .sparse_attention import (sparse_decode_attention_fused,
-                               sparse_decode_attention_fused_paged)
+                               sparse_decode_attention_fused_paged,
+                               sparse_decode_attention_partial)
 from .sparse_gemv import MAX_ROWS, sparse_gemv
 from .sparse_matmul import sparse_matmul as _sparse_matmul_kernel
 from .sparse_matmul_int4 import sparse_matmul_int4 as _int4_kernel
@@ -104,17 +107,20 @@ def _panel_out(o: torch.Tensor, q: torch.Tensor, qn: int, g: int
     return o.reshape(b, hkv * g, d).to(q.dtype)
 
 
+def _n_blocks(b: int, sb: int, bs: int, prefix_len, dev) -> torch.Tensor:
+    """Per-slot ``n_blocks = prefix_len // bs`` (every block when None)."""
+    if prefix_len is None:
+        return torch.full((b,), sb, dtype=torch.int32, device=dev)
+    return torch.broadcast_to(
+        torch.as_tensor(prefix_len, device=dev).to(torch.int32) // bs, (b,))
+
+
 def _lengths(b: int, sb: int, bs: int, k_tail, v_tail, tail_len,
              prefix_len, dev):
-    """Per-slot ``n_blocks = prefix_len // bs`` and visible tail lengths,
-    and the ring zero-padded to whole ``bs``-token panels (the padding is
-    masked by the tail length)."""
-    if prefix_len is None:
-        n_blocks = torch.full((b,), sb, dtype=torch.int32, device=dev)
-    else:
-        n_blocks = torch.broadcast_to(
-            torch.as_tensor(prefix_len, device=dev).to(torch.int32) // bs,
-            (b,))
+    """Per-slot ``n_blocks`` and visible tail lengths, and the ring
+    zero-padded to whole ``bs``-token panels (the padding is masked by the
+    tail length)."""
+    n_blocks = _n_blocks(b, sb, bs, prefix_len, dev)
     t = k_tail.shape[2]
     tl = torch.broadcast_to(torch.as_tensor(
         t if tail_len is None else tail_len, device=dev).to(torch.int32),
@@ -131,8 +137,8 @@ def sparse_decode_attention(q: torch.Tensor,
                             v_sp: BlockSparseWeight,
                             hkv: int,
                             sm_scale: float,
-                            k_tail: torch.Tensor,
-                            v_tail: torch.Tensor,
+                            k_tail: Optional[torch.Tensor] = None,
+                            v_tail: Optional[torch.Tensor] = None,
                             tail_len: Optional[torch.Tensor] = None,
                             prefix_len: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
@@ -141,17 +147,19 @@ def sparse_decode_attention(q: torch.Tensor,
     q ``[B, Hq, D]`` (a decode tick) or ``[B, Q, Hq, D]`` (a query panel);
     ``k_sp``/``v_sp`` the pooled view (bitmap ``[B, Hkv, Sb, 1, X]``);
     ``k_tail``/``v_tail`` ``[B, Hkv, T, D]``; ``tail_len`` / ``prefix_len``
-    scalar or per-slot ``[B]``.  One fused kernel launch produces the final
-    output.  (The reference's tail-less prefix-partial branch belongs to the
-    context-parallel path, which is not ported yet.)"""
-    if k_tail is None or k_tail.shape[2] == 0:
-        raise NotImplementedError("the prefix-only attention (no tail) is "
-                                  "not ported yet")
+    scalar or per-slot ``[B]``.  With a tail, one fused kernel launch
+    produces the final output.  Without one (``k_tail`` None or empty) the
+    prefix-only partial kernel runs and its normalised output is returned;
+    a slot whose prefix is empty (``prefix_len <= 0``) gets exactly zero.
+    A query panel needs a tail: it appends into it."""
+    has_tail = k_tail is not None and k_tail.shape[2] > 0
     if q.dim() == 4 and q.shape[1] == 1:
         # a 1-wide panel IS a decode tick: squeeze onto the single query
         o = sparse_decode_attention(q[:, 0], k_sp, v_sp, hkv, sm_scale,
                                     k_tail, v_tail, tail_len, prefix_len)
         return o[:, None]
+    if q.dim() == 4 and not has_tail:
+        raise ValueError("query panels append into (and need) a dense tail")
     d = q.shape[-1]
     b = q.shape[0]
     bs = k_sp.block[0]
@@ -165,6 +173,12 @@ def sparse_decode_attention(q: torch.Tensor,
     kvv = k_sp.values.reshape(b, hkv, sb, k_sp.capacity)
     vbm = v_sp.bitmap.reshape(b, hkv, sb, words)
     vvv = v_sp.values.reshape(b, hkv, sb, v_sp.capacity)
+    if not has_tail:
+        n_blocks = _n_blocks(b, sb, bs, prefix_len, q.device)
+        # a slot with no valid block (prefix_len < bs) gets o = 0 exactly
+        o, _ = sparse_decode_attention_partial(qg, kbm, kvv, vbm, vvv, bs,
+                                               sm_scale, n_blocks)
+        return o.reshape(b, hkv * g, d).to(q.dtype)
     n_blocks, tl, k_tail, v_tail = _lengths(b, sb, bs, k_tail, v_tail,
                                             tail_len, prefix_len, q.device)
     o = sparse_decode_attention_fused(qg, kbm, kvv, vbm, vvv, k_tail, v_tail,

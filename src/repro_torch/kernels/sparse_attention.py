@@ -1,11 +1,18 @@
-"""Fused prefix + tail flash-decode over the pooled sparse KV cache.
+"""Flash-decode over the pooled sparse KV cache: fused prefix + tail, and
+the prefix-only partial.
 
 Replaces ``repro/kernels/sparse_attention.py:
 sparse_decode_attention_fused_pallas`` — the flat branch
 (:func:`sparse_decode_attention_fused`) and the paged branch
 (:func:`sparse_decode_attention_fused_paged`, whose prefix blocks come out
-of a pool-global arena through a per-slot block table) — with the two
-instantiations of the CUDA kernel in ``csrc/sparse_attention.cu``.  Bound on the H100: device-memory bytes —
+of a pool-global arena through a per-slot block table) — and
+``sparse_decode_attention_pallas``, the prefix-only partial that returns
+``(o, lse)`` for an lse merge (:func:`sparse_decode_attention_partial`),
+with three instantiations of the CUDA kernel in
+``csrc/sparse_attention.cu``.  Beside them live plain twins of the
+reference's XLA partial helpers (:func:`gqa_partial`, :func:`merge_attn`,
+:func:`len_valid`), which the two-pass decode runs around the partial.
+Bound on the H100: device-memory bytes —
 each slot's valid compressed K/V blocks and visible tail tokens, read
 once; the query panel's flops are far below the ridge.  The design runs
 one thread block per (kv head, slot) that loops over the valid prefix
@@ -35,7 +42,11 @@ _PAGED_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
                + [ctypes.c_int] + [ctypes.c_void_p] * 3
                + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p,
                                         ctypes.c_void_p])
+_PARTIAL_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8
+                 + [ctypes.c_float] + [ctypes.c_void_p] * 3)
 MAX_PANEL = 2048            # QG * D the kernel keeps in registers
+NEG_INF = -1e30             # the kernels' running-max start and mask value
 
 
 def _dense_prefix(bitmap, values, bs, d):
@@ -105,7 +116,10 @@ def _check(q, k_bitmap, k_values, v_bitmap, v_values, k_tail, v_tail, bs,
     if qg % g or tp % bs or tp < bs or (bs * d) % 32:
         raise ValueError(f"bad geometry: QG={qg}, G={g}, tail={tp}, bs={bs}")
     if qg * d > MAX_PANEL:
-        raise ValueError(f"query panel QG*D={qg * d} exceeds {MAX_PANEL}")
+        raise ValueError(
+            f"query panel QG*D={qg * d} exceeds {MAX_PANEL}: at G={g} and "
+            f"D={d} a panel holds at most {MAX_PANEL // (g * d)} queries, "
+            f"so speculative decoding takes k <= {MAX_PANEL // (g * d) - 1}")
     if k_values.dtype != k_tail.dtype or v_values.dtype != k_tail.dtype \
             or q.dtype != k_tail.dtype or q.dtype not in build.DTYPE_CODE:
         raise TypeError("fused attention kernel takes one f32/bf16 dtype "
@@ -227,3 +241,127 @@ def sparse_decode_attention_fused_paged(
 
 
 sparse_decode_attention_fused_paged.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the prefix-only partial and the reference's XLA partial helpers
+# ---------------------------------------------------------------------------
+
+def sparse_decode_attention_partial_plain(
+        q: torch.Tensor, k_bitmap: torch.Tensor, k_values: torch.Tensor,
+        v_bitmap: torch.Tensor, v_values: torch.Tensor, bs: int,
+        sm_scale: float, n_blocks: Optional[torch.Tensor] = None):
+    """Plain version of the prefix-only partial (the TPU kernel's
+    arithmetic in one pass): scores over each slot's first ``n_blocks``
+    compressed blocks (all of them when None), the running max started at
+    ``NEG_INF``, ``l_safe = max(l, 1e-30)``, ``o = acc / l_safe``,
+    ``lse = m + log(l_safe)``.  A slot with no valid block returns
+    ``o = 0`` and ``lse = -1e30``.  Blocks past ``n_blocks`` never reach
+    the arithmetic (their expanded rows are zeroed), so whatever they hold
+    cannot leak, as in the kernel, which does not read them.  Returns f32
+    ``(o [B, Hkv, QG, D], lse [B, Hkv, QG])``."""
+    b, _, _, d = q.shape
+    dev = q.device
+    if n_blocks is None:
+        n_blocks = torch.full((b,), k_bitmap.shape[2], dtype=torch.int32)
+    valid = (torch.arange(k_bitmap.shape[2] * bs, device=dev)[None]
+             < (n_blocks.to(dev).long() * bs)[:, None])[:, None, None]
+    zero = torch.zeros((), device=dev)
+    k, v = (torch.where(valid.transpose(-1, -2), _dense_prefix(
+        bm, vals, bs, d).to(torch.float32), zero)
+        for bm, vals in ((k_bitmap, k_values), (v_bitmap, v_values)))
+    s = (q.to(torch.float32) @ k.transpose(-1, -2)) * sm_scale
+    s = torch.where(valid, s, torch.tensor(NEG_INF, device=dev))
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]),
+                    torch.zeros((), device=dev))
+    l_safe = torch.clamp(p.sum(-1), min=1e-30)
+    return (p @ v) / l_safe[..., None], m + torch.log(l_safe)
+
+
+def sparse_decode_attention_partial(
+        q: torch.Tensor, k_bitmap: torch.Tensor, k_values: torch.Tensor,
+        v_bitmap: torch.Tensor, v_values: torch.Tensor, bs: int,
+        sm_scale: float, n_blocks: Optional[torch.Tensor] = None):
+    """The prefix-only partial: q ``[B, Hkv, QG, D]``, the compressed prefix
+    ``[B, Hkv, Sb, X]`` as :func:`sparse_decode_attention_fused`,
+    ``n_blocks`` int32 ``[B]`` (None: every block is valid).  Returns f32
+    ``(o [B, Hkv, QG, D], lse [B, Hkv, QG])``.  CPU tensors take the plain
+    version."""
+    args = (q, k_bitmap, k_values, v_bitmap, v_values, bs, sm_scale,
+            n_blocks)
+    if q.device.type == "cpu":
+        return sparse_decode_attention_partial_plain(*args)
+    b, hkv, qg, d = q.shape
+    sb = k_bitmap.shape[2]
+    if (bs * d) % 32:
+        raise ValueError(f"bad geometry: bs={bs}, D={d}")
+    if qg * d > MAX_PANEL:
+        raise ValueError(f"query panel QG*D={qg * d} exceeds {MAX_PANEL}")
+    if k_values.dtype != q.dtype or v_values.dtype != q.dtype \
+            or q.dtype not in build.DTYPE_CODE:
+        raise TypeError("partial attention kernel takes one f32/bf16 dtype "
+                        "for q and the cache values")
+    if n_blocks is None:
+        n_blocks = torch.full((b,), sb, dtype=torch.int32, device=q.device)
+    q = q.contiguous()
+    n_blocks = n_blocks.to(torch.int32).contiguous()
+    build.require_cuda(q, k_bitmap, k_values, v_bitmap, v_values, n_blocks)
+    out = torch.empty((b, hkv, qg, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hkv, qg), dtype=torch.float32, device=q.device)
+    p = build.ptr
+    build.call(_SRC, "partial_attention_launch", _PARTIAL_ARGS, p(q),
+               build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
+               p(v_bitmap), p(v_values), build.DTYPE_CODE[k_values.dtype],
+               p(n_blocks), b, hkv, qg, d, sb, bs, k_values.shape[-1],
+               v_values.shape[-1], float(sm_scale), p(out), p(lse),
+               build.stream())
+    sparse_decode_attention_partial.launches += 1
+    return out, lse
+
+
+sparse_decode_attention_partial.launches = 0
+
+
+def len_valid(n: int, length, b: int) -> torch.Tensor:
+    """``[B, n]`` validity mask from a scalar or per-slot ``[B]`` length
+    (twin of ``kernels/ref.py:_len_valid``)."""
+    length = torch.as_tensor(length)
+    if length.dim() == 1:
+        length = length[:, None]
+    return torch.broadcast_to(torch.arange(n, device=length.device)[None, :]
+                              < length, (b, n))
+
+
+def gqa_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                sm_scale: float, valid: Optional[torch.Tensor] = None):
+    """Grouped single-query partial with no head repeat (twin of
+    ``kernels/ref.py:gqa_partial_ref``): q ``[B, Hkv, G, D]``, k, v
+    ``[B, Hkv, S, D]``, ``valid`` bool ``[B, S]``.  Products accumulate in
+    f32 and the weights round to ``v``'s dtype before the PV product, as
+    in the reference.  Returns f32 ``(o [B, Hkv, G, D], lse [B, Hkv, G])``;
+    a row with nothing valid gets ``lse = log(1e-30)``."""
+    s = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) \
+        * sm_scale
+    if valid is not None:
+        vm = valid.to(q.device)[:, None, None, :]
+        s = torch.where(vm, s, torch.tensor(float("-inf"), device=q.device))
+    m = s.amax(-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe[..., None])
+    if valid is not None:
+        p = torch.where(vm, p, torch.zeros((), device=q.device))
+    l_safe = torch.clamp(p.sum(-1), min=1e-30)
+    o = p.to(v.dtype).to(torch.float32) @ v.to(torch.float32)
+    return o / l_safe[..., None], m_safe + torch.log(l_safe)
+
+
+def merge_attn(o1: torch.Tensor, lse1: torch.Tensor, o2: torch.Tensor,
+               lse2: torch.Tensor):
+    """Join two attention partials through their log-sum-exps (twin of
+    ``kernels/ref.py:_merge_attn``); returns ``(o, lse)``."""
+    m = torch.maximum(lse1, lse2)
+    w1 = torch.exp(lse1 - m)[..., None]
+    w2 = torch.exp(lse2 - m)[..., None]
+    den = w1 + w2
+    return (o1 * w1 + o2 * w2) / den, m + torch.log(den[..., 0])

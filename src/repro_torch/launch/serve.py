@@ -2,7 +2,8 @@
 continuous-batching engine (twin of ``repro.launch.serve`` without the
 later slices' flags).  ``--int8`` serves int8 block-sparse weights,
 ``--paged`` the shared-prefix paged pool (``--phys-blocks`` sizes its
-arena), as in the reference.
+arena), ``--spec-k K`` draft-verify speculation with an n-gram drafter
+(``--spec-adaptive`` per-slot draft windows), as in the reference.
 
 Initialises the model from a seed on the device, prunes and packs every
 linear weight there, and drives a stream of requests with mixed prompt and
@@ -16,6 +17,9 @@ the pooled sparse-KV cache.
       --prefill-chunk 256
   python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
       --device cpu --requests 4 --slots 2 --prompt-len 48 --steps 12
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
+      --device cpu --spec-k 3 --requests 4 --slots 2 --prompt-len 48 \\
+      --steps 12
 """
 from __future__ import annotations
 
@@ -32,13 +36,16 @@ from repro_torch.core.convert import convert_concrete, sparsity_report
 from repro_torch.data.pipeline import DataConfig, host_batch
 from repro_torch.kernels.dense_matmul import dense_matmul
 from repro_torch.kernels.sparse_attention import (
-    sparse_decode_attention_fused, sparse_decode_attention_fused_paged)
+    MAX_PANEL, sparse_decode_attention_fused,
+    sparse_decode_attention_fused_paged, sparse_decode_attention_partial)
 from repro_torch.kernels.sparse_gemv import sparse_gemv
-from repro_torch.kernels.sparse_matmul import sparse_matmul
+from repro_torch.kernels.sparse_matmul import sparse_matmul, \
+    sparse_matmul_f32
 from repro_torch.kernels.sparse_matmul_int4 import sparse_matmul_int4
 from repro_torch.kernels.sparse_matmul_int8 import sparse_matmul_int8
 from repro_torch.models import lm
-from repro_torch.serving import ContinuousEngine, SamplingParams
+from repro_torch.serving import ContinuousEngine, SamplingParams, SpecConfig
+from repro_torch.serving.engine import max_spec_k
 
 KERNELS = {"sparse_gemv": sparse_gemv,
            "sparse_decode_attention_fused": sparse_decode_attention_fused,
@@ -47,7 +54,10 @@ KERNELS = {"sparse_gemv": sparse_gemv,
            "sparse_decode_attention_fused_paged":
                sparse_decode_attention_fused_paged,
            "sparse_matmul_int8": sparse_matmul_int8,
-           "sparse_matmul_int4": sparse_matmul_int4}
+           "sparse_matmul_int4": sparse_matmul_int4,
+           "sparse_decode_attention_partial":
+               sparse_decode_attention_partial,
+           "sparse_matmul_f32": sparse_matmul_f32}
 
 
 def launch_counts() -> dict:
@@ -83,6 +93,17 @@ def main(argv=None) -> int:
                     help="with --paged: physical blocks in the shared arena "
                          "(default: slots * max_blocks, the flat pool's "
                          "footprint)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: verify up to K n-gram draft "
+                         "tokens per slot per tick (0 = off; greedy output "
+                         "is token-identical either way).  The verify panel "
+                         "of (K+1) x G query rows of head-dim values must "
+                         f"fit the attention kernel's {MAX_PANEL}: K <= 7 "
+                         "for qwen3-0.6b (G = 2, head dim 128); the engine "
+                         "names the limit for other heads")
+    ap.add_argument("--spec-adaptive", action="store_true",
+                    help="with --spec-k: per-slot adaptive draft windows "
+                         "(each slot's acceptance rate scales its K)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -90,11 +111,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the CUDA device (raises without one)")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
-
+    if args.spec_adaptive and not args.spec_k:
+        ap.error("--spec-adaptive requires --spec-k >= 1")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.spec_k > max_spec_k(cfg):
+        ap.error(f"--spec-k {args.spec_k}: the largest K for {args.arch}'s "
+                 f"heads is {max_spec_k(cfg)}")
+    dev = resolve_device(args.device)
     cfg = dataclasses.replace(cfg, sparsity=args.sparsity)
     params = lm.init_params(cfg, seed=0, device=dev)
     params = convert_concrete(params, lm.model_specs(cfg), cfg,
@@ -114,7 +139,9 @@ def main(argv=None) -> int:
         params, cfg, slots=args.slots,
         max_tokens=args.prompt_len + args.steps + cfg.kv_tail,
         prefill_chunk=args.prefill_chunk or None, device=dev,
-        paged=args.paged, phys_blocks=args.phys_blocks)
+        paged=args.paged, phys_blocks=args.phys_blocks,
+        spec=SpecConfig(k=args.spec_k, adaptive=args.spec_adaptive)
+        if args.spec_k else None)
     if args.paged:
         print(f"[serve] paged pool: {eng.pool.n_phys} physical blocks of "
               f"{eng.pool.bs} tokens behind {args.slots}x"
@@ -148,6 +175,17 @@ def main(argv=None) -> int:
     if args.paged:
         print(f"[serve] paged: prefix trie holds {len(eng._trie)} blocks; "
               f"{eng._alloc.free_blocks()}/{eng.pool.n_phys} reclaimable")
+    if args.spec_k:
+        apt = [o.metrics.accepted_per_tick for o in out.values()
+               if o.metrics.accepted_per_tick is not None]
+        mean = f"{np.mean(apt):.2f}" if apt else "n/a (no decode ticks)"
+        print(f"[serve] spec: accepted-draft histogram "
+              f"{eng.spec_hist.tolist()} (index = drafts accepted/tick); "
+              f"mean tokens/tick {mean}")
+        if eng.adaptive_hist is not None:
+            print(f"[serve] spec: adaptive proposal histogram "
+                  f"{eng.adaptive_hist.tolist()} "
+                  f"(index = drafts proposed/tick)")
     print("[serve] sample:", list(out[rids[0]].token_ids[:16]))
     print(f"[serve] kernel launches: {launch_counts()}")
     return 0

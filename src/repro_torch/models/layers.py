@@ -13,8 +13,17 @@ from .module import ParamSpec
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32, as the reference computes it, except that the f32
+    squares are summed in f64 before the mean rounds to f32.  On the card
+    torch sums a row in an order that depends on how many rows share the
+    call, so an f32 sum could move by an ulp between a decode tick (B rows)
+    and a speculative verify panel (B * (k+1) rows); in f64 the sum of the
+    squares of bf16 (or f32) activations is exact, or all but exact, in any
+    order, and a verify row equals the decode tick of the same token bit
+    for bit."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True,
+                     dtype=torch.float64).float()
     return (xf * torch.rsqrt(var + eps)
             * scale.to(torch.float32)).to(x.dtype)
 

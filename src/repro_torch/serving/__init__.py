@@ -3,6 +3,8 @@ from .cache_pool import BlockAllocator, CachePool
 from .engine import ContinuousEngine
 from .sampling import RequestOutput, SamplingParams
 from .scheduler import PrefixTrie, block_hashes
+from .spec import AdaptiveDraft, Drafter, NGramDrafter, SpecConfig
 
-__all__ = ["BlockAllocator", "CachePool", "ContinuousEngine", "PrefixTrie",
-           "RequestOutput", "SamplingParams", "block_hashes"]
+__all__ = ["AdaptiveDraft", "BlockAllocator", "CachePool",
+           "ContinuousEngine", "Drafter", "NGramDrafter", "PrefixTrie",
+           "RequestOutput", "SamplingParams", "SpecConfig", "block_hashes"]

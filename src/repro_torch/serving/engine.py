@@ -1,7 +1,8 @@
 """Continuous-batching serving engine on the pooled sparse-KV cache (twin of
-``repro.serving.engine.ContinuousEngine`` with ``overlap=False``, no
-speculation, no mesh, no fault injection and no telemetry; the flat pool
-or, with ``paged=True``, the shared-prefix paged pool).
+``repro.serving.engine.ContinuousEngine`` with ``overlap=False``, no mesh,
+no fault injection and no telemetry; the flat pool or, with
+``paged=True``, the shared-prefix paged pool; speculative decoding with
+``spec=SpecConfig(k)``).
 
 One engine tick (:meth:`step`):
 
@@ -19,6 +20,15 @@ Host <-> device traffic per tick is one token vector and one chosen-token
 logprob vector; slot lengths are mirrored on the host.  Arguments that
 belong to later slices of the port raise ``NotImplementedError``.
 
+Speculation (``spec=SpecConfig(k>0)``) turns the decode tick into a
+draft-verify tick: the host drafter proposes up to ``k`` tokens per slot
+from the request's own history (clamped to the slot's tail headroom), one
+``[slots, k+1]`` panel forward scores every position, ``accept_step``
+accepts per lane, and the pool rolls the rejected suffix back by a length
+decrement.  The panel runs through the same attention kernel as a decode
+tick, with ``(k+1) * G`` query rows, which the kernel caps at
+``MAX_PANEL // D`` (:func:`max_spec_k`).
+
 Paged pool: a host :class:`~.cache_pool.BlockAllocator` hands out physical
 block ids and a :class:`~.scheduler.PrefixTrie` indexes the blocks frozen
 by full-width prefill chunks under their chained content hashes.
@@ -34,11 +44,19 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.sparse_attention import MAX_PANEL
 from repro_torch.models import lm
 from . import sampling
 from .cache_pool import BlockAllocator, CachePool
 from .sampling import RequestOutput, SamplingParams
 from .scheduler import PrefixTrie, Scheduler, block_hashes
+from .spec import AdaptiveDraft, SpecConfig
+
+
+def max_spec_k(cfg) -> int:
+    """The largest draft window the attention kernel takes: its query panel
+    holds ``(k + 1) * G`` rows of ``hd`` values, at most ``MAX_PANEL``."""
+    return MAX_PANEL // ((cfg.padded_heads // cfg.n_kv) * cfg.hd) - 1
 
 
 def params_to(tree: Any, device: torch.device) -> Any:
@@ -63,8 +81,8 @@ class ContinuousEngine:
                  capacity_slack: Optional[float] = None, max_queue: int = 0,
                  degrade_queue: int = 0, faults=None, obs=None,
                  overlap: bool = False):
-        later = {"ctx": ctx is not None, "spec": spec is not None,
-                 "mesh": mesh is not None, "checkify": bool(checkify),
+        later = {"ctx": ctx is not None, "mesh": mesh is not None,
+                 "checkify": bool(checkify),
                  "capacity_slack": capacity_slack is not None,
                  "max_queue": bool(max_queue),
                  "degrade_queue": bool(degrade_queue),
@@ -112,6 +130,23 @@ class ContinuousEngine:
                        if paged else None)
         self._blocks: Dict[int, List[int]] = {}       # slot -> table row ids
         self._reserved: Dict[int, int] = {}           # slot -> pages owed
+        # speculative decoding: the host drafter, the accepted-draft
+        # histogram and (adaptive) the per-slot draft-length controller
+        self._spec: Optional[SpecConfig] = (
+            spec if spec is not None and spec.active else None)
+        self._adaptive: Optional[AdaptiveDraft] = None
+        if self._spec is not None:
+            if self._spec.k > max_spec_k(cfg):
+                raise ValueError(
+                    f"spec k={self._spec.k}: the verify panel of k+1 "
+                    f"queries x {cfg.padded_heads // cfg.n_kv} GQA rows x "
+                    f"head dim {cfg.hd} exceeds the attention kernel's "
+                    f"{MAX_PANEL} values; the largest k for these heads is "
+                    f"{max_spec_k(cfg)}")
+            self.drafter = self._spec.build_drafter()
+            self.spec_hist = np.zeros(self._spec.k + 1, np.int64)
+            if self._spec.adaptive:
+                self._adaptive = AdaptiveDraft(self._spec)
 
     # -- public API ---------------------------------------------------------
     def submit(self, prompt, params: Optional[SamplingParams] = None,
@@ -148,6 +183,13 @@ class ContinuousEngine:
         rids = [self.submit(row, params) for row in np.asarray(prompts)]
         out = self.run()
         return np.asarray([out[r].token_ids for r in rids], np.int32)
+
+    @property
+    def adaptive_hist(self) -> Optional[np.ndarray]:
+        """Per-tick draft proposals of ``SpecConfig(adaptive=True)`` (index
+        = drafts a slot put up for verification that tick); None when
+        adaptive K is off."""
+        return None if self._adaptive is None else self._adaptive.hist
 
     # -- one tick -----------------------------------------------------------
     def step(self) -> List[RequestOutput]:
@@ -237,6 +279,8 @@ class ContinuousEngine:
         slots = sch.decoding_slots()
         if not slots:
             return events
+        if self._spec is not None:
+            return self._spec_tick(slots, events)
         b = self.pool.slots
         tokens = torch.zeros((b, 1), dtype=torch.long)
         mask = [False] * b
@@ -255,6 +299,63 @@ class ContinuousEngine:
                 continue
             self._tail_len[s] += 1
             self._emit(s, [picked[s]], [logps[s]], events)
+        return events
+
+    def _verify(self, tokens: torch.Tensor, mask: List[bool],
+                dlen: torch.Tensor):
+        """Score the ``[slots, k+1]`` panel (appending every position's K/V
+        to the live slots' tails), accept per lane, and roll each live
+        slot's tail back to ``1 + accepted`` of the appended tokens."""
+        qn = tokens.shape[1]
+        mask_t = torch.tensor(mask, device=self.device)
+        logits, _ = lm.forward_panel_pooled(
+            self.params, self.state, tokens.to(self.device), mask_t,
+            self.cfg, self.pool.bs)
+        tok, logp, nc = sampling.accept_step(logits, tokens, dlen,
+                                             self.lanes, self._gens, mask)
+        self.pool.rollback(self.state, qn * mask_t.to(torch.int32) - nc)
+        return tok, logp, nc
+
+    def _spec_tick(self, slots: List[int],
+                   events: List[RequestOutput]) -> List[RequestOutput]:
+        """One draft-verify tick over every decoding slot.
+
+        Each live slot's drafter proposes up to ``k`` continuations of its
+        request's history, clamped to the slot's tail headroom (a verify
+        appends ``k + 1`` tokens before the accept, and the kept ones must
+        fit the ring; a nearly full tail speculates less and the refreeze
+        keeps working unchanged) and, when adaptive, to the slot's window.
+        One verify scores the panel; each slot then commits its window
+        with the stop scan inside it."""
+        sch = self.scheduler
+        b, k = self.pool.slots, self._spec.k
+        tokens = torch.zeros((b, k + 1), dtype=torch.long)
+        mask = [False] * b
+        dlen = torch.zeros(b, dtype=torch.long)
+        for s in slots:
+            req = sch.active[s]
+            tokens[s, 0] = self._last_tok[s]
+            mask[s] = True
+            cap = min(k, self.pool.tail - 1 - int(self._tail_len[s]))
+            if self._adaptive is not None:
+                cap = min(cap, self._adaptive.draft_len(s))
+            if cap > 0:
+                drafts = self.drafter.propose(req.prompt + req.generated,
+                                              cap)
+                dlen[s] = len(drafts)
+                tokens[s, 1:1 + len(drafts)] = torch.tensor(
+                    drafts, dtype=torch.long)
+        tok, logp, ncommit = self._verify(tokens, mask, dlen)
+        picked, logps, ncs = tok.tolist(), logp.tolist(), ncommit.tolist()
+        for s in slots:
+            if s not in sch.active:
+                continue
+            nc = ncs[s]
+            self._tail_len[s] += nc          # t0 + accepted stay appended
+            self.spec_hist[nc - 1] += 1      # nc - 1 = accepted drafts
+            if self._adaptive is not None:
+                self._adaptive.update(s, int(dlen[s]), nc - 1)
+            self._emit(s, picked[s][:nc], logps[s][:nc], events)
         return events
 
     def _refreeze_tick(self) -> None:
@@ -323,8 +424,9 @@ class ContinuousEngine:
 
     def _emit(self, slot: int, toks: List[int], logprobs: List[float],
               events: List[RequestOutput]) -> None:
-        """Commit one token for a slot; recycle the slot if that finished
-        the request."""
+        """Commit one tick's token window for a slot (one token, or an
+        accepted window under speculation; one snapshot either way);
+        recycle the slot if that finished the request."""
         req = self.scheduler.active[slot]
         prefill = not req.generated
         finished = self.scheduler.record_tokens(
@@ -339,5 +441,7 @@ class ContinuousEngine:
             self._pending_release.append(slot)
             self._tail_len[slot] = 0
             self._last_tok.pop(slot, None)
+            if self._adaptive is not None:
+                self._adaptive.reset(slot)   # the next tenant starts fresh
         else:
             self._last_tok[slot] = req.generated[-1]

@@ -1,6 +1,6 @@
 """Request-level sampling (twin of ``repro.serving.sampling``):
 ``SamplingParams`` in, ``RequestOutput`` out, and the per-slot sampler
-between them.
+between them (``sample_step``, and ``accept_step`` for speculation).
 
 Every pool slot carries a sampling *lane* (``temperature`` / ``top_k`` /
 ``top_p`` tensors on the device) and, for seeded sampling, the request's
@@ -11,10 +11,12 @@ index on ties).
 each request gets its own ``torch.Generator`` seeded from
 ``SamplingParams.seed`` at admission, and it advances only on that
 request's own draws (the final prefill chunk's first token, then one draw
-per decode tick).  A request's token stream therefore depends on its seed
-and its own tick count, never on its slot or its co-tenants — the
-reference's contract — but the streams are not the reference's bits: tests
-hold the masking exactly and the draw by distribution.
+per decode tick, or under speculation ``Qn - 1`` uniforms and one draw per
+verify tick: :func:`accept_step`).  A request's token stream therefore
+depends on its seed and its own tick count, never on its slot or its
+co-tenants — the reference's contract — but the streams are not the
+reference's bits: tests hold the masking exactly and the draw by
+distribution.
 """
 from __future__ import annotations
 
@@ -300,3 +302,84 @@ def sample_step(logits: torch.Tensor, lanes: Dict[str, torch.Tensor],
     logp = torch.log_softmax(logits, dim=-1)
     chosen = torch.gather(logp, -1, tok[:, None])[:, 0]
     return tok, chosen
+
+
+# ---------------------------------------------------------------------------
+# speculative acceptance (the verify half of draft-verify decoding)
+# ---------------------------------------------------------------------------
+
+def accept_step(logits: torch.Tensor, tokens: torch.Tensor,
+                draft_len: torch.Tensor, lanes: Dict[str, torch.Tensor],
+                generators: Sequence[Optional[torch.Generator]],
+                live: Sequence[bool]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-lane acceptance over a verified draft window (twin of the
+    reference's ``accept_step``).
+
+    ``logits [B, Qn, V]`` — the verify forward's panel logits
+    (``logits[:, j]`` conditions on the panel through position ``j``);
+    ``tokens [B, Qn]`` — the panel (last committed token, then the drafts,
+    padded); ``draft_len [B]`` — valid drafts per slot (0..Qn-1);
+    ``generators`` / ``live`` as ``sample_step``'s ``generators`` /
+    ``advance``.
+
+    Greedy lanes accept a draft exactly when it is the argmax of the
+    logits it was drafted to follow, so the committed stream is the plain
+    engine's.  Sampled lanes run rejection sampling against the lane's
+    masked, temperature-scaled distribution ``p``: the drafter is a point
+    mass, so draft ``d`` is accepted with probability ``p(d)`` and a
+    rejection draws from ``p`` with ``d`` excluded (the renormalised
+    residual); after the last accepted draft a plain draw from ``p``
+    follows.  The output distribution is the plain sampler's, token by
+    token.  A sampled lane draws ``Qn - 1`` uniforms and one categorical
+    per tick from its request's own generator.
+
+    Returns ``(out_tok int64 [B, Qn], out_logp f32 [B, Qn], n_commit
+    int32 [B])``: slot ``b`` commits ``out_tok[b, :n_commit[b]]``
+    (``n_commit = accepted + 1``; masked slots commit 0).  ``out_logp`` is
+    the chosen token's log-probability under the unmodified distribution,
+    as in ``sample_step``."""
+    b, qn, v = logits.shape
+    logits = logits.to(torch.float32)
+    dev = logits.device
+    tokens = tokens.to(dev).long()
+    draft_len = torch.as_tensor(draft_len, device=dev).long()
+    live_t = torch.as_tensor(list(live), dtype=torch.bool, device=dev)
+    greedy_tok = torch.argmax(logits, dim=-1)                    # [B, Qn]
+    draft_next = tokens[:, 1:]                                   # [B, Qn-1]
+    acc = greedy_tok[:, :-1] == draft_next
+    sampled = [i for i in range(b) if live[i] and generators[i] is not None]
+    if sampled:
+        lane_live = torch.zeros(b, dtype=torch.bool, device=dev)
+        lane_live[sampled] = True
+        masked = torch.stack([_mask_logits(
+            logits[:, j], lanes["temperature"], lanes["top_k"],
+            lanes["top_p"], live=lane_live) for j in range(qn)], 1)
+        p_draft = torch.gather(torch.softmax(masked[:, :-1], dim=-1), -1,
+                               draft_next[..., None])[..., 0]
+        for i in sampled:
+            u = torch.rand(qn - 1, generator=generators[i], device=dev)
+            acc[i] = u < p_draft[i]
+    acc &= torch.arange(qn - 1, device=dev)[None] < draft_len[:, None]
+    accepted = torch.cumprod(acc.long(), dim=1).sum(dim=1)       # [B]
+    jidx = torch.arange(qn, device=dev)
+    dpad = torch.cat([draft_next, torch.full((b, 1), -1, dtype=torch.long,
+                                             device=dev)], 1)
+    out_tok = torch.where(jidx[None] < accepted[:, None], dpad, greedy_tok)
+    ninf = torch.tensor(float("-inf"), device=dev)
+    for i in sampled:
+        # the correction (a rejected draft is excluded) or the bonus draw,
+        # at position ``accepted`` — selected on the device, no host sync
+        a = accepted[i:i + 1]
+        row = torch.index_select(masked[i], 0, a)[0]             # [V]
+        excl = ((torch.arange(v, device=dev) == dpad[i, a])
+                & (a < draft_len[i]))
+        cand = torch.multinomial(torch.softmax(torch.where(excl, ninf, row),
+                                               dim=-1), 1,
+                                 generator=generators[i])
+        out_tok[i] = torch.where(jidx == a, cand, out_tok[i])
+    out_logp = torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                            out_tok.clamp(min=0)[..., None])[..., 0]
+    n_commit = torch.where(live_t, accepted + 1,
+                           torch.zeros_like(accepted)).to(torch.int32)
+    return out_tok, out_logp, n_commit

@@ -11,7 +11,7 @@ from repro.serving import ContinuousEngine as JaxEngine
 from repro.serving import SamplingParams as JaxParams
 from repro.serving import sampling as jsampling
 
-from repro_torch.serving import ContinuousEngine, SamplingParams
+from repro_torch.serving import ContinuousEngine, SamplingParams, SpecConfig
 from repro_torch.serving import sampling as tsampling
 
 from torch_parity import configs, sparse_params
@@ -45,7 +45,7 @@ def test_greedy_tokens_identical_to_reference_across_refreeze():
 
 @pytest.mark.parametrize("option", [
     {"paged": True, "checkify": True}, {"overlap": True}, {"max_queue": 4},
-    {"capacity_slack": 1.5}, {"spec": object()},
+    {"capacity_slack": 1.5}, {"spec": SpecConfig(k=2), "degrade_queue": 2},
 ], ids=lambda o: next(iter(o)))
 def test_later_slice_options_raise(option):
     jcfg, tcfg = configs("float32")

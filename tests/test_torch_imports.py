@@ -29,6 +29,9 @@ serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
 serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
             "--requests", "2", "--slots", "2", "--prompt-len", "40",
             "--steps", "4", "--prefill-chunk", "16", "--paged", "--int8"])
+serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+            "--requests", "2", "--slots", "2", "--prompt-len", "24",
+            "--steps", "6", "--spec-k", "3", "--spec-adaptive"])
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -43,15 +46,26 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout[-2000:]
-    assert out.stdout.count("[serve] stream: 2 requests") == 2
+    assert out.stdout.count("[serve] stream: 2 requests") == 3
     assert "[serve] kernel launches:" in out.stdout
     assert "[serve] paged: prefix trie holds" in out.stdout
+    assert "[serve] spec: accepted-draft histogram" in out.stdout
+    assert "[serve] spec: adaptive proposal histogram" in out.stdout
+
+
+def test_spec_module_is_numpy_only():
+    """``serving/spec.py`` is a copy of the reference's numpy-only module:
+    it imports neither torch nor jax nor anything of either package."""
+    text = (SRC / "repro_torch" / "serving" / "spec.py").read_text()
+    mods = re.findall(r"^\s*(?:import|from) ([\w.]+)", text, re.M)
+    assert set(mods) <= {"__future__", "dataclasses", "typing", "numpy"}, \
+        mods
 
 
 def test_no_import_of_jax_or_the_reference_in_the_sources():
     pat = re.compile(r"^\s*(import|from) (jax|repro)\b", re.M)
-    files = [ROOT / "chip_smoke.py", *sorted((SRC / "repro_torch").rglob(
-        "*.py"))]
+    files = [ROOT / "chip_smoke.py", ROOT / "tools" / "compare_trees.py",
+             *sorted((SRC / "repro_torch").rglob("*.py"))]
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits
 
@@ -70,13 +84,14 @@ def _tiny():
 
 @pytest.mark.parametrize("entry", ["init_params", "convert_concrete",
                                    "convert_int8", "convert_int4", "engine",
-                                   "engine_paged", "pool", "pool_paged",
-                                   "serve", "serve_paged_int8"])
+                                   "engine_paged", "engine_spec", "pool",
+                                   "pool_paged", "serve", "serve_paged_int8",
+                                   "serve_spec"])
 def test_entry_points_raise_without_a_card(no_card, entry):
     from repro_torch.core.convert import convert_concrete
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    from repro_torch.serving import ContinuousEngine
+    from repro_torch.serving import ContinuousEngine, SpecConfig
     from repro_torch.serving.cache_pool import CachePool
     cfg = _tiny()
     params = lm.init_params(cfg, device="cpu")
@@ -91,11 +106,15 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "engine": lambda: ContinuousEngine(params, cfg, slots=1),
         "engine_paged": lambda: ContinuousEngine(params, cfg, slots=1,
                                                  paged=True),
+        "engine_spec": lambda: ContinuousEngine(params, cfg, slots=1,
+                                                spec=SpecConfig(k=2)),
         "pool": lambda: CachePool.build(cfg, 1, 64),
         "pool_paged": lambda: CachePool.build(cfg, 1, 64, paged=True),
         "serve": lambda: serve.main(["--reduced", "--requests", "1"]),
         "serve_paged_int8": lambda: serve.main(
             ["--reduced", "--requests", "1", "--paged", "--int8"]),
+        "serve_spec": lambda: serve.main(
+            ["--reduced", "--requests", "1", "--spec-k", "2"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -142,3 +161,15 @@ def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path, alone):
                          text=True, timeout=300, env=env, cwd=cwd)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_compare_trees_fails_without_a_card(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""          # no card, even where one is
+    out = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                              "compare_trees.py"),
+                          str(tmp_path)], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=tmp_path)
+    assert out.returncode != 0
+    assert "needs a CUDA card" in out.stderr
+    assert "[compare]" not in out.stdout

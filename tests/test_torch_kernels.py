@@ -26,7 +26,7 @@ from repro_torch.kernels.sparse_attention import (
     sparse_decode_attention_fused, sparse_decode_attention_fused_plain)
 from repro_torch.kernels.sparse_gemv import sparse_gemv, sparse_gemv_plain
 from repro_torch.kernels.sparse_matmul import sparse_matmul, \
-    sparse_matmul_plain
+    sparse_matmul_f32, sparse_matmul_plain
 
 from torch_parity import rand, to_numpy
 
@@ -256,9 +256,25 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert [k.launches for k in kernels] == before
 
 
+@pytest.mark.parametrize("values", ["float32", "bfloat16"])
+def test_f32_sparse_matmul_takes_the_plain_version_on_the_cpu(values):
+    """The f32-activation kernel (an engine served at f32) has its own
+    wrapper and counter; on CPU tensors both wrappers take the plain
+    version and count nothing."""
+    _, tsw = _sparse(256, 128, jnp.dtype(values), seed=15)
+    x = torch.from_numpy(rand((20, 256), 16))
+    before = sparse_matmul_f32.launches, sparse_matmul.launches
+    want = sparse_matmul_plain(x, tsw)
+    assert torch.equal(sparse_matmul_f32(x, tsw), want)
+    assert torch.equal(sparse_matmul(x, tsw), want)
+    assert (sparse_matmul_f32.launches, sparse_matmul.launches) == before
+
+
 def test_unported_paths_raise():
-    """The tail-less prefix attention is not ported; an int8 weight without
-    its per-channel scale is refused as the reference refuses it."""
+    """A query panel without a tail and an int8 weight without its
+    per-channel scale are refused as the reference refuses them (the
+    tail-less single-query attention is ported:
+    ``test_torch_attention_partial.py``)."""
     jsw, tsw = _sparse(256, 128, jnp.float32, seed=12)
     x = torch.from_numpy(rand((2, 256), 13))
     int8 = bridge.params_from_numpy(
@@ -267,6 +283,6 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="scale"):
         tops.linear(x, int8)
     _, tx = _pooled()
-    q = torch.from_numpy(rand((B, HKV * G, D), 14))
-    with pytest.raises(NotImplementedError):
+    q = torch.from_numpy(rand((B, 2, HKV * G, D), 14))
+    with pytest.raises(ValueError, match="tail"):
         tops.sparse_decode_attention(q, tx[0], tx[1], HKV, 0.2, None, None)
