@@ -12,7 +12,12 @@ Phases, each of which exits non-zero on failure:
 3. **kernels**: each hand-written kernel is held against its plain PyTorch
    version on the card, at the shapes the serving paths of full-width
    Qwen3-0.6B give it, within a stated tolerance, and timed with CUDA
-   events beside its bound and the nearest single PyTorch call.
+   events beside its bound and the nearest single PyTorch call.  The two
+   sparse matmul kernels (bf16 and f32 activations) are held at M = 9, 16,
+   20, 256 and a ragged 300, their time at the 20-row verify panel and
+   the 256-row prefill chunk also read from a profiler trace (and the
+   host's enqueue time), and the first rows of one x must be the same
+   bits in calls of M = 9, 20, 256 and 300.
 4. **serve** full-width Qwen3-0.6B (random weights from seed 0, pruned,
    packed and quantised on the card) through ``ContinuousEngine``, with
    every kernel's launch counter zeroed just before each path and read just
@@ -91,6 +96,15 @@ SPEC_K, SPEC_TOKENS, SPEC_IDENTITY_TOKENS = 4, 128, 48
 SPEC_LOGIT_TICKS = 10       # verify ticks of the spec phase's logits check
 MOTIF, MOTIF_REPEATS, N_MOTIF, N_RANDOM = 24, 8, 4, 2
 PAGED_SPEC_K, PAGED_SPEC_TOKENS = 3, 32
+# the sparse matmul's row counts: the first past the gemv's 8, one whole
+# 16-row MMA tile (the paged verify panel), the flat verify panel, the
+# prefill chunk, and a ragged 300 (four 64-row chunks and a partial fifth)
+MATMUL_M = (9, SLOTS * (PAGED_SPEC_K + 1), SLOTS * (SPEC_K + 1),
+            PREFILL_CHUNK, 300)
+# the row-independence gate: these first rows of one x, computed in calls of
+# every M of ROW_GATE_M, must be the same bits (a verify row must equal the
+# decode row of the same token)
+ROW_GATE_ROWS, ROW_GATE_M = 9, (9, SLOTS * (SPEC_K + 1), PREFILL_CHUNK, 300)
 # the decode-logits checks a serve phase runs: (name, dtype, kernels the
 # plain path keeps, gated).  On the int paths the attention kernel's f32
 # sums, in another order than its plain version's, round to bf16 a ulp
@@ -289,7 +303,8 @@ def linear_kernels(torch, cfg, timer, gen, detail):
                    + scale + x_rows * n * out_bytes)
         return n_bytes, 2.0 * x_rows * nnz
 
-    def rows(name, mode, fn, plain, library, m_list, per_layer_m):
+    def rows(name, mode, fn, plain, library, m_list, per_layer_m,
+             traced=()):
         # f32 activations meet the served bf16 values
         weights = {kn: _packed(torch, *kn, gen,
                                mode="bf16" if mode == "f32" else mode)
@@ -346,15 +361,31 @@ def linear_kernels(torch, cfg, timer, gen, detail):
                 tl = timer(library(args, wd, m))
                 nb, no = sparse_costs(m, kn, sw, xb, ob)
                 b, by = bound_ms(nb, no, rate)
-                detail.append({"kernel": name, "M": m, "K": kn[0],
-                               "N": kn[1], "max_abs_err": err, "tol": tol,
-                               "ms": t, "plain_ms": tp, "library_ms": tl,
-                               "bound_ms": b, "bound_by": by})
+                row = {"kernel": name, "M": m, "K": kn[0], "N": kn[1],
+                       "max_abs_err": err, "tol": tol, "ms": t,
+                       "plain_ms": tp, "library_ms": tl, "bound_ms": b,
+                       "bound_by": by}
+                traced_txt = ""
+                if m in traced:
+                    # every kernel of one call (partials and their sum),
+                    # and the host's enqueue time of one call
+                    dev = device_ms_per_call(torch, lambda: fn(*args))
+                    row["device_ms"] = dev
+                    row["host_ms"] = host_ms_per_call(torch,
+                                                      lambda: fn(*args))
+                    traced_txt = (f", traced device {dev * 1e3:.1f} us"
+                                  if isinstance(dev, float) else f", {dev}")
+                    traced_txt += (f", host enqueue "
+                                   f"{row['host_ms'] * 1e3:.1f} us")
+                detail.append(row)
                 say(f"{name} M={m} K={kn[0]} N={kn[1]}: err {err:.2e} (rel "
-                    f"{rel:.1e}, tol {tol:.2e}) kernel {t * 1e3:.1f} us, "
-                    f"plain {tp * 1e3:.1f} us, library {tl * 1e3:.1f} us, "
-                    f"bound {b * 1e3:.2f} us")
+                    f"{rel:.1e}, tol {tol:.2e}) kernel {t * 1e3:.1f} us"
+                    f"{traced_txt}, plain {tp * 1e3:.1f} us, library "
+                    f"{tl * 1e3:.1f} us, bound {b * 1e3:.2f} us")
                 count = sum(1 for _, k, n in linears if (k, n) == kn)
+                for key in ("device_ms", "host_ms"):
+                    if isinstance(row.get(key), float):
+                        pm[key] = pm.get(key, 0.0) + count * row[key]
                 for key, val in (("ms", t), ("plain_ms", tp),
                                  ("library_ms", tl), ("bytes", nb),
                                  ("ops", no)):
@@ -362,8 +393,11 @@ def linear_kernels(torch, cfg, timer, gen, detail):
             pm["bound_ms"], pm["bound_by"] = bound_ms(pm["bytes"], pm["ops"],
                                                       rate)
             per_m[m] = pm
-            say(f"{name} per layer at M={m}: kernel {pm['ms'] * 1e3:.1f} us, "
-                f"plain {pm['plain_ms'] * 1e3:.1f} us, library "
+            dev_txt = (f" (traced device {pm['device_ms'] * 1e3:.1f} us, "
+                       f"host enqueue {pm['host_ms'] * 1e3:.1f} us)"
+                       if "device_ms" in pm else "")
+            say(f"{name} per layer at M={m}: kernel {pm['ms'] * 1e3:.1f} us"
+                f"{dev_txt}, plain {pm['plain_ms'] * 1e3:.1f} us, library "
                 f"{pm['library_ms'] * 1e3:.1f} us, bound "
                 f"{pm['bound_ms'] * 1e3:.2f} us ({pm['bound_by']})")
         layer = dict(per_m[per_layer_m])
@@ -386,14 +420,16 @@ def linear_kernels(torch, cfg, timer, gen, detail):
     out["sparse_gemv"] = rows("sparse_gemv", "bf16", sparse_gemv,
                               sparse_gemv_plain, mm_library, (1, 4, 8),
                               SLOTS)
-    # the prefill chunk, and the verify panels of the spec phases
+    # the prefill chunk, the verify panels of the spec phases, the first
+    # row count past the gemv and a ragged chunk; the flat verify panel and
+    # the prefill chunk also traced
+    traced = (SLOTS * (SPEC_K + 1), PREFILL_CHUNK)
     out["sparse_matmul"] = rows("sparse_matmul", "bf16", sparse_matmul,
-                                sparse_matmul_plain, mm_library,
-                                (SLOTS * (SPEC_K + 1), PREFILL_CHUNK),
-                                PREFILL_CHUNK)
+                                sparse_matmul_plain, mm_library, MATMUL_M,
+                                PREFILL_CHUNK, traced=traced)
     out["sparse_matmul_f32"] = rows(
         "sparse_matmul_f32", "f32", sparse_matmul_f32, sparse_matmul_plain,
-        mm_library, (SLOTS * (SPEC_K + 1), PREFILL_CHUNK), PREFILL_CHUNK)
+        mm_library, MATMUL_M, PREFILL_CHUNK, traced=traced)
     int_m = (1, SLOTS, 8, SLOTS * (PAGED_SPEC_K + 1), PREFILL_CHUNK)
     out["sparse_matmul_int8"] = rows(
         "sparse_matmul_int8", "int8", sparse_matmul_int8,
@@ -402,6 +438,36 @@ def linear_kernels(torch, cfg, timer, gen, detail):
         "sparse_matmul_int4", "int4", sparse_matmul_int4,
         sparse_matmul_int4_plain, int_library, int_m, SLOTS)
     return out
+
+
+def row_independence(torch, cfg, gen):
+    """The first ROW_GATE_ROWS rows of one random x through each sparse
+    matmul kernel, in calls of every M of ROW_GATE_M, at every (K, N) of the
+    layer: bit-equal, or the run fails."""
+    from repro_torch.kernels.sparse_matmul import sparse_matmul, \
+        sparse_matmul_f32
+    shapes = sorted({(k, n) for _, k, n in _layer_linears(cfg)})
+    checked = {}
+    for name, fn, dtype in (("sparse_matmul", sparse_matmul, torch.bfloat16),
+                            ("sparse_matmul_f32", sparse_matmul_f32,
+                             torch.float32)):
+        for kn in shapes:
+            sw = _packed(torch, *kn, gen)
+            x = torch.randn((max(ROW_GATE_M), kn[0]), generator=gen,
+                            device="cuda").to(dtype)
+            first = [fn(x[:m], sw)[:ROW_GATE_ROWS].clone()
+                     for m in ROW_GATE_M]
+            torch.cuda.synchronize()
+            for m, got in zip(ROW_GATE_M[1:], first[1:]):
+                if not torch.equal(got, first[0]):
+                    diff = (got.float() - first[0].float()).abs().max()
+                    fail(f"{name} K,N={kn}: the first {ROW_GATE_ROWS} rows "
+                         f"differ between M={ROW_GATE_M[0]} and M={m} "
+                         f"(max |diff| {diff.item():.3e})")
+        checked[name] = len(shapes)
+        say(f"{name}: the first {ROW_GATE_ROWS} rows are bit-equal across "
+            f"M={ROW_GATE_M} at {len(shapes)} (K, N) shapes")
+    return checked
 
 
 def _attention_library(torch, q, k_pre, v_pre, tails, n_blocks, tail_len,
@@ -757,6 +823,7 @@ def kernel_phase(torch, cfg):
     gen.manual_seed(0)
     detail = []
     summary = linear_kernels(torch, cfg, timer, gen, detail)
+    summary["row_independence"] = row_independence(torch, cfg, gen)
     summary.update(attention_kernels(torch, cfg, timer, gen, detail))
     summary["sparse_decode_attention_partial"] = partial_kernel(
         torch, cfg, timer, gen, detail)
@@ -980,16 +1047,23 @@ def decode_profile(torch, eng, cfg, n_ticks=8):
         eng.pool.rollback(st, (k + 1) * mask.to(torch.int32))
         tok.tolist(), nc.tolist()
 
-    tick()
+    res = {"ticks": n_ticks, "slots": len(slots), "panel": k + 1}
+    return _profiled(torch, tick, n_ticks, res)
+
+
+def _profiled(torch, fn, n, res):
+    """Wall time per call of ``fn`` (each ends in a sync), then a
+    ``torch.profiler`` trace of ``n`` more calls: device busy time, idle
+    share, the top device kernels and the top host ops by self CPU time
+    (inflated by the profiler's own cost), all per call, into ``res``."""
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n_ticks):
-        tick()
-    wall = (time.perf_counter() - t0) / n_ticks
-    res = {"ticks": n_ticks, "slots": len(slots), "panel": k + 1,
-           "wall_ms": wall * 1e3}
+    for _ in range(n):
+        fn()
+    res["wall_ms"] = (time.perf_counter() - t0) / n * 1e3
     # the profiler is a measurement, not a check: its own failures are
-    # reported; a failing tick fails the run
+    # reported; a failing call fails the run
     try:
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CPU,
@@ -998,16 +1072,18 @@ def decode_profile(torch, eng, cfg, n_ticks=8):
     except Exception as e:
         res["device"] = f"not measured: {type(e).__name__}: {e}"
         return res
-    for _ in range(n_ticks):
-        tick()
+    for _ in range(n):
+        fn()
     torch.cuda.synchronize()
     try:
         prof.stop()
-        rows = [(e.key, e.self_device_time_total / n_ticks / 1e3,
-                 e.count // n_ticks)
-                for e in prof.key_averages()
-                if "CUDA" in str(e.device_type)
+        events = prof.key_averages()
+        rows = [(e.key, e.self_device_time_total / n / 1e3, e.count // n)
+                for e in events if "CUDA" in str(e.device_type)
                 and e.self_device_time_total > 0]
+        host = [(e.key, e.self_cpu_time_total / n / 1e3, e.count // n)
+                for e in events if "CPU" in str(e.device_type)
+                and e.self_cpu_time_total > 0]
     except Exception as e:
         res["device"] = f"not measured: {type(e).__name__}: {e}"
         return res
@@ -1015,11 +1091,33 @@ def decode_profile(torch, eng, cfg, n_ticks=8):
         res["device"] = "not measured: the trace holds no device time"
         return res
     rows.sort(key=lambda r: -r[1])
+    host.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     res.update(device_ms=busy, idle_share=max(0.0, 1 - busy / res["wall_ms"]),
                top=[{"kernel": k[:80], "ms_per_tick": t, "per_tick": c}
-                    for k, t, c in rows[:8]])
+                    for k, t, c in rows[:8]],
+               host_top=[{"op": k[:60], "ms_per_tick": t, "per_tick": c}
+                         for k, t, c in host[:8]])
     return res
+
+
+def prefill_profile(torch, eng, cfg, n=4):
+    """One full prefill chunk (PREFILL_CHUNK tokens into slot 0 of a copy of
+    the live flat state, emptied first), timed and traced like a tick."""
+    from repro_torch.models import lm
+    st = _clone(eng.state)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, PREFILL_CHUNK), generator=gen,
+                         device="cuda")
+
+    def chunk():
+        st["pos"][0] = 0
+        st["prefix_blocks"][0] = 0
+        lm.forward_prefill_chunk(eng.params, st, toks, 0, cfg, eng.pool.bs)
+        torch.cuda.synchronize()
+
+    return _profiled(torch, chunk, n, {"tokens": PREFILL_CHUNK})
 
 
 def _model(torch, cfg, mode):
@@ -1050,14 +1148,15 @@ def _engine(cfg, params, paused, max_tokens, paged=False, spec_k=0):
 
 def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                  checks=FLAT_CHECKS, on_step=None, lead=False,
-                 check_ticks=LOGIT_TICKS, rows=None):
+                 check_ticks=LOGIT_TICKS, rows=None, prefill=False):
     """Submit the requests and run the engine to completion with every
     kernel counter zeroed just before and read just after.  ``lead``
     submits the first request alone and the rest once it has its first
     token (so a shared prefix is frozen before the others arrive).  When
     ``ready(eng)`` first holds, the logits of ``check_ticks`` ticks are
-    checked (each of ``checks``) and one tick is profiled, outside the
-    counted and timed run (``rows``, a ``panel_rows`` count, included).
+    checked (each of ``checks``) and one tick (with ``prefill``, also one
+    prefill chunk) is profiled, outside the counted and timed run
+    (``rows``, a ``panel_rows`` count, included).
     Returns the results."""
     import torch as _torch
     from repro_torch.launch import serve as serve_mod
@@ -1103,6 +1202,8 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                 for name, _, _, gated in checks:
                     check[name]["gated"] = gated
                 profile = decode_profile(torch, eng, cfg)
+                if prefill:
+                    profile["prefill"] = prefill_profile(torch, eng, cfg)
                 lm.forward_panel_pooled = panel
                 for name, n in saved.items():
                     serve_mod.KERNELS[name].launches = n
@@ -1221,6 +1322,21 @@ def report(label, run, total, n_req):
             f"{profile['idle_share']:.2f}); top: " + ", ".join(
                 f"{r['kernel'][:40]} {r['ms_per_tick']:.2f} ms "
                 f"x{r['per_tick']}" for r in profile["top"][:5])))
+        for what, prof in ((tick, profile), ("prefill chunk",
+                                             profile.get("prefill"))):
+            if prof and "host_top" in prof:
+                say(f"{label}: {what}: host self time under the profiler: "
+                    + ", ".join(f"{r['op'][:32]} {r['ms_per_tick']:.2f} ms "
+                                f"x{r['per_tick']}"
+                                for r in prof["host_top"][:6]))
+        pre = profile.get("prefill")
+        if pre is not None:
+            say(f"{label}: prefill chunk of {pre['tokens']} tokens wall "
+                f"{pre['wall_ms']:.2f} ms, " + (pre.get("device") or (
+                    f"device busy {pre['device_ms']:.2f} ms (idle share "
+                    f"{pre['idle_share']:.2f}); top: " + ", ".join(
+                        f"{r['kernel'][:40]} {r['ms_per_tick']:.2f} ms "
+                        f"x{r['per_tick']}" for r in pre["top"][:6]))))
     return res
 
 
@@ -1255,7 +1371,8 @@ def serve_phase(torch, cfg):
 
     run = serve_stream(torch, eng, cfg,
                        [prompts[i][:lens[i]] for i in range(N_REQUESTS)],
-                       params_of, paused, ready, checks=FLAT_CHECKS)
+                       params_of, paused, ready, checks=FLAT_CHECKS,
+                       prefill=True)
     check_launches("serve", run["counts"],
                    ("sparse_gemv", "sparse_decode_attention_fused",
                     "sparse_matmul", "dense_matmul"),
@@ -1556,6 +1673,19 @@ def device_ms_per_call(torch, fn, n=20):
     return busy / n / 1e3
 
 
+def host_ms_per_call(torch, fn, n=50):
+    """Host time to enqueue one call of ``fn``: ``n`` calls back to back
+    from an idle device, timed on the host clock without a sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return dt * 1e3
+
+
 def attention_times(torch, eng, cfg, timer):
     """One layer's decode attention on the live state, fused against the
     two-pass dispatch: CUDA-event time (L2 flushed) and traced device time
@@ -1709,6 +1839,44 @@ def _verify_rows(label, rows, name, qg, verify_ticks, layers):
              f"expected {want}")
 
 
+@contextlib.contextmanager
+def verify_tick_parts(eng):
+    """Host time of each verify tick of ``eng`` and of two of its parts:
+    the drafter's proposals and the verify call (the panel forward's
+    enqueue, the accept and the rollback).  The rest is the token sync and
+    the commits."""
+    parts = {"tick": [], "draft": [], "verify": []}
+    cur = {}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if key in cur:
+                    cur[key] += time.perf_counter() - t
+        return run
+
+    spec_tick = timed("tick", eng._spec_tick)
+
+    def tick(*a, **k):
+        cur.update(tick=0.0, draft=0.0, verify=0.0)
+        try:
+            return spec_tick(*a, **k)
+        finally:
+            for key in parts:
+                parts[key].append(cur[key])
+            cur.clear()
+
+    eng._spec_tick, eng._verify = tick, timed("verify", eng._verify)
+    eng.drafter.propose = timed("draft", eng.drafter.propose)
+    try:
+        yield parts
+    finally:
+        del eng._spec_tick, eng._verify, eng.drafter.propose
+
+
 def spec_phase(torch, cfg, params):
     """Flat bf16 with ``SpecConfig(k=4)`` on motif and random traffic,
     timed beside the same traffic without speculation."""
@@ -1728,7 +1896,7 @@ def spec_phase(torch, cfg, params):
     def ready(e):
         return len(e.scheduler.decoding_slots()) == SLOTS
 
-    with panel_rows() as rows:
+    with panel_rows() as rows, verify_tick_parts(eng) as parts:
         run = serve_stream(torch, eng, cfg, prompts, params_of, paused,
                            ready, checks=FLAT_CHECKS,
                            check_ticks=SPEC_LOGIT_TICKS, rows=rows)
@@ -1761,7 +1929,16 @@ def spec_phase(torch, cfg, params):
         f"tick {decode_ms:.1f} ms; {res['tok_s']:.1f} tok/s against "
         f"{res_off['tok_s']:.1f} tok/s without speculation; {same} of {n} "
         f"requests bf16-identical to spec off (reported, not gated)")
+    host = {key: statistics.median(v) * 1e3 for key, v in parts.items()}
+    host["rest"] = statistics.median(
+        [t - d - v for t, d, v in zip(parts["tick"], parts["draft"],
+                                      parts["verify"])]) * 1e3
+    say(f"spec: host time of a verify tick, medians: the tick {host['tick']:.1f} "
+        f"ms (of a {verify_ms:.1f} ms step), drafting {host['draft']:.2f} ms, "
+        f"the verify call {host['verify']:.1f} ms, the rest (sync, "
+        f"commits) {host['rest']:.1f} ms")
     res.update(spec_hist=hist, tokens_per_verify_tick=per_tick,
+               verify_tick_host_ms=host,
                verify_tick_ms=verify_ms, spec_off_decode_tick_ms=decode_ms,
                spec_off=res_off, identical_to_spec_off=same,
                attention_rows=(SPEC_K + 1) * g)

@@ -84,6 +84,61 @@ __device__ __forceinline__ void stage_word_offsets(
   __syncthreads();
 }
 
+// Stage the words [w_lo, w_hi) of one block's bitmap (a slice of its rows)
+// in shared memory, s_words[j - w_lo], with each word's exclusive prefix
+// popcount over the whole block, s_off[j - w_lo]: the absolute rank of its
+// first set bit.  Words [0, w_lo) are read only to count their bits.  Each
+// thread owns a run of whole uint4s and reads them with 16-byte loads:
+// `words` must be 16-byte aligned and w_hi a multiple of 4.  Every thread
+// of the block must call this; blockDim.x must be a multiple of 32;
+// `s_scratch` needs 32 ints.  Ends with a __syncthreads().
+__device__ __forceinline__ void stage_slice_offsets(
+    const uint32_t* __restrict__ words, int w_lo, int w_hi,
+    uint32_t* s_words, int* s_off, int* s_scratch) {
+  const int nt = blockDim.x, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, nwarps = nt >> 5;
+  const int per = (w_hi + 4 * nt - 1) / (4 * nt) * 4;
+  const int w0 = t * per, w1 = min(w0 + per, w_hi);
+  int local = 0, before = 0;           // bits owned; those before w_lo
+  for (int j = w0; j < w1; j += 4) {
+    const uint4 q = *reinterpret_cast<const uint4*>(words + j);
+    const uint32_t v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = __popc(v[i]);
+      local += c;
+      if (j + i < w_lo) before += c;
+      else s_words[j + i - w_lo] = v[i];
+    }
+  }
+  // block-wide exclusive scan of the per-thread popcount totals
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) s_scratch[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < nwarps ? s_scratch[lane] : 0;
+    int inc = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += u;
+    }
+    if (lane < nwarps) s_scratch[lane] = inc - v;
+  }
+  __syncthreads();
+  int run = s_scratch[warp] + incl - local + before;
+  for (int j = max(w0, w_lo); j < w1; ++j) {
+    s_off[j - w_lo] = run;
+    run += __popc(s_words[j - w_lo]);
+  }
+  __syncthreads();
+}
+
 // Rank of flat position `p` of a staged block among the block's set bits,
 // i.e. the index of its packed value (clamped to cap - 1, as the reference
 // clamps its gather), or -1 where the bit is clear.  Independent of the
