@@ -16,8 +16,11 @@ Phases, each of which exits non-zero on failure:
    sparse matmul kernels (bf16 and f32 activations) are held at M = 9, 16,
    20, 256 and a ragged 300, their time at the 20-row verify panel and
    the 256-row prefill chunk also read from a profiler trace (and the
-   host's enqueue time), and the first rows of one x must be the same
-   bits in calls of M = 9, 20, 256 and 300.
+   host's enqueue time).  The int8 and int4 kernels are held bit-equal to
+   their plain versions at M = 1, 4, 8, 16, 20, 256 and 300, traced at
+   the 4-row decode tick and the 256-row prefill chunk.  For all four, the
+   first rows of one x must be the same bits in calls of M = 9, 20, 256
+   and 300.
 4. **serve** full-width Qwen3-0.6B (random weights from seed 0, pruned,
    packed and quantised on the card) through ``ContinuousEngine``, with
    every kernel's launch counter zeroed just before each path and read just
@@ -36,9 +39,9 @@ Phases, each of which exits non-zero on failure:
      near-tie; then flat f32 ``k=4`` against flat f32 without speculation
      under the same rule;
    * paged shared-prefix pool, int8 sparse weights: eight requests sharing
-     a 512-token prefix (prefix-cache hits and shared blocks required),
-     then the same requests on the flat pool, whose greedy tokens must be
-     identical;
+     a 512-token prefix (prefix-cache hits and shared blocks required; one
+     decode tick and one 256-token prefill chunk traced), then the same
+     requests on the flat pool, whose greedy tokens must be identical;
    * paged int8 ``k=3`` against paged int8 without speculation on the
      shared-prefix requests, under the near-tie rule, with prefix-cache
      hits;
@@ -105,6 +108,11 @@ MATMUL_M = (9, SLOTS * (PAGED_SPEC_K + 1), SLOTS * (SPEC_K + 1),
 # every M of ROW_GATE_M, must be the same bits (a verify row must equal the
 # decode row of the same token)
 ROW_GATE_ROWS, ROW_GATE_M = 9, (9, SLOTS * (SPEC_K + 1), PREFILL_CHUNK, 300)
+# the int8 / int4 kernels' row counts: a single row, the decode tick, the
+# gemv's largest, then the sparse matmul's; traced at the decode tick and
+# the prefill chunk
+INT_M = (1, SLOTS, 8) + MATMUL_M[1:]
+INT_TRACED = (SLOTS, PREFILL_CHUNK)
 # the decode-logits checks a serve phase runs: (name, dtype, kernels the
 # plain path keeps, gated).  On the int paths the attention kernel's f32
 # sums, in another order than its plain version's, round to bf16 a ulp
@@ -430,33 +438,51 @@ def linear_kernels(torch, cfg, timer, gen, detail):
     out["sparse_matmul_f32"] = rows(
         "sparse_matmul_f32", "f32", sparse_matmul_f32, sparse_matmul_plain,
         mm_library, MATMUL_M, PREFILL_CHUNK, traced=traced)
-    int_m = (1, SLOTS, 8, SLOTS * (PAGED_SPEC_K + 1), PREFILL_CHUNK)
+    # the int kernels carry every row count of the int paths: the decode
+    # tick and below, both verify panels, the prefill chunk and a ragged
+    # chunk; the decode tick and the prefill chunk also traced
     out["sparse_matmul_int8"] = rows(
         "sparse_matmul_int8", "int8", sparse_matmul_int8,
-        sparse_matmul_int8_plain, int_library, int_m, SLOTS)
+        sparse_matmul_int8_plain, int_library, INT_M, SLOTS,
+        traced=INT_TRACED)
     out["sparse_matmul_int4"] = rows(
         "sparse_matmul_int4", "int4", sparse_matmul_int4,
-        sparse_matmul_int4_plain, int_library, int_m, SLOTS)
+        sparse_matmul_int4_plain, int_library, INT_M, SLOTS,
+        traced=INT_TRACED)
     return out
 
 
 def row_independence(torch, cfg, gen):
     """The first ROW_GATE_ROWS rows of one random x through each sparse
-    matmul kernel, in calls of every M of ROW_GATE_M, at every (K, N) of the
-    layer: bit-equal, or the run fails."""
+    matmul kernel (the int kernels: of one random quantised x), in calls of
+    every M of ROW_GATE_M, at every (K, N) of the layer: bit-equal, or the
+    run fails."""
+    from repro_torch.core.quant import quantize_act_int8
     from repro_torch.kernels.sparse_matmul import sparse_matmul, \
         sparse_matmul_f32
+    from repro_torch.kernels.sparse_matmul_int4 import sparse_matmul_int4
+    from repro_torch.kernels.sparse_matmul_int8 import sparse_matmul_int8
     shapes = sorted({(k, n) for _, k, n in _layer_linears(cfg)})
     checked = {}
-    for name, fn, dtype in (("sparse_matmul", sparse_matmul, torch.bfloat16),
-                            ("sparse_matmul_f32", sparse_matmul_f32,
-                             torch.float32)):
+    for name, fn, mode in (("sparse_matmul", sparse_matmul, "bf16"),
+                           ("sparse_matmul_f32", sparse_matmul_f32, "f32"),
+                           ("sparse_matmul_int8", sparse_matmul_int8,
+                            "int8"),
+                           ("sparse_matmul_int4", sparse_matmul_int4,
+                            "int4")):
         for kn in shapes:
-            sw = _packed(torch, *kn, gen)
+            sw = _packed(torch, *kn, gen,
+                         mode="bf16" if mode == "f32" else mode)
             x = torch.randn((max(ROW_GATE_M), kn[0]), generator=gen,
-                            device="cuda").to(dtype)
-            first = [fn(x[:m], sw)[:ROW_GATE_ROWS].clone()
-                     for m in ROW_GATE_M]
+                            device="cuda")
+            if mode in ("int8", "int4"):
+                xq, sx = quantize_act_int8(x.to(torch.bfloat16))
+                first = [fn(xq[:m], sx[:m], sw, torch.bfloat16)
+                         [:ROW_GATE_ROWS].clone() for m in ROW_GATE_M]
+            else:
+                x = x.to(torch.float32 if mode == "f32" else torch.bfloat16)
+                first = [fn(x[:m], sw)[:ROW_GATE_ROWS].clone()
+                         for m in ROW_GATE_M]
             torch.cuda.synchronize()
             for m, got in zip(ROW_GATE_M[1:], first[1:]):
                 if not torch.equal(got, first[0]):
@@ -1103,18 +1129,25 @@ def _profiled(torch, fn, n, res):
 
 def prefill_profile(torch, eng, cfg, n=4):
     """One full prefill chunk (PREFILL_CHUNK tokens into slot 0 of a copy of
-    the live flat state, emptied first), timed and traced like a tick."""
+    the live state, emptied first), timed and traced like a tick.  On the
+    paged pool the chunk's blocks freeze into the copy's last arena pages
+    (the copy's other contents are never read again)."""
     from repro_torch.models import lm
     st = _clone(eng.state)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (1, PREFILL_CHUNK), generator=gen,
                          device="cuda")
+    new_ids = None
+    if "table" in st:
+        nb = PREFILL_CHUNK // eng.pool.bs
+        new_ids = list(range(eng.pool.n_phys - nb, eng.pool.n_phys))
 
     def chunk():
         st["pos"][0] = 0
         st["prefix_blocks"][0] = 0
-        lm.forward_prefill_chunk(eng.params, st, toks, 0, cfg, eng.pool.bs)
+        lm.forward_prefill_chunk(eng.params, st, toks, 0, cfg, eng.pool.bs,
+                                 new_ids=new_ids)
         torch.cuda.synchronize()
 
     return _profiled(torch, chunk, n, {"tokens": PREFILL_CHUNK})
@@ -1401,7 +1434,8 @@ def _shared_prompts(cfg, n):
 def paged_phase(torch, cfg, mode, n_req, new_tokens, kernel):
     """The paged shared-prefix pool with int8 or int4 sparse weights:
     prefix-cache hits and blocks shared by live requests required, every
-    kernel of the path launched, decode logits held to the bf16 gates."""
+    kernel of the path launched, decode logits held to the bf16 gates; one
+    decode tick (and, for int8, one prefill chunk) traced."""
     from repro_torch.serving import SamplingParams
 
     params = _model(torch, cfg, mode)
@@ -1438,7 +1472,8 @@ def paged_phase(torch, cfg, mode, n_req, new_tokens, kernel):
         return True
 
     run = serve_stream(torch, eng, cfg, prompts, params_of, paused, ready,
-                       checks=INT_CHECKS, on_step=on_step, lead=True)
+                       checks=INT_CHECKS, on_step=on_step, lead=True,
+                       prefill=mode == "int8")
     check_launches(label, run["counts"],
                    ("dense_matmul", "sparse_decode_attention_fused_paged",
                     kernel),

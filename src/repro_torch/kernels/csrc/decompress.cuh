@@ -139,6 +139,103 @@ __device__ __forceinline__ void stage_slice_offsets(
   __syncthreads();
 }
 
+// Stage the slice of rows [r0, r1) of one compressed block (`words` its
+// bitmap, `bn` its width): the slice's words and their ranks, then the
+// packed values those ranks reach, ranks clamped to cap - 1 as packed_rank
+// clamps them.  Values are `vbits` bits each (4: two per byte, low nibble
+// first; 8, 16 or 32) and the block's `n_bytes` bytes start at `vals`.
+// The bytes are copied into `s_v` from a 16-byte aligned start, with
+// 16-byte loads where n_bytes and the pointer allow, so `s_v` needs room
+// for the slice's own bytes plus 32.  Returns the byte offset, within the
+// block's values, that s_v[0] holds.  Every thread of the block must call
+// this.  Ends with a __syncthreads().
+__device__ __forceinline__ int stage_slice(
+    const uint32_t* __restrict__ words, int bn, int r0, int r1,
+    const uint8_t* __restrict__ vals, int n_bytes, int cap, int vbits,
+    uint32_t* s_words, int* s_off, int* s_scr, uint8_t* s_v) {
+  const int w_lo = r0 * bn / 32, w_hi = r1 * bn / 32;
+  stage_slice_offsets(words, w_lo, w_hi, s_words, s_off, s_scr);
+  const int nw = w_hi - w_lo;
+  const int first = s_off[0];
+  const int last = s_off[nw - 1] + __popc(s_words[nw - 1]);
+  const int lo = min(first, cap - 1), hi = min(last, cap);
+  // bytes [b_lo, b_hi) hold ranks [lo, hi)
+  const int b_lo = lo * vbits / 8, b_hi = (hi * vbits + 7) / 8;
+  const int b_a = b_lo & ~15;
+  if (n_bytes % 16 == 0 && (reinterpret_cast<uintptr_t>(vals) & 15) == 0) {
+    const int n16 = (b_hi + 15) / 16 - b_a / 16;
+    const uint4* src = reinterpret_cast<const uint4*>(vals + b_a);
+    uint4* dst = reinterpret_cast<uint4*>(s_v);
+    for (int i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = src[i];
+  } else {
+    for (int i = b_lo + threadIdx.x; i < b_hi; i += blockDim.x)
+      s_v[i - b_a] = vals[i];
+  }
+  __syncthreads();
+  return b_a;
+}
+
+// The split of a K-split kernel: `rps` rows of one compressed block of
+// `bk` rows, split s covering block row `kb`, slice rows [r0, r0 + rows)
+// of it, x columns from kx0.
+struct Split {
+  int kb, r0, rows, kx0;
+  __device__ Split(int bk, int rps, int split) {
+    const int spb = (bk + rps - 1) / rps;
+    kb = split / spb;
+    r0 = (split % spb) * rps;
+    rows = min(rps, bk - r0);
+    kx0 = kb * bk + r0;
+  }
+};
+
+// 16 bytes from device to shared memory, asynchronously; `fill` false
+// zero-fills them instead (and reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = fill ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Stage x rows [c0, c0 + mc) x columns [kx0, kx0 + cols) of a row-major
+// x [M, K] into `dst` (row stride ldx elements): cp.async of 16 bytes
+// where `vec` (K a multiple of 16 bytes' worth, x 16-byte aligned; cols
+// too), else plain loads.  Zeros past K, and in rows at or past M up to
+// the next multiple of 16; rows past that are never read.
+template <typename TX>
+__device__ __forceinline__ void stage_x(TX* dst, int ldx,
+                                        const TX* __restrict__ x, int M,
+                                        int K, int c0, int mc, int kx0,
+                                        int cols, bool vec) {
+  constexpr int E = 16 / sizeof(TX);
+  const int rows = min(mc, (M - c0 + 15) / 16 * 16);
+  if (vec) {
+    const int per_row = cols / E;
+    for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+      const int r = i / per_row, q = i % per_row;
+      const int gr = c0 + r, gk = kx0 + q * E;
+      const bool ok = gr < M && gk < K;
+      cp_async16(dst + r * ldx + q * E,
+                 ok ? x + static_cast<size_t>(gr) * K + gk : x, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int r = i / cols, kk = i % cols;
+      const int gr = c0 + r, gk = kx0 + kk;
+      dst[r * ldx + kk] =
+          (gr < M && gk < K) ? x[static_cast<size_t>(gr) * K + gk] : TX{};
+    }
+  }
+}
+
 // Rank of flat position `p` of a staged block among the block's set bits,
 // i.e. the index of its packed value (clamped to cap - 1, as the reference
 // clamps its gather), or -1 where the bit is clear.  Independent of the

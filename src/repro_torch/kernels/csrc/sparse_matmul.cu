@@ -77,94 +77,20 @@ struct Args {
   int M, K, Nb, bk, bn, cap, rps;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool fill) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = fill ? 16 : 0;         // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(n) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Stage x rows [c0, c0 + MC) x columns [kx0, kx0 + rps) into `dst` (row
-// stride ldx): cp.async of 16 bytes where K and x allow it, else plain
-// loads.  Rows at or past M up to the next multiple of 16 become zeros;
-// rows past that are never read.
-template <typename TX>
-__device__ __forceinline__ void stage_x(TX* dst, int ldx,
-                                        const TX* __restrict__ x, int M,
-                                        int K, int c0, int kx0, int rps,
-                                        bool vec) {
-  constexpr int E = 16 / sizeof(TX);
-  const int rows = min(MC, (M - c0 + 15) / 16 * 16);
-  if (vec) {
-    const int per_row = rps / E;
-    for (int i = threadIdx.x; i < rows * per_row; i += NT) {
-      const int r = i / per_row, q = i % per_row;
-      const int gr = c0 + r, gk = kx0 + q * E;
-      const bool ok = gr < M && gk < K;
-      cp_async16(dst + r * ldx + q * E,
-                 ok ? x + static_cast<size_t>(gr) * K + gk : x, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * rps; i += NT) {
-      const int r = i / rps, kk = i % rps;
-      const int gr = c0 + r, gk = kx0 + kk;
-      dst[r * ldx + kk] = (gr < M && gk < K)
-                              ? x[static_cast<size_t>(gr) * K + gk]
-                              : from_f32<TX>(0.f);
-    }
-  }
-}
-
-// Stage the slice of rows [r0, r1) of compressed block `blk`: its words
-// and their ranks, then the packed values those ranks reach (ranks clamp
-// to cap - 1, as packed_rank does), copied with 16-byte loads from an
-// aligned start where cap and the pointer allow.  Returns the rank held in
-// s_v[0].  Ends with a __syncthreads().
+// Stage this block's slice (stage_slice: words, ranks, then the packed
+// values); returns the index of the value s_v[0] holds.
 template <typename TV>
-__device__ int stage_slice(const Args& a, size_t blk, int r0, int r1,
-                           uint32_t* s_words, int* s_off, int* s_scr,
-                           TV* s_v) {
-  const int w_lo = r0 * a.bn / 32, w_hi = r1 * a.bn / 32;
-  stage_slice_offsets(a.bitmap + blk * (a.bk * a.bn / 32), w_lo, w_hi,
-                      s_words, s_off, s_scr);
-  const int nw = w_hi - w_lo;
-  const int first = s_off[0];
-  const int last = s_off[nw - 1] + __popc(s_words[nw - 1]);
-  const int lo = min(first, a.cap - 1), hi = min(last, a.cap);
-  constexpr int E = 16 / sizeof(TV);
-  const int lo_a = lo & ~(E - 1);
-  const TV* vals = static_cast<const TV*>(a.values) + blk * a.cap;
-  if (a.cap % E == 0 && (reinterpret_cast<uintptr_t>(vals) & 15) == 0) {
-    const int n16 = ((hi + E - 1) & ~(E - 1)) / E - lo_a / E;
-    const uint4* src = reinterpret_cast<const uint4*>(vals + lo_a);
-    uint4* dst = reinterpret_cast<uint4*>(s_v);
-    for (int i = threadIdx.x; i < n16; i += NT) dst[i] = src[i];
-  } else {
-    for (int i = lo + threadIdx.x; i < hi; i += NT) s_v[i - lo_a] = vals[i];
-  }
-  __syncthreads();
-  return lo_a;
+__device__ int stage_values(const Args& a, size_t blk, const Split& sp,
+                            uint32_t* s_words, int* s_off, int* s_scr,
+                            TV* s_v) {
+  constexpr int VB = sizeof(TV);
+  const uint8_t* vals =
+      static_cast<const uint8_t*>(a.values) + blk * a.cap * VB;
+  return stage_slice(a.bitmap + blk * (a.bk * a.bn / 32), a.bn, sp.r0,
+                     sp.r0 + sp.rows, vals, a.cap * VB, a.cap, 8 * VB,
+                     s_words, s_off, s_scr,
+                     reinterpret_cast<uint8_t*>(s_v)) / VB;
 }
-
-// The split of this block: compressed block row `kb`, slice rows [r0,
-// r0 + rows) of it, x columns from kx0.
-struct Split {
-  int kb, r0, rows, kx0;
-  __device__ Split(const Args& a, int split) {
-    const int spb = (a.bk + a.rps - 1) / a.rps;
-    kb = split / spb;
-    r0 = (split % spb) * a.rps;
-    rows = min(a.rps, a.bk - r0);
-    kx0 = kb * a.bk + r0;
-  }
-};
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
@@ -200,16 +126,16 @@ __global__ void __launch_bounds__(NT) sparse_matmul_bf16(const Args a) {
   const int chunk = MC * L.ldx;
 
   const int nb = blockIdx.x, split = blockIdx.y;
-  const Split sp(a, split);
+  const Split sp(a.bk, a.rps, split);
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
   const bool xvec =
       a.K % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  stage_x(s_x, L.ldx, x, a.M, a.K, 0, sp.kx0, a.rps, xvec);
+  stage_x(s_x, L.ldx, x, a.M, a.K, 0, MC, sp.kx0, a.rps, xvec);
   cp_async_commit();
 
   const size_t blk = static_cast<size_t>(sp.kb) * a.Nb + nb;
-  const int lo_a = stage_slice(a, blk, sp.r0, sp.r0 + sp.rows, s_words,
-                               s_off, s_scr, s_v);
+  const int lo_a = stage_values(a, blk, sp, s_words, s_off, s_scr,
+                                s_v);
 
   // Expand once, into the B fragments of m16n8k16 (k = 2t, 2t+1 and
   // 2t+8, 2t+9 of column g): warp w owns columns 16w .. 16w + 15, two n8
@@ -242,7 +168,7 @@ __global__ void __launch_bounds__(NT) sparse_matmul_bf16(const Args a) {
   for (int ch = 0; ch < n_chunks; ++ch) {
     if (ch + 1 < n_chunks)
       stage_x(s_x + ((ch + 1) & 1) * chunk, L.ldx, x, a.M, a.K,
-              (ch + 1) * MC, sp.kx0, a.rps, xvec);
+              (ch + 1) * MC, MC, sp.kx0, a.rps, xvec);
     cp_async_commit();
     cp_async_wait1();
     __syncthreads();
@@ -295,16 +221,16 @@ __global__ void __launch_bounds__(NT) sparse_matmul_f32(const Args a) {
   const int chunk = MC * L.ldx;
 
   const int nb = blockIdx.x, split = blockIdx.y;
-  const Split sp(a, split);
+  const Split sp(a.bk, a.rps, split);
   const float* x = static_cast<const float*>(a.x);
   const bool xvec =
       a.K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  stage_x(s_x, L.ldx, x, a.M, a.K, 0, sp.kx0, a.rps, xvec);
+  stage_x(s_x, L.ldx, x, a.M, a.K, 0, MC, sp.kx0, a.rps, xvec);
   cp_async_commit();
 
   const size_t blk = static_cast<size_t>(sp.kb) * a.Nb + nb;
-  const int lo_a = stage_slice(a, blk, sp.r0, sp.r0 + sp.rows, s_words,
-                               s_off, s_scr, s_v);
+  const int lo_a = stage_values(a, blk, sp, s_words, s_off, s_scr,
+                                s_v);
   const int live = sp.rows * a.bn;
   for (int p = threadIdx.x; p < a.rps * a.bn; p += NT) {
     float v = 0.f;
@@ -325,7 +251,7 @@ __global__ void __launch_bounds__(NT) sparse_matmul_f32(const Args a) {
   for (int ch = 0; ch < n_chunks; ++ch) {
     if (ch + 1 < n_chunks)
       stage_x(s_x + ((ch + 1) & 1) * chunk, L.ldx, x, a.M, a.K,
-              (ch + 1) * MC, sp.kx0, a.rps, xvec);
+              (ch + 1) * MC, MC, sp.kx0, a.rps, xvec);
     cp_async_commit();
     cp_async_wait1();
     __syncthreads();                   // also publishes s_w on the first

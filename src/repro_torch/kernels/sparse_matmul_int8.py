@@ -3,13 +3,25 @@
 Replaces ``repro/kernels/sparse_matmul_int8.py:sparse_matmul_int8_pallas``
 with the CUDA kernel in ``csrc/sparse_matmul_int8.cu`` (whose other
 instantiation serves the int4 weights of :mod:`.sparse_matmul_int4`).
-Bound on the H100: device-memory bytes (one byte per stored weight plus
-its bitmap bit; the int8 tensor-core ridge is ~590 op/byte).  The design
-expands each compressed block into an int8 shared-memory tile, multiplies
-with ``__dp4a`` into int32, adds the K blocks' partial sums with integer
-atomics (exact in any order) and applies the reference's epilogue
-``(float(acc) * sx[m]) * scale[n]`` in a second kernel, so kernel and
-plain version agree bit for bit.
+Bound on the H100: device-memory bytes at every row count the serving
+paths use (one byte per stored weight plus its bitmap bits; the int8
+tensor-core ridge is ~590 op/byte): 2.99 us for the seven linears of a
+Qwen3-0.6B layer at M = 4.
+
+Design: the reduction over K is split across thread blocks, one per
+(column block, split), a split being 64 rows of one compressed block, so
+every Qwen3-0.6B linear launches 128-384 blocks at any M (M is a loop
+inside the block).  Each block stages its slice's bitmap words and packed
+bytes with 16-byte loads, expands the slice once into the ``mma.sync``
+m16n8k32 s8 B fragments each warp keeps in registers, and multiplies
+every 16-row tile of x on the int8 tensor cores into int32, the 64-row x
+chunks double-buffered with ``cp.async``.  Each
+block writes an int32 partial; a second kernel sums the partials (exact
+in any order) and applies the reference's epilogue
+``(float(acc) * sx[m]) * scale[n]`` in that order with one rounding, so
+kernel and plain version agree bit for bit.  The plan
+(:func:`int_launch_plan`) is a function of (K, N, block) and the value
+width alone.
 
 The activations arrive quantised (``core/quant.quantize_act_int8``, plain
 PyTorch in ``ops``), as the TPU kernel takes them.  CPU tensors take the
@@ -18,18 +30,34 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sparse_format import BlockSparseWeight, unpack
 from . import build
+from .sparse_matmul import M_CHUNK, Plan, _align16, launch_plan
 
 _SRC = "sparse_matmul_int8.cu"
 _ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-          ctypes.c_void_p] + [ctypes.c_int] * 7
+          ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_long]
          + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def int_launch_plan(k: int, n: int, block, int4: bool) -> Plan:
+    """The launch of ``xq [M, k] @ W [k, n]`` stored in ``block`` blocks of
+    int8 (``int4=False``) or nibble-packed int4 values: the K split of the
+    bf16 kernel's :func:`launch_plan`, with the shared-memory count of
+    ``Layout`` in ``csrc/sparse_matmul_int8.cu``, whose launcher refuses
+    any other; M sizes only the scratch (``splits x M x N`` int32)."""
+    p = launch_plan(k, n, block)
+    rps, bn = p.rows_per_split, block[1]
+    off = _align16(8 * (rps * bn // 32) + 128)
+    off = _align16(off + rps * bn // (2 if int4 else 1) + 32)
+    return p._replace(smem=off + 2 * M_CHUNK * (rps + 16))
 
 
 def _check_int_weight(sw: BlockSparseWeight) -> None:
@@ -85,15 +113,18 @@ def launch_int(xq: torch.Tensor, sx: torch.Tensor, sw: BlockSparseWeight,
     if k > kb * bk or sx.shape != (m,):
         raise ValueError(f"xq {tuple(xq.shape)} / sx {tuple(sx.shape)} do "
                          f"not fit a weight of {kb * bk} rows")
-    if bk % 8 or bn < 8 or 256 % bn:
-        raise ValueError(f"int kernels need bk % 8 == 0 and bn dividing "
-                         f"256, got {sw.block}")
-    acc = torch.empty((m, nb * bn), dtype=torch.int32, device=xq.device)
+    if bk % 32 or bn % 16 or bn > 128:
+        raise ValueError(f"int kernels need bk % 32 == 0 and bn a multiple "
+                         f"of 16 up to 128, got {sw.block}")
+    p = int_launch_plan(kb * bk, nb * bn, tuple(sw.block), int4)
+    partial = torch.empty((len(p.splits), m, nb * bn), dtype=torch.int32,
+                          device=xq.device)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     build.call(_SRC, "sparse_matmul_int_launch", _ARGS, build.ptr(xq), m, k,
                build.ptr(sw.bitmap), build.ptr(sw.values), int(int4), kb,
-               nb, bk, bn, sw.capacity, sw.values.shape[-1], build.ptr(sx),
-               build.ptr(sw.scale), n, build.ptr(acc), build.ptr(out),
+               nb, bk, bn, sw.capacity, sw.values.shape[-1],
+               p.rows_per_split, p.smem, build.ptr(sx), build.ptr(sw.scale),
+               n, build.ptr(partial), build.ptr(out),
                build.DTYPE_CODE[out_dtype], build.stream())
     return out
 

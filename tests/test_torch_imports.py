@@ -65,6 +65,7 @@ def test_spec_module_is_numpy_only():
 def test_no_import_of_jax_or_the_reference_in_the_sources():
     pat = re.compile(r"^\s*(import|from) (jax|repro)\b", re.M)
     files = [ROOT / "chip_smoke.py", ROOT / "tools" / "compare_trees.py",
+             ROOT / "tools" / "int_reduction_probe.py",
              *sorted((SRC / "repro_torch").rglob("*.py"))]
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits
@@ -173,3 +174,35 @@ def test_compare_trees_fails_without_a_card(tmp_path):
     assert out.returncode != 0
     assert "needs a CUDA card" in out.stderr
     assert "[compare]" not in out.stdout
+
+
+def test_int_reduction_probe_fails_without_a_card(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""          # no card, even where one is
+    out = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                              "int_reduction_probe.py")],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=tmp_path)
+    assert out.returncode != 0
+    assert "needs a CUDA card" in out.stderr
+    assert "[probe]" not in out.stdout
+
+
+def test_int_reduction_probe_variants_apply_to_the_source():
+    """Each variant of the probe is a substitution whose text the int
+    kernel's source holds exactly once; the source itself is variant one."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    try:
+        import int_reduction_probe as probe
+    finally:
+        sys.path.remove(str(ROOT / "tools"))
+    text = (SRC / "repro_torch" / "kernels" / "csrc" /
+            probe.SOURCE).read_text()
+    variants = {name: probe.variant_source(text, subs)
+                for name, subs in probe.VARIANTS.items()}
+    assert variants["partials"] == text
+    assert "if (true)" in variants["partials, 8 lanes"]
+    assert "if (false)" in variants["partials, 1 lane"]
+    atomics = variants["atomics"]
+    assert "atomicAdd(p, v0);" in atomics and "cudaMemsetAsync" in atomics
+    assert len(set(variants.values())) == len(variants)
