@@ -20,7 +20,12 @@ Phases, each of which exits non-zero on failure:
    their plain versions at M = 1, 4, 8, 16, 20, 256 and 300, traced at
    the 4-row decode tick and the 256-row prefill chunk.  For all four, the
    first rows of one x must be the same bits in calls of M = 9, 20, 256
-   and 300.
+   and 300.  The flat and paged attention kernels are held at panels of
+   Q = 1, 2, the verify panel, 9 and 17 queries (up to 34 query rows),
+   with a NaN-poisoned dead page and an all-empty slot, timed (and
+   traced) at three panel widths and at a 4096-token prefix; every query
+   of a Q-query panel (Q = 1, 5, 9, 17) must be the same bits as a
+   one-query panel at the tail length that query sees.
 4. **serve** full-width Qwen3-0.6B (random weights from seed 0, pruned,
    packed and quantised on the card) through ``ContinuousEngine``, with
    every kernel's launch counter zeroed just before each path and read just
@@ -36,8 +41,9 @@ Phases, each of which exits non-zero on failure:
      tail partial and an lse merge, this script's own dispatch) against
      the fused f32 engine: logits from one shared state per tick, and
      greedy tokens identical but where the fused path's top-1 margin is a
-     near-tie; then flat f32 ``k=4`` against flat f32 without speculation
-     under the same rule;
+     near-tie; then flat f32 ``k=4`` and ``k=8`` (a verify panel of 18
+     query rows) each against flat f32 without speculation under the same
+     rule;
    * paged shared-prefix pool, int8 sparse weights: eight requests sharing
      a 512-token prefix (prefix-cache hits and shared blocks required; one
      decode tick and one 256-token prefill chunk traced), then the same
@@ -97,6 +103,7 @@ TIE_MARGIN = 1e-4
 # hits) and 2 random ones (misses)
 SPEC_K, SPEC_TOKENS, SPEC_IDENTITY_TOKENS = 4, 128, 48
 SPEC_LOGIT_TICKS = 10       # verify ticks of the spec phase's logits check
+SPEC_F32_K = (SPEC_K, 8)    # the f32 spec phases' windows (8: 18 rows)
 MOTIF, MOTIF_REPEATS, N_MOTIF, N_RANDOM = 24, 8, 4, 2
 PAGED_SPEC_K, PAGED_SPEC_TOKENS = 3, 32
 # the sparse matmul's row counts: the first past the gemv's 8, one whole
@@ -113,6 +120,16 @@ ROW_GATE_ROWS, ROW_GATE_M = 9, (9, SLOTS * (SPEC_K + 1), PREFILL_CHUNK, 300)
 # the prefill chunk
 INT_M = (1, SLOTS, 8) + MATMUL_M[1:]
 INT_TRACED = (SLOTS, PREFILL_CHUNK)
+# the fused attention's panel widths Q (query rows Q * G): held to the plain
+# versions at the decode tick, a 2-query panel, each spec phase's verify
+# panel and two past the first kernel's 16-row cap; timed at the decode
+# tick, the verify panel and Q = 9; the attention row-independence gate's
+# panel widths; the prefix blocks of the long-context timing (4096 tokens)
+ATTN_Q = {"flat": (1, 2, SPEC_K + 1, 9, 17),
+          "paged": (1, 2, PAGED_SPEC_K + 1, 9, 17)}
+ATTN_TIMED_Q = {"flat": (1, SPEC_K + 1, 9), "paged": (1, PAGED_SPEC_K + 1, 9)}
+ROW_GATE_Q = (1, 5, 9, 17)
+LONG_SB = 32
 # the decode-logits checks a serve phase runs: (name, dtype, kernels the
 # plain path keeps, gated).  On the int paths the attention kernel's f32
 # sums, in another order than its plain version's, round to bf16 a ulp
@@ -497,40 +514,117 @@ def row_independence(torch, cfg, gen):
 
 
 def _attention_library(torch, q, k_pre, v_pre, tails, n_blocks, tail_len,
-                       bs, sm):
-    """SDPA over the unpacked cache (prefix + ring) with a validity mask:
-    the yardstick of both attention kernels (the port never calls it)."""
+                       bs, sm, qn=1):
+    """SDPA over the unpacked cache (prefix + ring) with a validity mask per
+    panel query: the yardstick of both attention kernels (the port never
+    calls it).  q ``[B, Hkv, Q*G, D]`` rows query-major."""
     import torch.nn.functional as F
-    b, hkv, g, hd = q.shape
+    b, hkv, qg, hd = q.shape
+    g = qg // qn
     sp, tp = k_pre.shape[2], tails.shape[3]
     k_all = torch.cat([k_pre, tails[0]], 2)
     v_all = torch.cat([v_pre, tails[1]], 2)
-    pos = torch.arange(sp + tp, device="cuda")
-    valid = ((pos[None] < n_blocks[:, None] * bs)
-             | ((pos[None] >= sp) & (pos[None] - sp < tail_len[:, None])))
-    qs = q.reshape(b, hkv * g, 1, hd)
+    pos = torch.arange(sp + tp, device="cuda")[None, None]
+    see = tail_len[:, None, None] + torch.arange(qn, device="cuda")[None, :,
+                                                                     None]
+    valid = ((pos < n_blocks[:, None, None] * bs)
+             | ((pos >= sp) & (pos - sp < see)))             # [B, Q, S]
+    qs = q.reshape(b, hkv, qn, g, hd).transpose(2, 3).reshape(
+        b, hkv * g, qn, hd)
     kr = k_all.repeat_interleave(g, 1)
     vr = v_all.repeat_interleave(g, 1)
-    mask = valid[:, None, None, :]
+    mask = valid[:, None]
     return lambda: F.scaled_dot_product_attention(qs, kr, vr, attn_mask=mask,
                                                   scale=sm)
 
 
-def _panel_times(timer, detail, name, qn, g, kernel, plain):
-    """Time a verify panel (more than two queries) beside its plain
-    version, into the detail rows; the decode tick is timed below."""
-    if qn <= 2:
-        return ""
-    t, tp = timer(kernel), timer(plain)
-    detail.append({"kernel": name, "QG": qn * g, "ms": t, "plain_ms": tp})
-    return f"; kernel {t * 1e3:.1f} us, plain {tp * 1e3:.1f} us"
+def _attention_bound(q, qn, g, n_blocks, tail_len, bs, tp, prefix_bytes):
+    """The least time of one call: q, the lengths, the f32 output, the
+    prefix bytes the caller counts (bitmap words and set values of the
+    valid blocks, and the paged table entries) and the tail tokens the
+    panel's last query sees, against 4 * D flops per (row, visible token)."""
+    b, hkv, qg, hd = q.shape
+    nb, tl = n_blocks.tolist(), tail_len.tolist()
+    seen = sum(min(t + qn - 1, tp) for t in tl)
+    n_bytes = (q.numel() * q.element_size() + 8 * b + q.numel() * 4
+               + prefix_bytes + hkv * seen * hd * 2 * q.element_size())
+    toks = sum(n * bs + min(t + j, tp) for n, t in zip(nb, tl)
+               for j in range(qn))
+    return bound_ms(n_bytes, 4.0 * hd * g * hkv * toks)
+
+
+def _attention_row(torch, timer, detail, name, shape, kernel, plain,
+                   library, bound):
+    """One timed shape of an attention kernel: CUDA-event time (L2
+    flushed), traced device time per launch, the plain version's and the
+    library call's event times, and the bound; into the detail rows."""
+    bnd, bby = bound
+    row = {"kernel": name, **shape, "ms": timer(kernel),
+           "device_ms": device_ms_per_call(torch, kernel),
+           "plain_ms": timer(plain), "library_ms": timer(library),
+           "bound_ms": bnd, "bound_by": bby}
+    detail.append(row)
+    dev = row["device_ms"]
+    say(f"{name} {shape}: kernel {row['ms'] * 1e3:.1f} us (traced device "
+        + (f"{dev * 1e3:.1f} us" if isinstance(dev, float) else dev)
+        + f"), plain {row['plain_ms'] * 1e3:.1f} us, SDPA "
+        f"{row['library_ms'] * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({bby})")
+    return row
+
+
+def _flat_cache(torch, cfg, gen, b, sb, bs, pool):
+    """A flat compressed cache of ``sb`` blocks per slot at the serving KV
+    sparsity: (kbm, kvl, vbm, vvl) and the largest |V|."""
+    from repro_torch.core.sparse_kv import freeze_chunk_blocks
+    kv = torch.randn((2, b, cfg.n_kv, sb * bs, cfg.hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    return freeze_chunk_blocks(kv[0], kv[1], cfg.kv_k_sparsity,
+                               cfg.kv_v_sparsity, bs, pool.cap_k,
+                               pool.cap_v), kv[1].float().abs().max().item()
+
+
+def _paged_arena(torch, cfg, gen, n_phys, bs, pool):
+    """A paged arena of ``n_phys`` compressed pages ``[n_phys, Hkv, X]``."""
+    from repro_torch.core.sparse_kv import freeze_chunk_blocks
+    pk = torch.randn((2, n_phys, cfg.n_kv, bs, cfg.hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    return [a[:, :, 0] for a in freeze_chunk_blocks(
+        pk[0], pk[1], cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs, pool.cap_k,
+        pool.cap_v)]
+
+
+def _flat_prefix_bytes(kbm, kvl, vbm, vvl, n_blocks, bs, hd, pool):
+    """The valid blocks' bitmap words and set values."""
+    sb, hkv = kbm.shape[2], kbm.shape[1]
+    valid = (kbm.new_tensor(range(sb))[None] < n_blocks[:, None])[:, None, :]
+    nnz = (values_read(kbm, bs * hd, pool.cap_k, valid)
+           + values_read(vbm, bs * hd, pool.cap_v, valid))
+    return (hkv * int(n_blocks.sum()) * 2 * (bs * hd // 32) * 4
+            + nnz * kvl.element_size())
+
+
+def _paged_prefix_bytes(arena, table, n_blocks, bs, hd, pool):
+    """Each live page once (shared pages are stored once) and the live
+    table entries."""
+    import torch
+    live = sorted({int(table[s, i]) for s in range(table.shape[0])
+                   for i in range(int(n_blocks[s]))})
+    live_t = torch.tensor(live, device="cuda", dtype=torch.long)
+    nnz = int(block_nnz(arena[0][live_t], bs * hd, pool.cap_k).sum()
+              + block_nnz(arena[2][live_t], bs * hd, pool.cap_v).sum())
+    hkv = arena[0].shape[1]
+    return (4 * int(n_blocks.sum()) + hkv * len(live) * 2 * (bs * hd // 32)
+            * 4 + nnz * arena[1].element_size()), len(live)
 
 
 def attention_kernels(torch, cfg, timer, gen, detail):
     """The fused decode attention on the flat pool and on the paged arena,
-    at the serving geometry (4 slots, bs 128, a 128-token ring)."""
+    at the serving geometry (4 slots, bs 128, a 128-token ring): held to
+    the plain versions at every panel width of ATTN_Q (past the first
+    kernel's 16-row cap), timed at the panel widths of ATTN_TIMED_Q and at
+    a LONG_SB-block prefix."""
     from repro_torch.core.sparse_format import unpack
-    from repro_torch.core.sparse_kv import freeze_chunk_blocks, pooled_view
+    from repro_torch.core.sparse_kv import pooled_view
     from repro_torch.kernels.sparse_attention import (
         gather_paged, sparse_decode_attention_fused,
         sparse_decode_attention_fused_paged,
@@ -542,89 +636,64 @@ def attention_kernels(torch, cfg, timer, gen, detail):
     bs, sb, tp = 128, 7, cfg.kv_tail
     b = SLOTS
     sm = 1.0 / hd ** 0.5
-    pool = CachePool.build(cfg, SLOTS, sb * bs, bs=bs, device="cuda")
-    words = bs * hd // 32
+    pool = CachePool.build(cfg, SLOTS, LONG_SB * bs, bs=bs, device="cuda")
     tails = torch.randn((2, b, hkv, tp, hd), generator=gen,
                         device="cuda").to(torch.bfloat16)
     out = {}
 
+    def query(qn):
+        return torch.randn((b, hkv, qn * g, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
     # -- flat pool ---------------------------------------------------------
-    kv = torch.randn((2, b, hkv, sb * bs, hd), generator=gen,
-                     device="cuda").to(torch.bfloat16)
-    kbm, kvl, vbm, vvl = freeze_chunk_blocks(
-        kv[0], kv[1], cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs, pool.cap_k,
-        pool.cap_v)
+    (kbm, kvl, vbm, vvl), vmax = _flat_cache(torch, cfg, gen, b, sb, bs,
+                                             pool)
+    k_pre = unpack(pooled_view(kbm, kvl, bs, hd))
+    v_pre = unpack(pooled_view(vbm, vvl, bs, hd))
     # empty prefix + 1 tail token; 3 blocks + full ring; full prefix + empty
     # ring; an all-empty slot
     n_blocks = torch.tensor([0, 3, sb, 0], dtype=torch.int32, device="cuda")
     tail_len = torch.tensor([1, tp, 0, 0], dtype=torch.int32, device="cuda")
-    errs = []
-    vmax = max(kv[1].float().abs().max().item(),
-               tails[1].float().abs().max().item())
-    # the decode tick, a 2-query panel and the spec phase's verify panel
-    for qn in (1, 2, SPEC_K + 1):
-        q = torch.randn((b, hkv, qn * g, hd), generator=gen,
-                        device="cuda").to(torch.bfloat16)
+    vmax = max(vmax, tails[1].float().abs().max().item())
+    # f32 scores, weights and sums on both sides, in another order
+    tol = 1e-3 * vmax
+    pre_bytes = _flat_prefix_bytes(kbm, kvl, vbm, vvl, n_blocks, bs, hd, pool)
+    errs, rows = [], {}
+    for qn in ATTN_Q["flat"]:
+        q = query(qn)
         args = (q, kbm, kvl, vbm, vvl, tails[0], tails[1], bs, sm,
                 n_blocks, tail_len, g)
         got = sparse_decode_attention_fused(*args)
         ref = sparse_decode_attention_fused_plain(*args)
         torch.cuda.synchronize()
-        # f32 scores, weights and sums on both sides, in another order
-        tol = 1e-3 * vmax
         err, rel = _check(f"attention Q={qn}", got, ref, tol, errs)
         # panel query 0 of the all-empty slot sees nothing (query j sees j
         # tail tokens more)
         if (ref[3, :, :g].abs().max().item() != 0
                 or got[3, :, :g].abs().max().item() != 0):
             fail("attention: the all-empty slot must return zeros")
-        say(f"attention Q={qn}: err {err:.2e} (rel {rel:.1e}, tol "
-            f"{tol:.2e})" + _panel_times(
-                timer, detail, "sparse_decode_attention_fused", qn, g,
+        say(f"attention Q={qn} (QG={qn * g}): err {err:.2e} (rel {rel:.1e}, "
+            f"tol {tol:.2e})")
+        if qn in ATTN_TIMED_Q["flat"]:
+            rows[qn] = _attention_row(
+                torch, timer, detail, "sparse_decode_attention_fused",
+                {"B": b, "QG": qn * g, "Sb": sb, "n_blocks": n_blocks.tolist(),
+                 "tail_len": tail_len.tolist()},
                 lambda: sparse_decode_attention_fused(*args),
-                lambda: sparse_decode_attention_fused_plain(*args)))
-    q = torch.randn((b, hkv, g, hd), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    args = (q, kbm, kvl, vbm, vvl, tails[0], tails[1], bs, sm, n_blocks,
-            tail_len, g)
-    t = timer(lambda: sparse_decode_attention_fused(*args))
-    t_plain = timer(lambda: sparse_decode_attention_fused_plain(*args))
-    t_lib = timer(_attention_library(
-        torch, q, unpack(pooled_view(kbm, kvl, bs, hd)),
-        unpack(pooled_view(vbm, vvl, bs, hd)), tails, n_blocks, tail_len,
-        bs, sm))
-    # bytes the function needs: q, the lengths, the f32 output, the valid
-    # prefix blocks' bitmap words and set values, the visible tail tokens
-    valid = (torch.arange(sb, device="cuda")[None]
-             < n_blocks[:, None])[:, None, :]
-    nnz = (values_read(kbm, bs * hd, pool.cap_k, valid)
-           + values_read(vbm, bs * hd, pool.cap_v, valid))
-    tok = (n_blocks * bs + tail_len).sum().item()
-    n_bytes = (q.numel() * 2 + 8 * b + q.numel() * 4
-               + hkv * int(n_blocks.sum()) * 2 * words * 4
-               + nnz * kvl.element_size()
-               + hkv * int(tail_len.sum()) * hd * 2 * 2)
-    n_ops = 4.0 * hd * g * hkv * tok
-    bnd, bby = bound_ms(n_bytes, n_ops)
+                lambda: sparse_decode_attention_fused_plain(*args),
+                _attention_library(torch, q, k_pre, v_pre, tails, n_blocks,
+                                   tail_len, bs, sm, qn),
+                _attention_bound(q, qn, g, n_blocks, tail_len, bs, tp,
+                                 pre_bytes))
     out["sparse_decode_attention_fused"] = {
-        "ms": t, "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": bnd,
-        "bound_by": bby, "max_abs_err": max(errs)}
-    detail.append({"kernel": "sparse_decode_attention_fused", "B": b,
-                   "Hkv": hkv, "QG": g, "Sb": sb, "bs": bs, "tail": tp,
-                   "n_blocks": n_blocks.tolist(),
-                   "tail_len": tail_len.tolist(),
-                   **out["sparse_decode_attention_fused"]})
-    say(f"attention B={b}: kernel {t * 1e3:.1f} us, plain "
-        f"{t_plain * 1e3:.1f} us, SDPA {t_lib * 1e3:.1f} us, bound "
-        f"{bnd * 1e3:.2f} us")
+        **{k: rows[1][k] for k in ("ms", "device_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")},
+        "max_abs_err": max(errs)}
+    flat_case = (kbm, kvl, vbm, vvl, n_blocks, tail_len)
 
     # -- paged arena -------------------------------------------------------
     n_phys = 16
-    pk = torch.randn((2, n_phys, hkv, bs, hd), generator=gen,
-                     device="cuda").to(torch.bfloat16)
-    arena = [a[:, :, 0] for a in freeze_chunk_blocks(
-        pk[0], pk[1], cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs, pool.cap_k,
-        pool.cap_v)]                                     # [n_phys, Hkv, X]
+    arena = _paged_arena(torch, cfg, gen, n_phys, bs, pool)
     dead = 15
     # slot 0: a full private prefix; slot 1 shares slot 0's first three
     # blocks, then two of its own, then dead entries at the poisoned page;
@@ -639,10 +708,15 @@ def attention_kernels(torch, cfg, timer, gen, detail):
     poisoned = [a.clone() for a in arena]
     for a in poisoned:            # NaN values, every bit set
         a[dead] = -1 if a.dtype == torch.int32 else float("nan")
-    errs = []
-    for qn in (1, 2, PAGED_SPEC_K + 1):
-        q = torch.randn((b, hkv, qn * g, hd), generator=gen,
-                        device="cuda").to(torch.bfloat16)
+    gk = gather_paged(table, arena[0], arena[1], n_blocks)
+    gv = gather_paged(table, arena[2], arena[3], n_blocks)
+    k_pre = unpack(pooled_view(*gk, bs, hd))
+    v_pre = unpack(pooled_view(*gv, bs, hd))
+    pre_bytes, n_live = _paged_prefix_bytes(arena, table, n_blocks, bs, hd,
+                                            pool)
+    errs, rows = [], {}
+    for qn in ATTN_Q["paged"]:
+        q = query(qn)
         rest = (tails[0], tails[1], bs, sm, n_blocks, tail_len, g)
         got = sparse_decode_attention_fused_paged(q, *poisoned, table, *rest)
         clean = sparse_decode_attention_fused_paged(q, *arena, table, *rest)
@@ -655,57 +729,141 @@ def attention_kernels(torch, cfg, timer, gen, detail):
         if not torch.equal(got, clean):
             fail(f"paged attention Q={qn}: a poisoned dead page changed the "
                  "output")
-        err, rel = _check(f"paged attention Q={qn}", got, ref,
-                          1e-3 * vmax, errs)
+        err, rel = _check(f"paged attention Q={qn}", got, ref, tol, errs)
         if got[3, :, :g].abs().max().item() != 0:
             fail("paged attention: the all-empty slot must return zeros")
-        say(f"paged attention Q={qn}: err {err:.2e} (rel {rel:.1e}, tol "
-            f"{1e-3 * vmax:.2e}); finite and unchanged with NaN in dead "
-            f"page {dead}" + _panel_times(
-                timer, detail, "sparse_decode_attention_fused_paged", qn, g,
-                lambda: sparse_decode_attention_fused_paged(q, *poisoned,
-                                                            table, *rest),
+        say(f"paged attention Q={qn} (QG={qn * g}): err {err:.2e} (rel "
+            f"{rel:.1e}, tol {tol:.2e}); finite and unchanged with NaN in "
+            f"dead page {dead}")
+        if qn in ATTN_TIMED_Q["paged"]:
+            rows[qn] = _attention_row(
+                torch, timer, detail, "sparse_decode_attention_fused_paged",
+                {"B": b, "QG": qn * g, "Sb": sb, "live_pages": n_live,
+                 "n_blocks": n_blocks.tolist(),
+                 "tail_len": tail_len.tolist()},
+                lambda: sparse_decode_attention_fused_paged(
+                    q, *poisoned, table, *rest),
                 lambda: sparse_decode_attention_fused_paged_plain(
-                    q, *arena, table, *rest)))
+                    q, *arena, table, *rest),
+                _attention_library(torch, q, k_pre, v_pre, tails, n_blocks,
+                                   tail_len, bs, sm, qn),
+                _attention_bound(q, qn, g, n_blocks, tail_len, bs, tp,
+                                 pre_bytes))
+    out["sparse_decode_attention_fused_paged"] = {
+        **{k: rows[1][k] for k in ("ms", "device_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")},
+        "max_abs_err": max(errs)}
+    out["attention_row_independence"] = attention_row_independence(
+        torch, cfg, gen, flat_case, (arena, table), tails)
+    long_context(torch, cfg, timer, gen, detail, pool, tails, tol)
+    return out
+
+
+def attention_row_independence(torch, cfg, gen, flat_case, paged_case,
+                               tails):
+    """Row r of a Q-row panel at tail lengths L must be the same bits as a
+    one-row panel of the same query (its G rows) at L + r // G, for every Q
+    of ROW_GATE_Q, flat and paged: a verify row equals the decode tick of
+    the same token whatever the panel width."""
+    from repro_torch.kernels.sparse_attention import (
+        sparse_decode_attention_fused, sparse_decode_attention_fused_paged)
+    hkv, hd, g = cfg.n_kv, cfg.hd, cfg.padded_heads // cfg.n_kv
+    bs, sm, tp = 128, 1.0 / cfg.hd ** 0.5, cfg.kv_tail
+    kbm, kvl, vbm, vvl, _, _ = flat_case
+    arena, table = paged_case
+    # tail lengths leave room for the widest panel's last query
+    tail_len = torch.tensor([1, 50, 0, tp - max(ROW_GATE_Q)],
+                            dtype=torch.int32, device="cuda")
+    cases = {
+        "sparse_decode_attention_fused": (
+            lambda q, tl: sparse_decode_attention_fused(
+                q, kbm, kvl, vbm, vvl, tails[0], tails[1], bs, sm,
+                torch.tensor([0, 3, 7, 2], dtype=torch.int32,
+                             device="cuda"), tl, g)),
+        "sparse_decode_attention_fused_paged": (
+            lambda q, tl: sparse_decode_attention_fused_paged(
+                q, *arena, table, tails[0], tails[1], bs, sm,
+                torch.tensor([7, 5, 2, 0], dtype=torch.int32,
+                             device="cuda"), tl, g))}
+    checked = {}
+    for name, fn in cases.items():
+        for qn in ROW_GATE_Q:
+            q = torch.randn((SLOTS, hkv, qn * g, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            panel = fn(q, tail_len)
+            singles = [fn(q[:, :, j * g:(j + 1) * g].contiguous(),
+                          tail_len + j) for j in range(qn)]
+            torch.cuda.synchronize()
+            for j, one in enumerate(singles):
+                if not torch.equal(panel[:, :, j * g:(j + 1) * g], one):
+                    diff = (panel[:, :, j * g:(j + 1) * g] - one).abs().max()
+                    fail(f"{name}: query {j} of a {qn}-query panel differs "
+                         f"from a one-query panel at tail length L + {j} "
+                         f"(max |diff| {diff.item():.3e})")
+        checked[name] = list(ROW_GATE_Q)
+        say(f"{name}: every query of a Q-query panel is bit-equal to a "
+            f"one-query panel at tail length L + j, Q = {ROW_GATE_Q}")
+    return checked
+
+
+def long_context(torch, cfg, timer, gen, detail, pool, tails, tol):
+    """Both kernels at a LONG_SB-block (4096-token) prefix in every slot and
+    a half-full ring, held to their plain versions and timed: how the time
+    scales with context."""
+    from repro_torch.core.sparse_format import unpack
+    from repro_torch.core.sparse_kv import pooled_view
+    from repro_torch.kernels.sparse_attention import (
+        gather_paged, sparse_decode_attention_fused,
+        sparse_decode_attention_fused_paged,
+        sparse_decode_attention_fused_paged_plain,
+        sparse_decode_attention_fused_plain)
+    hkv, hd, g = cfg.n_kv, cfg.hd, cfg.padded_heads // cfg.n_kv
+    bs, sb, tp, b = 128, LONG_SB, cfg.kv_tail, SLOTS
+    sm = 1.0 / hd ** 0.5
+    n_blocks = torch.full((b,), sb, dtype=torch.int32, device="cuda")
+    tail_len = torch.full((b,), tp // 2, dtype=torch.int32, device="cuda")
     q = torch.randn((b, hkv, g, hd), generator=gen,
                     device="cuda").to(torch.bfloat16)
-    args = (q, *poisoned, table, tails[0], tails[1], bs, sm, n_blocks,
+    (kbm, kvl, vbm, vvl), _ = _flat_cache(torch, cfg, gen, b, sb, bs, pool)
+    args = (q, kbm, kvl, vbm, vvl, tails[0], tails[1], bs, sm, n_blocks,
             tail_len, g)
-    t = timer(lambda: sparse_decode_attention_fused_paged(*args))
-    t_plain = timer(lambda: sparse_decode_attention_fused_paged_plain(*args))
+    _check(f"attention Sb={sb}", sparse_decode_attention_fused(*args),
+           sparse_decode_attention_fused_plain(*args), tol, [])
+    shape = {"B": b, "QG": g, "Sb": sb, "n_blocks": n_blocks.tolist(),
+             "tail_len": tail_len.tolist()}
+    _attention_row(
+        torch, timer, detail, "sparse_decode_attention_fused", shape,
+        lambda: sparse_decode_attention_fused(*args),
+        lambda: sparse_decode_attention_fused_plain(*args),
+        _attention_library(torch, q, unpack(pooled_view(kbm, kvl, bs, hd)),
+                           unpack(pooled_view(vbm, vvl, bs, hd)), tails,
+                           n_blocks, tail_len, bs, sm),
+        _attention_bound(q, 1, g, n_blocks, tail_len, bs, tp,
+                         _flat_prefix_bytes(kbm, kvl, vbm, vvl, n_blocks,
+                                            bs, hd, pool)))
+    del kbm, kvl, vbm, vvl
+    # paged: every slot its own pages, in a shuffled order
+    arena = _paged_arena(torch, cfg, gen, b * sb, bs, pool)
+    table = torch.randperm(b * sb, generator=gen, device="cuda").to(
+        torch.int32).reshape(b, sb)
+    rest = (table, tails[0], tails[1], bs, sm, n_blocks, tail_len, g)
+    _check(f"paged attention Sb={sb}",
+           sparse_decode_attention_fused_paged(q, *arena, *rest),
+           sparse_decode_attention_fused_paged_plain(q, *arena, *rest), tol,
+           [])
     gk = gather_paged(table, arena[0], arena[1], n_blocks)
     gv = gather_paged(table, arena[2], arena[3], n_blocks)
-    t_lib = timer(_attention_library(
-        torch, q, unpack(pooled_view(*gk, bs, hd)),
-        unpack(pooled_view(*gv, bs, hd)), tails, n_blocks, tail_len, bs,
-        sm))
-    # bytes: each live page once (shared pages are stored once), the live
-    # table entries, q, lengths, output, visible tail tokens
-    live = sorted({int(table[s, i]) for s in range(b)
-                   for i in range(int(n_blocks[s]))})
-    live_t = torch.tensor(live, device="cuda", dtype=torch.long)
-    nnz = int(block_nnz(arena[0][live_t], bs * hd, pool.cap_k).sum()
-              + block_nnz(arena[2][live_t], bs * hd, pool.cap_v).sum())
-    tok = (n_blocks * bs + tail_len).sum().item()
-    n_bytes = (q.numel() * 2 + 8 * b + q.numel() * 4
-               + 4 * int(n_blocks.sum())
-               + hkv * len(live) * 2 * words * 4
-               + nnz * arena[1].element_size()
-               + hkv * int(tail_len.sum()) * hd * 2 * 2)
-    bnd, bby = bound_ms(n_bytes, 4.0 * hd * g * hkv * tok)
-    out["sparse_decode_attention_fused_paged"] = {
-        "ms": t, "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": bnd,
-        "bound_by": bby, "max_abs_err": max(errs)}
-    detail.append({"kernel": "sparse_decode_attention_fused_paged", "B": b,
-                   "Hkv": hkv, "QG": g, "Sb": sb, "bs": bs, "tail": tp,
-                   "n_phys": n_phys, "table": table.tolist(),
-                   "n_blocks": n_blocks.tolist(),
-                   "tail_len": tail_len.tolist(),
-                   **out["sparse_decode_attention_fused_paged"]})
-    say(f"paged attention B={b} ({len(live)} live pages, 3 shared): kernel "
-        f"{t * 1e3:.1f} us, plain {t_plain * 1e3:.1f} us, SDPA "
-        f"{t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us")
-    return out
+    pre_bytes, n_live = _paged_prefix_bytes(arena, table, n_blocks, bs, hd,
+                                            pool)
+    _attention_row(
+        torch, timer, detail, "sparse_decode_attention_fused_paged",
+        {**shape, "live_pages": n_live},
+        lambda: sparse_decode_attention_fused_paged(q, *arena, *rest),
+        lambda: sparse_decode_attention_fused_paged_plain(q, *arena, *rest),
+        _attention_library(torch, q, unpack(pooled_view(*gk, bs, hd)),
+                           unpack(pooled_view(*gv, bs, hd)), tails, n_blocks,
+                           tail_len, bs, sm),
+        _attention_bound(q, 1, g, n_blocks, tail_len, bs, tp, pre_bytes))
 
 
 def partial_kernel(torch, cfg, timer, gen, detail):
@@ -1981,8 +2139,11 @@ def spec_phase(torch, cfg, params):
 
 
 def spec_identity_f32(torch, cfg32, params32):
-    """Flat f32 ``k=4`` against flat f32 spec off on the spec traffic:
-    greedy tokens under the near-tie rule (untimed)."""
+    """Flat f32 speculation at each k of SPEC_F32_K against flat f32 spec
+    off on the spec traffic: greedy tokens under the near-tie rule, and
+    every attention launch of the spec run at ``(k+1) * G`` query rows (k
+    = 8: 18 rows, past the first attention kernel's 16; untimed).
+    Returns ``{k: result}``."""
     from repro_torch.serving import SamplingParams
     prompts = _spec_prompts(cfg32)
     sp = SamplingParams(max_new_tokens=SPEC_IDENTITY_TOKENS)
@@ -1992,14 +2153,29 @@ def spec_identity_f32(torch, cfg32, params32):
     with record_margins(eng0, margins):
         rids0 = [eng0.submit(p, sp) for p in prompts]
         eng0.run()
-    eng = _engine(cfg32, params32, [0.0], max_tokens, spec_k=SPEC_K)
-    rids = [eng.submit(p, sp) for p in prompts]
-    eng.run()
-    got = [eng.scheduler.finished[r].generated for r in rids]
     want = [eng0.scheduler.finished[r].generated for r in rids0]
-    res = gate_identity("spec f32 vs spec off", got, want, rids0, margins)
-    res["spec_hist"] = eng.spec_hist.tolist()
-    return res
+    g = cfg32.padded_heads // cfg32.n_kv
+    out = {}
+    for k in SPEC_F32_K:
+        eng = _engine(cfg32, params32, [0.0], max_tokens, spec_k=k)
+        with panel_rows() as rows:
+            rids = [eng.submit(p, sp) for p in prompts]
+            eng.run()
+        name = "sparse_decode_attention_fused"
+        n = rows.get((name, (k + 1) * g), 0)
+        if n <= 0 or n % cfg32.n_layers or set(rows) != {(name, (k + 1) * g)}:
+            fail(f"spec f32 k={k}: attention launches by (kernel, Q*G) "
+                 f"{rows}, expected only ({name!r}, {(k + 1) * g})")
+        got = [eng.scheduler.finished[r].generated for r in rids]
+        res = gate_identity(f"spec f32 k={k} vs spec off", got, want, rids0,
+                            margins)
+        res.update(spec_hist=eng.spec_hist.tolist(), attention_rows=(k + 1) * g,
+                   verify_ticks=n // cfg32.n_layers)
+        say(f"spec f32 k={k}: {n // cfg32.n_layers} verify ticks at "
+            f"{(k + 1) * g} query rows; accepted-draft histogram "
+            f"{res['spec_hist']}")
+        out[k] = res
+    return out
 
 
 def spec_paged_phase(torch, cfg, params, prompts):
@@ -2121,7 +2297,8 @@ def main() -> int:
     serve["spec"] = spec_phase(torch, cfg, params)
     cfg32, params32 = _widened(torch, cfg, params)
     serve["two_pass"] = two_pass_phase(torch, cfg32, params32, Timer(torch))
-    serve["spec_f32"] = spec_identity_f32(torch, cfg32, params32)
+    spec_f32 = spec_identity_f32(torch, cfg32, params32)
+    serve["spec_f32"], serve["spec_f32_k8"] = spec_f32[SPEC_K], spec_f32[8]
     del params, params32
     serve["paged_int8"], params8, prompts, run8 = paged_phase(
         torch, cfg, "int8", PAGED_REQUESTS, PAGED_NEW_TOKENS,

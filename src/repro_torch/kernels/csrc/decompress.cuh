@@ -204,6 +204,9 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 // Stage x rows [c0, c0 + mc) x columns [kx0, kx0 + cols) of a row-major
 // x [M, K] into `dst` (row stride ldx elements): cp.async of 16 bytes

@@ -8,25 +8,35 @@ sparse_decode_attention_fused_pallas`` — the flat branch
 of a pool-global arena through a per-slot block table) — and
 ``sparse_decode_attention_pallas``, the prefix-only partial that returns
 ``(o, lse)`` for an lse merge (:func:`sparse_decode_attention_partial`),
-with three instantiations of the CUDA kernel in
-``csrc/sparse_attention.cu``.  Beside them live plain twins of the
-reference's XLA partial helpers (:func:`gqa_partial`, :func:`merge_attn`,
-:func:`len_valid`), which the two-pass decode runs around the partial.
-Bound on the H100: device-memory bytes —
-each slot's valid compressed K/V blocks and visible tail tokens, read
-once; the query panel's flops are far below the ridge.  The design runs
-one thread block per (kv head, slot) that loops over the valid prefix
-blocks (expanded into f32 shared memory) and the tail panels under one
-online softmax, so no log-sum-exp ever leaves the kernel.  At the serving
-shape that is only B*Hkv = 32 blocks: the kernel does not fill the card,
-and splitting the sequence loop is the known next step.
+with the CUDA kernels in ``csrc/sparse_attention.cu``.  Beside them live
+plain twins of the reference's XLA partial helpers (:func:`gqa_partial`,
+:func:`merge_attn`, :func:`len_valid`), which the two-pass decode runs
+around the partial.  Bound on the H100: device-memory bytes — each slot's
+valid compressed K/V blocks and visible tail tokens, read once; the query
+panel's flops are far below the ridge.
+
+The fused kernels split the sequence across thread blocks: one block per
+(kv head, slot, split, row tile), a split being one compressed prefix
+block or one ``bs``-token tail panel (:func:`attention_plan`: the splits
+depend on ``(Sb, Tp, bs)`` alone, so 256 blocks at the serving decode
+tick).  Each block stages its split with 16-byte copies, scores its query
+rows straight from the staged bitmap and values, and writes its rows'
+``(acc, m, l)`` to an f32 scratch; the last block of each (slot, head, row
+tile) to finish, told by a ticket counter that it resets, merges the
+splits in split order.  A block holds at most ``row_tile`` query rows (16
+at bs = D = 128) and a wider panel takes more row tiles, so a verify panel
+has no width cap.  A row's result does not depend on the panel width or
+the number of slots.  The prefix-only partial keeps the first design, one
+block per (kv head, slot) looping over the blocks, and its
+``QG * D <= MAX_PANEL`` limit.
 
 CPU tensors take the plain version.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -34,19 +44,73 @@ from repro_torch.core.sparse_format import BlockSparseWeight, unpack
 from . import build
 
 _SRC = "sparse_attention.cu"
+# the launch plan and the outputs, after sm_scale: splits, row tile, row
+# tiles, shared memory, then scratch, tickets, out and the stream
+_PLAN_ARGS = ([ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_long]
+              + [ctypes.c_void_p] * 4)
 _ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
          + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-         + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p,
-                                  ctypes.c_void_p])
+         + [ctypes.c_int] * 10 + _PLAN_ARGS)
 _PAGED_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
                + [ctypes.c_int] + [ctypes.c_void_p] * 3
-               + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p,
-                                        ctypes.c_void_p])
+               + [ctypes.c_int] * 11 + _PLAN_ARGS)
 _PARTIAL_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
                  + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8
                  + [ctypes.c_float] + [ctypes.c_void_p] * 3)
-MAX_PANEL = 2048            # QG * D the kernel keeps in registers
+MAX_PANEL = 2048            # QG * D the partial kernel keeps in registers
 NEG_INF = -1e30             # the kernels' running-max start and mask value
+THREADS = 256               # threads of one split-attention block
+
+
+class AttentionPlan(NamedTuple):
+    """The launch of the fused kernels, a function of (Sb, Tp, bs, D, the
+    value capacities, the cache dtype) alone; QG sets only the number of
+    row tiles (:meth:`tiles`) and the scratch's rows."""
+    splits: int             # Sb prefix blocks, then Tp / bs tail panels
+    row_tile: int           # query rows one thread block holds
+    smem: int               # dynamic shared memory of one block, bytes
+
+    def tiles(self, qg: int) -> int:
+        return -(-qg // self.row_tile)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(sb: int, tp: int, bs: int, d: int, ck: int, cv: int,
+                   c_bytes: int) -> AttentionPlan:
+    """Splits, row tile and shared memory of the split kernel.  The byte
+    count mirrors ``SplitLayout`` in ``csrc/sparse_attention.cu``, whose
+    launchers refuse any other: the tile's f32 query rows and scores, 272
+    bytes of scan scratch and flag, the split's V as dense rows (each
+    padded by 16 bytes), then the larger of a tail panel's K rows and a
+    prefix block's staging (K and V bitmap words and their prefix
+    popcounts, the packed values up to capacity)."""
+    row_tile = min(16, 8 * min(max(1, THREADS // bs), max(1, THREADS // d)))
+    words = bs * d // 32
+    rows = bs * (d * c_bytes + 16)
+    stage = _align16(row_tile * d * 4 + row_tile * bs * 4 + 64 * 4 + 16) \
+        + rows
+    pre = stage
+    for n in (4 * words,) * 4 + (ck * c_bytes, cv * c_bytes):
+        pre = _align16(pre + n)
+    return AttentionPlan(sb + tp // bs, row_tile, max(pre, stage + rows))
+
+
+# per device: int32 ticket counters of the split kernel, zero between
+# launches (each launch's last block per (slot, head, row tile) resets its
+# own); grown, never shrunk
+_TICKETS: Dict[str, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    buf = _TICKETS.get(str(device))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[str(device)] = buf
+    return buf
 
 
 def _dense_prefix(bitmap, values, bs, d):
@@ -113,13 +177,9 @@ def _check(q, k_bitmap, k_values, v_bitmap, v_values, k_tail, v_tail, bs,
     b, hkv, qg, d = q.shape
     g = group or qg
     tp = k_tail.shape[2]
-    if qg % g or tp % bs or tp < bs or (bs * d) % 32:
-        raise ValueError(f"bad geometry: QG={qg}, G={g}, tail={tp}, bs={bs}")
-    if qg * d > MAX_PANEL:
-        raise ValueError(
-            f"query panel QG*D={qg * d} exceeds {MAX_PANEL}: at G={g} and "
-            f"D={d} a panel holds at most {MAX_PANEL // (g * d)} queries, "
-            f"so speculative decoding takes k <= {MAX_PANEL // (g * d) - 1}")
+    if qg % g or tp % bs or tp < bs or d % 32:
+        raise ValueError(f"bad geometry: QG={qg}, G={g}, tail={tp}, bs={bs}, "
+                         f"D={d}")
     if k_values.dtype != k_tail.dtype or v_values.dtype != k_tail.dtype \
             or q.dtype != k_tail.dtype or q.dtype not in build.DTYPE_CODE:
         raise TypeError("fused attention kernel takes one f32/bf16 dtype "
@@ -130,6 +190,26 @@ def _check(q, k_bitmap, k_values, v_bitmap, v_values, k_tail, v_tail, bs,
     build.require_cuda(q, k_bitmap, k_values, v_bitmap, v_values, k_tail,
                        v_tail, n_blocks, tail_len)
     return q, n_blocks, tail_len, g
+
+
+def _launch(entry, argtypes, head_args, q, g, sb, bs, k_values, v_values,
+            k_tail, sm_scale):
+    """Allocate the output and the scratch, take the ticket counters and
+    make the C call: ``head_args`` (pointers, dtype codes, the paged table),
+    the geometry, then the plan; returns ``out``."""
+    b, hkv, qg, d = q.shape
+    ck, cv, tp = k_values.shape[-1], v_values.shape[-1], k_tail.shape[2]
+    plan = attention_plan(sb, tp, bs, d, ck, cv, k_tail.element_size())
+    tiles = plan.tiles(qg)
+    out = torch.empty((b, hkv, qg, d), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((b, hkv, plan.splits, qg, d + 2),
+                          dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, b * hkv * tiles)
+    p = build.ptr
+    build.call(_SRC, entry, argtypes, *head_args, b, hkv, qg, g, d, sb, bs,
+               ck, cv, tp, float(sm_scale), plan.splits, plan.row_tile, tiles,
+               plan.smem, p(scratch), p(tickets), p(out), build.stream())
+    return out
 
 
 def sparse_decode_attention_fused(
@@ -149,16 +229,13 @@ def sparse_decode_attention_fused(
     q, n_blocks, tail_len, g = _check(
         q, k_bitmap, k_values, v_bitmap, v_values, k_tail, v_tail, bs,
         n_blocks, tail_len, group)
-    b, hkv, qg, d = q.shape
-    sb, tp = k_bitmap.shape[2], k_tail.shape[2]
-    out = torch.empty((b, hkv, qg, d), dtype=torch.float32, device=q.device)
     p = build.ptr
-    build.call(_SRC, "fused_attention_launch", _ARGS, p(q),
-               build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
-               p(v_bitmap), p(v_values), p(k_tail), p(v_tail),
-               build.DTYPE_CODE[k_tail.dtype], p(n_blocks), p(tail_len), b,
-               hkv, qg, g, d, sb, bs, k_values.shape[-1], v_values.shape[-1],
-               tp, float(sm_scale), p(out), build.stream())
+    out = _launch(
+        "fused_attention_launch", _ARGS,
+        (p(q), build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
+         p(v_bitmap), p(v_values), p(k_tail), p(v_tail),
+         build.DTYPE_CODE[k_tail.dtype], p(n_blocks), p(tail_len)),
+        q, g, k_bitmap.shape[2], bs, k_values, v_values, k_tail, sm_scale)
     sparse_decode_attention_fused.launches += 1
     return out
 
@@ -225,17 +302,14 @@ def sparse_decode_attention_fused_paged(
         n_blocks, tail_len, group)
     table = table.to(torch.int32).contiguous()
     build.require_cuda(q, table)
-    b, hkv, qg, d = q.shape
-    sb, tp = table.shape[1], k_tail.shape[2]
-    out = torch.empty((b, hkv, qg, d), dtype=torch.float32, device=q.device)
     p = build.ptr
-    build.call(_SRC, "fused_attention_paged_launch", _PAGED_ARGS, p(q),
-               build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
-               p(v_bitmap), p(v_values), p(k_tail), p(v_tail),
-               build.DTYPE_CODE[k_tail.dtype], p(n_blocks), p(tail_len),
-               p(table), k_bitmap.shape[0], b, hkv, qg, g, d, sb, bs,
-               k_values.shape[-1], v_values.shape[-1], tp, float(sm_scale),
-               p(out), build.stream())
+    out = _launch(
+        "fused_attention_paged_launch", _PAGED_ARGS,
+        (p(q), build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
+         p(v_bitmap), p(v_values), p(k_tail), p(v_tail),
+         build.DTYPE_CODE[k_tail.dtype], p(n_blocks), p(tail_len), p(table),
+         k_bitmap.shape[0]),
+        q, g, table.shape[1], bs, k_values, v_values, k_tail, sm_scale)
     sparse_decode_attention_fused_paged.launches += 1
     return out
 

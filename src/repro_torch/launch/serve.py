@@ -36,7 +36,7 @@ from repro_torch.core.convert import convert_concrete, sparsity_report
 from repro_torch.data.pipeline import DataConfig, host_batch
 from repro_torch.kernels.dense_matmul import dense_matmul
 from repro_torch.kernels.sparse_attention import (
-    MAX_PANEL, sparse_decode_attention_fused,
+    sparse_decode_attention_fused,
     sparse_decode_attention_fused_paged, sparse_decode_attention_partial)
 from repro_torch.kernels.sparse_gemv import sparse_gemv
 from repro_torch.kernels.sparse_matmul import sparse_matmul, \
@@ -45,7 +45,6 @@ from repro_torch.kernels.sparse_matmul_int4 import sparse_matmul_int4
 from repro_torch.kernels.sparse_matmul_int8 import sparse_matmul_int8
 from repro_torch.models import lm
 from repro_torch.serving import ContinuousEngine, SamplingParams, SpecConfig
-from repro_torch.serving.engine import max_spec_k
 
 KERNELS = {"sparse_gemv": sparse_gemv,
            "sparse_decode_attention_fused": sparse_decode_attention_fused,
@@ -96,11 +95,7 @@ def main(argv=None) -> int:
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative decoding: verify up to K n-gram draft "
                          "tokens per slot per tick (0 = off; greedy output "
-                         "is token-identical either way).  The verify panel "
-                         "of (K+1) x G query rows of head-dim values must "
-                         f"fit the attention kernel's {MAX_PANEL}: K <= 7 "
-                         "for qwen3-0.6b (G = 2, head dim 128); the engine "
-                         "names the limit for other heads")
+                         "is token-identical either way)")
     ap.add_argument("--spec-adaptive", action="store_true",
                     help="with --spec-k: per-slot adaptive draft windows "
                          "(each slot's acceptance rate scales its K)")
@@ -116,9 +111,6 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.spec_k > max_spec_k(cfg):
-        ap.error(f"--spec-k {args.spec_k}: the largest K for {args.arch}'s "
-                 f"heads is {max_spec_k(cfg)}")
     dev = resolve_device(args.device)
     cfg = dataclasses.replace(cfg, sparsity=args.sparsity)
     params = lm.init_params(cfg, seed=0, device=dev)

@@ -26,8 +26,8 @@ from the request's own history (clamped to the slot's tail headroom), one
 ``[slots, k+1]`` panel forward scores every position, ``accept_step``
 accepts per lane, and the pool rolls the rejected suffix back by a length
 decrement.  The panel runs through the same attention kernel as a decode
-tick, with ``(k+1) * G`` query rows, which the kernel caps at
-``MAX_PANEL // D`` (:func:`max_spec_k`).
+tick, with ``(k+1) * G`` query rows; any ``k >= 0`` is taken, as in the
+reference.
 
 Paged pool: a host :class:`~.cache_pool.BlockAllocator` hands out physical
 block ids and a :class:`~.scheduler.PrefixTrie` indexes the blocks frozen
@@ -44,19 +44,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.sparse_attention import MAX_PANEL
 from repro_torch.models import lm
 from . import sampling
 from .cache_pool import BlockAllocator, CachePool
 from .sampling import RequestOutput, SamplingParams
 from .scheduler import PrefixTrie, Scheduler, block_hashes
 from .spec import AdaptiveDraft, SpecConfig
-
-
-def max_spec_k(cfg) -> int:
-    """The largest draft window the attention kernel takes: its query panel
-    holds ``(k + 1) * G`` rows of ``hd`` values, at most ``MAX_PANEL``."""
-    return MAX_PANEL // ((cfg.padded_heads // cfg.n_kv) * cfg.hd) - 1
 
 
 def params_to(tree: Any, device: torch.device) -> Any:
@@ -136,13 +129,6 @@ class ContinuousEngine:
             spec if spec is not None and spec.active else None)
         self._adaptive: Optional[AdaptiveDraft] = None
         if self._spec is not None:
-            if self._spec.k > max_spec_k(cfg):
-                raise ValueError(
-                    f"spec k={self._spec.k}: the verify panel of k+1 "
-                    f"queries x {cfg.padded_heads // cfg.n_kv} GQA rows x "
-                    f"head dim {cfg.hd} exceeds the attention kernel's "
-                    f"{MAX_PANEL} values; the largest k for these heads is "
-                    f"{max_spec_k(cfg)}")
             self.drafter = self._spec.build_drafter()
             self.spec_hist = np.zeros(self._spec.k + 1, np.int64)
             if self._spec.adaptive:

@@ -13,7 +13,11 @@
 * the copied ``NGramDrafter`` / ``AdaptiveDraft`` behave as the reference's;
 * greedy spec-on engines emit the spec-off engine's tokens and the
   reference spec engine's (f32, flat and paged), with the same accepted-
-  and proposed-draft histograms.
+  and proposed-draft histograms;
+* the engine and the serve CLI take any ``k >= 0``, as the reference does:
+  at k = 32 the verify panel holds (k+1)*G = 66 rows of head dim 32, past
+  the 2048 values the first attention kernel kept in registers, and the
+  greedy tokens still equal the reference's, flat and paged.
 """
 import dataclasses
 
@@ -38,8 +42,8 @@ from repro_torch.launch import serve
 from repro_torch.serving import (AdaptiveDraft, ContinuousEngine,
                                  NGramDrafter, SamplingParams, SpecConfig)
 from repro_torch.serving import sampling as tsampling
+from repro_torch.kernels import ops as tops
 from repro_torch.serving.cache_pool import CachePool
-from repro_torch.serving.engine import max_spec_k
 from repro_torch.serving.scheduler import Scheduler
 
 from torch_parity import configs, sparse_params
@@ -386,24 +390,28 @@ def test_adaptive_draft_matches_reference():
     np.testing.assert_array_equal(ours.hist, ref.hist)
 
 
-def test_spec_config_checks_and_kernel_panel_limit():
+def test_spec_config_checks_and_kernel_panel_limit(capsys):
+    """SpecConfig's checks, and no panel limit past them: the engine and
+    the serve CLI take a window wider than the 2048-value register panel
+    of the first attention kernel (k = 32 at G = 2, head dim 32)."""
     with pytest.raises(ValueError):
         SpecConfig(k=-1)
     with pytest.raises(ValueError):
         SpecConfig(k=2, adaptive=True, adapt_min_k=3)
     assert not SpecConfig(k=0).active
-    full = torch_config("qwen3-0.6b")
-    assert max_spec_k(full) == 7           # G = 2, head dim 128
     jcfg, tcfg = configs("float32")
     _, tparams = sparse_params(jcfg, tcfg)
-    big = max_spec_k(tcfg) + 1
-    with pytest.raises(ValueError, match=f"largest k .* is {big - 1}"):
-        ContinuousEngine(tparams, tcfg, slots=1, device="cpu",
-                         spec=SpecConfig(k=big))
+    g = tcfg.padded_heads // tcfg.n_kv
+    assert (WIDE_K + 1) * g * tcfg.hd > 2048
+    eng = ContinuousEngine(tparams, tcfg, slots=1, device="cpu",
+                           spec=SpecConfig(k=WIDE_K))
+    assert eng.spec_hist.shape == (WIDE_K + 1,)
     with pytest.raises(SystemExit):
         serve.main(["--reduced", "--device", "cpu", "--spec-adaptive"])
-    with pytest.raises(SystemExit):
-        serve.main(["--reduced", "--device", "cpu", "--spec-k", str(big)])
+    assert serve.main(["--reduced", "--device", "cpu", "--spec-k",
+                       str(WIDE_K), "--requests", "1", "--slots", "1",
+                       "--prompt-len", "8", "--steps", "2"]) == 0
+    assert "[serve] spec: accepted-draft histogram" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
@@ -411,6 +419,7 @@ def test_spec_config_checks_and_kernel_panel_limit():
 # ---------------------------------------------------------------------------
 
 LOOPY = [3, 4, 5] * 5
+WIDE_K = 32         # past k = 31, the first attention kernel's cap here
 
 
 def _flat_waves(eng, params_cls, toks):
@@ -462,35 +471,81 @@ def test_flat_spec_greedy_matches_spec_off_and_reference(f32_params,
     assert all(a is not None and a >= 1.0 for a in apt)
 
 
+def _paged_prompts(vocab):
+    """A wave with draft hits and misses and a 32-token shared prefix."""
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, vocab, (32,)).tolist()
+    return [shared + [3, 4, 5] * 4,
+            shared + rng.integers(0, vocab, (7,)).tolist(),
+            rng.integers(0, vocab, (20,)).tolist()]
+
+
+def _paged_wave(eng, params_cls, prompts):
+    rids = [eng.submit(p, params_cls(max_new_tokens=20)) for p in prompts]
+    res = eng.run()
+    return [list(res[r].token_ids) for r in rids]
+
+
 def test_paged_spec_greedy_matches_flat_and_reference(f32_params):
     """Mirrors ``test_paged_pool.py``'s paged spec case: paged + spec greedy
     equals flat spec-off greedy on a wave with draft hits and misses and a
     shared prefix, and the reference's paged spec engine."""
     jcfg, tcfg, jparams, tparams, _ = f32_params
-    rng = np.random.default_rng(3)
-    shared = rng.integers(0, tcfg.vocab, (32,)).tolist()
-    prompts = [shared + [3, 4, 5] * 4,
-               shared + rng.integers(0, tcfg.vocab, (7,)).tolist(),
-               rng.integers(0, tcfg.vocab, (20,)).tolist()]
+    prompts = _paged_prompts(tcfg.vocab)
     kw = dict(slots=2, max_tokens=96, bs=16, prefill_chunk=32)
-
-    def drive(eng, params_cls):
-        rids = [eng.submit(p, params_cls(max_new_tokens=20))
-                for p in prompts]
-        res = eng.run()
-        return [list(res[r].token_ids) for r in rids]
-
-    flat = drive(ContinuousEngine(tparams, tcfg, device="cpu", **kw),
-                 SamplingParams)
+    flat = _paged_wave(ContinuousEngine(tparams, tcfg, device="cpu", **kw),
+                       SamplingParams, prompts)
     eng = ContinuousEngine(tparams, tcfg, device="cpu", paged=True,
                            spec=SpecConfig(k=3), **kw)
-    got = drive(eng, SamplingParams)
+    got = _paged_wave(eng, SamplingParams, prompts)
     ref = JaxEngine(jparams, jcfg, paged=True, spec=JaxSpec(k=3), **kw)
     assert got == flat
-    assert got == drive(ref, JaxParams)
+    assert got == _paged_wave(ref, JaxParams, prompts)
     np.testing.assert_array_equal(eng.spec_hist, ref.spec_hist)
     assert eng.spec_hist[1:].sum() > 0
     assert int(eng.state["refcount"].sum()) == 0   # every page released
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+def test_spec_past_the_old_panel_cap_matches_reference(f32_params,
+                                                       monkeypatch, paged):
+    """k = 32 on a 64-token tail ring (drafts are clamped to the ring's
+    headroom, so the reduced config's 16-token ring could not hold the
+    window): every verify tick's attention sees (k+1)*G = 66 query rows,
+    and the greedy tokens and draft histograms equal the reference spec
+    engine's at the same k."""
+    jcfg, tcfg, jparams, tparams, toks = f32_params
+    jcfg = dataclasses.replace(jcfg, kv_tail=64)
+    tcfg = dataclasses.replace(tcfg, kv_tail=64)
+    g = tcfg.padded_heads // tcfg.n_kv
+    entry = ("sparse_decode_attention_fused_paged" if paged
+             else "sparse_decode_attention_fused")
+    rows = []
+    fused = getattr(tops, entry)
+
+    def recording(q, *a, **k):
+        rows.append(q.shape[2])
+        return fused(q, *a, **k)
+    monkeypatch.setattr(tops, entry, recording)
+    kw = dict(slots=2, max_tokens=128, bs=16)
+    if paged:
+        prompts = _paged_prompts(tcfg.vocab)
+        kw.update(prefill_chunk=32, paged=True)
+        eng = ContinuousEngine(tparams, tcfg, device="cpu",
+                               spec=SpecConfig(k=WIDE_K), **kw)
+        got = _paged_wave(eng, SamplingParams, prompts)
+        ref = JaxEngine(jparams, jcfg, spec=JaxSpec(k=WIDE_K), **kw)
+        want = _paged_wave(ref, JaxParams, prompts)
+    else:
+        eng = ContinuousEngine(tparams, tcfg, device="cpu",
+                               spec=SpecConfig(k=WIDE_K), **kw)
+        got = _flat_waves(eng, SamplingParams, toks)[:2]
+        ref = JaxEngine(jparams, jcfg, spec=JaxSpec(k=WIDE_K), **kw)
+        want = _flat_waves(ref, JaxParams, jnp.asarray(toks, jnp.int32))[:2]
+    assert got == want
+    np.testing.assert_array_equal(eng.spec_hist, ref.spec_hist)
+    assert max(rows) == (WIDE_K + 1) * g
+    assert eng.spec_hist.sum() > 0
 
 
 def test_spec_sampled_lanes_run_and_respect_budget(f32_params):

@@ -1,20 +1,34 @@
 #!/usr/bin/env python3
-"""Paged int8 and int4 serving of two checkouts on one card, and the cost of
-RMSNorm's f64 sum of squares.
+"""Flat bf16, paged int8 and int4 serving of two checkouts on one card, and
+the cost of RMSNorm's f64 sum of squares; or, with ``--attention``, the two
+checkouts' fused attention kernels at the same shapes.
 
     python3 tools/compare_trees.py PARENT_DIR [CHANGE_DIR] [--out PATH]
+    python3 tools/compare_trees.py PARENT_DIR --attention [--out PATH]
 
 1. **trees**: for each checkout, in the order parent, change, change,
    parent, a subprocess in that checkout imports its own ``chip_smoke.py``
-   and ``src/repro_torch``, builds its kernels and runs its paged int8 and
-   paged int4 phases, every gate included; their tok/s, TPOT p50, median
-   decode step and traced decode tick are printed per run.  ``CHANGE_DIR``
+   and ``src/repro_torch``, builds its kernels and runs its flat bf16,
+   paged int8 and paged int4 phases, every gate included; their tok/s,
+   TPOT p50, median decode step, traced decode tick and the attention
+   kernel's device time in it are printed per run.  ``CHANGE_DIR``
    defaults to the checkout holding this script.
 2. **rms_norm**, in the change's package: how many rows of the f32 mean of
    squares (the reference's form) and of the f64 sum (the port's) differ
    between a call on 4 rows and a call on more rows that hold them, and the
    time per call of both forms at the decode tick's shapes (host clock
    around 2,000 calls ending in a synchronise: what a host-paced tick pays).
+
+With ``--attention`` each run instead builds its checkout's
+``sparse_attention.cu`` alone and times its flat and paged fused attention
+(``sparse_decode_attention_fused``, ``..._paged``) on the same seeded bf16
+inputs: the serving decode geometry (4 slots, 8 kv heads, 7 prefix blocks
+of 128 tokens, a 128-token ring; the lengths and the paged table of
+``chip_smoke.py``'s kernel phase) at panels of 1, the verify panel and 9
+queries, and a 32-block (4096-token) prefix in every slot at 1 query.
+Each shape gives the CUDA-event time (L2 flushed) and the traced device
+time per call, or the error with which the checkout refused it, in step
+1's order (parent, change, change, parent); step 2 is skipped.
 
 It needs one CUDA card and exits non-zero without one.  The parent's
 checkout lives in a git-ignored directory of this repository, made with
@@ -46,22 +60,102 @@ cs.card_phase(torch, build)
 cs.build_phase(build)
 cfg = get_config("qwen3-0.6b")
 out = {}
+runs = [("bf16", lambda: cs.serve_phase(torch, cfg)[0])]
 for mode, n_req, new, kernel in (
         ("int8", cs.PAGED_REQUESTS, cs.PAGED_NEW_TOKENS, "sparse_matmul_int8"),
         ("int4", cs.INT4_REQUESTS, cs.INT4_NEW_TOKENS, "sparse_matmul_int4")):
-    r = cs.paged_phase(torch, cfg, mode, n_req, new, kernel)[0]
+    runs.append((mode, lambda mode=mode, n_req=n_req, new=new, kernel=kernel:
+                 cs.paged_phase(torch, cfg, mode, n_req, new, kernel)[0]))
+for mode, run in runs:
+    r = run()
     p = r["decode_profile"]
     out[mode] = {"tok_s": r["tok_s"], "tpot_p50_ms": r["tpot_p50_s"] * 1e3,
                  "decode_step_ms": r["median_step_ms"]["decode"],
                  "traced_tick_wall_ms": p["wall_ms"],
-                 "traced_tick_device_ms": p.get("device_ms")}
+                 "traced_tick_device_ms": p.get("device_ms"),
+                 "attention_ms_per_tick": sum(
+                     t["ms_per_tick"] for t in p.get("top", ())
+                     if "attention" in t["kernel"])}
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+ATTENTION_CHILD = r"""
+import json, sys
+sys.path.insert(0, "."); sys.path.insert(0, "src")
+import torch
+import chip_smoke as cs
+from repro_torch.configs import get_config
+from repro_torch.core.sparse_kv import freeze_chunk_blocks
+from repro_torch.kernels import build
+from repro_torch.kernels.sparse_attention import (
+    sparse_decode_attention_fused, sparse_decode_attention_fused_paged)
+from repro_torch.serving.cache_pool import CachePool
+cs.card_phase(torch, build)
+build.build_all(["sparse_attention.cu"])
+cfg = get_config("qwen3-0.6b")
+hkv, hd, tp, bs, b = cfg.n_kv, cfg.hd, cfg.kv_tail, 128, 4
+g = cfg.padded_heads // cfg.n_kv
+sm = hd ** -0.5
+pool = CachePool.build(cfg, b, 32 * bs, bs=bs, device="cuda")
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)
+timer = cs.Timer(torch)
+
+
+def randn(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def cache(lead, n):
+    kv = randn(2, *lead, n * bs, hd)
+    return freeze_chunk_blocks(kv[0], kv[1], cfg.kv_k_sparsity,
+                               cfg.kv_v_sparsity, bs, pool.cap_k, pool.cap_v)
+
+
+def ints(v):
+    return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+
+tails = randn(2, b, hkv, tp, hd)
+flat7 = cache((b, hkv), 7)
+arena7 = [a[:, :, 0] for a in cache((16, hkv), 1)]
+table7 = ints([[0, 1, 2, 3, 4, 5, 6], [0, 1, 2, 7, 8, 15, 15],
+               [9, 10, 15, 15, 15, 15, 15], [15] * 7])
+flat32 = cache((b, hkv), 32)
+arena32 = [a[:, :, 0] for a in cache((b * 32, hkv), 1)]
+table32 = torch.randperm(b * 32, generator=gen, device="cuda").to(
+    torch.int32).reshape(b, 32)
+cases = []
+for qn in (1, cs.SPEC_K + 1, 9):
+    cases.append((f"flat QG={qn * g} Sb=7", qn, sparse_decode_attention_fused,
+                  (*flat7,), ints([0, 3, 7, 0]), ints([1, tp, 0, 0])))
+for qn in (1, cs.PAGED_SPEC_K + 1, 9):
+    cases.append((f"paged QG={qn * g} Sb=7", qn,
+                   sparse_decode_attention_fused_paged, (*arena7, table7),
+                   ints([7, 5, 2, 0]), ints([1, tp, 37, 0])))
+cases.append((f"flat QG={g} Sb=32", 1, sparse_decode_attention_fused,
+               (*flat32,), ints([32] * b), ints([tp // 2] * b)))
+cases.append((f"paged QG={g} Sb=32", 1, sparse_decode_attention_fused_paged,
+               (*arena32, table32), ints([32] * b), ints([tp // 2] * b)))
+out = {}
+for name, qn, fn, prefix, n_blocks, tail_len in cases:
+    q = randn(b, hkv, qn * g, hd)
+    args = (q, *prefix, tails[0], tails[1], bs, sm, n_blocks, tail_len, g)
+    try:
+        fn(*args)
+    except ValueError as e:
+        out[name] = {"refused": str(e)}
+        continue
+    torch.cuda.synchronize()
+    out[name] = {"ms": timer(lambda: fn(*args)),
+                 "device_ms": cs.device_ms_per_call(torch, lambda: fn(*args))}
 print("RESULT " + json.dumps(out), flush=True)
 """
 
 
-def run_tree(label: str, tree: Path, timeout: float) -> dict:
+def run_tree(label: str, tree: Path, timeout: float, child: str) -> dict:
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree,
+    proc = subprocess.run([sys.executable, "-c", child], cwd=tree,
                           capture_output=True, text=True, timeout=timeout)
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith("RESULT ")]
@@ -135,6 +229,9 @@ def main() -> int:
     ap.add_argument("change", type=Path, nargs="?", default=HERE)
     ap.add_argument("--out", default=None)
     ap.add_argument("--timeout", type=float, default=600)
+    ap.add_argument("--attention", action="store_true",
+                    help="time the two checkouts' fused attention kernels "
+                         "instead of serving")
     args = ap.parse_args()
     sys.path.insert(0, str(HERE / "src"))
     import torch
@@ -147,11 +244,22 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"[compare] card: {card}", flush=True)
     trees = {"parent": args.parent.resolve(), "change": args.change.resolve()}
-    runs = [(label, run_tree(label, trees[label], args.timeout))
+    child = ATTENTION_CHILD if args.attention else CHILD
+    runs = [(label, run_tree(label, trees[label], args.timeout, child))
             for label in ("parent", "change", "change", "parent")]
+    if args.attention:
+        for key in runs[0][1]:
+            print(f"[compare] attention {key}: " + "; ".join(
+                f"{label} {json.dumps(r[key])}" for label, r in runs),
+                flush=True)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(
+                {"card": card, "runs": runs}, indent=1))
+        return 0
     summary = {}
     for label in trees:
-        for mode in ("int8", "int4"):
+        for mode in ("bf16", "int8", "int4"):
             vals = [r[mode] for lb, r in runs if lb == label]
             summary[f"{label} {mode}"] = {
                 k: [v[k] for v in vals] for k in vals[0]}
