@@ -20,7 +20,12 @@ Phases, each of which exits non-zero on failure:
    their plain versions at M = 1, 4, 8, 16, 20, 256 and 300, traced at
    the 4-row decode tick and the 256-row prefill chunk.  For all four, the
    first rows of one x must be the same bits in calls of M = 9, 20, 256
-   and 300.  The flat and paged attention kernels are held at panels of
+   and 300.  The sparse gemv is held at M = 1, 4 and 8 and traced at the
+   4-row decode tick; its calls of M = 1 and 4 (bf16, and f32 x) must give
+   the first rows of the 8-row call bit for bit.  The tied unembedding is
+   held, timed and traced at M = 1, 4, 16 and 20 (bf16) and 4 and 36
+   (f32), each call's rows bit-equal to the largest call's.  The flat and
+   paged attention kernels are held at panels of
    Q = 1, 2, the verify panel, 9 and 17 queries (up to 34 query rows),
    with a NaN-poisoned dead page and an all-empty slot, timed (and
    traced) at three panel widths and at a 4096-token prefix; every query
@@ -32,7 +37,8 @@ Phases, each of which exits non-zero on failure:
    after, and decode-tick logits through the kernels held against the same
    ticks through the plain versions:
 
-   * flat pool, bf16 sparse weights: six requests;
+   * flat pool, bf16 sparse weights: six requests; the traced decode tick
+     must run the gemv as one launch per linear (no ``sum_partials``);
    * speculative decoding, flat bf16, ``SpecConfig(k=4)``: four prompts of
      a repeated motif and two random ones, timed beside the same traffic
      without speculation, every verify tick's attention launch at
@@ -53,8 +59,10 @@ Phases, each of which exits non-zero on failure:
      hits;
    * paged pool, int4 sparse weights: four requests sharing the prefix.
 
-The lines before the last carry the kernel table (one JSON object) and the
-serving numbers; the last line is the device JSON.  ``--out PATH`` also
+Every traced tick and chunk reports the unembedding's and the gemv's
+device time and launches.  The lines before the last carry the kernel
+table (one JSON object) and the serving numbers; the last line is the
+device JSON.  ``--out PATH`` also
 writes every measurement (per-shape kernel rows, serving, the decode
 profiles) to a JSON file.  It needs one CUDA card and this repository's
 ``src/`` beside it.
@@ -130,6 +138,21 @@ ATTN_Q = {"flat": (1, 2, SPEC_K + 1, 9, 17),
 ATTN_TIMED_Q = {"flat": (1, SPEC_K + 1, 9), "paged": (1, PAGED_SPEC_K + 1, 9)}
 ROW_GATE_Q = (1, 5, 9, 17)
 LONG_SB = 32
+# the gemv's row-independence gate: calls of these M, whose rows must equal
+# the first rows of the largest call bit for bit (served: bf16, f32 x)
+GEMV_GATE_M = (1, SLOTS, 8)
+# the unembedding's row counts per weight dtype: the last prefill token,
+# the decode tick, the paged and flat verify panels (bf16), the f32 engine's
+# decode tick and its k=8 verify panel; every call's rows must equal the
+# first rows of the largest call of its dtype bit for bit
+UNEMBED_M = {"bf16": (1, SLOTS, SLOTS * (PAGED_SPEC_K + 1),
+                      SLOTS * (SPEC_K + 1)),
+             "f32": (SLOTS, SLOTS * (max(SPEC_F32_K) + 1))}
+# kernels a traced tick reports by name: (substring of the trace's kernel
+# name); the flat decode tick must hold one gemv launch per linear and no
+# sum_partials
+TRACED_KERNELS = {"unembed": "unembed_", "gemv": "sparse_gemv<",
+                  "sum_partials": "sum_partials"}
 # the decode-logits checks a serve phase runs: (name, dtype, kernels the
 # plain path keeps, gated).  On the int paths the attention kernel's f32
 # sums, in another order than its plain version's, round to bf16 a ulp
@@ -444,7 +467,7 @@ def linear_kernels(torch, cfg, timer, gen, detail):
     out = {}
     out["sparse_gemv"] = rows("sparse_gemv", "bf16", sparse_gemv,
                               sparse_gemv_plain, mm_library, (1, 4, 8),
-                              SLOTS)
+                              SLOTS, traced=(SLOTS,))
     # the prefill chunk, the verify panels of the spec phases, the first
     # row count past the gemv and a ragged chunk; the flat verify panel and
     # the prefill chunk also traced
@@ -473,12 +496,14 @@ def row_independence(torch, cfg, gen):
     """The first ROW_GATE_ROWS rows of one random x through each sparse
     matmul kernel (the int kernels: of one random quantised x), in calls of
     every M of ROW_GATE_M, at every (K, N) of the layer: bit-equal, or the
-    run fails."""
+    run fails.  The same for the gemv at GEMV_GATE_M, every row of every
+    call against the largest call."""
     from repro_torch.core.quant import quantize_act_int8
     from repro_torch.kernels.sparse_matmul import sparse_matmul, \
         sparse_matmul_f32
     from repro_torch.kernels.sparse_matmul_int4 import sparse_matmul_int4
     from repro_torch.kernels.sparse_matmul_int8 import sparse_matmul_int8
+    from repro_torch.kernels.sparse_gemv import sparse_gemv
     shapes = sorted({(k, n) for _, k, n in _layer_linears(cfg)})
     checked = {}
     for name, fn, mode in (("sparse_matmul", sparse_matmul, "bf16"),
@@ -510,7 +535,30 @@ def row_independence(torch, cfg, gen):
         checked[name] = len(shapes)
         say(f"{name}: the first {ROW_GATE_ROWS} rows are bit-equal across "
             f"M={ROW_GATE_M} at {len(shapes)} (K, N) shapes")
+    for label, dtype in (("bf16", torch.bfloat16), ("f32 x", torch.float32)):
+        for kn in shapes:
+            sw = _packed(torch, *kn, gen)
+            x = torch.randn((max(GEMV_GATE_M), kn[0]), generator=gen,
+                            device="cuda").to(dtype)
+            outs = {m: sparse_gemv(x[:m], sw).clone() for m in GEMV_GATE_M}
+            torch.cuda.synchronize()
+            _gate_rows(torch, f"sparse_gemv ({label}) K,N={kn}", outs)
+        checked[f"sparse_gemv ({label})"] = len(shapes)
+        say(f"sparse_gemv ({label}): every row of the calls of M="
+            f"{GEMV_GATE_M} is bit-equal to the same row of the "
+            f"{max(GEMV_GATE_M)}-row call at {len(shapes)} (K, N) shapes")
     return checked
+
+
+def _gate_rows(torch, name, outs):
+    """``outs`` maps M to one call's output on the first M rows of one x:
+    each must equal the first rows of the largest call bit for bit."""
+    big = max(outs)
+    for m, got in outs.items():
+        if not torch.equal(got, outs[big][:m]):
+            diff = (got.float() - outs[big][:m].float()).abs().max()
+            fail(f"{name}: the {m}-row call differs from the first rows of "
+                 f"the {big}-row call (max |diff| {diff.item():.3e})")
 
 
 def _attention_library(torch, q, k_pre, v_pre, tails, n_blocks, tail_len,
@@ -966,37 +1014,62 @@ def partial_kernel(torch, cfg, timer, gen, detail):
 
 
 def unembed_kernel(torch, cfg, timer, gen, detail):
+    """The tied unembedding at every serving row count (UNEMBED_M), bf16
+    and f32 tables: held to its plain version (1e-4 of the range), timed
+    (CUDA events, L2 flushed) and traced beside its bound, the plain
+    version and ``torch.matmul``; every call's rows bit-equal to the first
+    rows of the largest call of its dtype.  The summary is the bf16 decode
+    tick's row."""
     from repro_torch.kernels.dense_matmul import (dense_matmul,
                                                   dense_matmul_plain)
-    tok_w = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                         device="cuda") * 0.02).to(torch.bfloat16)
     errs = []
     dense = {}
-    for m in (1, SLOTS):
-        x = torch.randn((m, cfg.d_model), generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        got = dense_matmul(x, tok_w, torch.float32)
-        ref = dense_matmul_plain(x, tok_w, torch.float32)
-        torch.cuda.synchronize()
-        # same f32 products, summed in another order
-        tol = 1e-4 * ref.abs().max().item()
-        err, rel = _check(f"dense_matmul M={m}", got, ref, tol, errs)
-        t = timer(lambda: dense_matmul(x, tok_w, torch.float32))
-        t_plain = timer(lambda: dense_matmul_plain(x, tok_w, torch.float32))
-        t_lib = timer(lambda: torch.matmul(x, tok_w.t()))
-        n_bytes = tok_w.numel() * 2 + x.numel() * 2 + m * cfg.vocab * 4
-        bnd, bby = bound_ms(n_bytes, 2.0 * m * tok_w.numel())
-        row = {"kernel": "dense_matmul", "M": m, "K": cfg.d_model,
-               "N": cfg.vocab, "max_abs_err": err, "tol": tol, "ms": t,
-               "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": bnd,
-               "bound_by": bby}
-        detail.append(row)
-        if m == SLOTS:
-            dense = dict(row)
-        say(f"dense_matmul M={m}: err {err:.2e} (rel {rel:.1e}, tol "
-            f"{tol:.2e}) kernel "
-            f"{t * 1e3:.1f} us, plain {t_plain * 1e3:.1f} us, torch.matmul "
-            f"{t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us")
+    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        tok_w = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                             device="cuda") * 0.02).to(dtype)
+        m_list = UNEMBED_M[dname]
+        xs = torch.randn((max(m_list), cfg.d_model), generator=gen,
+                         device="cuda").to(dtype)
+        outs = {}
+        for m in m_list:
+            x = xs[:m]
+            got = dense_matmul(x, tok_w, torch.float32)
+            ref = dense_matmul_plain(x, tok_w, torch.float32)
+            torch.cuda.synchronize()
+            outs[m] = got.clone()
+            # same f32 products, summed in another order
+            tol = 1e-4 * ref.abs().max().item()
+            err, rel = _check(f"dense_matmul {dname} M={m}", got, ref, tol,
+                              errs)
+            t = timer(lambda: dense_matmul(x, tok_w, torch.float32))
+            t_plain = timer(lambda: dense_matmul_plain(x, tok_w,
+                                                       torch.float32))
+            t_lib = timer(lambda: torch.matmul(x, tok_w.t()))
+            dev = device_ms_per_call(
+                torch, lambda: dense_matmul(x, tok_w, torch.float32))
+            size = tok_w.element_size()
+            n_bytes = (tok_w.numel() + x.numel()) * size + m * cfg.vocab * 4
+            bnd, bby = bound_ms(n_bytes, 2.0 * m * tok_w.numel(),
+                                BF16_OPS_PER_S if size == 2
+                                else F32_OPS_PER_S)
+            row = {"kernel": "dense_matmul", "dtype": dname, "M": m,
+                   "K": cfg.d_model, "N": cfg.vocab, "max_abs_err": err,
+                   "tol": tol, "ms": t, "device_ms": dev,
+                   "plain_ms": t_plain, "library_ms": t_lib,
+                   "bound_ms": bnd, "bound_by": bby}
+            detail.append(row)
+            if dname == "bf16" and m == SLOTS:
+                dense = dict(row)
+            dev_txt = (f"traced device {dev * 1e3:.1f} us"
+                       if isinstance(dev, float) else dev)
+            say(f"dense_matmul {dname} M={m}: err {err:.2e} (rel {rel:.1e}, "
+                f"tol {tol:.2e}) kernel {t * 1e3:.1f} us, {dev_txt}, plain "
+                f"{t_plain * 1e3:.1f} us, torch.matmul {t_lib * 1e3:.1f} us, "
+                f"bound {bnd * 1e3:.2f} us ({bby})")
+        _gate_rows(torch, f"dense_matmul {dname}", outs)
+        say(f"dense_matmul {dname}: every row of the calls of M={m_list} is "
+            f"bit-equal to the same row of the {max(m_list)}-row call")
+        del tok_w
     dense["max_abs_err"] = max(errs)
     return dense
 
@@ -1276,6 +1349,10 @@ def _profiled(torch, fn, n, res):
         return res
     rows.sort(key=lambda r: -r[1])
     host.sort(key=lambda r: -r[1])
+    res["named"] = {
+        label: {"ms_per_tick": sum(t for k, t, _ in rows if pat in k),
+                "per_tick": sum(c for k, _, c in rows if pat in k)}
+        for label, pat in TRACED_KERNELS.items()}
     busy = sum(r[1] for r in rows)
     res.update(device_ms=busy, idle_share=max(0.0, 1 - busy / res["wall_ms"]),
                top=[{"kernel": k[:80], "ms_per_tick": t, "per_tick": c}
@@ -1515,6 +1592,12 @@ def report(label, run, total, n_req):
                 f"x{r['per_tick']}" for r in profile["top"][:5])))
         for what, prof in ((tick, profile), ("prefill chunk",
                                              profile.get("prefill"))):
+            if prof and "named" in prof:
+                say(f"{label}: {what}: " + ", ".join(
+                    f"{k} {v['ms_per_tick']:.3f} ms x{v['per_tick']}"
+                    for k, v in prof["named"].items()) + " of device time")
+        for what, prof in ((tick, profile), ("prefill chunk",
+                                             profile.get("prefill"))):
             if prof and "host_top" in prof:
                 say(f"{label}: {what}: host self time under the profiler: "
                     + ", ".join(f"{r['op'][:32]} {r['ms_per_tick']:.2f} ms "
@@ -1574,6 +1657,18 @@ def serve_phase(torch, cfg):
     gate_logits("serve", run["check"])
     res = report("serve", run, total, N_REQUESTS)
     res["prompt_lens"] = [int(x) for x in lens]
+    named = (run["profile"] or {}).get("named")
+    if named is not None:
+        linears = len(_layer_linears(cfg)) * cfg.n_layers
+        if named["gemv"]["per_tick"] != linears or \
+                named["sum_partials"]["per_tick"]:
+            fail(f"serve: the traced decode tick holds "
+                 f"{named['gemv']['per_tick']} gemv and "
+                 f"{named['sum_partials']['per_tick']} sum_partials "
+                 f"launches; one gemv launch per linear ({linears}) and no "
+                 f"second kernel expected")
+        say(f"serve: the traced decode tick runs the gemv as one launch per "
+            f"linear ({linears}), no sum_partials")
     return res, params
 
 

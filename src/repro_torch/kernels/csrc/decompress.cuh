@@ -207,6 +207,31 @@ __device__ __forceinline__ void cp_async_wait1() {
 __device__ __forceinline__ void cp_async_wait0() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// Wait until at most N of this thread's committed cp.async groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four f32 values to four consecutive outputs, rounded once (bf16: one
+// 8-byte store; `o` must be aligned to four elements).
+template <typename TO>
+__device__ __forceinline__ void store4(TO* o, float4 v);
+template <>
+__device__ __forceinline__ void store4<float>(float* o, float4 v) {
+  *reinterpret_cast<float4*>(o) = v;
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* o,
+                                                      float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(o) = u;
+}
 
 // Stage x rows [c0, c0 + mc) x columns [kx0, kx0 + cols) of a row-major
 // x [M, K] into `dst` (row stride ldx elements): cp.async of 16 bytes

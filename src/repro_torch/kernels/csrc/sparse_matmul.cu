@@ -289,23 +289,6 @@ __global__ void __launch_bounds__(NT) sparse_matmul_f32(const Args a) {
   }
 }
 
-template <typename TO>
-__device__ __forceinline__ void store4(TO* o, float4 v);
-template <>
-__device__ __forceinline__ void store4<float>(float* o, float4 v) {
-  *reinterpret_cast<float4*>(o) = v;
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* o,
-                                                      float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(o) = u;
-}
-
 // out = sum of the partials over the splits, in split order, rounded once.
 template <typename TO>
 __global__ void sum_partials(const float4* __restrict__ partial, int splits,

@@ -67,6 +67,7 @@ def test_no_import_of_jax_or_the_reference_in_the_sources():
     files = [ROOT / "chip_smoke.py", ROOT / "tools" / "compare_trees.py",
              ROOT / "tools" / "int_reduction_probe.py",
              ROOT / "tools" / "attention_probe.py",
+             ROOT / "tools" / "gemv_probe.py",
              *sorted((SRC / "repro_torch").rglob("*.py"))]
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits
@@ -238,4 +239,38 @@ def test_attention_probe_variants_apply_to_the_source():
     assert variants["no PV"].count("if (false) pv_rows<RPT>(") == 1
     assert variants["staging only"].count("if (false) score_rows<RPT>(") \
         == 2
+    assert len(set(variants.values())) == len(variants)
+
+
+def test_gemv_probe_fails_without_a_card(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""          # no card, even where one is
+    out = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                              "gemv_probe.py")],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=tmp_path)
+    assert out.returncode != 0
+    assert "needs a CUDA card" in out.stderr
+    assert "gemv probe" not in out.stdout
+
+
+def test_gemv_probe_variants_apply_to_the_source():
+    """Each variant of the gemv probe is a substitution whose text the
+    source holds exactly once; the source itself is the first variant, the
+    only one that keeps the arithmetic, and every variant differs from
+    every other."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    try:
+        import gemv_probe as probe
+    finally:
+        sys.path.remove(str(ROOT / "tools"))
+    text = (SRC / "repro_torch" / "kernels" / "csrc" /
+            probe.SOURCE).read_text()
+    variants = {name: probe.variant_source(text, subs)
+                for name, (subs, _) in probe.VARIANTS.items()}
+    assert variants["source"] == text
+    assert [n for n, (_, exact) in probe.VARIANTS.items() if exact] == \
+        ["source"]
+    assert variants["no merge"].count("if (a.M > 0) return;") == 1
+    assert "v[j] = 1.f;" in variants["no expansion"]
     assert len(set(variants.values())) == len(variants)

@@ -47,7 +47,7 @@ def _close(got, ref):
                                **TOL)
 
 
-@pytest.mark.parametrize("m", [1, 2, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("values", ["float32", "bfloat16"])
 def test_sparse_gemv_plain_matches_pallas(m, values):
     jsw, tsw = _sparse(384, 256, jnp.dtype(values), seed=m)
@@ -66,7 +66,8 @@ def test_sparse_matmul_plain_matches_pallas(m, k, n, values):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 128, 384), (5, 200, 100),
-                                   (8, 256, 128)])
+                                   (8, 256, 128), (4, 256, 384),
+                                   (20, 128, 256), (36, 200, 100)])
 def test_dense_matmul_plain_matches_pallas(m, k, n):
     """The port reads the weight as rows ``[N, K]`` (the tied embedding
     table itself); the reference takes ``w [K, N]``."""

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Flat bf16, paged int8 and int4 serving of two checkouts on one card, and
-the cost of RMSNorm's f64 sum of squares; or, with ``--attention``, the two
-checkouts' fused attention kernels at the same shapes.
+the cost of RMSNorm's f64 sum of squares; or, with ``--attention`` or
+``--linears``, the two checkouts' kernels alone at the same shapes.
 
     python3 tools/compare_trees.py PARENT_DIR [CHANGE_DIR] [--out PATH]
     python3 tools/compare_trees.py PARENT_DIR --attention [--out PATH]
+    python3 tools/compare_trees.py PARENT_DIR --linears [--out PATH]
 
 1. **trees**: for each checkout, in the order parent, change, change,
    parent, a subprocess in that checkout imports its own ``chip_smoke.py``
@@ -29,6 +30,15 @@ queries, and a 32-block (4096-token) prefix in every slot at 1 query.
 Each shape gives the CUDA-event time (L2 flushed) and the traced device
 time per call, or the error with which the checkout refused it, in step
 1's order (parent, change, change, parent); step 2 is skipped.
+
+With ``--linears`` each run instead builds its checkout's
+``sparse_gemv.cu`` and ``dense_matmul.cu`` alone and times the sparse
+gemv over the seven Qwen3-0.6B linears of a layer at M = 4 (bf16, seeded
+random weights at 50% sparsity, as ``chip_smoke.py`` packs them) and the
+tied unembedding (151936 x 1024 bf16) at M = 4 and 20, on the same seeded
+inputs: the CUDA-event time (L2 flushed) and the traced device time per
+call (a layer's sum for the gemv) and the largest error against the plain
+version, in step 1's order; step 2 is skipped.
 
 It needs one CUDA card and exits non-zero without one.  The parent's
 checkout lives in a git-ignored directory of this repository, made with
@@ -152,6 +162,47 @@ for name, qn, fn, prefix, n_blocks, tail_len in cases:
 print("RESULT " + json.dumps(out), flush=True)
 """
 
+LINEARS_CHILD = r"""
+import json, sys
+sys.path.insert(0, "."); sys.path.insert(0, "src")
+import torch
+import chip_smoke as cs
+from repro_torch.configs import get_config
+from repro_torch.kernels import build
+from repro_torch.kernels.dense_matmul import dense_matmul, dense_matmul_plain
+from repro_torch.kernels.sparse_gemv import sparse_gemv, sparse_gemv_plain
+cs.card_phase(torch, build)
+build.build_all(["sparse_gemv.cu", "dense_matmul.cu"])
+cfg = get_config("qwen3-0.6b")
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)
+timer = cs.Timer(torch)
+linears = cs._layer_linears(cfg)
+out = {"gemv layer M=4": {"ms": 0.0, "device_ms": 0.0, "max_abs_err": 0.0}}
+row = out["gemv layer M=4"]
+for _, k, n in linears:
+    sw = cs._packed(torch, k, n, gen)
+    x = torch.randn((4, k), generator=gen, device="cuda").to(torch.bfloat16)
+    err = (sparse_gemv(x, sw).float() - sparse_gemv_plain(x, sw).float())
+    row["max_abs_err"] = max(row["max_abs_err"], err.abs().max().item())
+    row["ms"] += timer(lambda: sparse_gemv(x, sw))
+    row["device_ms"] += cs.device_ms_per_call(torch, lambda: sparse_gemv(x, sw))
+tok = (torch.randn((cfg.vocab, cfg.d_model), generator=gen, device="cuda")
+       * 0.02).to(torch.bfloat16)
+xs = torch.randn((20, cfg.d_model), generator=gen,
+                 device="cuda").to(torch.bfloat16)
+for m in (4, 20):
+    x = xs[:m]
+    err = (dense_matmul(x, tok, torch.float32)
+           - dense_matmul_plain(x, tok, torch.float32)).abs().max().item()
+    out[f"unembed M={m}"] = {
+        "ms": timer(lambda: dense_matmul(x, tok, torch.float32)),
+        "device_ms": cs.device_ms_per_call(
+            torch, lambda: dense_matmul(x, tok, torch.float32)),
+        "max_abs_err": err}
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
 
 def run_tree(label: str, tree: Path, timeout: float, child: str) -> dict:
     t0 = time.perf_counter()
@@ -232,6 +283,9 @@ def main() -> int:
     ap.add_argument("--attention", action="store_true",
                     help="time the two checkouts' fused attention kernels "
                          "instead of serving")
+    ap.add_argument("--linears", action="store_true",
+                    help="time the two checkouts' sparse gemv and dense "
+                         "unembedding instead of serving")
     args = ap.parse_args()
     sys.path.insert(0, str(HERE / "src"))
     import torch
@@ -244,12 +298,14 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"[compare] card: {card}", flush=True)
     trees = {"parent": args.parent.resolve(), "change": args.change.resolve()}
-    child = ATTENTION_CHILD if args.attention else CHILD
+    child = (ATTENTION_CHILD if args.attention else
+             LINEARS_CHILD if args.linears else CHILD)
     runs = [(label, run_tree(label, trees[label], args.timeout, child))
             for label in ("parent", "change", "change", "parent")]
-    if args.attention:
+    if args.attention or args.linears:
         for key in runs[0][1]:
-            print(f"[compare] attention {key}: " + "; ".join(
+            print(f"[compare] {'attention ' if args.attention else ''}"
+                  f"{key}: " + "; ".join(
                 f"{label} {json.dumps(r[key])}" for label, r in runs),
                 flush=True)
         if args.out:
