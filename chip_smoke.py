@@ -34,8 +34,19 @@ Phases, each of which exits non-zero on failure:
 4. **serve** full-width Qwen3-0.6B (random weights from seed 0, pruned,
    packed and quantised on the card) through ``ContinuousEngine``, with
    every kernel's launch counter zeroed just before each path and read just
-   after, and decode-tick logits through the kernels held against the same
-   ticks through the plain versions:
+   after (graph replays counted), and decode-tick logits through the
+   kernels held against the same ticks through the plain versions.  Each
+   engine runs its decode (or verify) forward as a captured CUDA graph:
+   every serve phase must hold exactly one capture per forward entry, the
+   attention kernel's counter must equal one launch a layer per warm-up and
+   per replay, the graph's decode and verify logits (Q = 1 and Q = k+1)
+   must be bit-equal to the eager forward's on a copy of the same state
+   (flat bf16, paged int8, paged int4), and one tick is traced both as a
+   graph replay and eagerly (launches a tick, device busy time, idle
+   share).  The flat bf16, spec k=4, paged int8 and paged int8 k=3 traffic
+   is also served overlapped (``overlap=True``), its greedy tokens gated
+   identical to the serial run's, and tok/s, TPOT and TTFT reported for
+   both beside the last eager-tick figures (``EAGER_TICKS``):
 
    * flat pool, bf16 sparse weights: six requests; the traced decode tick
      must run the gemv as one launch per linear (no ``sum_partials``);
@@ -178,6 +189,9 @@ LOGIT_TOL = {"bf16": 5e-2, "f32": 1e-3}
 # is possible from rounding alone, and above it a kernel fault shows), of
 # which there must be at least TOP1_MIN_COUNTED
 TOP1_MIN = 0.99
+# host entry points that enqueue work, as the profiler names them
+LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cuLaunchKernel",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
 TOP1_CLEAR = 1e-2
 TOP1_MIN_COUNTED = 50
 
@@ -1091,7 +1105,8 @@ def kernel_phase(torch, cfg):
 @contextlib.contextmanager
 def plain_kernels(keep=(), held=None):
     """Route the ops layer through the plain versions, for the logits
-    comparison only (the package itself has no such switch).  Kernels named
+    comparison only (the package itself has no such switch).  It wraps only
+    ``logits_check``'s eager forwards: no graph is captured under it.  Kernels named
     in ``keep`` stay, each launch then also running its plain version on the
     same inputs: the largest error and output go into ``held``, and an error
     above 1e-3 of the largest output (the kernel phase's attention
@@ -1308,17 +1323,135 @@ def decode_profile(torch, eng, cfg, n_ticks=8):
     return _profiled(torch, tick, n_ticks, res)
 
 
+def graph_against_eager(torch, eng, cfg, qn, n_ticks=3):
+    """The captured forward against the eager one, from two copies of the
+    live state: ``n_ticks`` ticks of a ``[slots, qn]`` panel (each live
+    slot's last token, then seeded random tokens), the logits and the whole
+    state after each tick bit-equal; both copies are rolled back between
+    ticks so every tick appends within the ring's headroom where it has
+    it."""
+    from repro_torch.models import lm
+    from repro_torch.serving import PanelGraph
+    slots, mask, tokens = _decode_inputs(torch, eng)
+    live = mask.tolist()
+    st_g, st_e = _clone(eng.state), _clone(eng.state)
+    fwd = PanelGraph(eng.params, st_g, cfg, eng.pool.bs, qn)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(qn)
+    grow = qn * mask.to(torch.int32)
+    for t in range(n_ticks):
+        panel = torch.randint(0, cfg.vocab, (eng.pool.slots, qn),
+                              generator=gen, device="cuda")
+        panel[:, 0] = tokens[:, 0]
+        fwd.set_inputs(panel, live)
+        got = fwd.run().clone()
+        want, _ = lm.forward_panel_pooled(eng.params, st_e, panel, mask, cfg,
+                                          eng.pool.bs)
+        torch.cuda.synchronize()
+        if not torch.equal(got[slots], want[slots]):
+            err = (got[slots] - want[slots]).abs().max().item()
+            fail(f"graph vs eager at Q={qn}, tick {t}: logits differ (max "
+                 f"|diff| {err:.3e}); a replay must give the eager bits")
+        for a, b in zip(_flat_leaves(st_g), _flat_leaves(st_e)):
+            if not torch.equal(a, b):
+                fail(f"graph vs eager at Q={qn}, tick {t}: the states the "
+                     "two forwards left differ")
+        eng.pool.rollback(st_g, grow)
+        eng.pool.rollback(st_e, grow)
+    return {"qn": qn, "ticks": n_ticks, "slots": len(slots),
+            "bit_equal": True, "held_launches": fwd.held}
+
+
+def _flat_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _flat_leaves(v)]
+    return [tree]
+
+
+def graph_profile(torch, eng, cfg, n_ticks=8):
+    """The engine's tick as the main path runs it, on a copy of the live
+    state: one replay of a forward captured over the copy (``[slots, 1]``,
+    or ``[slots, k+1]`` for a speculating engine, no drafts), the sampler
+    (or the accept) and the token sync, the panel rolled back after each
+    tick so the copy stays put.  Timed and traced like ``decode_profile``;
+    also the CUDA-event time of the replay alone (the graph's device time,
+    gaps between its kernels included)."""
+    from repro_torch.serving import PanelGraph, sampling
+    slots, mask, tokens = _decode_inputs(torch, eng)
+    live = mask.tolist()
+    st = _clone(eng.state)
+    k = eng._spec.k if eng._spec is not None else 0
+    t0 = time.perf_counter()
+    fwd = PanelGraph(eng.params, st, cfg, eng.pool.bs, k + 1)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    fwd.set_inputs(tokens.repeat(1, k + 1), live)
+    grow = (k + 1) * mask.to(torch.int32)
+    no_drafts = torch.zeros(len(live), dtype=torch.long)
+
+    def tick():
+        logits = fwd.run()
+        if not k:
+            tok, _ = sampling.sample_step(logits[:, 0], eng.lanes,
+                                          [None] * len(live), live)
+            tok.tolist()
+        else:
+            tok, _, nc = sampling.accept_step(logits, fwd.tokens, no_drafts,
+                                              eng.lanes, [None] * len(live),
+                                              live)
+            tok.tolist(), nc.tolist()
+        eng.pool.rollback(st, grow)
+
+    res = {"ticks": n_ticks, "slots": len(slots), "panel": k + 1,
+           "capture_s": capture_s, "graph_held_launches": fwd.held}
+    _profiled(torch, tick, n_ticks, res)
+    if "named" in res and fwd.held.get("dense_matmul") and \
+            not res["named"]["unembed"]["per_tick"]:
+        # every graph holds the unembedding: a trace without it lacks the
+        # graph's kernels, and its busy time is the sampler's alone
+        res["device"] = ("not measured: the trace holds none of the "
+                         "graph's kernels")
+        for key in ("device_ms", "idle_share"):
+            res.pop(key, None)
+
+    def replay():
+        fwd.run()
+        eng.pool.rollback(st, grow)
+    reps = 20
+    replay()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fwd.run()
+    b.record()
+    b.synchronize()
+    res["replay_event_ms"] = a.elapsed_time(b) / reps
+    # the replay's span counted busy whole, gaps between its kernels too
+    res["idle_share_replay_span"] = max(
+        0.0, 1 - res["replay_event_ms"] / res["wall_ms"])
+    eng.pool.rollback(st, reps * grow)
+    return res
+
+
 def _profiled(torch, fn, n, res):
     """Wall time per call of ``fn`` (each ends in a sync), then a
     ``torch.profiler`` trace of ``n`` more calls: device busy time, idle
     share, the top device kernels and the top host ops by self CPU time
     (inflated by the profiler's own cost), all per call, into ``res``."""
+    from repro_torch import kernels
     fn()
     torch.cuda.synchronize()
+    before = kernels.launch_counts()
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
     res["wall_ms"] = (time.perf_counter() - t0) / n * 1e3
+    # the wrappers' counters a call (graph replays included): exact, where
+    # the trace below may lose a kernel record now and then
+    res["wrapper_launches"] = {
+        k: (v - before[k]) / n for k, v in kernels.launch_counts().items()}
     # the profiler is a measurement, not a check: its own failures are
     # reported; a failing call fails the run
     try:
@@ -1338,6 +1471,9 @@ def _profiled(torch, fn, n, res):
         rows = [(e.key, e.self_device_time_total / n / 1e3, e.count // n)
                 for e in events if "CUDA" in str(e.device_type)
                 and e.self_device_time_total > 0]
+        totals = {e.key: e.count for e in events
+                  if "CUDA" in str(e.device_type)
+                  and e.self_device_time_total > 0}
         host = [(e.key, e.self_cpu_time_total / n / 1e3, e.count // n)
                 for e in events if "CPU" in str(e.device_type)
                 and e.self_cpu_time_total > 0]
@@ -1351,8 +1487,15 @@ def _profiled(torch, fn, n, res):
     host.sort(key=lambda r: -r[1])
     res["named"] = {
         label: {"ms_per_tick": sum(t for k, t, _ in rows if pat in k),
-                "per_tick": sum(c for k, _, c in rows if pat in k)}
+                "per_tick": sum(c for k, _, c in rows if pat in k),
+                "traced": sum(c for k, c in totals.items() if pat in k)}
         for label, pat in TRACED_KERNELS.items()}
+    # what the host enqueues a tick: graph launches and kernel launches
+    # (the ``cuda*`` runtime and the lower ``cu*`` entry points), and what
+    # the device runs (every kernel, those inside a graph included)
+    res["host_launches"] = {k: c for k, _, c in host
+                            if k.startswith(LAUNCH_CALLS)}
+    res["device_kernels"] = sum(c for _, _, c in rows)
     busy = sum(r[1] for r in rows)
     res.update(device_ms=busy, idle_share=max(0.0, 1 - busy / res["wall_ms"]),
                top=[{"kernel": k[:80], "ms_per_tick": t, "per_tick": c}
@@ -1402,13 +1545,15 @@ def _model(torch, cfg, mode):
     return params
 
 
-def _engine(cfg, params, paused, max_tokens, paged=False, spec_k=0):
+def _engine(cfg, params, paused, max_tokens, paged=False, spec_k=0,
+            overlap=False):
     from repro_torch.serving import ContinuousEngine, SpecConfig
     eng = ContinuousEngine(params, cfg, slots=SLOTS, max_tokens=max_tokens,
                            prefill_chunk=PREFILL_CHUNK, device="cuda",
                            paged=paged,
                            spec=SpecConfig(k=spec_k) if spec_k else None,
-                           clock=lambda: time.perf_counter() - paused[0])
+                           clock=lambda: time.perf_counter() - paused[0],
+                           overlap=overlap)
     if eng.pool.bs != 128:
         fail(f"expected bs=128, got {eng.pool.bs}")
     return eng
@@ -1416,38 +1561,39 @@ def _engine(cfg, params, paused, max_tokens, paged=False, spec_k=0):
 
 def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                  checks=FLAT_CHECKS, on_step=None, lead=False,
-                 check_ticks=LOGIT_TICKS, rows=None, prefill=False):
-    """Submit the requests and run the engine to completion with every
-    kernel counter zeroed just before and read just after.  ``lead``
-    submits the first request alone and the rest once it has its first
-    token (so a shared prefix is frozen before the others arrive).  When
-    ``ready(eng)`` first holds, the logits of ``check_ticks`` ticks are
-    checked (each of ``checks``) and one tick (with ``prefill``, also one
-    prefill chunk) is profiled, outside the counted and timed run
-    (``rows``, a ``panel_rows`` count, included).
+                 check_ticks=LOGIT_TICKS, rows=None, prefill=False,
+                 graph_qn=(), label="serve"):
+    """Submit the requests and run the engine to completion (and drain its
+    pipeline) with every kernel counter zeroed just before and read just
+    after.  ``lead`` submits the first request alone and the rest once it
+    has its first token (so a shared prefix is frozen before the others
+    arrive).  When ``ready(eng)`` first holds, the logits of
+    ``check_ticks`` ticks are checked (each of ``checks``), the captured
+    forward is held bit-equal to the eager one at each panel width of
+    ``graph_qn``, and one tick is profiled, through a captured graph and
+    eagerly (with ``prefill``, also one prefill chunk), outside the counted
+    and timed run (``rows``, a ``panel_rows`` count, included).  Decode
+    (or verify) ticks are the engine's forward replays; prefill chunks are
+    counted at ``lm.forward_prefill_chunk``, which stays eager.  Every
+    forward entry the run used must hold exactly one capture.
     Returns the results."""
-    import torch as _torch
-    from repro_torch.launch import serve as serve_mod
-    from repro_torch.launch.serve import launch_counts, reset_launch_counts
+    from repro_torch import kernels
     from repro_torch.models import lm
 
-    ticks = {"decode": 0, "prefill": 0}
-    fwd_panel, fwd_chunk = lm.forward_panel_pooled, lm.forward_prefill_chunk
-
-    def panel(*a, **k):
-        ticks["decode"] += 1
-        return fwd_panel(*a, **k)
+    ticks = {"prefill": 0}
+    fwd_chunk = lm.forward_prefill_chunk
 
     def chunk(*a, **k):
         ticks["prefill"] += 1
         return fwd_chunk(*a, **k)
 
-    check = profile = None
+    check = profile = graph = None
     steps = {"decode": [], "prefill": []}
-    lm.forward_panel_pooled, lm.forward_prefill_chunk = panel, chunk
+    lm.forward_prefill_chunk = chunk
     try:
         torch.cuda.synchronize()
-        reset_launch_counts()
+        kernels.reset_launch_counts()
+        replays0 = sum(eng.replay_counts().values())
         t0 = time.perf_counter()
         pending = list(zip(prompts, params_of))
         rids = [eng.submit(*pending.pop(0))] if lead else []
@@ -1459,22 +1605,22 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                 pending = []
             if check is None and ready is not None and ready(eng):
                 c0 = time.perf_counter()
-                saved = launch_counts()
+                saved = kernels.launch_counts()
                 saved_rows = dict(rows or {})
-                lm.forward_panel_pooled = fwd_panel
                 check = {name: logits_check(
                     torch, eng, cfg,
-                    None if dt == "bf16" else _torch.float32,
+                    None if dt == "bf16" else torch.float32,
                     n_ticks=check_ticks, keep=keep)
                     for name, dt, keep, _ in checks}
                 for name, _, _, gated in checks:
                     check[name]["gated"] = gated
-                profile = decode_profile(torch, eng, cfg)
+                graph = [graph_against_eager(torch, eng, cfg, qn)
+                         for qn in graph_qn]
+                profile = graph_profile(torch, eng, cfg)
+                profile["eager"] = decode_profile(torch, eng, cfg)
                 if prefill:
                     profile["prefill"] = prefill_profile(torch, eng, cfg)
-                lm.forward_panel_pooled = panel
-                for name, n in saved.items():
-                    serve_mod.KERNELS[name].launches = n
+                kernels.set_launch_counts(saved)
                 if rows is not None:
                     rows.clear()
                     rows.update(saved_rows)
@@ -1486,16 +1632,43 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                 time.perf_counter() - s0)
             if on_step is not None:
                 on_step(eng)
+        eng.quiesce()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0 - paused[0]
-        counts = launch_counts()
+        counts = kernels.launch_counts()
     finally:
-        lm.forward_panel_pooled, lm.forward_prefill_chunk = fwd_panel, \
-            fwd_chunk
+        lm.forward_prefill_chunk = fwd_chunk
+    ticks["decode"] = sum(eng.replay_counts().values()) - replays0
+    captures = eng.trace_counts()
+    check_captures(label, captures, eng)
     out = {r: eng.scheduler.finished[r].output() for r in rids}
     return {"rids": rids, "out": out, "seconds": dt, "counts": counts,
             "ticks": ticks, "steps": steps, "check": check,
-            "profile": profile}
+            "profile": profile, "graph_check": graph, "captures": captures,
+            "overlap": eng.overlap}
+
+
+def check_captures(label, captures, eng):
+    """One capture per forward entry: the entry the engine's ticks use
+    (``verify`` under speculation, else ``decode``) exactly once, the
+    other never."""
+    from repro_torch.serving import stable_trace_counts
+    used = "verify" if eng._spec is not None else "decode"
+    want = {k: int(k == used) for k in stable_trace_counts(captures)}
+    if stable_trace_counts(captures) != want:
+        fail(f"{label}: graph captures {captures}, expected {want}")
+
+
+def check_replays(label, run, kernel, layers):
+    """The attention kernel's counter holds every launch of the run: one a
+    layer in the entry's warm-up, then one a layer in each graph replay
+    (the capture itself launches nothing).  Prefill chunks run another
+    attention, so the count pins the replay accounting exactly."""
+    want = layers * (sum(run["captures"].values()) + run["ticks"]["decode"])
+    if run["counts"][kernel] != want:
+        fail(f"{label}: {kernel} counted {run['counts'][kernel]} launches; "
+             f"{layers} a layer x (captures + {run['ticks']['decode']} "
+             f"replays) = {want} expected")
 
 
 def check_outputs(label, run, cfg, n_tokens):
@@ -1560,6 +1733,35 @@ def gate_logits(label, check):
         fail(f"{label}: f32 top-1 agreement below {TOP1_MIN}")
 
 
+# the last serial run with eager ticks on the same traffic, before the
+# forwards were captured (PERF.md section 5, NVIDIA H100 80GB HBM3, 700.00
+# W), printed beside this run's: tok/s, TPOT p50 ms, TTFT p50 s, median
+# decode (verify) and prefill step ms, kernel launches a traced tick, its
+# device busy ms and idle share
+EAGER_TICKS = {"serve": (39.4, 71.8, 1.338, 70.0, 169.9, 3045, 7.68, 0.91),
+        "spec": (39.5, 70.4, 0.677, 94.5, 228.0, 5112, 12.17, 0.88),
+        "spec off": (40.5, 73.0, None, 67.4, 195.4, None, None, None),
+        "paged int8": (36.6, 103.8, 5.832, 97.6, 265.3, 5005, 10.15, 0.88),
+        "paged int4": (30.7, 96.5, 0.552, 82.2, 261.0, 5005, 10.27, 0.86)}
+EAGER_KEYS = ("tok_s", "tpot_p50_ms", "ttft_p50_s", "decode_step_ms",
+             "prefill_step_ms", "launches_per_tick", "device_ms",
+             "idle_share")
+
+
+def _tick_line(label, what, prof):
+    """One traced tick's wall and device time, idle share, launches and
+    top kernels, as a line."""
+    dev = prof.get("device")
+    launches = prof.get("host_launches", {})
+    return (f"{label}: {what} ({prof['slots']} slots) wall "
+            f"{prof['wall_ms']:.2f} ms, " + (dev if dev else
+            f"device busy {prof['device_ms']:.2f} ms (idle share "
+            f"{prof['idle_share']:.2f}); {prof['device_kernels']} device "
+            f"kernels; host launch calls {launches}; top: " + ", ".join(
+                f"{r['kernel'][:40]} {r['ms_per_tick']:.2f} ms "
+                f"x{r['per_tick']}" for r in prof["top"][:5])))
+
+
 def report(label, run, total, n_req):
     out = run["out"]
     ttft = sorted(o.metrics.ttft for o in out.values())
@@ -1573,31 +1775,46 @@ def report(label, run, total, n_req):
            "decode_ticks": ticks["decode"],
            "prefill_chunks": ticks["prefill"], "launches": run["counts"],
            "median_step_ms": step_ms, "decode_profile": profile,
-           "logits_check": run["check"]}
-    say(f"[{label}] stream: {n_req} requests, {total} tokens in {dt:.2f}s "
-        f"({total / dt:.1f} tok/s) on {SLOTS} slots; tpot p50 "
-        f"{res['tpot_p50_s'] * 1e3:.1f} ms; ttft p50 "
-        f"{res['ttft_p50_s'] * 1e3:.0f} ms max {ttft[-1] * 1e3:.0f} ms; "
-        f"{ticks['decode']} decode ticks, {ticks['prefill']} prefill chunks")
-    say(f"{label}: kernel launches {run['counts']}; median step ms {step_ms}")
+           "logits_check": run["check"], "graph_check": run["graph_check"],
+           "captures": run["captures"], "overlap": run["overlap"]}
+    mode = "overlapped" if run["overlap"] else "serial"
+    say(f"[{label}] stream ({mode} ticks, captured forwards): {n_req} "
+        f"requests, {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s) on "
+        f"{SLOTS} slots; tpot p50 {res['tpot_p50_s'] * 1e3:.1f} ms; ttft "
+        f"p50 {res['ttft_p50_s'] * 1e3:.0f} ms max {ttft[-1] * 1e3:.0f} ms; "
+        f"{ticks['decode']} decode ticks, {ticks['prefill']} prefill chunks;"
+        f" graph captures {run['captures']}")
+    say(f"{label}: kernel launches (replays included) {run['counts']}; "
+        f"median step ms {step_ms}")
+    for g in run["graph_check"] or ():
+        say(f"{label}: graph vs eager at Q={g['qn']}: logits and state "
+            f"bit-equal over {g['ticks']} ticks x {g['slots']} slots; the "
+            f"graph holds {g['held_launches']}")
+    now = {"tok_s": res["tok_s"], "tpot_p50_ms": res["tpot_p50_s"] * 1e3,
+           "ttft_p50_s": res["ttft_p50_s"],
+           "decode_step_ms": step_ms.get("decode"),
+           "prefill_step_ms": step_ms.get("prefill")}
     if profile is not None:
-        dev = profile.get("device")
         tick = ("decode tick" if profile["panel"] == 1 else
                 f"verify tick of {profile['panel']} rows")
-        say(f"{label}: {tick} ({profile['slots']} slots) wall "
-            f"{profile['wall_ms']:.2f} ms, " + (dev if dev else
-            f"device busy {profile['device_ms']:.2f} ms (idle share "
-            f"{profile['idle_share']:.2f}); top: " + ", ".join(
-                f"{r['kernel'][:40]} {r['ms_per_tick']:.2f} ms "
-                f"x{r['per_tick']}" for r in profile["top"][:5])))
-        for what, prof in ((tick, profile), ("prefill chunk",
-                                             profile.get("prefill"))):
+        say(_tick_line(label, f"graph {tick}", profile)
+            + f"; one replay {profile['replay_event_ms']:.2f} ms (CUDA "
+              f"events; idle share with the replay's span counted busy "
+              f"{profile['idle_share_replay_span']:.2f}); capture "
+              f"{profile['capture_s']:.2f} s")
+        say(_tick_line(label, f"eager {tick}", profile["eager"]))
+        if "device_ms" in profile:
+            now.update(launches_per_tick=sum(
+                profile["host_launches"].values()),
+                device_ms=profile["device_ms"],
+                idle_share=profile["idle_share"])
+        for what, prof in ((f"graph {tick}", profile),
+                           (f"eager {tick}", profile["eager"]),
+                           ("prefill chunk", profile.get("prefill"))):
             if prof and "named" in prof:
                 say(f"{label}: {what}: " + ", ".join(
                     f"{k} {v['ms_per_tick']:.3f} ms x{v['per_tick']}"
                     for k, v in prof["named"].items()) + " of device time")
-        for what, prof in ((tick, profile), ("prefill chunk",
-                                             profile.get("prefill"))):
             if prof and "host_top" in prof:
                 say(f"{label}: {what}: host self time under the profiler: "
                     + ", ".join(f"{r['op'][:32]} {r['ms_per_tick']:.2f} ms "
@@ -1608,9 +1825,54 @@ def report(label, run, total, n_req):
             say(f"{label}: prefill chunk of {pre['tokens']} tokens wall "
                 f"{pre['wall_ms']:.2f} ms, " + (pre.get("device") or (
                     f"device busy {pre['device_ms']:.2f} ms (idle share "
-                    f"{pre['idle_share']:.2f}); top: " + ", ".join(
+                    f"{pre['idle_share']:.2f}); {pre['device_kernels']} "
+                    f"device kernels; host launch calls "
+                    f"{pre['host_launches']}; top: " + ", ".join(
                         f"{r['kernel'][:40]} {r['ms_per_tick']:.2f} ms "
                         f"x{r['per_tick']}" for r in pre["top"][:6]))))
+    res["vs_eager_ticks"] = {"now": now}
+    if label in EAGER_TICKS and not run["overlap"]:
+        res["vs_eager_ticks"]["eager"] = dict(zip(EAGER_KEYS,
+                                                  EAGER_TICKS[label]))
+        say(f"{label}: this run beside the last eager-tick run (PERF.md): "
+            + "; ".join(f"{k} {_num(now.get(k))} ({_num(v)})"
+                        for k, v in res["vs_eager_ticks"]["eager"].items()))
+    return res
+
+
+def _num(x):
+    return "n/a" if x is None else (f"{x:.3f}" if isinstance(x, float)
+                                    else str(x))
+
+
+def overlap_run(torch, label, make_engine, prompts, params_of, serial,
+                lead=False):
+    """The same traffic through a fresh overlapped engine: greedy tokens
+    must equal the serial run's (the seeded request's are reported);
+    returns its report."""
+    paused = [0.0]
+    eng = make_engine(paused)
+    run = serve_stream(torch, eng, eng.cfg, prompts, params_of, paused,
+                       lead=lead, label=f"{label} overlapped")
+    total = sum(len(o.token_ids) for o in run["out"].values())
+    same, seeded = 0, []
+    for i, (a, b) in enumerate(zip(run["rids"], serial["rids"])):
+        got = list(run["out"][a].token_ids)
+        want = list(serial["out"][b].token_ids)
+        if params_of[i].temperature > 0:
+            seeded.append(got == want)
+            continue
+        if got != want:
+            first = next((j for j, (x, y) in enumerate(zip(got, want))
+                          if x != y), min(len(got), len(want)))
+            fail(f"{label}: overlapped greedy request {i} differs from the "
+                 f"serial run at token {first}")
+        same += 1
+    res = report(f"{label} overlapped", run, total, len(prompts))
+    res.update(greedy_identical=same, seeded_identical=seeded)
+    say(f"{label}: overlapped vs serial: {same} greedy requests "
+        f"token-identical (gated); seeded requests identical {seeded} "
+        f"(reported)")
     return res
 
 
@@ -1643,10 +1905,12 @@ def serve_phase(torch, cfg):
             return True
         return False
 
-    run = serve_stream(torch, eng, cfg,
-                       [prompts[i][:lens[i]] for i in range(N_REQUESTS)],
-                       params_of, paused, ready, checks=FLAT_CHECKS,
-                       prefill=True)
+    reqs = [prompts[i][:lens[i]] for i in range(N_REQUESTS)]
+    run = serve_stream(torch, eng, cfg, reqs, params_of, paused, ready,
+                       checks=FLAT_CHECKS, prefill=True,
+                       graph_qn=(1, SPEC_K + 1), label="serve")
+    check_replays("serve", run, "sparse_decode_attention_fused",
+                  cfg.n_layers)
     check_launches("serve", run["counts"],
                    ("sparse_gemv", "sparse_decode_attention_fused",
                     "sparse_matmul", "dense_matmul"),
@@ -1657,18 +1921,39 @@ def serve_phase(torch, cfg):
     gate_logits("serve", run["check"])
     res = report("serve", run, total, N_REQUESTS)
     res["prompt_lens"] = [int(x) for x in lens]
-    named = (run["profile"] or {}).get("named")
-    if named is not None:
-        linears = len(_layer_linears(cfg)) * cfg.n_layers
-        if named["gemv"]["per_tick"] != linears or \
-                named["sum_partials"]["per_tick"]:
-            fail(f"serve: the traced decode tick holds "
-                 f"{named['gemv']['per_tick']} gemv and "
-                 f"{named['sum_partials']['per_tick']} sum_partials "
-                 f"launches; one gemv launch per linear ({linears}) and no "
-                 f"second kernel expected")
-        say(f"serve: the traced decode tick runs the gemv as one launch per "
-            f"linear ({linears}), no sum_partials")
+    res["overlapped"] = overlap_run(
+        torch, "serve", lambda p: _engine(cfg, params, p, hi + NEW_TOKENS
+                                          + cfg.kv_tail, overlap=True),
+        reqs, params_of, run)
+    prof = run["profile"] or {}
+    linears = len(_layer_linears(cfg)) * cfg.n_layers
+    held = prof.get("graph_held_launches")
+    if held is not None and held.get("sparse_gemv") != linears:
+        fail(f"serve: the captured decode tick holds {held} launches; one "
+             f"gemv launch per linear ({linears}) expected")
+    for what, p in (("graph", prof), ("eager", prof.get("eager") or {})):
+        # one gemv call per linear, counted exactly by the wrapper; on the
+        # device, no more gemv kernels than calls and no sum_partials.  The
+        # trace may drop a kernel record (it did once, 195 of 196 a tick),
+        # so a shortfall there is reported, not taken for a missing launch
+        calls = p.get("wrapper_launches", {}).get("sparse_gemv")
+        if calls != linears:
+            fail(f"serve: the {what} decode tick calls the gemv {calls} "
+                 f"times; one call per linear ({linears}) expected")
+        named = p.get("named")
+        if named is None or (what == "graph" and "device_ms" not in p):
+            continue
+        n_ticks, traced = p["ticks"], named["gemv"]["traced"]
+        if not 0 < traced <= linears * n_ticks or \
+                named["sum_partials"]["traced"]:
+            fail(f"serve: the traced {what} decode ticks hold {traced} gemv "
+                 f"and {named['sum_partials']['traced']} sum_partials "
+                 f"kernels over {n_ticks} ticks; one gemv kernel per call "
+                 f"({linears * n_ticks}) and no second kernel expected")
+        p["gemv_records_lost"] = linears * n_ticks - traced
+        say(f"serve: the {what} decode tick runs the gemv as one launch per "
+            f"linear ({linears} calls; {traced} of {linears * n_ticks} "
+            f"kernels in the trace of {n_ticks} ticks), no sum_partials")
     return res, params
 
 
@@ -1726,7 +2011,10 @@ def paged_phase(torch, cfg, mode, n_req, new_tokens, kernel):
 
     run = serve_stream(torch, eng, cfg, prompts, params_of, paused, ready,
                        checks=INT_CHECKS, on_step=on_step, lead=True,
-                       prefill=mode == "int8")
+                       prefill=mode == "int8",
+                       graph_qn=(1, PAGED_SPEC_K + 1), label=label)
+    check_replays(label, run, "sparse_decode_attention_fused_paged",
+                  cfg.n_layers)
     check_launches(label, run["counts"],
                    ("dense_matmul", "sparse_decode_attention_fused_paged",
                     kernel),
@@ -1748,6 +2036,11 @@ def paged_phase(torch, cfg, mode, n_req, new_tokens, kernel):
     res = report(label, run, total, n_req)
     res.update(prefix_hit_blocks=hit_blocks, admissions=len(hits),
                max_refcount=shared[0], n_phys=eng.pool.n_phys)
+    if mode == "int8":
+        res["overlapped"] = overlap_run(
+            torch, label, lambda p: _engine(cfg, params, p, max_tokens,
+                                            paged=True, overlap=True),
+            prompts, params_of, run, lead=True)
     return res, params, prompts, run
 
 
@@ -1755,7 +2048,7 @@ def identity_phase(torch, cfg, params, prompts, paged_run):
     """The paged int8 run's requests again on the flat pool (same int8
     weights), first 32 tokens: the greedy requests' tokens must equal the
     paged run's, since only the address of the prefix blocks differs."""
-    from repro_torch.launch.serve import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import SamplingParams
     paused = [0.0]
     max_tokens = SHARED_PREFIX + SUFFIX_RANGE[1] + IDENTITY_TOKENS + \
@@ -1771,6 +2064,7 @@ def identity_phase(torch, cfg, params, prompts, paged_run):
     out = eng.run()
     torch.cuda.synchronize()
     counts = launch_counts()
+    check_captures("flat int8", eng.trace_counts(), eng)
     check_launches("flat int8", counts,
                    ("dense_matmul", "sparse_decode_attention_fused",
                     "sparse_matmul_int8"),
@@ -1832,7 +2126,7 @@ def two_pass_attention(q, k_sp, v_sp, hkv, sm_scale, k_tail=None,
         o2, lse2 = o2.reshape(b, hq, d), lse2.reshape(b, hq)
         empty = ~valid.any(-1)
         lse2 = torch.where(empty[:, None],
-                           torch.tensor(float("-inf"), device=q.device),
+                           torch.full((), float("-inf"), device=q.device),
                            lse2)
         lse2 = torch.where(torch.isfinite(lse2), lse2, lse.min() - 60.0)
         o, _ = merge_attn(o, lse, o2, lse2)
@@ -1859,10 +2153,12 @@ def two_pass_dispatch():
 @contextlib.contextmanager
 def record_margins(eng, margins):
     """Record the top-1 margin (top-1 minus top-2 over the largest |logit|)
-    of every token the engine samples at ``Q == 1`` (decode ticks and final
-    prefill chunks), keyed ``(request id, position)``."""
+    of every token a serial engine samples at ``Q == 1`` (decode ticks and
+    final prefill chunks), keyed ``(request id, position)``.  The decode
+    logits are read where the engine's captured forward returns them."""
     from repro_torch.models import lm
-    panel, chunk = lm.forward_panel_pooled, lm.forward_prefill_chunk
+    chunk = lm.forward_prefill_chunk
+    panel_logits = eng._panel_logits
 
     def note(keys, logits):
         logits = logits.float()
@@ -1870,14 +2166,14 @@ def record_margins(eng, margins):
         rel = (top2[:, 0] - top2[:, 1]) / logits.abs().amax(-1)
         margins.update(zip(keys, rel.tolist()))
 
-    def rec_panel(params, state, tokens, *a, **k):
+    def rec_panel(name, tokens, mask):
         sch = eng.scheduler
         live = [(s, (sch.active[s].rid, len(sch.active[s].generated)))
                 for s in sch.decoding_slots()]
-        logits, st = panel(params, state, tokens, *a, **k)
-        if tokens.shape[1] == 1 and live:
+        logits = panel_logits(name, tokens, mask)
+        if name == "decode" and live:
             note([key for _, key in live], logits[[s for s, _ in live], 0])
-        return logits, st
+        return logits
 
     def rec_chunk(params, state, tokens, slot, *a, **k):
         logits, st = chunk(params, state, tokens, slot, *a, **k)
@@ -1886,9 +2182,14 @@ def record_margins(eng, margins):
             note([(req.rid, 0)], logits)
         return logits, st
 
-    with patched(lm, "forward_panel_pooled", rec_panel), \
-            patched(lm, "forward_prefill_chunk", rec_chunk):
-        yield margins
+    if eng.overlap:
+        fail("record_margins reads a serial engine's ticks")
+    eng._panel_logits = rec_panel
+    try:
+        with patched(lm, "forward_prefill_chunk", rec_chunk):
+            yield margins
+    finally:
+        del eng._panel_logits
 
 
 def gate_identity(label, got, want, want_rids, margins):
@@ -1917,8 +2218,11 @@ def gate_identity(label, got, want, want_rids, margins):
 
 @contextlib.contextmanager
 def panel_rows():
-    """Count the attention kernels' launches by query rows (``Q * G``), for
-    the verify-panel check (the kernels' own counters are unchanged)."""
+    """Count the attention kernels' launches that a CUDA graph captures, by
+    query rows (``Q * G``), for the verify-panel check: each replay of the
+    graph runs exactly these launches (the kernels' own counters are
+    unchanged).  Applied before the engine's first capture."""
+    import torch
     from repro_torch.kernels import ops
     rows = {}
 
@@ -1926,8 +2230,9 @@ def panel_rows():
         fn = getattr(ops, name)
 
         def run(q, *a, **k):
-            key = (name, q.shape[2])
-            rows[key] = rows.get(key, 0) + 1
+            if torch.cuda.is_current_stream_capturing():
+                key = (name, q.shape[2])
+                rows[key] = rows.get(key, 0) + 1
             return fn(q, *a, **k)
         return run
     names = ("sparse_decode_attention_fused",
@@ -2046,7 +2351,7 @@ def two_pass_phase(torch, cfg32, params32, timer):
     the fused f32 engine: logits from one shared state per tick, and greedy
     tokens under the near-tie rule."""
     import numpy as np
-    from repro_torch.launch.serve import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import SamplingParams
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg32.vocab, n).tolist()
@@ -2065,16 +2370,19 @@ def two_pass_phase(torch, cfg32, params32, timer):
             eng.step()
     if check is None:
         fail("two-pass: the slots never all decoded together")
+    check_captures("two-pass: fused f32", eng.trace_counts(), eng)
     fused = [eng.scheduler.finished[r].generated for r in rids]
 
     eng2 = _engine(cfg32, params32, [0.0], max_tokens)
     refreezes = [0]
     refreeze = eng2._refreeze_tick
 
-    def counting_refreeze():
+    def counting_refreeze(*a):
         refreezes[0] += int((eng2._tail_len >= eng2.pool.tail).sum())
-        refreeze()
+        refreeze(*a)
     eng2._refreeze_tick = counting_refreeze
+    # the two-pass dispatch is patched in before eng2's first capture, so
+    # its captured decode forward holds the partial kernel and the merge
     with two_pass_dispatch():
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -2082,6 +2390,7 @@ def two_pass_phase(torch, cfg32, params32, timer):
         eng2.run()
         torch.cuda.synchronize()
         counts = launch_counts()
+    check_captures("two-pass", eng2.trace_counts(), eng2)
     check_launches("two-pass", counts,
                    ("sparse_decode_attention_partial", "sparse_gemv",
                     "sparse_matmul_f32", "dense_matmul"),
@@ -2118,10 +2427,11 @@ def _spec_prompts(cfg):
     return motifs + rand
 
 
-def _verify_rows(label, rows, name, qg, verify_ticks, layers):
-    """Every verify tick launched the attention kernel once per layer with
-    ``Q * G = qg`` query rows, and no launch had another width."""
-    want = {(name, qg): verify_ticks * layers}
+def _verify_rows(label, rows, name, qg, captures, layers):
+    """The captured verify forward, which every verify tick replays,
+    launches the attention kernel once per layer with ``Q * G = qg`` query
+    rows, and no captured launch has another width."""
+    want = {(name, qg): captures * layers}
     if rows != want:
         fail(f"{label}: attention launches by (kernel, Q*G) {rows}, "
              f"expected {want}")
@@ -2175,7 +2485,8 @@ def spec_phase(torch, cfg, params):
     max_tokens = MOTIF * MOTIF_REPEATS + SPEC_TOKENS + cfg.kv_tail
     paused0 = [0.0]
     eng0 = _engine(cfg, params, paused0, max_tokens)
-    off = serve_stream(torch, eng0, cfg, prompts, params_of, paused0)
+    off = serve_stream(torch, eng0, cfg, prompts, params_of, paused0,
+                       label="spec off")
     total_off = check_outputs("spec off", off, cfg, SPEC_TOKENS)
     paused = [0.0]
     eng = _engine(cfg, params, paused, max_tokens, spec_k=SPEC_K)
@@ -2187,11 +2498,14 @@ def spec_phase(torch, cfg, params):
     with panel_rows() as rows, verify_tick_parts(eng) as parts:
         run = serve_stream(torch, eng, cfg, prompts, params_of, paused,
                            ready, checks=FLAT_CHECKS,
-                           check_ticks=SPEC_LOGIT_TICKS, rows=rows)
+                           check_ticks=SPEC_LOGIT_TICKS, rows=rows,
+                           label="spec")
     gate_logits("spec", run["check"])
     verify_ticks = run["ticks"]["decode"]
     _verify_rows("spec", rows, "sparse_decode_attention_fused",
-                 (SPEC_K + 1) * g, verify_ticks, cfg.n_layers)
+                 (SPEC_K + 1) * g, run["captures"]["verify"], cfg.n_layers)
+    check_replays("spec", run, "sparse_decode_attention_fused",
+                  cfg.n_layers)
     check_launches("spec", run["counts"],
                    ("sparse_decode_attention_fused", "sparse_matmul",
                     "dense_matmul"),
@@ -2230,6 +2544,10 @@ def spec_phase(torch, cfg, params):
                verify_tick_ms=verify_ms, spec_off_decode_tick_ms=decode_ms,
                spec_off=res_off, identical_to_spec_off=same,
                attention_rows=(SPEC_K + 1) * g)
+    res["overlapped"] = overlap_run(
+        torch, "spec", lambda p: _engine(cfg, params, p, max_tokens,
+                                         spec_k=SPEC_K, overlap=True),
+        prompts, params_of, run)
     return res
 
 
@@ -2248,6 +2566,7 @@ def spec_identity_f32(torch, cfg32, params32):
     with record_margins(eng0, margins):
         rids0 = [eng0.submit(p, sp) for p in prompts]
         eng0.run()
+    check_captures("spec f32 off", eng0.trace_counts(), eng0)
     want = [eng0.scheduler.finished[r].generated for r in rids0]
     g = cfg32.padded_heads // cfg32.n_kv
     out = {}
@@ -2257,17 +2576,17 @@ def spec_identity_f32(torch, cfg32, params32):
             rids = [eng.submit(p, sp) for p in prompts]
             eng.run()
         name = "sparse_decode_attention_fused"
-        n = rows.get((name, (k + 1) * g), 0)
-        if n <= 0 or n % cfg32.n_layers or set(rows) != {(name, (k + 1) * g)}:
-            fail(f"spec f32 k={k}: attention launches by (kernel, Q*G) "
-                 f"{rows}, expected only ({name!r}, {(k + 1) * g})")
+        check_captures(f"spec f32 k={k}", eng.trace_counts(), eng)
+        _verify_rows(f"spec f32 k={k}", rows, name, (k + 1) * g,
+                     eng.trace_counts()["verify"], cfg32.n_layers)
+        n = eng.replay_counts()["verify"]
         got = [eng.scheduler.finished[r].generated for r in rids]
         res = gate_identity(f"spec f32 k={k} vs spec off", got, want, rids0,
                             margins)
         res.update(spec_hist=eng.spec_hist.tolist(), attention_rows=(k + 1) * g,
-                   verify_ticks=n // cfg32.n_layers)
-        say(f"spec f32 k={k}: {n // cfg32.n_layers} verify ticks at "
-            f"{(k + 1) * g} query rows; accepted-draft histogram "
+                   verify_ticks=n)
+        say(f"spec f32 k={k}: {n} verify ticks replaying one captured "
+            f"forward at {(k + 1) * g} query rows; accepted-draft histogram "
             f"{res['spec_hist']}")
         out[k] = res
     return out
@@ -2287,7 +2606,7 @@ def spec_paged_phase(torch, cfg, params, prompts):
     margins = {}
     with record_margins(eng0, margins):
         off = serve_stream(torch, eng0, cfg, prompts, params_of, [0.0],
-                           lead=True)
+                           lead=True, label="paged spec off")
     eng = _engine(cfg, params, [0.0], max_tokens, paged=True,
                   spec_k=PAGED_SPEC_K)
     hits = []
@@ -2301,11 +2620,13 @@ def spec_paged_phase(torch, cfg, params, prompts):
     eng._admit_paged = admit_counting
     with panel_rows() as rows:
         run = serve_stream(torch, eng, cfg, prompts, params_of, [0.0],
-                           lead=True)
+                           lead=True, label="paged spec")
     g = cfg.padded_heads // cfg.n_kv
     _verify_rows("paged spec", rows, "sparse_decode_attention_fused_paged",
-                 (PAGED_SPEC_K + 1) * g, run["ticks"]["decode"],
+                 (PAGED_SPEC_K + 1) * g, run["captures"]["verify"],
                  cfg.n_layers)
+    check_replays("paged spec", run, "sparse_decode_attention_fused_paged",
+                  cfg.n_layers)
     check_launches("paged spec", run["counts"],
                    ("sparse_decode_attention_fused_paged",
                     "sparse_matmul_int8", "dense_matmul"),
@@ -2324,6 +2645,10 @@ def spec_paged_phase(torch, cfg, params, prompts):
     say(f"paged spec: k={PAGED_SPEC_K}, {run['ticks']['decode']} verify "
         f"ticks at {(PAGED_SPEC_K + 1) * g} query rows; prefix-cache hits "
         f"{sum(hits)} blocks; accepted-draft histogram {res['spec_hist']}")
+    res["overlapped"] = overlap_run(
+        torch, "paged spec", lambda p: _engine(
+            cfg, params, p, max_tokens, paged=True, spec_k=PAGED_SPEC_K,
+            overlap=True), prompts, params_of, run, lead=True)
     return res
 
 

@@ -127,6 +127,17 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def refuse_growth_under_capture(what: str) -> None:
+    """A per-device buffer that would be created or grown while a CUDA graph
+    is captured raises: it would live in the graph's private pool while the
+    wrappers' dict handed it to later eager calls.  Warm up at the graph's
+    shapes first.  (Where torch has no CUDA device nothing is captured.)"""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{what} would grow during a CUDA graph capture; run the same "
+            "shapes eagerly once before capturing")
+
+
 def require_cuda(*tensors: torch.Tensor) -> torch.device:
     """All tensors on one CUDA device, contiguous; returns the device."""
     dev = tensors[0].device

@@ -101,13 +101,14 @@ def attention_plan(sb: int, tp: int, bs: int, d: int, ck: int, cv: int,
 
 # per device: int32 ticket counters of the split kernel, zero between
 # launches (each launch's last block per (slot, head, row tile) resets its
-# own); grown, never shrunk
+# own); grown, never shrunk, and never while a CUDA graph is captured
 _TICKETS: Dict[str, torch.Tensor] = {}
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
     buf = _TICKETS.get(str(device))
     if buf is None or buf.numel() < n:
+        build.refuse_growth_under_capture("the attention's tickets")
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _TICKETS[str(device)] = buf
     return buf
@@ -419,7 +420,7 @@ def gqa_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         * sm_scale
     if valid is not None:
         vm = valid.to(q.device)[:, None, None, :]
-        s = torch.where(vm, s, torch.tensor(float("-inf"), device=q.device))
+        s = torch.where(vm, s, torch.full((), float("-inf"), device=q.device))
     m = s.amax(-1)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe[..., None])

@@ -88,17 +88,21 @@ def gemv_plan(k: int, n: int, block, x_bytes: int = 2,
 
 # per device: the f32 partials and the int32 ticket counters (zero between
 # launches: each launch's last block per column block resets its own);
-# grown, never shrunk
+# grown, never shrunk, and never while a CUDA graph is captured
 _SCRATCH: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _scratch(device: torch.device, n_partial: int, n_tickets: int):
     key = str(device)
     part, tickets = _SCRATCH.get(key, (None, None))
-    if part is None or part.numel() < n_partial:
+    grow_part = part is None or part.numel() < n_partial
+    grow_tickets = tickets is None or tickets.numel() < n_tickets
+    if grow_part or grow_tickets:
+        build.refuse_growth_under_capture("the gemv's scratch")
+    if grow_part:
         part = torch.empty(max(n_partial, 1 << 20), dtype=torch.float32,
                            device=device)
-    if tickets is None or tickets.numel() < n_tickets:
+    if grow_tickets:
         tickets = torch.zeros(max(n_tickets, 256), dtype=torch.int32,
                               device=device)
     _SCRATCH[key] = (part, tickets)

@@ -5,6 +5,14 @@ later slices' flags).  ``--int8`` serves int8 block-sparse weights,
 arena), ``--spec-k K`` draft-verify speculation with an n-gram drafter
 (``--spec-adaptive`` per-slot draft windows), as in the reference.
 
+Stream mode runs overlapped ticks by default, as the reference does: tick
+t+1 is enqueued before tick t's tokens reach the host, and each tick's
+decode (or verify) forward is one replay of a captured CUDA graph.
+``--no-overlap`` restores the serial loop, the token-identity oracle
+(greedy and seeded output are identical either way).  The run prints the
+captures per forward entry (``graph captures``, one each) and the kernel
+launches, replays included.
+
 Initialises the model from a seed on the device, prunes and packs every
 linear weight there, and drives a stream of requests with mixed prompt and
 output lengths (drawn exactly as the reference launcher draws them) through
@@ -20,6 +28,9 @@ the pooled sparse-KV cache.
   python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
       --device cpu --spec-k 3 --requests 4 --slots 2 --prompt-len 48 \\
       --steps 12
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
+      --device cpu --no-overlap --requests 4 --slots 2 --prompt-len 48 \\
+      --steps 12
 """
 from __future__ import annotations
 
@@ -34,38 +45,10 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.convert import convert_concrete, sparsity_report
 from repro_torch.data.pipeline import DataConfig, host_batch
-from repro_torch.kernels.dense_matmul import dense_matmul
-from repro_torch.kernels.sparse_attention import (
-    sparse_decode_attention_fused,
-    sparse_decode_attention_fused_paged, sparse_decode_attention_partial)
-from repro_torch.kernels.sparse_gemv import sparse_gemv
-from repro_torch.kernels.sparse_matmul import sparse_matmul, \
-    sparse_matmul_f32
-from repro_torch.kernels.sparse_matmul_int4 import sparse_matmul_int4
-from repro_torch.kernels.sparse_matmul_int8 import sparse_matmul_int8
+from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import lm
-from repro_torch.serving import ContinuousEngine, SamplingParams, SpecConfig
-
-KERNELS = {"sparse_gemv": sparse_gemv,
-           "sparse_decode_attention_fused": sparse_decode_attention_fused,
-           "sparse_matmul": sparse_matmul,
-           "dense_matmul": dense_matmul,
-           "sparse_decode_attention_fused_paged":
-               sparse_decode_attention_fused_paged,
-           "sparse_matmul_int8": sparse_matmul_int8,
-           "sparse_matmul_int4": sparse_matmul_int4,
-           "sparse_decode_attention_partial":
-               sparse_decode_attention_partial,
-           "sparse_matmul_f32": sparse_matmul_f32}
-
-
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+from repro_torch.serving import (ContinuousEngine, SamplingParams, SpecConfig,
+                                 stable_trace_counts)
 
 
 def main(argv=None) -> int:
@@ -99,6 +82,11 @@ def main(argv=None) -> int:
     ap.add_argument("--spec-adaptive", action="store_true",
                     help="with --spec-k: per-slot adaptive draft windows "
                          "(each slot's acceptance rate scales its K)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="disable the overlapped tick pipeline (overlap is "
+                         "on by default: tick t+1 is enqueued before tick "
+                         "t's tokens reach the host; --no-overlap is the "
+                         "serial token-identity oracle)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -133,7 +121,7 @@ def main(argv=None) -> int:
         prefill_chunk=args.prefill_chunk or None, device=dev,
         paged=args.paged, phys_blocks=args.phys_blocks,
         spec=SpecConfig(k=args.spec_k, adaptive=args.spec_adaptive)
-        if args.spec_k else None)
+        if args.spec_k else None, overlap=not args.no_overlap)
     if args.paged:
         print(f"[serve] paged pool: {eng.pool.n_phys} physical blocks of "
               f"{eng.pool.bs} tokens behind {args.slots}x"
@@ -157,7 +145,11 @@ def main(argv=None) -> int:
     dt = time.time() - t0
     total = sum(len(o.token_ids) for o in out.values())
     print(f"[serve] stream: {n_req} requests, {total} tokens in {dt:.2f}s "
-          f"({total/dt:.1f} tok/s) on {args.slots} slots")
+          f"({total/dt:.1f} tok/s) on {args.slots} slots, "
+          f"{'serial' if args.no_overlap else 'overlapped'} ticks")
+    print(f"[serve] graph captures: {eng.trace_counts()} (stable: "
+          f"{stable_trace_counts(eng.trace_counts())}); forward replays "
+          f"{eng.replay_counts()}")
     ttfts = [o.metrics.ttft for o in out.values()
              if o.metrics.ttft is not None]
     if ttfts:
@@ -179,7 +171,8 @@ def main(argv=None) -> int:
                   f"{eng.adaptive_hist.tolist()} "
                   f"(index = drafts proposed/tick)")
     print("[serve] sample:", list(out[rids[0]].token_ids[:16]))
-    print(f"[serve] kernel launches: {launch_counts()}")
+    print(f"[serve] kernel launches: {launch_counts()} (graph replays "
+          f"included)")
     return 0
 
 

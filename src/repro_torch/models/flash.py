@@ -17,7 +17,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     end of the key sequence; ``kv_valid [B, Skv]`` masks keys."""
     s = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)
          ) * sm_scale
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
     if causal:
         sq, skv = q.shape[2], k.shape[2]
         mask = ((torch.arange(sq, device=q.device)[:, None] + (skv - sq))

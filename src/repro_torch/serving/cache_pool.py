@@ -259,9 +259,11 @@ class CachePool:
             live = rel[:, None] & (
                 torch.arange(self.max_blocks, device=self.device)[None]
                 < state["prefix_blocks"][:, None])
-            ids = state["table"].long()[live]
+            # every table entry adds -1 if live, else 0: no data-dependent
+            # shape, so the release never waits for the device
             state["refcount"].index_add_(
-                0, ids, torch.full_like(ids, -1, dtype=torch.int32))
+                0, state["table"].long().reshape(-1),
+                -live.reshape(-1).to(torch.int32))
             state["table"].masked_fill_(rel[:, None], 0)
         for key in ("pos", "prefix_blocks", "tail_len"):
             state[key].masked_fill_(rel, 0)

@@ -211,7 +211,7 @@ def _mask_logits_sorted(scaled: torch.Tensor, top_k: torch.Tensor,
     k = torch.clamp(torch.where(top_k > 0, top_k, torch.full_like(top_k, v)),
                     1, v).long()
     kth = torch.gather(sorted_desc, -1, (k - 1)[:, None])
-    ninf = torch.tensor(float("-inf"), device=scaled.device)
+    ninf = torch.full((), float("-inf"), device=scaled.device)
     kept = torch.where(scaled < kth, ninf, scaled)
     sorted_kept = torch.where(sorted_desc < kth, ninf, sorted_desc)
     denom = _logsumexp_kept(kept)
@@ -219,7 +219,7 @@ def _mask_logits_sorted(scaled: torch.Tensor, top_k: torch.Tensor,
     cum_before = torch.cumsum(probs, dim=-1) - probs
     in_nucleus = cum_before < top_p[:, None]
     cutoff = torch.where(in_nucleus, sorted_desc,
-                         torch.tensor(float("inf"), device=scaled.device)
+                         torch.full((), float("inf"), device=scaled.device)
                          ).amin(-1, keepdim=True)
     # a sequential f32 cumsum can reach 1.0 before the row ends; top_p == 1
     # stays the exact no-op the contract promises (as in the bucketed path)
@@ -233,7 +233,7 @@ def _mask_logits_bucketed(scaled: torch.Tensor, top_k: torch.Tensor,
     reference's sort-free path)."""
     top_vals = torch.topk(scaled, kb, dim=-1).values              # sorted
     k = torch.clamp(top_k, 1, kb).long()
-    ninf = torch.tensor(float("-inf"), device=scaled.device)
+    ninf = torch.full((), float("-inf"), device=scaled.device)
     kth = torch.gather(top_vals, -1, (k - 1)[:, None])
     kth = torch.where((top_k > 0)[:, None], kth, ninf)
     kept = torch.where(scaled < kth, ninf, scaled)
@@ -243,29 +243,63 @@ def _mask_logits_bucketed(scaled: torch.Tensor, top_k: torch.Tensor,
     cum_before = torch.cumsum(probs, dim=-1) - probs
     in_nucleus = cum_before < top_p[:, None]
     cutoff = torch.where(in_nucleus, top_vals,
-                         torch.tensor(float("inf"), device=scaled.device)
+                         torch.full((), float("inf"), device=scaled.device)
                          ).amin(-1, keepdim=True)
     cutoff = torch.where((top_p >= 1.0)[:, None], ninf, cutoff)
     return torch.where(kept < cutoff, ninf, kept)
 
 
+def needs_exact_sort(params: SamplingParams, v: int) -> bool:
+    """Whether a lane under ``params`` needs the exact full sort over a
+    ``v``-entry vocabulary (unbounded support): the host's copy of the
+    branch :func:`_mask_logits` takes, decided from the request alone."""
+    kb = min(v, TOPP_BUCKET)
+    return kb == v or params.top_k > kb or (params.top_k == 0
+                                            and params.top_p < 1.0)
+
+
 def _mask_logits(logits: torch.Tensor, temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
-                 live: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 live: Optional[torch.Tensor] = None,
+                 exact: Optional[bool] = None) -> torch.Tensor:
     """Temperature -> top-k -> top-p over the lane axis; at least one token
     survives.  The exact full sort runs only when a live lane needs
-    unbounded support (the reference's ``lax.cond``; here a host branch)."""
+    unbounded support (the reference's ``lax.cond``; here a host branch).
+    ``exact`` is that branch decided by the caller from the live requests'
+    parameters (:func:`needs_exact_sort`); without it the lanes on the
+    device decide, which waits for the device."""
     v = logits.shape[-1]
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
     kb = min(v, TOPP_BUCKET)
     if kb == v:
         return _mask_logits_sorted(scaled, top_k, top_p)
-    needs_exact = (top_k > kb) | ((top_k == 0) & (top_p < 1.0))
-    if live is not None:
-        needs_exact = needs_exact & live
-    if bool(needs_exact.any()):
+    if exact is None:
+        needs_exact = (top_k > kb) | ((top_k == 0) & (top_p < 1.0))
+        if live is not None:
+            needs_exact = needs_exact & live
+        exact = bool(needs_exact.any())
+    if exact:
         return _mask_logits_sorted(scaled, top_k, top_p)
     return _mask_logits_bucketed(scaled, top_k, top_p, kb)
+
+
+def lane_mask(b: int, lanes: Sequence[int],
+               device: torch.device) -> torch.Tensor:
+    """A bool ``[b]`` mask of ``lanes``, built on the host and copied
+    without waiting for the device."""
+    keep = set(lanes)
+    return torch.tensor([i in keep for i in range(b)]).to(device,
+                                                          non_blocking=True)
+
+
+def _categorical(probs: torch.Tensor,
+                 generator: torch.Generator) -> torch.Tensor:
+    """One draw from ``probs [V]`` as ``torch.multinomial(probs, 1)`` makes
+    it (the exponential race ``argmax(p / E)``, ``E ~ Exp(1)``: the same
+    draw from the same generator state), without its host-side validity
+    check, which waits for the device.  Returns int64 ``[1]``."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q).reshape(1)
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +308,7 @@ def _mask_logits(logits: torch.Tensor, temperature: torch.Tensor,
 
 def sample_step(logits: torch.Tensor, lanes: Dict[str, torch.Tensor],
                 generators: Sequence[Optional[torch.Generator]],
-                advance: Sequence[bool]
+                advance: Sequence[bool], exact: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw one token per lane.
 
@@ -282,23 +316,22 @@ def sample_step(logits: torch.Tensor, lanes: Dict[str, torch.Tensor],
     present only for sampled (``temperature > 0``) requests and None for
     greedy or free lanes; ``advance[b]`` marks the lanes whose draw is
     consumed — only those draw, so a request's generator advances exactly
-    once per token it samples.  Returns ``(tokens int64 [B], chosen-token
-    logprobs f32 [B])``; greedy lanes are ``argmax(logits)``."""
+    once per token it samples.  ``exact`` is the masker's branch (see
+    :func:`_mask_logits`).  Returns ``(tokens int64 [B], chosen-token
+    logprobs f32 [B])``, fresh tensors; greedy lanes are
+    ``argmax(logits)``.  Nothing here waits for the device."""
     logits = logits.to(torch.float32)
     temp = lanes["temperature"]
     tok = torch.argmax(logits, dim=-1)
     sampled = [b for b in range(logits.shape[0])
                if advance[b] and generators[b] is not None]
     if sampled:
-        live = torch.zeros(logits.shape[0], dtype=torch.bool,
-                           device=logits.device)
-        live[sampled] = True
+        live = lane_mask(logits.shape[0], sampled, logits.device)
         masked = _mask_logits(logits, temp, lanes["top_k"], lanes["top_p"],
-                              live=live)
+                              live=live, exact=exact)
         probs = torch.softmax(masked, dim=-1)
         for b in sampled:
-            tok[b] = torch.multinomial(probs[b], 1,
-                                       generator=generators[b])[0]
+            tok[b] = _categorical(probs[b], generators[b])[0]
     logp = torch.log_softmax(logits, dim=-1)
     chosen = torch.gather(logp, -1, tok[:, None])[:, 0]
     return tok, chosen
@@ -311,7 +344,7 @@ def sample_step(logits: torch.Tensor, lanes: Dict[str, torch.Tensor],
 def accept_step(logits: torch.Tensor, tokens: torch.Tensor,
                 draft_len: torch.Tensor, lanes: Dict[str, torch.Tensor],
                 generators: Sequence[Optional[torch.Generator]],
-                live: Sequence[bool]
+                live: Sequence[bool], exact: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-lane acceptance over a verified draft window (twin of the
     reference's ``accept_step``).
@@ -320,8 +353,8 @@ def accept_step(logits: torch.Tensor, tokens: torch.Tensor,
     (``logits[:, j]`` conditions on the panel through position ``j``);
     ``tokens [B, Qn]`` — the panel (last committed token, then the drafts,
     padded); ``draft_len [B]`` — valid drafts per slot (0..Qn-1);
-    ``generators`` / ``live`` as ``sample_step``'s ``generators`` /
-    ``advance``.
+    ``generators`` / ``live`` / ``exact`` as ``sample_step``'s
+    ``generators`` / ``advance`` / ``exact``.
 
     Greedy lanes accept a draft exactly when it is the argmax of the
     logits it was drafted to follow, so the committed stream is the plain
@@ -338,23 +371,24 @@ def accept_step(logits: torch.Tensor, tokens: torch.Tensor,
     int32 [B])``: slot ``b`` commits ``out_tok[b, :n_commit[b]]``
     (``n_commit = accepted + 1``; masked slots commit 0).  ``out_logp`` is
     the chosen token's log-probability under the unmodified distribution,
-    as in ``sample_step``."""
+    as in ``sample_step``; the outputs are fresh tensors and nothing here
+    waits for the device."""
     b, qn, v = logits.shape
     logits = logits.to(torch.float32)
     dev = logits.device
-    tokens = tokens.to(dev).long()
-    draft_len = torch.as_tensor(draft_len, device=dev).long()
-    live_t = torch.as_tensor(list(live), dtype=torch.bool, device=dev)
+    tokens = tokens.to(dev, non_blocking=True).long()
+    draft_len = torch.as_tensor(draft_len).to(dev, non_blocking=True).long()
+    live_t = lane_mask(b, [i for i in range(b) if live[i]], dev)
     greedy_tok = torch.argmax(logits, dim=-1)                    # [B, Qn]
     draft_next = tokens[:, 1:]                                   # [B, Qn-1]
     acc = greedy_tok[:, :-1] == draft_next
     sampled = [i for i in range(b) if live[i] and generators[i] is not None]
     if sampled:
-        lane_live = torch.zeros(b, dtype=torch.bool, device=dev)
-        lane_live[sampled] = True
+        lane_live = lane_mask(b, sampled, dev)
         masked = torch.stack([_mask_logits(
             logits[:, j], lanes["temperature"], lanes["top_k"],
-            lanes["top_p"], live=lane_live) for j in range(qn)], 1)
+            lanes["top_p"], live=lane_live, exact=exact)
+            for j in range(qn)], 1)
         p_draft = torch.gather(torch.softmax(masked[:, :-1], dim=-1), -1,
                                draft_next[..., None])[..., 0]
         for i in sampled:
@@ -366,7 +400,7 @@ def accept_step(logits: torch.Tensor, tokens: torch.Tensor,
     dpad = torch.cat([draft_next, torch.full((b, 1), -1, dtype=torch.long,
                                              device=dev)], 1)
     out_tok = torch.where(jidx[None] < accepted[:, None], dpad, greedy_tok)
-    ninf = torch.tensor(float("-inf"), device=dev)
+    ninf = torch.full((), float("-inf"), device=dev)
     for i in sampled:
         # the correction (a rejected draft is excluded) or the bonus draw,
         # at position ``accepted`` — selected on the device, no host sync
@@ -374,9 +408,8 @@ def accept_step(logits: torch.Tensor, tokens: torch.Tensor,
         row = torch.index_select(masked[i], 0, a)[0]             # [V]
         excl = ((torch.arange(v, device=dev) == dpad[i, a])
                 & (a < draft_len[i]))
-        cand = torch.multinomial(torch.softmax(torch.where(excl, ninf, row),
-                                               dim=-1), 1,
-                                 generator=generators[i])
+        cand = _categorical(torch.softmax(torch.where(excl, ninf, row),
+                                          dim=-1), generators[i])
         out_tok[i] = torch.where(jidx == a, cand, out_tok[i])
     out_logp = torch.gather(torch.log_softmax(logits, dim=-1), -1,
                             out_tok.clamp(min=0)[..., None])[..., 0]

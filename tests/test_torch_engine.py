@@ -44,7 +44,7 @@ def test_greedy_tokens_identical_to_reference_across_refreeze():
 
 
 @pytest.mark.parametrize("option", [
-    {"paged": True, "checkify": True}, {"overlap": True}, {"max_queue": 4},
+    {"paged": True, "checkify": True}, {"faults": object()}, {"max_queue": 4},
     {"capacity_slack": 1.5}, {"spec": SpecConfig(k=2), "degrade_queue": 2},
 ], ids=lambda o: next(iter(o)))
 def test_later_slice_options_raise(option):
