@@ -19,9 +19,10 @@ Phases, each of which exits non-zero on failure:
    host's enqueue time).  The int8 and int4 kernels are held bit-equal to
    their plain versions at M = 1, 4, 8, 16, 20, 256 and 300, traced at
    the 4-row decode tick and the 256-row prefill chunk.  For all four, the
-   first rows of one x must be the same bits in calls of M = 9, 20, 256
-   and 300.  The sparse gemv is held at M = 1, 4 and 8 and traced at the
-   4-row decode tick; its calls of M = 1 and 4 (bf16, and f32 x) must give
+   first rows of one x must be the same bits in calls of M = 9, 20, 128,
+   256 and 300 (128 and 256: the prefill chunk's width classes).  The
+   sparse gemv is held at M = 1, 4 and 8 and traced at the 4-row decode
+   tick; its calls of M = 1 and 4 (bf16, and f32 x) must give
    the first rows of the 8-row call bit for bit.  The tied unembedding is
    held, timed and traced at M = 1, 4, 16 and 20 (bf16) and 4 and 36
    (f32), each call's rows bit-equal to the largest call's.  The flat and
@@ -36,14 +37,22 @@ Phases, each of which exits non-zero on failure:
    every kernel's launch counter zeroed just before each path and read just
    after (graph replays counted), and decode-tick logits through the
    kernels held against the same ticks through the plain versions.  Each
-   engine runs its decode (or verify) forward as a captured CUDA graph:
-   every serve phase must hold exactly one capture per forward entry, the
-   attention kernel's counter must equal one launch a layer per warm-up and
-   per replay, the graph's decode and verify logits (Q = 1 and Q = k+1)
-   must be bit-equal to the eager forward's on a copy of the same state
-   (flat bf16, paged int8, paged int4), and one tick is traced both as a
-   graph replay and eagerly (launches a tick, device busy time, idle
-   share).  The flat bf16, spec k=4, paged int8 and paged int8 k=3 traffic
+   engine runs its decode (or verify) forward, its prefill chunks (one
+   graph per width class, the chunk padded to whole blocks), its refreeze
+   and its prefix-hit assignment as captured CUDA graphs, all captured
+   when the engine is built: every serve phase must hold exactly one
+   capture per entry (the chunk: one per width class), the attention
+   kernel's counter must equal one launch a layer per decode replay, the
+   graph's decode and verify logits (Q = 1 and Q = k+1), a full-width and
+   a ragged chunk's logits and state, and a refreeze with one slot full
+   and one not must be bit-equal to the eager calls on copies of the same
+   state (flat bf16, paged int8, paged int4), every non-final chunk,
+   refreeze and assignment must run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails it),
+   and one tick, one 256-token chunk and one refreeze (one slot of four
+   full) are traced both as a graph replay and eagerly (launches, device
+   busy time, idle share; the captures' time and memory, and those of an
+   unchunked engine's width classes).  The flat bf16, spec k=4, paged int8 and paged int8 k=3 traffic
    is also served overlapped (``overlap=True``), its greedy tokens gated
    identical to the serial run's, and tok/s, TPOT and TTFT reported for
    both beside the last eager-tick figures (``EAGER_TICKS``):
@@ -125,15 +134,25 @@ SPEC_LOGIT_TICKS = 10       # verify ticks of the spec phase's logits check
 SPEC_F32_K = (SPEC_K, 8)    # the f32 spec phases' windows (8: 18 rows)
 MOTIF, MOTIF_REPEATS, N_MOTIF, N_RANDOM = 24, 8, 4, 2
 PAGED_SPEC_K, PAGED_SPEC_TOKENS = 3, 32
+# the prefill chunk's width classes at bs = 128: a chunk runs padded to the
+# next whole block, one captured graph per class
+CHUNK_WIDTHS = tuple(range(128, PREFILL_CHUNK + 1, 128))
+# the slot capacity at which an unchunked engine's width classes
+# (power-of-two block counts) are captured and their memory reported
+UNCHUNKED_TOKENS = 4096
 # the sparse matmul's row counts: the first past the gemv's 8, one whole
-# 16-row MMA tile (the paged verify panel), the flat verify panel, the
-# prefill chunk, and a ragged 300 (four 64-row chunks and a partial fifth)
-MATMUL_M = (9, SLOTS * (PAGED_SPEC_K + 1), SLOTS * (SPEC_K + 1),
-            PREFILL_CHUNK, 300)
+# 16-row MMA tile (the paged verify panel), the flat verify panel, each
+# prefill chunk width class (the full chunk the last), and a ragged 300
+# (four 64-row chunks and a partial fifth)
+MATMUL_M = (9, SLOTS * (PAGED_SPEC_K + 1), SLOTS * (SPEC_K + 1)) \
+    + CHUNK_WIDTHS + (300,)
+# the ragged chunk of the prefill graph-vs-eager gate (padded to 128 rows)
+RAGGED_CHUNK = 77
 # the row-independence gate: these first rows of one x, computed in calls of
 # every M of ROW_GATE_M, must be the same bits (a verify row must equal the
-# decode row of the same token)
-ROW_GATE_ROWS, ROW_GATE_M = 9, (9, SLOTS * (SPEC_K + 1), PREFILL_CHUNK, 300)
+# decode row of the same token; a padded chunk's rows, the unpadded ones)
+ROW_GATE_ROWS = 9
+ROW_GATE_M = (9, SLOTS * (SPEC_K + 1)) + CHUNK_WIDTHS + (300,)
 # the int8 / int4 kernels' row counts: a single row, the decode tick, the
 # gemv's largest, then the sparse matmul's; traced at the decode tick and
 # the prefill chunk
@@ -1331,11 +1350,11 @@ def graph_against_eager(torch, eng, cfg, qn, n_ticks=3):
     ticks so every tick appends within the ring's headroom where it has
     it."""
     from repro_torch.models import lm
-    from repro_torch.serving import PanelGraph
+    from repro_torch.serving import panel_entry
     slots, mask, tokens = _decode_inputs(torch, eng)
     live = mask.tolist()
     st_g, st_e = _clone(eng.state), _clone(eng.state)
-    fwd = PanelGraph(eng.params, st_g, cfg, eng.pool.bs, qn)
+    fwd = panel_entry(eng.params, st_g, cfg, eng.pool.bs, qn)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(qn)
     grow = qn * mask.to(torch.int32)
@@ -1343,7 +1362,7 @@ def graph_against_eager(torch, eng, cfg, qn, n_ticks=3):
         panel = torch.randint(0, cfg.vocab, (eng.pool.slots, qn),
                               generator=gen, device="cuda")
         panel[:, 0] = tokens[:, 0]
-        fwd.set_inputs(panel, live)
+        fwd.set(tokens=panel, mask=live)
         got = fwd.run().clone()
         want, _ = lm.forward_panel_pooled(eng.params, st_e, panel, mask, cfg,
                                           eng.pool.bs)
@@ -1376,16 +1395,16 @@ def graph_profile(torch, eng, cfg, n_ticks=8):
     tick so the copy stays put.  Timed and traced like ``decode_profile``;
     also the CUDA-event time of the replay alone (the graph's device time,
     gaps between its kernels included)."""
-    from repro_torch.serving import PanelGraph, sampling
+    from repro_torch.serving import panel_entry, sampling
     slots, mask, tokens = _decode_inputs(torch, eng)
     live = mask.tolist()
     st = _clone(eng.state)
     k = eng._spec.k if eng._spec is not None else 0
     t0 = time.perf_counter()
-    fwd = PanelGraph(eng.params, st, cfg, eng.pool.bs, k + 1)
+    fwd = panel_entry(eng.params, st, cfg, eng.pool.bs, k + 1)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
-    fwd.set_inputs(tokens.repeat(1, k + 1), live)
+    fwd.set(tokens=tokens.repeat(1, k + 1), mask=live)
     grow = (k + 1) * mask.to(torch.int32)
     no_drafts = torch.zeros(len(live), dtype=torch.long)
 
@@ -1396,9 +1415,9 @@ def graph_profile(torch, eng, cfg, n_ticks=8):
                                           [None] * len(live), live)
             tok.tolist()
         else:
-            tok, _, nc = sampling.accept_step(logits, fwd.tokens, no_drafts,
-                                              eng.lanes, [None] * len(live),
-                                              live)
+            tok, _, nc = sampling.accept_step(logits, fwd.inputs["tokens"],
+                                              no_drafts, eng.lanes,
+                                              [None] * len(live), live)
             tok.tolist(), nc.tolist()
         eng.pool.rollback(st, grow)
 
@@ -1419,20 +1438,27 @@ def graph_profile(torch, eng, cfg, n_ticks=8):
         eng.pool.rollback(st, grow)
     reps = 20
     replay()
-    a, b = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(reps):
-        fwd.run()
-    b.record()
-    b.synchronize()
-    res["replay_event_ms"] = a.elapsed_time(b) / reps
+    res["replay_event_ms"] = _replay_ms(torch, fwd.run, reps)
     # the replay's span counted busy whole, gaps between its kernels too
     res["idle_share_replay_span"] = max(
         0.0, 1 - res["replay_event_ms"] / res["wall_ms"])
     eng.pool.rollback(st, reps * grow)
     return res
+
+
+def _replay_ms(torch, replay, reps):
+    """CUDA-event time of one call of ``replay`` (a captured entry's run),
+    over ``reps`` back-to-back calls (its span: its kernels and the gaps
+    between)."""
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _profiled(torch, fn, n, res):
@@ -1505,30 +1531,268 @@ def _profiled(torch, fn, n, res):
     return res
 
 
+def _empty_slot(states, slot=0):
+    """Zero one slot's lengths in each state copy (its old table entries and
+    pages stay, unread behind a zero prefix)."""
+    for st in states:
+        for key in ("pos", "prefix_blocks", "tail_len"):
+            st[key][slot] = 0
+
+
+def _free_pages(eng, n, what):
+    """``n`` arena pages no table row of the engine's state references."""
+    free = (eng.state["refcount"] == 0).nonzero().flatten().tolist()
+    if len(free) < n:
+        fail(f"{what}: {len(free)} free arena pages, {n} needed")
+    return free[-n:]
+
+
 def prefill_profile(torch, eng, cfg, n=4):
     """One full prefill chunk (PREFILL_CHUNK tokens into slot 0 of a copy of
-    the live state, emptied first), timed and traced like a tick.  On the
-    paged pool the chunk's blocks freeze into the copy's last arena pages
-    (the copy's other contents are never read again)."""
+    the live state, emptied before each call) through a prefill entry
+    captured over the copy, timed and traced like a tick, with the CUDA
+    event time of one replay, the capture's host time (synchronised) and
+    its graph's memory; beside it the same chunk eagerly on another copy.
+    On the paged pool the chunk's blocks freeze into free arena pages (the
+    copies' other contents are never read again)."""
     from repro_torch.models import lm
-    st = _clone(eng.state)
+    from repro_torch.serving import prefill_entry
+    bs = eng.pool.bs
+    st_g, st_e = _clone(eng.state), _clone(eng.state)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (1, PREFILL_CHUNK), generator=gen,
                          device="cuda")
-    new_ids = None
-    if "table" in st:
-        nb = PREFILL_CHUNK // eng.pool.bs
-        new_ids = list(range(eng.pool.n_phys - nb, eng.pool.n_phys))
+    slot = torch.zeros(1, dtype=torch.long, device="cuda")
+    length = torch.full((1,), PREFILL_CHUNK, device="cuda")
+    ids = None
+    if eng.pool.paged:
+        ids = torch.tensor(_free_pages(eng, PREFILL_CHUNK // bs, "prefill"),
+                           device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd = prefill_entry(eng.params, st_g, cfg, bs, PREFILL_CHUNK)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    fwd.set(tokens=toks, slot=slot, length=length,
+            **({} if ids is None else {"ids": ids}))
 
-    def chunk():
-        st["pos"][0] = 0
-        st["prefix_blocks"][0] = 0
-        lm.forward_prefill_chunk(eng.params, st, toks, 0, cfg, eng.pool.bs,
-                                 new_ids=new_ids)
+    def graph_chunk():
+        _empty_slot((st_g,))
+        fwd.run()
         torch.cuda.synchronize()
 
-    return _profiled(torch, chunk, n, {"tokens": PREFILL_CHUNK})
+    def eager_chunk():
+        _empty_slot((st_e,))
+        lm.forward_prefill_chunk(eng.params, st_e, toks, slot, cfg, bs,
+                                 new_ids=ids, length=length)
+        torch.cuda.synchronize()
+
+    res = _profiled(torch, graph_chunk, n, {
+        "tokens": PREFILL_CHUNK, "capture_s": capture_s,
+        "graph_mib": fwd.graph_bytes / 2 ** 20,
+        "graph_held_launches": fwd.held})
+    if "named" in res and not res["named"]["unembed"]["per_tick"]:
+        # the graph holds the unembedding: a trace without it lacks the
+        # graph's kernels
+        res["device"] = ("not measured: the trace holds none of the "
+                         "graph's kernels")
+        for key in ("device_ms", "idle_share"):
+            res.pop(key, None)
+    res["replay_event_ms"] = _replay_ms(torch, fwd.run, 10)
+    res["eager"] = _profiled(torch, eager_chunk, n, {"tokens": PREFILL_CHUNK})
+    return res
+
+
+def chunk_graph_against_eager(torch, eng, cfg):
+    """The captured prefill chunk against the eager call on the same padded
+    operands, from two copies of the live state with slot 0 emptied: a
+    full-width chunk (PREFILL_CHUNK tokens), then a ragged one
+    (RAGGED_CHUNK tokens in its 128-row width class) behind it, each
+    through a fresh entry of its width class; the logits and the whole
+    state after each bit-equal.  On the paged pool the blocks freeze into
+    free arena pages."""
+    from repro_torch.models import lm
+    from repro_torch.serving import prefill_entry
+    bs, paged = eng.pool.bs, eng.pool.paged
+    st_g, st_e = _clone(eng.state), _clone(eng.state)
+    _empty_slot((st_g, st_e))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    lens = (PREFILL_CHUNK, RAGGED_CHUNK)
+    widths = [-(-n // bs) * bs for n in lens]
+    pages = (_free_pages(eng, sum(widths) // bs, "chunk gate") if paged
+             else [])
+    slot = torch.zeros(1, dtype=torch.long, device="cuda")
+    for n, w in zip(lens, widths):
+        toks = torch.zeros((1, w), dtype=torch.long, device="cuda")
+        toks[0, :n] = torch.randint(0, cfg.vocab, (n,), generator=gen,
+                                    device="cuda")
+        length = torch.full((1,), n, device="cuda")
+        vals = {"tokens": toks, "slot": slot, "length": length}
+        ids = None
+        if paged:
+            ids = torch.tensor(pages[:w // bs], device="cuda")
+            pages = pages[w // bs:]
+            vals["ids"] = ids
+        fwd = prefill_entry(eng.params, st_g, cfg, bs, w)
+        fwd.set(**vals)
+        got = fwd.run().clone()
+        want, _ = lm.forward_prefill_chunk(eng.params, st_e, toks, slot, cfg,
+                                           bs, new_ids=ids, length=length)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got - want).abs().max().item()
+            fail(f"prefill graph vs eager, {n} tokens in a {w}-row chunk: "
+                 f"logits differ (max |diff| {err:.3e})")
+        if not all(torch.equal(x, y) for x, y in
+                   zip(_flat_leaves(st_g), _flat_leaves(st_e))):
+            fail(f"prefill graph vs eager, {n} tokens in a {w}-row chunk: "
+                 "the states the two left differ")
+    return {"lengths": lens, "widths": widths, "bit_equal": True}
+
+
+def refreeze_graph_against_eager(torch, eng):
+    """The captured refreeze against the eager one on two copies of the
+    live state where the slot with the fewest prefix blocks is full and
+    every other slot is not (on the paged pool onto free pages): the whole
+    state bit-equal, and the slots that were not full unchanged."""
+    from repro_torch.serving import refreeze_entry
+    pool = eng.pool
+    st_g, st_e = _clone(eng.state), _clone(eng.state)
+    pb = eng.state["prefix_blocks"].tolist()
+    full = min(range(pool.slots), key=lambda s: pb[s])
+    tail = [min(int(t), pool.tail - 1) for t in eng.state["tail_len"]]
+    tail[full] = pool.tail
+    for st in (st_g, st_e):
+        st["tail_len"].copy_(torch.tensor(tail))
+    before = _clone(st_g)
+    fwd = refreeze_entry(pool, st_g)
+    ids = None
+    if pool.paged:
+        tb = pool.tail // pool.bs
+        ids = torch.zeros((pool.slots, tb), dtype=torch.long, device="cuda")
+        ids[full] = torch.tensor(_free_pages(eng, tb, "refreeze gate"))
+        fwd.set(ids=ids)
+    fwd.run()
+    pool.refreeze(st_e, ids)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in
+               zip(_flat_leaves(st_g), _flat_leaves(st_e))):
+        fail("refreeze graph vs eager: the states the two left differ")
+    others = [s for s in range(pool.slots) if s != full]
+    for key in ("pos", "prefix_blocks", "tail_len"):
+        if not torch.equal(st_g[key][others], before[key][others]):
+            fail(f"refreeze: {key} of a slot that was not full changed")
+    tb = pool.tail // pool.bs
+    if int(st_g["prefix_blocks"][full]) != pb[full] + tb:
+        fail("refreeze: the full slot did not fold its tail")
+    return {"full_slot": full, "bit_equal": True}
+
+
+def refreeze_profile(torch, eng, n=4):
+    """One refreeze with one slot of the pool full and the others not (the
+    usual case: slots fill their rings in turn), on a copy of the live
+    state whose lengths, table and refcounts are put back before each
+    call: through a refreeze entry captured over the copy, timed and
+    traced like a tick, with the CUDA-event time of one replay (the put
+    back included); beside it the same refreeze eagerly on another copy.
+    On the paged pool the tail folds into free arena pages."""
+    from repro_torch.serving import refreeze_entry
+    pool = eng.pool
+    st_g, st_e = _clone(eng.state), _clone(eng.state)
+    pb = eng.state["prefix_blocks"].tolist()
+    full = min(range(pool.slots), key=lambda s: pb[s])
+    tail = [min(int(t), pool.tail - 1) for t in eng.state["tail_len"]]
+    tail[full] = pool.tail
+    for st in (st_g, st_e):
+        st["tail_len"].copy_(torch.tensor(tail))
+    keys = [k for k in ("pos", "prefix_blocks", "tail_len", "table",
+                        "refcount") if k in st_g]
+    saved = {k: st_g[k].clone() for k in keys}
+    fwd = refreeze_entry(pool, st_g)
+    ids = None
+    if pool.paged:
+        tb = pool.tail // pool.bs
+        ids = torch.zeros((pool.slots, tb), dtype=torch.long, device="cuda")
+        ids[full] = torch.tensor(_free_pages(eng, tb, "refreeze profile"))
+        fwd.set(ids=ids)
+
+    def put_back(st):
+        for k in keys:
+            st[k].copy_(saved[k])
+
+    def graph_refreeze():
+        put_back(st_g)
+        fwd.run()
+        torch.cuda.synchronize()
+
+    def eager_refreeze():
+        put_back(st_e)
+        pool.refreeze(st_e, ids)
+        torch.cuda.synchronize()
+
+    res = _profiled(torch, graph_refreeze, n, {
+        "full_slot": full, "capture_s": fwd.capture_s,
+        "graph_mib": fwd.graph_bytes / 2 ** 20})
+
+    def put_back_and_replay():
+        put_back(st_g)
+        fwd.run()
+    res["replay_event_ms"] = _replay_ms(torch, put_back_and_replay, 10)
+    res["eager"] = _profiled(torch, eager_refreeze, n, {})
+    return res
+
+
+@contextlib.contextmanager
+def sync_free(torch, eng, gated):
+    """Run every dispatch that must not wait for the device under
+    ``torch.cuda.set_sync_debug_mode("error")``, where a host sync raises:
+    a non-final prefill chunk whose width class is captured, a refreeze
+    whose entry is captured (and that needs no pipeline drain, which the
+    paged pool keeps for pages promised to others), an admission whose
+    assignment entry is captured.  ``gated`` counts each kind."""
+    def guarded(key, fn, ready):
+        def run(*a, **k):
+            if not ready():
+                return fn(*a, **k)
+            gated[key] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    def chunk():
+        req, sch = eng.scheduler.next_prefill(), eng.scheduler
+        return (req is not None and sch.chunk is not None
+                and len(req.prompt) - req.prefill_done > sch.chunk
+                and ("prefill_chunk", sch.chunk) in eng._entries)
+
+    def refreeze():
+        n = sum(t >= eng.pool.tail for t in eng._tail_len)
+        if not n or "refreeze" not in eng._entries:
+            return False
+        return eng._alloc is None or eng._inflight is None or (
+            n * (eng.pool.tail // eng.pool.bs) + sum(eng._reserved.values())
+            <= eng._alloc.free_blocks())
+
+    names = ("_prefill_tick", "_refreeze_tick", "_admit_paged")
+    saved = {n: eng.__dict__.get(n) for n in names}
+    eng._prefill_tick = guarded("chunk", eng._prefill_tick, chunk)
+    eng._refreeze_tick = guarded("refreeze", eng._refreeze_tick, refreeze)
+    if eng._alloc is not None:
+        eng._admit_paged = guarded("assign", eng._admit_paged,
+                                   lambda: "assign" in eng._entries)
+    try:
+        yield gated
+    finally:
+        for n, fn in saved.items():
+            if fn is None:
+                eng.__dict__.pop(n, None)
+            else:
+                setattr(eng, n, fn)
 
 
 def _model(torch, cfg, mode):
@@ -1565,35 +1829,35 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                  graph_qn=(), label="serve"):
     """Submit the requests and run the engine to completion (and drain its
     pipeline) with every kernel counter zeroed just before and read just
-    after.  ``lead`` submits the first request alone and the rest once it
-    has its first token (so a shared prefix is frozen before the others
-    arrive).  When ``ready(eng)`` first holds, the logits of
-    ``check_ticks`` ticks are checked (each of ``checks``), the captured
-    forward is held bit-equal to the eager one at each panel width of
-    ``graph_qn``, and one tick is profiled, through a captured graph and
-    eagerly (with ``prefill``, also one prefill chunk), outside the counted
-    and timed run (``rows``, a ``panel_rows`` count, included).  Decode
-    (or verify) ticks are the engine's forward replays; prefill chunks are
-    counted at ``lm.forward_prefill_chunk``, which stays eager.  Every
-    forward entry the run used must hold exactly one capture.
-    Returns the results."""
+    after, every non-final chunk, refreeze and assignment through a
+    captured entry under the sync-free guard (``sync_free``).  ``lead``
+    submits the first request alone and the rest once it has its first
+    token (so a shared prefix is frozen before the others arrive).  When
+    ``ready(eng)`` first holds, the logits of ``check_ticks`` ticks are
+    checked (each of ``checks``), the captured forward is held bit-equal to
+    the eager one at each panel width of ``graph_qn`` (and then a
+    full-width and a ragged prefill chunk and a refreeze too), and one tick
+    is profiled, through a captured graph and eagerly (with ``prefill``,
+    also one prefill chunk), outside the counted and timed run (``rows``, a
+    ``panel_rows`` count, included).  Decode (or verify) ticks and prefill
+    chunks are the engine's entry replays.  The engine captured every
+    entry when it was built, before the timed run, and captures nothing
+    more (``check_captures``).  Returns the results."""
     from repro_torch import kernels
-    from repro_torch.models import lm
-
-    ticks = {"prefill": 0}
-    fwd_chunk = lm.forward_prefill_chunk
-
-    def chunk(*a, **k):
-        ticks["prefill"] += 1
-        return fwd_chunk(*a, **k)
 
     check = profile = graph = None
     steps = {"decode": [], "prefill": []}
-    lm.forward_prefill_chunk = chunk
-    try:
+    gated = {"chunk": 0, "refreeze": 0, "assign": 0}
+
+    def replays(*names):
+        n = eng.replay_counts()
+        return sum(n.get(k, 0) for k in names)
+
+    with sync_free(torch, eng, gated):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        replays0 = sum(eng.replay_counts().values())
+        ticks0 = replays("decode", "verify")
+        chunks0 = replays("prefill_chunk")
         t0 = time.perf_counter()
         pending = list(zip(prompts, params_of))
         rids = [eng.submit(*pending.pop(0))] if lead else []
@@ -1612,12 +1876,16 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                     None if dt == "bf16" else torch.float32,
                     n_ticks=check_ticks, keep=keep)
                     for name, dt, keep, _ in checks}
-                for name, _, _, gated in checks:
-                    check[name]["gated"] = gated
+                for name, _, _, gated_ in checks:
+                    check[name]["gated"] = gated_
                 graph = [graph_against_eager(torch, eng, cfg, qn)
                          for qn in graph_qn]
+                if graph_qn:
+                    graph.append(chunk_graph_against_eager(torch, eng, cfg))
+                    graph.append(refreeze_graph_against_eager(torch, eng))
                 profile = graph_profile(torch, eng, cfg)
                 profile["eager"] = decode_profile(torch, eng, cfg)
+                profile["refreeze"] = refreeze_profile(torch, eng)
                 if prefill:
                     profile["prefill"] = prefill_profile(torch, eng, cfg)
                 kernels.set_launch_counts(saved)
@@ -1625,50 +1893,69 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                     rows.clear()
                     rows.update(saved_rows)
                 paused[0] += time.perf_counter() - c0
-            n_pre = ticks["prefill"]
+            n_pre = replays("prefill_chunk")
             s0 = time.perf_counter()
             eng.step()
-            steps["prefill" if ticks["prefill"] > n_pre else "decode"].append(
-                time.perf_counter() - s0)
+            steps["prefill" if replays("prefill_chunk") > n_pre
+                  else "decode"].append(time.perf_counter() - s0)
             if on_step is not None:
                 on_step(eng)
         eng.quiesce()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0 - paused[0]
         counts = kernels.launch_counts()
-    finally:
-        lm.forward_prefill_chunk = fwd_chunk
-    ticks["decode"] = sum(eng.replay_counts().values()) - replays0
+    ticks = {"decode": replays("decode", "verify") - ticks0,
+             "prefill": replays("prefill_chunk") - chunks0}
     captures = eng.trace_counts()
     check_captures(label, captures, eng)
     out = {r: eng.scheduler.finished[r].output() for r in rids}
+    entries = {"/".join(map(str, k)) if isinstance(k, tuple) else k:
+               {"capture_s": e.capture_s, "graph_mib": e.graph_bytes / 2 ** 20}
+               for k, e in eng._entries.items()}
     return {"rids": rids, "out": out, "seconds": dt, "counts": counts,
             "ticks": ticks, "steps": steps, "check": check,
             "profile": profile, "graph_check": graph, "captures": captures,
-            "overlap": eng.overlap}
+            "overlap": eng.overlap, "sync_free": gated, "entries": entries,
+            "refreezes": replays("refreeze")}
 
 
 def check_captures(label, captures, eng):
-    """One capture per forward entry: the entry the engine's ticks use
-    (``verify`` under speculation, else ``decode``) exactly once, the
-    other never."""
-    from repro_torch.serving import stable_trace_counts
+    """The captures the engine made when it was built, and no more: the
+    forward its ticks use (``verify`` under speculation, else ``decode``)
+    once, the other never; ``refreeze`` and (paged) ``assign`` once;
+    ``prefill_chunk`` once per width class."""
     used = "verify" if eng._spec is not None else "decode"
-    want = {k: int(k == used) for k in stable_trace_counts(captures)}
-    if stable_trace_counts(captures) != want:
-        fail(f"{label}: graph captures {captures}, expected {want}")
+    want = {"decode": int(used == "decode"),
+            "prefill_chunk": len(CHUNK_WIDTHS), "refreeze": 1}
+    if eng.pool.paged:
+        want["assign"] = 1
+    if eng._spec is not None:
+        want["verify"] = 1
+    if captures != want:
+        fail(f"{label}: graph captures {captures}; {want} expected (every "
+             "entry captured once when the engine was built)")
 
 
 def check_replays(label, run, kernel, layers):
     """The attention kernel's counter holds every launch of the run: one a
-    layer in the entry's warm-up, then one a layer in each graph replay
-    (the capture itself launches nothing).  Prefill chunks run another
+    layer in each replay of the decode (or verify) entry (its warm-up ran
+    when the engine was built, before the counters were zeroed, and the
+    capture itself launches nothing).  Prefill chunks run another
     attention, so the count pins the replay accounting exactly."""
-    want = layers * (sum(run["captures"].values()) + run["ticks"]["decode"])
+    want = layers * run["ticks"]["decode"]
     if run["counts"][kernel] != want:
         fail(f"{label}: {kernel} counted {run['counts'][kernel]} launches; "
-             f"{layers} a layer x (captures + {run['ticks']['decode']} "
-             f"replays) = {want} expected")
+             f"{layers} a layer x {run['ticks']['decode']} replays = {want} "
+             "expected")
+
+
+def check_sync_free(label, run, kinds):
+    """Each dispatch kind of ``kinds`` ran at least once under the
+    sync-free guard (none of them raised, or the run would have failed)."""
+    missing = [k for k in kinds if run["sync_free"][k] < 1]
+    if missing:
+        fail(f"{label}: no {missing} dispatch ran through a captured entry "
+             f"under the sync-free guard ({run['sync_free']})")
 
 
 def check_outputs(label, run, cfg, n_tokens):
@@ -1746,6 +2033,16 @@ EAGER_TICKS = {"serve": (39.4, 71.8, 1.338, 70.0, 169.9, 3045, 7.68, 0.91),
 EAGER_KEYS = ("tok_s", "tpot_p50_ms", "ttft_p50_s", "decode_step_ms",
              "prefill_step_ms", "launches_per_tick", "device_ms",
              "idle_share")
+# the last serial runs on the same traffic with eager prefill chunks
+# (PERF.md section 5, NVIDIA H100 80GB HBM3, 700.00 W): tok/s, TTFT p50
+# and max s, median prefill step ms; and their traced eager 256-token
+# chunk: wall ms, device busy ms, idle share, host launch calls
+EAGER_CHUNK_STREAM = {"serve": (218.8, 1.338, 2.992, 127.89),
+                      "spec": (209.0, 0.773, 2.227, 135.94),
+                      "paged int8": (192.7, 1.039, 1.991, 150.34),
+                      "paged int4": (74.2, 0.331, 0.417, 145.23)}
+EAGER_CHUNK = {"serve": (130.31, 34.03, 0.74, 7698),
+               "paged int8": (147.82, 39.79, 0.73, 9747)}
 
 
 def _tick_line(label, what, prof):
@@ -1776,7 +2073,8 @@ def report(label, run, total, n_req):
            "prefill_chunks": ticks["prefill"], "launches": run["counts"],
            "median_step_ms": step_ms, "decode_profile": profile,
            "logits_check": run["check"], "graph_check": run["graph_check"],
-           "captures": run["captures"], "overlap": run["overlap"]}
+           "captures": run["captures"], "overlap": run["overlap"],
+           "refreezes": run["refreezes"]}
     mode = "overlapped" if run["overlap"] else "serial"
     say(f"[{label}] stream ({mode} ticks, captured forwards): {n_req} "
         f"requests, {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s) on "
@@ -1787,9 +2085,18 @@ def report(label, run, total, n_req):
     say(f"{label}: kernel launches (replays included) {run['counts']}; "
         f"median step ms {step_ms}")
     for g in run["graph_check"] or ():
-        say(f"{label}: graph vs eager at Q={g['qn']}: logits and state "
-            f"bit-equal over {g['ticks']} ticks x {g['slots']} slots; the "
-            f"graph holds {g['held_launches']}")
+        if "lengths" in g:
+            say(f"{label}: prefill graph vs eager: logits and state "
+                f"bit-equal for chunks of {g['lengths']} tokens in width "
+                f"classes {g['widths']}")
+        elif "full_slot" in g:
+            say(f"{label}: refreeze graph vs eager: state bit-equal with "
+                f"slot {g['full_slot']} full and the others not (those "
+                f"unchanged)")
+        else:
+            say(f"{label}: graph vs eager at Q={g['qn']}: logits and state "
+                f"bit-equal over {g['ticks']} ticks x {g['slots']} slots; "
+                f"the graph holds {g['held_launches']}")
     now = {"tok_s": res["tok_s"], "tpot_p50_ms": res["tpot_p50_s"] * 1e3,
            "ttft_p50_s": res["ttft_p50_s"],
            "decode_step_ms": step_ms.get("decode"),
@@ -1808,9 +2115,11 @@ def report(label, run, total, n_req):
                 profile["host_launches"].values()),
                 device_ms=profile["device_ms"],
                 idle_share=profile["idle_share"])
+        pre = profile.get("prefill") or {}
         for what, prof in ((f"graph {tick}", profile),
                            (f"eager {tick}", profile["eager"]),
-                           ("prefill chunk", profile.get("prefill"))):
+                           ("graph prefill chunk", pre),
+                           ("eager prefill chunk", pre.get("eager"))):
             if prof and "named" in prof:
                 say(f"{label}: {what}: " + ", ".join(
                     f"{k} {v['ms_per_tick']:.3f} ms x{v['per_tick']}"
@@ -1820,16 +2129,65 @@ def report(label, run, total, n_req):
                     + ", ".join(f"{r['op'][:32]} {r['ms_per_tick']:.2f} ms "
                                 f"x{r['per_tick']}"
                                 for r in prof["host_top"][:6]))
-        pre = profile.get("prefill")
-        if pre is not None:
-            say(f"{label}: prefill chunk of {pre['tokens']} tokens wall "
-                f"{pre['wall_ms']:.2f} ms, " + (pre.get("device") or (
-                    f"device busy {pre['device_ms']:.2f} ms (idle share "
-                    f"{pre['idle_share']:.2f}); {pre['device_kernels']} "
-                    f"device kernels; host launch calls "
-                    f"{pre['host_launches']}; top: " + ", ".join(
-                        f"{r['kernel'][:40]} {r['ms_per_tick']:.2f} ms "
-                        f"x{r['per_tick']}" for r in pre["top"][:6]))))
+        if pre:
+            say(_tick_line(label, f"graph prefill chunk of {pre['tokens']} "
+                           "tokens", {**pre, "slots": 1})
+                + f"; one replay {pre['replay_event_ms']:.2f} ms (CUDA "
+                  f"events); capture {pre['capture_s']:.2f} s, graph pool "
+                  f"{pre['graph_mib']:.1f} MiB")
+            say(_tick_line(label, f"eager prefill chunk of {pre['tokens']} "
+                           "tokens", {**pre["eager"], "slots": 1}))
+            if label in EAGER_CHUNK:
+                was = EAGER_CHUNK[label]
+                g = pre if "device_ms" in pre else {}
+                say(f"{label}: the 256-token chunk, graph (eager in this "
+                    f"run; the last eager-chunk run): wall "
+                    f"{pre['wall_ms']:.2f} "
+                    f"({pre['eager']['wall_ms']:.2f}; {was[0]}) ms, device "
+                    f"busy {_num(g.get('device_ms'))} "
+                    f"({_num(pre['eager'].get('device_ms'))}; {was[1]}) ms, "
+                    f"idle share {_num(g.get('idle_share'))} "
+                    f"({_num(pre['eager'].get('idle_share'))}; {was[2]}), "
+                    f"host launch calls "
+                    f"{sum(pre.get('host_launches', {}).values())} "
+                    f"({sum(pre['eager'].get('host_launches', {}).values())};"
+                    f" {was[3]})")
+    entries = run["entries"]
+    res.update(entries=entries, sync_free=run["sync_free"],
+               capture_s=sum(v["capture_s"] for v in entries.values()),
+               graph_mib=sum(v["graph_mib"] for v in entries.values()))
+    say(f"{label}: captures when the engine was built, before the run "
+        f"(host s, graph pool MiB): " + ", ".join(
+            f"{k} {v['capture_s']:.2f} s {v['graph_mib']:.1f} MiB"
+            for k, v in entries.items())
+        + f"; {res['capture_s']:.2f} s and {res['graph_mib']:.1f} MiB in "
+          f"all; dispatches under the sync-free guard {run['sync_free']}")
+    ref = (profile or {}).get("refreeze")
+    if ref:
+        share = run["refreezes"] * ref["wall_ms"] / 1e3 / dt
+        res["refreeze_share"] = share
+        say(f"{label}: refreeze, one slot of {SLOTS} full: graph wall "
+            f"{ref['wall_ms']:.2f} ms, device busy "
+            f"{_num(ref.get('device_ms'))} ms (idle share "
+            f"{_num(ref.get('idle_share'))}), host launch calls "
+            f"{sum(ref.get('host_launches', {}).values())}, one replay "
+            f"{ref['replay_event_ms']:.2f} ms (CUDA events); eager: wall "
+            f"{ref['eager']['wall_ms']:.2f} ms, device busy "
+            f"{_num(ref['eager'].get('device_ms'))} ms, host launch calls "
+            f"{sum(ref['eager'].get('host_launches', {}).values())}; "
+            f"{run['refreezes']} refreezes in the run, at the graph's wall "
+            f"time {share:.3f} of it")
+    if label in EAGER_CHUNK_STREAM:
+        was = dict(zip(("tok_s", "ttft_p50_s", "ttft_max_s",
+                        "prefill_step_ms"), EAGER_CHUNK_STREAM[label]))
+        res["vs_eager_chunks"] = was
+        say(f"{label}: this run beside the last eager-chunk run "
+            f"(PERF.md): tok/s "
+            f"{res['tok_s']:.1f} ({was['tok_s']}); ttft p50 "
+            f"{res['ttft_p50_s']:.3f} ({was['ttft_p50_s']}) s, max "
+            f"{res['ttft_max_s']:.3f} ({was['ttft_max_s']}) s; median prefill "
+            f"step {_num(step_ms.get('prefill'))} "
+            f"({was['prefill_step_ms']}) ms")
     res["vs_eager_ticks"] = {"now": now}
     if label in EAGER_TICKS and not run["overlap"]:
         res["vs_eager_ticks"]["eager"] = dict(zip(EAGER_KEYS,
@@ -1876,6 +2234,45 @@ def overlap_run(torch, label, make_engine, prompts, params_of, serial,
     return res
 
 
+def unchunked_captures(torch, cfg, params, max_tokens=UNCHUNKED_TOKENS):
+    """An unchunked engine (the launcher's default) at ``max_tokens`` a
+    slot, its every entry captured by ``warmup``: the prefill chunk's width
+    classes (power-of-two block counts up to the slot's), each class's
+    capture time and graph pool, and their sums."""
+    from repro_torch.serving import ContinuousEngine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ContinuousEngine(params, cfg, slots=SLOTS, max_tokens=max_tokens,
+                           device="cuda")
+    eng.warmup()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    classes = {k[1]: {"capture_s": e.capture_s,
+                      "graph_mib": e.graph_bytes / 2 ** 20}
+               for k, e in eng._entries.items()
+               if isinstance(k, tuple)}
+    want = sorted({eng._width(n) for n in range(1, max_tokens + 1)})
+    if sorted(classes) != want or eng.trace_counts()["prefill_chunk"] != \
+            len(want):
+        fail(f"unchunked engine: width classes {sorted(classes)} captured, "
+             f"{want} expected")
+    res = {"max_tokens": max_tokens, "bs": eng.pool.bs, "classes": classes,
+           "seconds": total_s,
+           "chunk_graph_mib": sum(c["graph_mib"] for c in classes.values()),
+           "all_graph_mib": sum(e.graph_bytes for e in eng._entries.values())
+           / 2 ** 20}
+    say(f"unchunked engine at {max_tokens} tokens a slot (bs "
+        f"{eng.pool.bs}): {len(classes)} width classes, " + ", ".join(
+            f"{w} {c['capture_s']:.2f} s {c['graph_mib']:.1f} MiB"
+            for w, c in sorted(classes.items()))
+        + f"; chunk graphs {res['chunk_graph_mib']:.1f} MiB, every entry "
+          f"{res['all_graph_mib']:.1f} MiB; built and warmed up in "
+          f"{total_s:.2f} s")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_phase(torch, cfg):
     """The flat pool with bf16 sparse weights (the first slice's path)."""
     import numpy as np
@@ -1918,6 +2315,7 @@ def serve_phase(torch, cfg):
                     "sparse_matmul_int8", "sparse_matmul_int4",
                     "sparse_decode_attention_partial", "sparse_matmul_f32"))
     total = check_outputs("serve", run, cfg, NEW_TOKENS)
+    check_sync_free("serve", run, ("chunk", "refreeze"))
     gate_logits("serve", run["check"])
     res = report("serve", run, total, N_REQUESTS)
     res["prompt_lens"] = [int(x) for x in lens]
@@ -1925,6 +2323,7 @@ def serve_phase(torch, cfg):
         torch, "serve", lambda p: _engine(cfg, params, p, hi + NEW_TOKENS
                                           + cfg.kv_tail, overlap=True),
         reqs, params_of, run)
+    res["unchunked"] = unchunked_captures(torch, cfg, params)
     prof = run["profile"] or {}
     linears = len(_layer_linears(cfg)) * cfg.n_layers
     held = prof.get("graph_held_launches")
@@ -2022,6 +2421,8 @@ def paged_phase(torch, cfg, mode, n_req, new_tokens, kernel):
                     "sparse_decode_attention_fused",
                     "sparse_decode_attention_partial", "sparse_matmul_f32"))
     total = check_outputs(label, run, cfg, new_tokens)
+    if mode == "int8":
+        check_sync_free(label, run, ("chunk", "refreeze", "assign"))
     hit_blocks = sum(hits)
     say(f"{label}: prefix-cache hits on {sum(1 for h in hits if h)} of "
         f"{len(hits)} admissions ({hit_blocks} blocks of {eng.pool.bs} "
@@ -2155,10 +2556,10 @@ def record_margins(eng, margins):
     """Record the top-1 margin (top-1 minus top-2 over the largest |logit|)
     of every token a serial engine samples at ``Q == 1`` (decode ticks and
     final prefill chunks), keyed ``(request id, position)``.  The decode
-    logits are read where the engine's captured forward returns them."""
-    from repro_torch.models import lm
-    chunk = lm.forward_prefill_chunk
+    logits are read where the engine's captured forward returns them, a
+    final chunk's from its width class's static logits after the tick."""
     panel_logits = eng._panel_logits
+    prefill_tick = eng._prefill_tick
 
     def note(keys, logits):
         logits = logits.float()
@@ -2175,21 +2576,22 @@ def record_margins(eng, margins):
             note([key for _, key in live], logits[[s for s, _ in live], 0])
         return logits
 
-    def rec_chunk(params, state, tokens, slot, *a, **k):
-        logits, st = chunk(params, state, tokens, slot, *a, **k)
-        req = eng.scheduler.active.get(slot)
-        if req is not None and req.prefill_done >= len(req.prompt):
-            note([(req.rid, 0)], logits)
-        return logits, st
+    def rec_prefill(events):
+        sch = eng.scheduler
+        req = sch.next_prefill()
+        left = 0 if req is None else len(req.prompt) - req.prefill_done
+        prefill_tick(events)
+        if req is not None and (sch.chunk is None or left <= sch.chunk):
+            w = eng._width(left)
+            note([(req.rid, 0)], eng._entries[("prefill_chunk", w)].out)
 
     if eng.overlap:
         fail("record_margins reads a serial engine's ticks")
-    eng._panel_logits = rec_panel
+    eng._panel_logits, eng._prefill_tick = rec_panel, rec_prefill
     try:
-        with patched(lm, "forward_prefill_chunk", rec_chunk):
-            yield margins
+        yield margins
     finally:
-        del eng._panel_logits
+        del eng._panel_logits, eng._prefill_tick
 
 
 def gate_identity(label, got, want, want_rids, margins):
@@ -2221,7 +2623,7 @@ def panel_rows():
     """Count the attention kernels' launches that a CUDA graph captures, by
     query rows (``Q * G``), for the verify-panel check: each replay of the
     graph runs exactly these launches (the kernels' own counters are
-    unchanged).  Applied before the engine's first capture."""
+    unchanged).  Applied while the engine is built (and captures)."""
     import torch
     from repro_torch.kernels import ops
     rows = {}
@@ -2373,17 +2775,18 @@ def two_pass_phase(torch, cfg32, params32, timer):
     check_captures("two-pass: fused f32", eng.trace_counts(), eng)
     fused = [eng.scheduler.finished[r].generated for r in rids]
 
-    eng2 = _engine(cfg32, params32, [0.0], max_tokens)
-    refreezes = [0]
-    refreeze = eng2._refreeze_tick
-
-    def counting_refreeze(*a):
-        refreezes[0] += int((eng2._tail_len >= eng2.pool.tail).sum())
-        refreeze(*a)
-    eng2._refreeze_tick = counting_refreeze
-    # the two-pass dispatch is patched in before eng2's first capture, so
-    # its captured decode forward holds the partial kernel and the merge
+    # the two-pass dispatch is patched in before eng2 is built (and captures
+    # its entries), so its captured decode forward holds the partial kernel
+    # and the merge
     with two_pass_dispatch():
+        eng2 = _engine(cfg32, params32, [0.0], max_tokens)
+        refreezes = [0]
+        refreeze = eng2._refreeze_tick
+
+        def counting_refreeze(*a):
+            refreezes[0] += int((eng2._tail_len >= eng2.pool.tail).sum())
+            refreeze(*a)
+        eng2._refreeze_tick = counting_refreeze
         torch.cuda.synchronize()
         reset_launch_counts()
         rids2 = [eng2.submit(p, sp) for p in prompts]
@@ -2489,13 +2892,15 @@ def spec_phase(torch, cfg, params):
                        label="spec off")
     total_off = check_outputs("spec off", off, cfg, SPEC_TOKENS)
     paused = [0.0]
-    eng = _engine(cfg, params, paused, max_tokens, spec_k=SPEC_K)
     g = cfg.padded_heads // cfg.n_kv
 
     def ready(e):
         return len(e.scheduler.decoding_slots()) == SLOTS
 
-    with panel_rows() as rows, verify_tick_parts(eng) as parts:
+    # the engine captures its verify forward when it is built
+    with panel_rows() as rows:
+        eng = _engine(cfg, params, paused, max_tokens, spec_k=SPEC_K)
+    with verify_tick_parts(eng) as parts:
         run = serve_stream(torch, eng, cfg, prompts, params_of, paused,
                            ready, checks=FLAT_CHECKS,
                            check_ticks=SPEC_LOGIT_TICKS, rows=rows,
@@ -2571,8 +2976,8 @@ def spec_identity_f32(torch, cfg32, params32):
     g = cfg32.padded_heads // cfg32.n_kv
     out = {}
     for k in SPEC_F32_K:
-        eng = _engine(cfg32, params32, [0.0], max_tokens, spec_k=k)
         with panel_rows() as rows:
+            eng = _engine(cfg32, params32, [0.0], max_tokens, spec_k=k)
             rids = [eng.submit(p, sp) for p in prompts]
             eng.run()
         name = "sparse_decode_attention_fused"
@@ -2607,8 +3012,9 @@ def spec_paged_phase(torch, cfg, params, prompts):
     with record_margins(eng0, margins):
         off = serve_stream(torch, eng0, cfg, prompts, params_of, [0.0],
                            lead=True, label="paged spec off")
-    eng = _engine(cfg, params, [0.0], max_tokens, paged=True,
-                  spec_k=PAGED_SPEC_K)
+    with panel_rows() as rows:
+        eng = _engine(cfg, params, [0.0], max_tokens, paged=True,
+                      spec_k=PAGED_SPEC_K)
     hits = []
     admit = eng._admit_paged
 
@@ -2618,9 +3024,8 @@ def spec_paged_phase(torch, cfg, params, prompts):
             hits.append(req.prefill_done // eng.pool.bs)
         return req
     eng._admit_paged = admit_counting
-    with panel_rows() as rows:
-        run = serve_stream(torch, eng, cfg, prompts, params_of, [0.0],
-                           lead=True, label="paged spec")
+    run = serve_stream(torch, eng, cfg, prompts, params_of, [0.0],
+                       lead=True, label="paged spec")
     g = cfg.padded_heads // cfg.n_kv
     _verify_rows("paged spec", rows, "sparse_decode_attention_fused_paged",
                  (PAGED_SPEC_K + 1) * g, run["captures"]["verify"],

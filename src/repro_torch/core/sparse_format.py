@@ -177,7 +177,7 @@ def _cap_mask(wb: torch.Tensor, mb: torch.Tensor, cap: int) -> torch.Tensor:
     """Drop the smallest-|.| overflow entries of any block whose nnz exceeds
     ``cap`` — from the mask, so bitmap and packed values never disagree."""
     score = torch.where(mb, wb.abs().to(torch.float32),
-                        torch.tensor(float("-inf"), device=wb.device))
+                        torch.full((), float("-inf"), device=wb.device))
     idx = _topk_stable(score, cap)
     sel = torch.zeros_like(mb)
     sel.scatter_(-1, idx, True)

@@ -15,7 +15,7 @@
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``) incremented only where it launches its kernel.  A
 CUDA graph that holds launches adds them to the same counters on every
-replay (``serving/engine.py::PanelGraph``), so :func:`launch_counts` reads
+replay (``serving/engine.py::CapturedEntry``), so :func:`launch_counts` reads
 eager launches and replayed ones alike.
 """
 from __future__ import annotations

@@ -7,11 +7,13 @@ arena), ``--spec-k K`` draft-verify speculation with an n-gram drafter
 
 Stream mode runs overlapped ticks by default, as the reference does: tick
 t+1 is enqueued before tick t's tokens reach the host, and each tick's
-decode (or verify) forward is one replay of a captured CUDA graph.
+decode (or verify) forward, each prefill chunk, each refreeze and each
+prefix-hit assignment is one replay of a captured CUDA graph.
 ``--no-overlap`` restores the serial loop, the token-identity oracle
 (greedy and seeded output are identical either way).  The run prints the
-captures per forward entry (``graph captures``, one each) and the kernel
-launches, replays included.
+captures per entry (``decode``, ``prefill_chunk`` per chunk width class,
+``refreeze``, ``assign`` on the paged pool, ``verify`` under speculation),
+the replays per entry and the kernel launches, replays included.
 
 Initialises the model from a seed on the device, prunes and packs every
 linear weight there, and drives a stream of requests with mixed prompt and
@@ -147,8 +149,9 @@ def main(argv=None) -> int:
     print(f"[serve] stream: {n_req} requests, {total} tokens in {dt:.2f}s "
           f"({total/dt:.1f} tok/s) on {args.slots} slots, "
           f"{'serial' if args.no_overlap else 'overlapped'} ticks")
-    print(f"[serve] graph captures: {eng.trace_counts()} (stable: "
-          f"{stable_trace_counts(eng.trace_counts())}); forward replays "
+    print(f"[serve] graph captures per entry: {eng.trace_counts()} "
+          f"(stable: {stable_trace_counts(eng.trace_counts())}; "
+          f"prefill_chunk: one per chunk width class); entry replays "
           f"{eng.replay_counts()}")
     ttfts = [o.metrics.ttft for o in out.values()
              if o.metrics.ttft is not None]

@@ -95,18 +95,22 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
 def pooled_attn_prefill_chunk(p, x: torch.Tensor,
                               kv: Dict[str, torch.Tensor], cfg,
                               positions: torch.Tensor, ctx_len: torch.Tensor,
-                              bs: int, table_row: Optional[torch.Tensor] = None
+                              bs: int, slot: torch.Tensor,
+                              table_row: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Chunked-prefill attention for ONE slot: causal within the chunk plus
     full attention over the slot's valid frozen prefix (decompressed here;
-    the chunk path is off the per-token loop).  ``x [1, C, d]``; ``kv`` the
-    slot's compressed leaves ``[1, Hkv, Sb, X]``, or with ``table_row``
-    (int32 ``[Sb]``, paged pool only) the shared arena ``[n_phys, Hkv, X]``,
-    from which the slot's prefix is gathered through its table row (a
-    prefix-cache hit means these are blocks another request froze).
-    Returns ``(out [1, C, d], k_chunk, v_chunk [1, Hkv, C, hd])`` post-RoPE
-    for the caller to freeze."""
+    the chunk path is off the per-token loop).  ``x [1, C, d]``; ``kv`` one
+    layer's compressed leaves ``[B, Hkv, Sb, X]``, of which ``slot`` (int64
+    ``[1]`` on the device, so one capture serves every slot) picks the
+    slot's with ``index_select``, or with ``table_row`` (int32 ``[Sb]``,
+    paged pool only) the shared arena ``[n_phys, Hkv, X]``, from which the
+    slot's prefix is gathered through its table row (a prefix-cache hit
+    means these are blocks another request froze).  Causal masking keeps
+    any padding rows behind the valid ones unseen by them.  Returns ``(out
+    [1, C, d], k_chunk, v_chunk [1, Hkv, C, hd])`` post-RoPE for the caller
+    to freeze."""
     b, c, _ = x.shape
     hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
     g = hq // hkv
@@ -117,22 +121,25 @@ def pooled_attn_prefill_chunk(p, x: torch.Tensor,
     k = apply_rope(k, cos[None], sin[None]).transpose(1, 2)  # [1,Hkv,C,hd]
     v = v.transpose(1, 2)
 
+    keys = ("k_bitmap", "k_values", "v_bitmap", "v_values")
     if table_row is not None:
         # entries are in range by construction; clamped as the reference's
         # explicit clip-mode gather
         idx = table_row.long().clamp(0, kv["k_bitmap"].shape[0] - 1)
-        comp = {k: kv[k][idx].transpose(0, 1)[None]
-                for k in ("k_bitmap", "k_values", "v_bitmap", "v_values")}
+        comp = {k: kv[k][idx].transpose(0, 1)[None] for k in keys}
     else:
-        comp = kv
+        comp = {k: kv[k].index_select(0, slot) for k in keys}
     k_ctx = unpack(pooled_view(comp["k_bitmap"], comp["k_values"], bs, hd))
     v_ctx = unpack(pooled_view(comp["v_bitmap"], comp["v_values"], bs, hd))
     s_ctx = k_ctx.shape[2]
     dev = x.device
     kv_valid = torch.cat([torch.arange(s_ctx, device=dev) < ctx_len,
                           torch.ones(c, dtype=torch.bool, device=dev)])[None]
-    kk = torch.cat([k_ctx.to(k.dtype), k], dim=2).repeat_interleave(g, dim=1)
-    vv = torch.cat([v_ctx.to(v.dtype), v], dim=2).repeat_interleave(g, dim=1)
+    def per_query_head(a):              # [1, Hkv, S, hd] -> [1, Hq, S, hd]
+        return a[:, :, None].expand(b, hkv, g, *a.shape[2:]).reshape(
+            b, hq, *a.shape[2:])
+    kk = per_query_head(torch.cat([k_ctx.to(k.dtype), k], dim=2))
+    vv = per_query_head(torch.cat([v_ctx.to(v.dtype), v], dim=2))
     o = full_attention(q, kk, vv, 1.0 / hd ** 0.5, causal=True,
                        kv_valid=kv_valid)
     o = o.transpose(1, 2).reshape(b, c, hq * hd)

@@ -17,7 +17,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.sparse_format import BlockSparseWeight
-from repro_torch.core.sparse_kv import freeze_chunk_blocks
+from repro_torch.core.sparse_kv import (device_ids, distinct_ids,
+                                         freeze_chunk_blocks, put_rows_)
 from . import module as mod
 from .attention import attn_specs, pooled_attn_panel, \
     pooled_attn_prefill_chunk
@@ -142,81 +143,113 @@ ARENA_KEYS = ("k_bitmap", "k_values", "v_bitmap", "v_values")
 
 
 def forward_prefill_chunk(params, state: Dict[str, Any],
-                          tokens: torch.Tensor, slot: int, cfg, bs: int,
-                          new_ids: Optional[List[int]] = None
+                          tokens: torch.Tensor, slot, cfg, bs: int,
+                          new_ids=None, length=None, write=None
                           ) -> Tuple[torch.Tensor, Dict]:
-    """Prefill one prompt chunk ``tokens [1, C]`` for pool slot ``slot``.
+    """Prefill one prompt chunk ``tokens [1, W]`` for pool slot ``slot``.
 
     The chunk attends to the slot's frozen prefix; then, layer by layer,
     its full ``bs``-token blocks are pruned and packed into the slot's next
     prefix blocks and a trailing remainder (< bs tokens, last chunk only)
-    lands at the head of the tail ring.  Returns ``(last-token logits
-    [1, V] f32, state)``.
+    lands at the head of the tail ring.  Returns ``(logits [1, V] f32 of
+    the chunk's last valid token, state)``.
+
+    Every operand may be a device tensor, so one capture serves every slot
+    and every length of a width class: ``slot`` (int64 ``[1]`` or an int);
+    ``length`` (int64 ``[1]``, ``L <= W``; default ``W``), the valid
+    tokens at the head of ``tokens``, the rest padding; ``write`` (bool
+    ``[1]``; default true), which when false leaves the state untouched.
+    ``nb = L // bs`` blocks freeze and ``rem = L % bs`` rows reach the
+    tail, both computed on the device: blocks at index >= nb and tail rows
+    at index >= rem write nothing.  The chunk is causal, so a padded row
+    is never seen by a valid one, and the logits row is gathered before
+    the unembedding (which runs at one row).
 
     Paged pool (``state`` carries a block table): the slot attends to its
-    prefix through its table row, and the chunk's ``C // bs`` new blocks
-    are frozen into the fresh arena pages ``new_ids`` (host-allocated),
-    appended to the table row with refcount 1 — never into shared storage,
-    which is the copy-on-write guarantee."""
-    c = tokens.shape[1]
-    nb_new, rem = divmod(c, bs)
+    prefix through its table row, and the chunk's blocks are frozen into
+    the fresh arena pages ``new_ids`` (int64 ``[W // bs]``, host-allocated;
+    entries past ``nb`` are ignored), appended to the table row with
+    refcount 1 — never into shared storage, which is the copy-on-write
+    guarantee."""
+    w = tokens.shape[1]
+    nbw = w // bs                       # blocks a chunk of this width holds
     kinds = _attn_kinds(cfg)
     paged = "table" in state
-    x = embed_apply(params["embed"], tokens, cfg)            # [1, C, d]
     dev = tokens.device
-    start = state["pos"][slot].clone()
-    pb0 = state["prefix_blocks"][slot].clone()
-    positions = start + torch.arange(c, dtype=start.dtype, device=dev)
+    slot = device_ids(slot, (1,), dev)
+    ln = device_ids(w if length is None else length, (1,), dev)
+    wr = (torch.ones(1, dtype=torch.bool, device=dev) if write is None
+          else write.to(dev, torch.bool).reshape(1))
+    x = embed_apply(params["embed"], tokens, cfg)            # [1, W, d]
+    start = state["pos"].index_select(0, slot).long()
+    pb0 = state["prefix_blocks"].index_select(0, slot).long()
+    positions = start + torch.arange(w, device=dev)
     ctx_len = pb0 * bs
-    new_blocks = pb0 + torch.arange(nb_new, dtype=torch.long, device=dev)
-    table_row = None
+    nb = torch.div(ln, bs, rounding_mode="floor")
+    rem = ln - nb * bs
+    j = torch.arange(nbw, device=dev)
+    live_blk = (j < nb) & wr                                 # [W // bs]
+    r = torch.arange(bs, device=dev)
+    live_row = (r < rem) & wr                                # [bs]
+    src_row = (nb * bs + r).clamp(max=w - 1)
+    slot_row = slot.expand(bs)
+    kv0 = state["layers"]["l0"]["kv"]
     if paged:
-        if nb_new and (new_ids is None or len(new_ids) != nb_new):
+        sb = state["table"].shape[1]
+        table_row = state["table"].index_select(0, slot)[0]
+        n_phys = kv0["k_bitmap"].shape[1]
+        if (new_ids is None and nbw) or (length is None and new_ids is not None
+                                         and len(new_ids) != nbw):
             raise ValueError("paged prefill needs one fresh arena id per "
                              "full block of the chunk")
-        table_row = state["table"][slot]
-        ids = torch.as_tensor(list(new_ids or []), dtype=torch.long,
-                              device=dev)
+        ids = device_ids([] if new_ids is None else new_ids, (nbw,), dev)
+        dest = distinct_ids(ids, live_blk, n_phys)
+    else:
+        sb = kv0["k_bitmap"].shape[3]
+        table_row = None
+    if nbw > sb:
+        raise ValueError(f"a chunk of {w} tokens exceeds the slot's {sb} "
+                         "blocks")
+    blk = (pb0 + j) % sb           # pairwise distinct: nbw <= sb
+    slot_blk = slot.expand(nbw)
     n_periods = cfg.n_layers // len(kinds)
     for i in range(n_periods):
         pp = _layer(params["blocks"], i)
-        for j in range(len(kinds)):
-            pj = pp[f"l{j}"]
-            kvl = state["layers"][f"l{j}"]["kv"]
-            slot_kv = {k: (a[i] if paged and k in ARENA_KEYS
-                           else a[i, slot:slot + 1]) for k, a in kvl.items()}
+        for jj in range(len(kinds)):
+            pj = pp[f"l{jj}"]
+            kvl = state["layers"][f"l{jj}"]["kv"]
             h, k_c, v_c = pooled_attn_prefill_chunk(
-                pj["mixer"], rms_norm(x, pj["ln1"]), slot_kv, cfg, positions,
-                ctx_len, bs, table_row=table_row)
+                pj["mixer"], rms_norm(x, pj["ln1"]),
+                {k: kvl[k][i] for k in ARENA_KEYS}, cfg, positions, ctx_len,
+                bs, slot, table_row=table_row)
             x = x + h
             x = x + mlp_apply(pj["ffn"], rms_norm(x, pj["ln2"]))
             # this layer's attention has read the slot's prefix: freeze the
             # chunk into it now (layers never read each other's storage)
-            if nb_new:
+            if nbw:
                 frozen = freeze_chunk_blocks(
-                    k_c[:, :, :nb_new * bs], v_c[:, :, :nb_new * bs],
+                    k_c[:, :, :nbw * bs], v_c[:, :, :nbw * bs],
                     cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs,
                     kvl["k_values"].shape[-1], kvl["v_values"].shape[-1])
                 for key, upd in zip(ARENA_KEYS, frozen):
-                    if paged:
-                        dst = kvl[key][i]                # [n_phys, Hkv, X]
-                        dst.index_copy_(0, ids, upd[0].transpose(0, 1)
-                                        .to(dst.dtype))
-                    else:
-                        dst = kvl[key][i, slot]          # [Hkv, Sb, X]
-                        dst.index_copy_(1, new_blocks, upd[0].to(dst.dtype))
-            if rem:
-                for key, src in (("k_tail", k_c), ("v_tail", v_c)):
-                    dst = kvl[key][i, slot]                  # [Hkv, T, hd]
-                    dst[:, :rem] = src[0, :, nb_new * bs:].to(dst.dtype)
-    hidden = rms_norm(x, params["final_norm"])
-    logits = logits_fn(params, hidden[:, -1:], cfg)[:, 0]
-    state["pos"][slot] = start + c
-    state["prefix_blocks"][slot] = pb0 + nb_new
-    state["tail_len"][slot] = rem
-    if paged and nb_new:
-        state["table"][slot].index_copy_(0, new_blocks,
-                                         ids.to(state["table"].dtype))
-        state["refcount"].index_add_(
-            0, ids, torch.ones_like(ids, dtype=state["refcount"].dtype))
+                    rows = upd[0].transpose(0, 1)        # [W//bs, Hkv, X]
+                    if paged:                            # [n_phys, Hkv, X]
+                        put_rows_(kvl[key][i], (dest,), rows, live_blk)
+                    else:                                # [B, Sb, Hkv, X]
+                        put_rows_(kvl[key][i].transpose(1, 2),
+                                  (slot_blk, blk), rows, live_blk)
+            for key, src in (("k_tail", k_c), ("v_tail", v_c)):
+                rows = src[0].index_select(1, src_row).transpose(0, 1)
+                put_rows_(kvl[key][i].transpose(1, 2), (slot_row, r), rows,
+                          live_row)                      # [B, T, Hkv, hd]
+    last = x.index_select(1, (ln - 1).clamp(min=0))
+    logits = logits_fn(params, rms_norm(last, params["final_norm"]), cfg)[:, 0]
+    put_rows_(state["pos"], (slot,), start + ln, wr)
+    put_rows_(state["prefix_blocks"], (slot,), pb0 + nb, wr)
+    put_rows_(state["tail_len"], (slot,), rem, wr)
+    if paged and nbw:
+        put_rows_(state["table"], (slot_blk, blk), ids.clamp(0, n_phys - 1),
+                  live_blk)
+        state["refcount"].index_add_(0, ids.clamp(0, n_phys - 1),
+                                     live_blk.to(state["refcount"].dtype))
     return logits, state

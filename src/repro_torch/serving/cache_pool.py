@@ -33,7 +33,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.sparse_format import LANE, _ceil_to
-from repro_torch.core.sparse_kv import append_tail_panel, freeze_chunk_blocks
+from repro_torch.core.sparse_kv import (append_tail_panel, device_ids,
+                                         distinct_ids, freeze_chunk_blocks,
+                                         put_rows_)
 from repro_torch.models import lm
 from repro_torch.models.lm import ARENA_KEYS
 
@@ -133,86 +135,94 @@ class CachePool:
             state["refcount"] = z((self.n_phys,), torch.int32)
         return state
 
-    def refreeze(self, state: Dict[str, Any],
-                 new_ids=None) -> Dict[str, Any]:
+    def refreeze(self, state: Dict[str, Any], new_ids=None,
+                 write=None) -> Dict[str, Any]:
         """Fold every full tail into its slot's next free prefix blocks.
 
-        Only full slots are compressed (the reference compresses every slot
-        and keeps the full ones; the thresholds are per (slot, block), so
-        the kept result is the same).  Slots whose tail is not full are
-        untouched.  The caller guarantees no full slot overflows
+        At static shapes, without a host read: ``full = tail_len >= tail``
+        is computed on the device, every slot's tail is compressed, each
+        slot's ``tail // bs`` blocks are written at its own
+        ``prefix_blocks`` offset and only the full slots' are kept (the
+        others are written back as they were, so those slots come back
+        bit-identical).  ``write`` (bool ``[1]``, default true) false folds
+        nothing.  The caller guarantees no full slot overflows
         ``max_blocks`` (scheduler admission).
 
-        Paged pool: ``new_ids`` ``[slots, tail // bs]`` carries a fresh
-        physical id per (full slot, tail block) from the host allocator;
-        rows of slots that are not full are ignored.  The blocks land at
-        those ids in the arena and in each full slot's table row, and the
-        ids' refcounts go to 1."""
-        cfg = self.cfg
-        t, tb = self.tail, self.tail // self.bs
+        Paged pool: ``new_ids`` ``[slots, tail // bs]`` (int64 on the
+        device, or host values) carries a fresh physical id per (full
+        slot, tail block) from the host allocator; rows of slots that are
+        not full are ignored.  The blocks land at those ids in the arena and
+        in each full slot's table row, and the ids' refcounts go to 1."""
+        cfg, dev = self.cfg, self.device
+        t, tb, b = self.tail, self.tail // self.bs, self.slots
         if self.paged and new_ids is None:
             raise ValueError("paged refreeze needs fresh ids")
-        full = (state["tail_len"] >= t).nonzero().flatten()
-        if full.numel() == 0:
-            return state
-        offsets = state["prefix_blocks"][full].tolist()
-        slots = full.tolist()
+        if tb > self.max_blocks:
+            raise ValueError(f"a {t}-token tail folds into {tb} blocks; the "
+                             f"slots hold {self.max_blocks}")
+        full = state["tail_len"] >= t
+        if write is not None:
+            full = full & write.to(dev, torch.bool)
+        live = full[:, None].expand(b, tb).reshape(-1)      # [B * tb]
+        pb = state["prefix_blocks"].long()
+        blk = ((pb[:, None] + torch.arange(tb, device=dev))
+               % self.max_blocks).reshape(-1)               # distinct a slot
+        slot_blk = torch.arange(b, device=dev)[:, None].expand(
+            b, tb).reshape(-1)
         if self.paged:
-            ids = torch.as_tensor(np.asarray(new_ids), dtype=torch.long,
-                                  device=self.device)[full]     # [F, tb]
-            flat_ids = ids.reshape(-1)
+            ids = device_ids(new_ids, (b, tb), dev).reshape(-1)
+            dest = distinct_ids(ids, live, self.n_phys)
         for leaf in state["layers"].values():
             kv = leaf["kv"]
             p_, _, hkv, _, hd = kv["k_tail"].shape
-            f = len(slots)
-            flat = lambda a: a[:, full].reshape(p_ * f, hkv, t, hd)
+            flat = lambda a: a.reshape(p_ * b, hkv, t, hd)
             frozen = freeze_chunk_blocks(
                 flat(kv["k_tail"]), flat(kv["v_tail"]),
                 cfg.kv_k_sparsity, cfg.kv_v_sparsity, self.bs,
                 self.cap_k, self.cap_v)
             for key, upd in zip(ARENA_KEYS, frozen):
-                upd = upd.reshape(p_, f, hkv, tb, -1)
-                if self.paged:
-                    # [P, F, Hkv, tb, X] -> [P, F*tb, Hkv, X] rows at the
-                    # fresh ids of the arena's physical-block axis
-                    rows = upd.permute(0, 1, 3, 2, 4).reshape(
-                        p_, f * tb, hkv, -1)
-                    kv[key].index_copy_(1, flat_ids, rows.to(kv[key].dtype))
-                    continue
-                for n, (s, off) in enumerate(zip(slots, offsets)):
-                    kv[key][:, s, :, off:off + tb] = upd[:, n].to(
-                        kv[key].dtype)
+                # [P*B, Hkv, tb, X] -> rows [P, B*tb, Hkv, X]
+                rows = upd.reshape(p_, b, hkv, tb, -1).permute(
+                    0, 1, 3, 2, 4).reshape(p_, b * tb, hkv, -1)
+                if self.paged:                      # [P, n_phys, Hkv, X]
+                    put_rows_(kv[key], (slice(None), dest), rows, live)
+                else:                               # [P, B, Sb, Hkv, X]
+                    put_rows_(kv[key].transpose(2, 3),
+                              (slice(None), slot_blk, blk), rows, live)
         if self.paged:
-            for n, (s, off) in enumerate(zip(slots, offsets)):
-                state["table"][s, off:off + tb] = ids[n].to(torch.int32)
-            state["refcount"].index_add_(
-                0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int32))
-        state["prefix_blocks"][full] += tb
-        state["tail_len"][full] = 0
+            ids = ids.clamp(0, self.n_phys - 1)
+            put_rows_(state["table"], (slot_blk, blk), ids, live)
+            state["refcount"].index_add_(0, ids, live.to(torch.int32))
+        state["prefix_blocks"] += full.to(torch.int32) * tb
+        state["tail_len"].masked_fill_(full, 0)
         return state
 
-    def assign_blocks(self, state: Dict[str, Any], slot: int, ids,
-                      n: int) -> Dict[str, Any]:
+    def assign_blocks(self, state: Dict[str, Any], slot, ids, n,
+                      write=None) -> Dict[str, Any]:
         """Point a freshly admitted slot's table row at ``n`` existing
         physical blocks (a prefix-cache hit): entries ``[0, n)`` become
         ``ids[:n]`` (the rest 0), the blocks' refcounts increment and the
         slot's lengths jump to the shared prefix (``n`` blocks, empty
         tail) — the prefill those blocks would have needed is skipped.
-        Paged pools only."""
+        ``slot`` and ``n`` (int64 ``[1]``) and ``ids`` (int64
+        ``[max_blocks]``, entries past ``n`` ignored) may be device tensors
+        or host values; ``write`` (bool ``[1]``, default true) false changes
+        nothing.  Paged pools only."""
         if not self.paged:
             raise ValueError("assign_blocks is a paged-pool transition")
-        n = int(n)
-        hit = torch.as_tensor(np.asarray(ids, np.int64)[:n],
-                              device=self.device)
-        row = torch.zeros(self.max_blocks, dtype=torch.int32,
-                          device=self.device)
-        row[:n] = hit.to(torch.int32)
-        state["table"][slot] = row
-        state["refcount"].index_add_(
-            0, hit, torch.ones_like(hit, dtype=torch.int32))
-        state["pos"][slot] = n * self.bs
-        state["prefix_blocks"][slot] = n
-        state["tail_len"][slot] = 0
+        dev, sb = self.device, self.max_blocks
+        slot = device_ids(slot, (1,), dev)
+        n = device_ids(n, (1,), dev)
+        wr = (torch.ones(1, dtype=torch.bool, device=dev) if write is None
+              else write.to(dev, torch.bool).reshape(1))
+        ids = device_ids(ids, (sb,), dev).clamp(0, self.n_phys - 1)
+        live = (torch.arange(sb, device=dev) < n) & wr
+        put_rows_(state["table"], (slot,),
+                  torch.where(live, ids, 0)[None], wr)
+        state["refcount"].index_add_(0, ids, live.to(torch.int32))
+        put_rows_(state["pos"], (slot,), n * self.bs, wr)
+        put_rows_(state["prefix_blocks"], (slot,), n, wr)
+        put_rows_(state["tail_len"], (slot,), torch.zeros_like(n), wr)
         return state
 
     def append_many(self, state: Dict[str, Any], panels: Dict[str, Any],

@@ -20,18 +20,27 @@ Host <-> device traffic per tick is one token vector and one chosen-token
 logprob vector; slot lengths are mirrored on the host.  Arguments that
 belong to later slices of the port raise ``NotImplementedError``.
 
-**Captured forwards** (the twin of the reference's ``jax.jit`` entries,
-``engine.py:401-424``).  The decode forward (``[slots, 1]``) and the verify
-forward (``[slots, k+1]``) each run through one :class:`PanelGraph` per
-engine: static token and slot-mask inputs, one static logits output, and
-on CUDA a ``torch.cuda.CUDAGraph`` captured once and replayed every tick,
-so a tick costs one graph launch instead of thousands of kernel launches.
-The graph reads the pool's state tensors in place, and every pool
-transition updates those same storages, so refreeze, admission, rollback
-and release never need a new capture; :meth:`ContinuousEngine.trace_counts`
-holds it at one capture per entry.  The sampler, the verify's accept and
-rollback, refreeze and the prefill chunk stay eager.  ``graphs=False``
-runs the same forwards eagerly (the twin of ``jax.disable_jit()``).
+**Captured entries** (the twin of the reference's ``jax.jit`` entries,
+``engine.py:401-468``).  The decode forward (``[slots, 1]``), the verify
+forward (``[slots, k+1]``), the prefill chunk (one entry per chunk width
+class: the chunk length rounded up to whole blocks, padding behind the
+valid tokens), the refreeze and, paged, the prefix-hit assignment each run
+through one :class:`CapturedEntry` per engine: static inputs (tokens, the
+slot, the valid length, fresh page ids, a slot mask or a write flag, all
+device operands written from pinned host memory without waiting), one
+static output, and on CUDA a ``torch.cuda.CUDAGraph`` captured once and
+replayed, so a tick or a chunk costs one graph launch instead of thousands
+of kernel launches.  A chunked engine captures every entry when it is
+built (:meth:`ContinuousEngine.warmup`), so no capture stalls a request;
+an unchunked one, whose chunk width classes are power-of-two block counts
+up to a slot's capacity, captures each at its first use.  The graphs read the pool's state tensors in place,
+and every transition updates those same storages, so no state change
+needs a new capture; :meth:`ContinuousEngine.trace_counts` holds it at one
+capture per entry (per width class for the chunk).  Nothing but the final
+chunk's first token waits for the device on a prefill, a refreeze or an
+admission.  The sampler, the verify's accept and rollback and the release
+stay eager.  ``graphs=False`` runs the same entries eagerly (the twin of
+``jax.disable_jit()``).
 
 **Overlapped ticks** (``overlap=True``, the twin of the reference's
 ``_overlap_decode_tick`` / ``_sync_inflight``).  Tick t+1's decode is
@@ -62,6 +71,7 @@ prompt's already-frozen prefix at the shared blocks, skipping its prefill.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -86,9 +96,15 @@ def params_to(tree: Any, device: torch.device) -> Any:
 def stable_trace_counts(counts: Dict[str, int],
                         ignore: tuple = ("prefill_chunk",)) -> Dict[str, int]:
     """The entries of :meth:`ContinuousEngine.trace_counts` that must stay
-    flat after warm-up (twin of the reference's ``stable_trace_counts``;
-    the port captures no prefill chunk, so the filter only mirrors it)."""
+    flat after warm-up (twin of the reference's ``stable_trace_counts``):
+    ``prefill_chunk`` legitimately takes one capture per chunk width class
+    it meets, so it is left out."""
     return {k: v for k, v in counts.items() if k not in ignore}
+
+
+def _entry_name(key) -> str:
+    """An entry's name from its key (``(name, width)`` for prefill)."""
+    return key if isinstance(key, str) else key[0]
 
 
 def _leaves(tree: Any) -> List[torch.Tensor]:
@@ -108,73 +124,91 @@ def _counted(fn: Callable[[], Any]):
                  if n != before[k]}
 
 
-class PanelGraph:
-    """One panel forward over the pool at a fixed width ``Q``: the port's
-    counterpart of a jitted entry compiled once.
+def _stage(dst: torch.Tensor, value) -> None:
+    """Write ``value`` (host values, a host tensor or a device tensor of
+    ``dst``'s shape) into the static input ``dst`` without waiting for the
+    device: host data goes through pinned memory, whose block the caching
+    host allocator keeps until the copy has run."""
+    if not torch.is_tensor(value):
+        value = torch.as_tensor(np.asarray(value)).to(dst.dtype)
+    if dst.is_cuda and not value.is_cuda:
+        value = value.pin_memory()
+    dst.copy_(value, non_blocking=True)
 
-    Static inputs ``tokens`` (int64 ``[B, Q]``) and ``mask`` (bool ``[B]``)
-    and one static output ``logits`` (f32 ``[B, Q, V]``), read and written
-    in place; ``params`` and ``state`` are read (and the state's tails and
-    lengths updated) where they lie.  On CUDA the forward is captured once
-    as a ``torch.cuda.CUDAGraph`` after one eager warm-up on a side stream,
-    so that every kernel's first launch, the kernels' per-device scratch
-    and the plans are made outside the capture; the warm-up runs with an
-    all-false mask, which writes nothing.  Each :meth:`run` replays the
+
+class CapturedEntry:
+    """One engine entry over the pool: the port's counterpart of a jitted
+    entry compiled once.
+
+    ``inputs`` are static tensors that ``fn`` reads (and :meth:`set`
+    writes in place); ``fn`` returns the static output (or None) and
+    reads ``params`` and the pool ``state`` where they lie, updating the
+    state in place.  On CUDA ``fn`` is captured once as a
+    ``torch.cuda.CUDAGraph`` (in its own memory pool) after one eager
+    warm-up on a side stream, so that every kernel's first launch, the
+    kernels' per-device scratch and the plans are made outside the
+    capture; the caller's initial inputs must make ``fn`` write nothing
+    (an all-false mask, a false write flag).  Each :meth:`run` replays the
     graph and adds the kernel launches it holds to the wrappers' counters.
-    On the CPU the capture and each replay call the forward on the static
-    inputs and copy its logits into the same output tensor, with the same
-    warm-up and launch accounting.  ``eager=True`` calls the forward each
-    run and returns fresh logits (no capture).
+    On the CPU the capture and each replay call ``fn`` on the static
+    inputs and copy its output into the same tensor, with the same warm-up
+    and launch accounting.  ``eager=True`` calls ``fn`` each run and
+    returns a fresh output (no capture).  ``capture_s`` is the host time
+    of the warm-up and capture, ``graph_bytes`` the memory the graph's
+    pool reserved.
 
     A replay after a state tensor was replaced by another raises: the
     graph would read storage that is no longer the pool's."""
 
-    def __init__(self, params, state: Dict[str, Any], cfg, bs: int,
-                 qn: int, eager: bool = False):
-        dev = state["pos"].device
-        b = state["pos"].shape[0]
-        self.tokens = torch.zeros((b, qn), dtype=torch.long, device=dev)
-        self.mask = torch.zeros(b, dtype=torch.bool, device=dev)
-        self._mask_key = (False,) * b
+    def __init__(self, state: Dict[str, Any], inputs: Dict[str, torch.Tensor],
+                 fn: Callable[[], Optional[torch.Tensor]],
+                 eager: bool = False):
+        self.inputs = inputs
         self._state, self._leaves = state, _leaves(state)
-        self._fn = lambda: lm.forward_panel_pooled(
-            params, state, self.tokens, self.mask, cfg, bs)[0]
+        self._fn = fn
         self.eager = eager
         self.captures = self.replays = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.logits: Optional[torch.Tensor] = None
+        self.out: Optional[torch.Tensor] = None
         self.held: Dict[str, int] = {}      # kernel launches one run holds
+        self.capture_s, self.graph_bytes = 0.0, 0
+        self._staged: Dict[str, bytes] = {}  # last host value per input
         if not eager:
             self._capture()
 
     def _capture(self) -> None:
-        if self.tokens.is_cuda:
-            side = torch.cuda.Stream(self.tokens.device)
+        t0 = time.perf_counter()
+        dev = self._leaves[0].device
+        if dev.type == "cuda":
+            side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 self._fn()
             torch.cuda.current_stream().wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
-                self.logits, self.held = _counted(self._fn)
+                before = torch.cuda.memory_reserved(dev)
+                self.out, self.held = _counted(self._fn)
+            self.graph_bytes = torch.cuda.memory_reserved(dev) - before
         else:
             self._fn()
-            self.logits, self.held = _counted(self._fn)
+            self.out, self.held = _counted(self._fn)
+        self.capture_s = time.perf_counter() - t0
         self.captures += 1
 
-    def set_inputs(self, tokens: torch.Tensor, mask: Sequence[bool]) -> None:
-        """Write the panel (host or device, ``[B, Q]``) and the slot mask
-        into the static inputs without waiting for the device; the mask is
-        copied only when it changed."""
-        self.tokens.copy_(tokens, non_blocking=True)
-        key = tuple(bool(m) for m in mask)
-        if key != self._mask_key:
-            self.mask.copy_(torch.tensor(key), non_blocking=True)
-            self._mask_key = key
+    def set(self, **values) -> None:
+        """Write the named static inputs without waiting for the device.  A
+        host value (a list or an array) equal to the last one written to
+        the same input is not copied again."""
+        for name, v in values.items():
+            key = None if torch.is_tensor(v) else np.asarray(v).tobytes()
+            if key is None or self._staged.get(name) != key:
+                _stage(self.inputs[name], v)
+            self._staged[name] = key
 
-    def run(self) -> torch.Tensor:
-        """The forward on the current inputs; returns ``logits``, which the
-        next run overwrites (in eager mode, fresh logits)."""
+    def run(self) -> Optional[torch.Tensor]:
+        """``fn`` on the current inputs; returns the static output, which
+        the next run overwrites (in eager mode, a fresh output)."""
         self.replays += 1
         if self.eager:
             return self._fn()
@@ -187,10 +221,87 @@ class PanelGraph:
             self.graph.replay()
         else:
             out, _ = _counted(self._fn)
-            self.logits.copy_(out)
+            if self.out is not None:
+                self.out.copy_(out)
         for name, n in self.held.items():
             kernels.KERNELS[name].launches += n
-        return self.logits
+        return self.out
+
+
+def panel_entry(params, state: Dict[str, Any], cfg, bs: int, qn: int,
+                eager: bool = False) -> CapturedEntry:
+    """One panel forward over the pool at a fixed width ``Q`` (the decode
+    entry at ``Q = 1``, the verify entry at ``k + 1``): static inputs
+    ``tokens`` (int64 ``[B, Q]``) and ``mask`` (bool ``[B]``, all false at
+    the warm-up and capture, which then write nothing); the output is the
+    logits (f32 ``[B, Q, V]``)."""
+    dev = state["pos"].device
+    b = state["pos"].shape[0]
+    inp = {"tokens": torch.zeros((b, qn), dtype=torch.long, device=dev),
+           "mask": torch.zeros(b, dtype=torch.bool, device=dev)}
+    return CapturedEntry(state, inp, lambda: lm.forward_panel_pooled(
+        params, state, inp["tokens"], inp["mask"], cfg, bs)[0], eager)
+
+
+def _writing_entry(state: Dict[str, Any], inputs: Dict[str, torch.Tensor],
+                   fn: Callable[[], Optional[torch.Tensor]],
+                   eager: bool) -> CapturedEntry:
+    """An entry whose ``fn`` writes the pool under a ``write`` flag (bool
+    ``[1]``): false for the warm-up and capture, true once captured."""
+    inputs["write"] = torch.zeros(1, dtype=torch.bool,
+                                  device=state["pos"].device)
+    fwd = CapturedEntry(state, inputs, fn, eager=eager)
+    fwd.set(write=[True])
+    return fwd
+
+
+def prefill_entry(params, state: Dict[str, Any], cfg, bs: int, w: int,
+                  eager: bool = False) -> CapturedEntry:
+    """The prefill chunk at width class ``w`` (a multiple of ``bs``):
+    static inputs ``tokens`` (int64 ``[1, w]``, valid tokens first),
+    ``slot`` and ``length`` (int64 ``[1]``), ``write`` and, on the paged
+    pool, ``ids`` (the fresh pages, int64 ``[w // bs]``); the output is
+    the last valid token's logits (f32 ``[1, V]``)."""
+    dev = state["pos"].device
+    inp = {"tokens": torch.zeros((1, w), dtype=torch.long, device=dev),
+           "slot": torch.zeros(1, dtype=torch.long, device=dev),
+           "length": torch.full((1,), w, dtype=torch.long, device=dev)}
+    if "table" in state:
+        inp["ids"] = torch.zeros(w // bs, dtype=torch.long, device=dev)
+    return _writing_entry(state, inp, lambda: lm.forward_prefill_chunk(
+        params, state, inp["tokens"], inp["slot"], cfg, bs,
+        new_ids=inp.get("ids"), length=inp["length"],
+        write=inp["write"])[0], eager)
+
+
+def refreeze_entry(pool: CachePool, state: Dict[str, Any],
+                   eager: bool = False) -> CapturedEntry:
+    """The refreeze: static inputs ``write`` and, on the paged pool, ``ids``
+    (the fresh pages, int64 ``[slots, tail // bs]``, rows of slots that are
+    not full ignored); no output."""
+    inp = {}
+    if pool.paged:
+        inp["ids"] = torch.zeros((pool.slots, pool.tail // pool.bs),
+                                 dtype=torch.long, device=pool.device)
+
+    def fn():
+        pool.refreeze(state, inp.get("ids"), inp["write"])
+    return _writing_entry(state, inp, fn, eager)
+
+
+def assign_entry(pool: CachePool, state: Dict[str, Any],
+                 eager: bool = False) -> CapturedEntry:
+    """The prefix-hit assignment (paged pool): static inputs ``slot`` and
+    ``n`` (int64 ``[1]``), ``ids`` (the shared pages, int64
+    ``[max_blocks]``) and ``write``; no output."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.long,
+                                   device=pool.device)
+    inp = {"slot": z(1), "ids": z(pool.max_blocks), "n": z(1)}
+
+    def fn():
+        pool.assign_blocks(state, inp["slot"], inp["ids"], inp["n"],
+                           inp["write"])
+    return _writing_entry(state, inp, fn, eager)
 
 
 class ContinuousEngine:
@@ -201,8 +312,8 @@ class ContinuousEngine:
 
     ``overlap=True`` enqueues each tick before the previous tick's tokens
     reach the host; greedy and seeded output are identical either way.
-    ``graphs=False`` runs the decode and verify forwards eagerly instead of
-    through their captured :class:`PanelGraph` (tests and oracles only)."""
+    ``graphs=False`` runs every entry eagerly instead of through its
+    captured :class:`CapturedEntry` (tests and oracles only)."""
 
     def __init__(self, params, cfg, slots: int = 4, max_tokens: int = 0,
                  bs: int = 0, prefill_chunk: Optional[int] = None,
@@ -274,12 +385,16 @@ class ContinuousEngine:
             self.spec_hist = np.zeros(self._spec.k + 1, np.int64)
             if self._spec.adaptive:
                 self._adaptive = AdaptiveDraft(self._spec)
-        # the captured forwards, one per entry, made at first use
+        # the captured entries, keyed by name (the chunk: by name and
+        # width class): all of them now on a chunked engine, else at first
+        # use
         self._graphs = bool(graphs)
-        self._entries: Dict[str, PanelGraph] = {}
+        self._entries: Dict[Any, CapturedEntry] = {}
         # the overlapped pipeline: the dispatched, not yet committed tick
         self.overlap = bool(overlap)
         self._inflight: Optional[Dict[str, Any]] = None
+        if self.scheduler.chunk is not None:
+            self.warmup()
 
     # -- public API ---------------------------------------------------------
     def submit(self, prompt, params: Optional[SamplingParams] = None,
@@ -321,28 +436,84 @@ class ContinuousEngine:
         return events
 
     def trace_counts(self) -> Dict[str, int]:
-        """Captures per forward entry (twin of the reference's jit trace
-        counts): ``decode``, and ``verify`` under speculation.  One each
-        once warm, whatever refreezes, admissions and releases came
-        between; 0 for an entry not run yet and under ``graphs=False``."""
-        names = ["decode"] + (["verify"] if self._spec is not None else [])
-        return {n: (self._entries[n].captures if n in self._entries else 0)
-                for n in names}
+        """Captures per entry (twin of the reference's jit trace counts,
+        under its key names): ``decode``; ``prefill_chunk``, one per chunk
+        width class (``chunk // bs`` on a chunked engine); ``refreeze``;
+        ``assign`` on the paged pool; ``verify`` under speculation.  Each but
+        ``prefill_chunk`` is 1 once captured (a chunked engine captures
+        every entry when it is built), whatever refreezes, admissions and
+        releases came between; 0 for an entry not captured yet and under
+        ``graphs=False``.  The reference's ``release`` and ``set_lane`` stay
+        eager here."""
+        names = ["decode", "prefill_chunk", "refreeze"]
+        names += ["assign"] if self._alloc is not None else []
+        names += ["verify"] if self._spec is not None else []
+        counts = dict.fromkeys(names, 0)
+        for key, e in self._entries.items():
+            counts[_entry_name(key)] += e.captures
+        return counts
 
     def replay_counts(self) -> Dict[str, int]:
-        """Runs per forward entry (graph replays, or eager forwards under
-        ``graphs=False``): the engine's decode and verify ticks."""
-        return {n: e.replays for n, e in self._entries.items()}
+        """Runs per entry name (graph replays, or eager runs under
+        ``graphs=False``), for the entries made so far."""
+        counts: Dict[str, int] = {}
+        for key, e in self._entries.items():
+            name = _entry_name(key)
+            counts[name] = counts.get(name, 0) + e.replays
+        return counts
 
-    def _entry(self, name: str) -> PanelGraph:
-        """The entry's forward (``decode``: ``[slots, 1]``; ``verify``:
-        ``[slots, k+1]``), captured at its first use."""
-        fwd = self._entries.get(name)
-        if fwd is None:
+    def warmup(self) -> None:
+        """Capture every entry this engine's ticks can run: the decode
+        forward (under speculation, the verify forward), the prefill chunk
+        at each width class (:meth:`_width`), the refreeze and, paged, the
+        assignment.  The constructor calls it for a chunked engine, so no
+        capture stalls a request; an unchunked engine captures each class
+        at its first use unless this is called.  A no-op under
+        ``graphs=False``."""
+        if not self._graphs:
+            return
+        self._entry("verify" if self._spec is not None else "decode")
+        for w in sorted({self._width(n) for n in range(
+                1, (self.scheduler.chunk or self.pool.capacity_tokens) + 1,
+                self.pool.bs)}):
+            self._entry("prefill_chunk", w)
+        self._entry("refreeze")
+        if self._alloc is not None:
+            self._entry("assign")
+
+    def _width(self, n: int) -> int:
+        """The width class of an ``n``-token chunk: ``n`` rounded up to
+        whole blocks; on an unchunked engine, up to a power-of-two count of
+        blocks (at most the slot's), so its classes number about log2 of
+        the capacity in blocks and their graphs' memory stays below twice
+        the largest's."""
+        bs = self.pool.bs
+        blocks = -(-n // bs)
+        if self.scheduler.chunk is None:
+            blocks = min(1 << (blocks - 1).bit_length(), self.pool.max_blocks)
+        return blocks * bs
+
+    def _entry(self, name: str, width: int = 0) -> CapturedEntry:
+        """The entry ``name`` (``decode``: ``[slots, 1]``; ``verify``:
+        ``[slots, k+1]``; ``prefill_chunk`` at the chunk width class
+        ``width``; ``refreeze``; ``assign``), captured at its first use
+        unless :meth:`warmup` captured it."""
+        key = (name, width) if name == "prefill_chunk" else name
+        fwd = self._entries.get(key)
+        if fwd is not None:
+            return fwd
+        eager = not self._graphs
+        if name in ("decode", "verify"):
             qn = 1 if name == "decode" else self._spec.k + 1
-            fwd = self._entries[name] = PanelGraph(
-                self.params, self.state, self.cfg, self.pool.bs, qn,
-                eager=not self._graphs)
+            fwd = panel_entry(self.params, self.state, self.cfg,
+                              self.pool.bs, qn, eager=eager)
+        elif name == "prefill_chunk":
+            fwd = prefill_entry(self.params, self.state, self.cfg,
+                                self.pool.bs, width, eager=eager)
+        else:
+            make = refreeze_entry if name == "refreeze" else assign_entry
+            fwd = make(self.pool, self.state, eager=eager)
+        self._entries[key] = fwd
         return fwd
 
     def _panel_logits(self, name: str, tokens: torch.Tensor,
@@ -352,7 +523,7 @@ class ContinuousEngine:
         ``Q`` tokens are appended to its tail.  Returns the logits (the
         entry's static output: read them before the entry runs again)."""
         fwd = self._entry(name)
-        fwd.set_inputs(tokens, mask)
+        fwd.set(tokens=tokens, mask=[bool(m) for m in mask])
         return fwd.run()
 
     def _exact_for(self, live: Sequence[bool]) -> bool:
@@ -435,7 +606,11 @@ class ContinuousEngine:
         self._blocks[req.slot] = list(hits)
         if hits:
             alloc.incref(hits)
-            self.pool.assign_blocks(self.state, req.slot, hits, len(hits))
+            ids = np.zeros(self.pool.max_blocks, np.int64)
+            ids[:len(hits)] = hits
+            fwd = self._entry("assign")
+            fwd.set(slot=[req.slot], ids=ids, n=[len(hits)])
+            fwd.run()
             req.prefill_done = len(hits) * bs   # shared prefix: no prefill
             self._tail_len[req.slot] = 0
         return req
@@ -608,9 +783,11 @@ class ContinuousEngine:
         logits = self._panel_logits("verify", tokens, mask)
         fwd = self._entries["verify"]
         tok, logp, nc = sampling.accept_step(
-            logits, fwd.tokens, dlen.to(self.device, non_blocking=True),
-            self.lanes, self._gens, mask, self._exact_for(mask))
-        self.pool.rollback(self.state, qn * fwd.mask.to(torch.int32) - nc)
+            logits, fwd.inputs["tokens"],
+            dlen.to(self.device, non_blocking=True), self.lanes, self._gens,
+            mask, self._exact_for(mask))
+        self.pool.rollback(self.state,
+                           qn * fwd.inputs["mask"].to(torch.int32) - nc)
         return tok, logp, nc
 
     def _spec_tick(self, slots: List[int],
@@ -665,13 +842,16 @@ class ContinuousEngine:
 
     def _refreeze_tick(self, events: Optional[List[RequestOutput]] = None
                        ) -> None:
-        """Refreeze every slot whose tail ring is full (the host mirror
-        matches the device-side ``tail_len == tail`` exactly).  The
-        refreeze finds the full slots on the device, so it waits for it."""
+        """Refreeze every slot whose tail ring is full, through the
+        ``refreeze`` entry.  The host mirror matches the device-side
+        ``tail_len == tail`` exactly, so the host decides whether to fold
+        (and which slots get pages) and the device finds the same slots
+        itself: nothing waits for the device."""
         full = [s for s in range(self.pool.slots)
                 if self._tail_len[s] >= self.pool.tail]
         if not full:
             return
+        fwd = self._entry("refreeze")
         if self._alloc is not None:
             tb = self.pool.tail // self.pool.bs
             if (self._inflight is not None
@@ -693,31 +873,37 @@ class ContinuousEngine:
                 ids[s] = fresh
                 self._blocks.setdefault(s, []).extend(fresh)
                 self._reserved[s] = max(0, self._reserved.get(s, 0) - tb)
-            self.pool.refreeze(self.state, ids)
-        else:
-            self.pool.refreeze(self.state)
+            fwd.set(ids=ids)
+        fwd.run()
         for s in full:
             self._tail_len[s] = 0
 
     def _prefill_tick(self, events: List[RequestOutput]) -> None:
-        """One prefill chunk for the oldest request still owed prompt work;
-        the final chunk samples (and syncs) the request's first token."""
-        sch = self.scheduler
+        """One prefill chunk for the oldest request still owed prompt work,
+        through the ``prefill_chunk`` entry of its width class (the chunk
+        length rounded up to whole blocks, the rest padding).  Only the
+        final chunk waits for the device: it samples the request's first
+        token from the entry's logits and reads it."""
+        sch, bs = self.scheduler, self.pool.bs
         req = sch.next_prefill()
         if req is None:
             return
         off0 = req.prefill_done
         chunk = sch.prefill_chunk(req)
         final = req.prefill_done >= len(req.prompt)
-        toks = torch.tensor([chunk], dtype=torch.long).to(self.device,
-                                                          non_blocking=True)
+        n = len(chunk)
+        w = self._width(n)
+        toks = np.zeros((1, w), np.int64)
+        toks[0, :n] = chunk
+        fwd = self._entry("prefill_chunk", w)
         fresh = None
         if self._alloc is not None:
-            nb_new = len(chunk) // self.pool.bs
-            fresh = self._alloc.alloc(nb_new) if nb_new else []
-        logits, _ = lm.forward_prefill_chunk(self.params, self.state, toks,
-                                             req.slot, self.cfg, self.pool.bs,
-                                             new_ids=fresh)
+            fresh = self._alloc.alloc(n // bs)
+            ids = np.zeros(w // bs, np.int64)
+            ids[:len(fresh)] = fresh
+            fwd.set(ids=ids)
+        fwd.set(tokens=toks, slot=[req.slot], length=[n])
+        logits = fwd.run()
         if fresh is not None:
             self._blocks.setdefault(req.slot, []).extend(fresh)
             self._reserved[req.slot] = max(
@@ -726,16 +912,15 @@ class ContinuousEngine:
             # full width: block bytes depend on the whole token prefix AND
             # the chunk boundaries, so only full-width-chunk blocks are
             # reproducible by a later prompt prefilled the same way
-            if sch.chunk is not None and len(chunk) == sch.chunk:
-                hs = block_hashes(req.prompt[:req.prefill_done],
-                                  self.pool.bs)
+            if sch.chunk is not None and n == sch.chunk:
+                hs = block_hashes(req.prompt[:req.prefill_done], bs)
                 for i, bid in enumerate(fresh):
-                    h = hs[off0 // self.pool.bs + i]
+                    h = hs[off0 // bs + i]
                     if self._alloc.register(bid, h):
                         self._trie.insert(h, bid)
         # device tail_len after a chunk = chunk_len % bs (earlier chunks are
         # block-aligned)
-        self._tail_len[req.slot] = req.prefill_done % self.pool.bs
+        self._tail_len[req.slot] = req.prefill_done % bs
         if final:
             s = req.slot
             lane = {k: v[s:s + 1] for k, v in self.lanes.items()}

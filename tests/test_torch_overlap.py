@@ -17,7 +17,7 @@ import torch
 from repro.serving import ContinuousEngine as JaxEngine
 from repro.serving import SamplingParams as JaxParams
 
-from repro_torch.serving import (ContinuousEngine, PanelGraph,
+from repro_torch.serving import (CapturedEntry, ContinuousEngine,
                                  SamplingParams, SpecConfig,
                                  stable_trace_counts)
 
@@ -191,15 +191,17 @@ def test_one_token_sync_per_tick(setup, monkeypatch, spec, paged):
                 where["reads"].append(where["site"])
             return _orig(self, *a, **k)
         monkeypatch.setattr(torch.Tensor, name, read)
-    run = PanelGraph.run
+    run = CapturedEntry.run
 
     def quiet_run(self):
+        if "mask" not in self.inputs:        # not a decode or verify panel
+            return run(self)
         on, where["on"] = where["on"], False
         try:
             return run(self)
         finally:
             where["on"] = on
-    monkeypatch.setattr(PanelGraph, "run", quiet_run)
+    monkeypatch.setattr(CapturedEntry, "run", quiet_run)
 
     eng = _engine(params, cfg, overlap=True, paged=paged, prefill_chunk=16,
                   spec=SpecConfig(k=3) if spec else None)
@@ -247,7 +249,8 @@ def test_one_token_sync_per_tick(setup, monkeypatch, spec, paged):
             assert commits[0] - before <= 1
     eng.quiesce()
     assert plain_ticks > 10
-    assert commits[0] == sum(eng.replay_counts().values())
+    ticks = eng.replay_counts()
+    assert commits[0] == ticks.get("decode", 0) + ticks.get("verify", 0)
     _assert_drained(eng)
 
 
@@ -298,7 +301,7 @@ def test_inflight_window_shares_no_storage_with_the_graph(setup):
                 continue
             fwd = eng._entries[_entry_name(spec)]
             static = {t.untyped_storage().data_ptr()
-                      for t in (fwd.logits, fwd.tokens, fwd.mask)}
+                      for t in (fwd.out, *fwd.inputs.values())}
             held = [rec[k] for k in ("tok", "logp", "ncommit", "chain")
                     if rec.get(k) is not None]
             assert all(t.untyped_storage().data_ptr() not in static
@@ -310,8 +313,9 @@ def test_inflight_window_shares_no_storage_with_the_graph(setup):
 
 def test_overlap_serves_the_launcher_config(setup):
     """The launcher's stream mode (overlapped by default) on a reduced
-    config with uneven lengths: every request finishes with its budget and
-    the decode entry is captured once."""
+    config with uneven lengths: every request finishes with its budget, the
+    decode and refreeze entries are captured once and the prefill chunk
+    once per width class."""
     _, cfg, _, params = setup
     cfg = dataclasses.replace(cfg, kv_tail=32)
     eng = _engine(params, cfg, overlap=True, max_tokens=160, bs=0,
@@ -322,5 +326,7 @@ def test_overlap_serves_the_launcher_config(setup):
             for n, m in ((24, 9), (48, 14), (31, 6))]
     out = eng.run()
     assert [len(out[r].token_ids) for r in rids] == [9, 14, 6]
-    assert eng.trace_counts() == {"decode": 1}
+    # bs = 32: the unchunked prompts take the chunk width classes 32 and 64
+    assert eng.trace_counts() == {"decode": 1, "prefill_chunk": 2,
+                                  "refreeze": 1}
     _assert_drained(eng)

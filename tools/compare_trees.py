@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Flat bf16, paged int8 and int4 serving of two checkouts on one card, and
-the cost of RMSNorm's f64 sum of squares; or, with ``--attention`` or
+"""Flat bf16, spec k=4 and paged int8 serving of two checkouts on one card,
+and the cost of RMSNorm's f64 sum of squares; or, with ``--attention`` or
 ``--linears``, the two checkouts' kernels alone at the same shapes.
 
     python3 tools/compare_trees.py PARENT_DIR [CHANGE_DIR] [--out PATH]
@@ -9,11 +9,16 @@ the cost of RMSNorm's f64 sum of squares; or, with ``--attention`` or
 
 1. **trees**: for each checkout, in the order parent, change, change,
    parent, a subprocess in that checkout imports its own ``chip_smoke.py``
-   and ``src/repro_torch``, builds its kernels and runs its flat bf16,
-   paged int8 and paged int4 phases, every gate included; their tok/s,
-   TPOT p50, median decode step, traced decode tick and the attention
-   kernel's device time in it are printed per run.  ``CHANGE_DIR``
-   defaults to the checkout holding this script.
+   (for its traffic, its model set-up and its kernel build) and its own
+   ``src/repro_torch``, and serves ``chip_smoke.py``'s flat bf16, spec
+   k=4 and paged int8 traffic (greedy, serial) through that checkout's
+   ``ContinuousEngine`` as a user builds it, with no gate, check or
+   profile between the ticks; per run: the engine's build time (captures
+   included where the engine makes them when built), tok/s, TTFT p50 and
+   max, TPOT p50, the median host time of a decode (or verify) step, of
+   one that also refreezes and of one that prefills, their counts, and the
+   engine's graph captures.  ``CHANGE_DIR`` defaults to the checkout
+   holding this script.
 2. **rms_norm**, in the change's package: how many rows of the f32 mean of
    squares (the reference's form) and of the f64 sum (the port's) differ
    between a call on 4 rows and a call on more rows that hold them, and the
@@ -58,34 +63,93 @@ HERE = Path(__file__).resolve().parents[1]
 NORMS_PER_TICK = 113          # 28 layers x (2 block + q + k norms) + final
 
 CHILD = r"""
-import json, sys
+import json, statistics, sys, time
 sys.path.insert(0, "."); sys.path.insert(0, "src")
+import numpy as np
 import torch
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataConfig, host_batch
 from repro_torch.kernels import build
+from repro_torch.serving import ContinuousEngine, SamplingParams, SpecConfig
 cs.card_phase(torch, build)
 cs.build_phase(build)
 cfg = get_config("qwen3-0.6b")
+
+
+def stream(params, prompts, new_tokens, max_tokens, lead=False, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ContinuousEngine(params, cfg, slots=cs.SLOTS, max_tokens=max_tokens,
+                           prefill_chunk=cs.PREFILL_CHUNK, device="cuda", **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    did = set()
+    prefill_tick, refreeze_tick = eng._prefill_tick, eng._refreeze_tick
+
+    def noted_prefill(*a):
+        if eng.scheduler.next_prefill() is not None:
+            did.add("prefill")
+        return prefill_tick(*a)
+
+    def noted_refreeze(*a):
+        if any(t >= eng.pool.tail for t in eng._tail_len):
+            did.add("refreeze")
+        return refreeze_tick(*a)
+    eng._prefill_tick, eng._refreeze_tick = noted_prefill, noted_refreeze
+    sp = SamplingParams(max_new_tokens=new_tokens)
+    steps = {"decode": [], "refreeze": [], "prefill": []}
+    sch = eng.scheduler
+    t0 = time.perf_counter()
+    pending = list(prompts)
+    rids = [eng.submit(pending.pop(0), sp)] if lead else []
+    while pending or not sch.done():
+        if pending and not (lead and not sch.finished and not any(
+                r.generated for r in sch.active.values())):
+            rids += [eng.submit(p, sp) for p in pending]
+            pending = []
+        did.clear()
+        s0 = time.perf_counter()
+        eng.step()
+        kind = ("prefill" if "prefill" in did else
+                "refreeze" if "refreeze" in did else "decode")
+        steps[kind].append(time.perf_counter() - s0)
+    eng.quiesce()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = [sch.finished[r].output() for r in rids]
+    ttft = sorted(o.metrics.ttft for o in out)
+    total = sum(len(o.token_ids) for o in out)
+    return {"build_s": build_s, "tok_s": total / dt,
+            "ttft_p50_s": statistics.median(ttft), "ttft_max_s": ttft[-1],
+            "tpot_p50_ms": statistics.median(o.metrics.tpot for o in out)
+            * 1e3,
+            **{f"{k}_step_ms": statistics.median(v) * 1e3 if v else None
+               for k, v in steps.items()},
+            **{f"{k}_steps": len(v) for k, v in steps.items()},
+            "captures": eng.trace_counts()}
+
+
 out = {}
-runs = [("bf16", lambda: cs.serve_phase(torch, cfg)[0])]
-for mode, n_req, new, kernel in (
-        ("int8", cs.PAGED_REQUESTS, cs.PAGED_NEW_TOKENS, "sparse_matmul_int8"),
-        ("int4", cs.INT4_REQUESTS, cs.INT4_NEW_TOKENS, "sparse_matmul_int4")):
-    runs.append((mode, lambda mode=mode, n_req=n_req, new=new, kernel=kernel:
-                 cs.paged_phase(torch, cfg, mode, n_req, new, kernel)[0]))
-for mode, run in runs:
-    r = run()
-    p = r["decode_profile"]
-    out[mode] = {"tok_s": r["tok_s"], "tpot_p50_ms": r["tpot_p50_s"] * 1e3,
-                 "decode_step_ms": r["median_step_ms"]["decode"],
-                 "traced_tick_wall_ms": p["wall_ms"],
-                 "traced_tick_device_ms": p.get("device_ms"),
-                 "attention_ms_per_tick": sum(
-                     t["ms_per_tick"] for t in p.get("top", ())
-                     if "attention" in t["kernel"])}
+params = cs._model(torch, cfg, "bf16")
+lo, hi = cs.PROMPT_RANGE
+toks = host_batch(DataConfig(vocab=cfg.vocab, seq_len=hi,
+                             global_batch=cs.N_REQUESTS), 0)["tokens"]
+lens = np.random.default_rng(0).integers(lo, hi + 1, cs.N_REQUESTS)
+out["bf16"] = stream(params, [toks[i][:lens[i]] for i in range(len(lens))],
+                     cs.NEW_TOKENS, hi + cs.NEW_TOKENS + cfg.kv_tail)
+out["spec"] = stream(params, cs._spec_prompts(cfg), cs.SPEC_TOKENS,
+                     cs.MOTIF * cs.MOTIF_REPEATS + cs.SPEC_TOKENS
+                     + cfg.kv_tail, spec=SpecConfig(k=cs.SPEC_K))
+del params
+params = cs._model(torch, cfg, "int8")
+out["int8"] = stream(params, cs._shared_prompts(cfg, cs.PAGED_REQUESTS),
+                     cs.PAGED_NEW_TOKENS,
+                     cs.SHARED_PREFIX + cs.SUFFIX_RANGE[1]
+                     + cs.PAGED_NEW_TOKENS + cfg.kv_tail, lead=True,
+                     paged=True)
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -315,13 +379,15 @@ def main() -> int:
         return 0
     summary = {}
     for label in trees:
-        for mode in ("bf16", "int8", "int4"):
+        for mode in ("bf16", "spec", "int8"):
             vals = [r[mode] for lb, r in runs if lb == label]
             summary[f"{label} {mode}"] = {
                 k: [v[k] for v in vals] for k in vals[0]}
     for key, val in summary.items():
         print(f"[compare] {key}: " + "; ".join(
-            f"{k} {', '.join(f'{x:.2f}' for x in v if x is not None)}"
+            f"{k} " + ", ".join(x if isinstance(x, str) else
+                                json.dumps(x) if isinstance(x, dict)
+                                else f"{x:.3f}" for x in v if x is not None)
             for k, v in val.items()), flush=True)
     rms = rms_norm_costs(torch)
     for key, val in rms["rows_differing"].items():
