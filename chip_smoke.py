@@ -77,7 +77,19 @@ Phases, each of which exits non-zero on failure:
    * paged int8 ``k=3`` against paged int8 without speculation on the
      shared-prefix requests, under the near-tie rule, with prefix-cache
      hits;
-   * paged pool, int4 sparse weights: four requests sharing the prefix.
+   * paged pool, int4 sparse weights: four requests sharing the prefix;
+   * the server: paged int8 ``k=3``, overlapped, behind ``ServerFrontend``
+     on ``127.0.0.1`` with load shedding, degraded mode, telemetry (a
+     metrics port and a trace file) and a seeded ``FaultPlan``, driven by
+     ``http.client`` threads (a client cancel, an expiring deadline, a
+     burst past the queue bound): every request ends with a valid reason,
+     every fault site fires, one capture per entry (``release`` and
+     ``set_lane`` included), refcounts back to zero, ``/metrics`` and the
+     trace hold what happened, the untouched requests' greedy tokens equal
+     an in-process serial run's (near-tie rule), and one overlapped tick
+     after a cancel runs under ``set_sync_debug_mode("error")``; its TTFT
+     and TPOT (obs's percentiles) are printed beside the in-process ones.
+     ``--server-only`` runs the build and this phase alone.
 
 Every traced tick and chunk reports the unembedding's and the gemv's
 device time and launches.  The lines before the last carry the kernel
@@ -134,6 +146,16 @@ SPEC_LOGIT_TICKS = 10       # verify ticks of the spec phase's logits check
 SPEC_F32_K = (SPEC_K, 8)    # the f32 spec phases' windows (8: 18 rows)
 MOTIF, MOTIF_REPEATS, N_MOTIF, N_RANDOM = 24, 8, 4, 2
 PAGED_SPEC_K, PAGED_SPEC_TOKENS = 3, 32
+# the server phase: the paged int8 k=3 engine behind the HTTP frontend,
+# overlapped, with load shedding past SERVER_QUEUE queued requests, no
+# drafting while SERVER_DEGRADE or more wait, telemetry and a seeded fault
+# plan over its first SERVER_FAULT_TICKS ticks.  Four requests fill the
+# slots (one the client cancels mid-stream, one with a deadline that
+# expires), then a burst of SERVER_BURST arrives at once; waves of SLOTS
+# more follow while the plan still has faults to fire
+SERVER_QUEUE, SERVER_DEGRADE, SERVER_BURST = 8, 3, 14
+SERVER_TOKENS, SERVER_LONG_TOKENS, SERVER_DEADLINE_S = 48, 160, 0.25
+SERVER_FAULT_SEED, SERVER_FAULT_TICKS, SERVER_WAVES = 0, 40, 4
 # the prefill chunk's width classes at bs = 128: a chunk runs padded to the
 # next whole block, one captured graph per class
 CHUNK_WIDTHS = tuple(range(128, PREFILL_CHUNK + 1, 128))
@@ -1922,11 +1944,12 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
 def check_captures(label, captures, eng):
     """The captures the engine made when it was built, and no more: the
     forward its ticks use (``verify`` under speculation, else ``decode``)
-    once, the other never; ``refreeze`` and (paged) ``assign`` once;
-    ``prefill_chunk`` once per width class."""
+    once, the other never; ``refreeze``, ``release``, ``set_lane`` and
+    (paged) ``assign`` once; ``prefill_chunk`` once per width class."""
     used = "verify" if eng._spec is not None else "decode"
     want = {"decode": int(used == "decode"),
-            "prefill_chunk": len(CHUNK_WIDTHS), "refreeze": 1}
+            "prefill_chunk": len(CHUNK_WIDTHS), "refreeze": 1,
+            "release": 1, "set_lane": 1}
     if eng.pool.paged:
         want["assign"] = 1
     if eng._spec is not None:
@@ -2554,9 +2577,11 @@ def two_pass_dispatch():
 @contextlib.contextmanager
 def record_margins(eng, margins):
     """Record the top-1 margin (top-1 minus top-2 over the largest |logit|)
-    of every token a serial engine samples at ``Q == 1`` (decode ticks and
+    of every token a serial engine samples (decode ticks, verify panels and
     final prefill chunks), keyed ``(request id, position)``.  The decode
-    logits are read where the engine's captured forward returns them, a
+    and verify logits are read where the engine's captured forward returns
+    them (row ``j`` of a verify panel scores position ``generated + j``;
+    rows past the accepted window are overwritten by the next tick's), a
     final chunk's from its width class's static logits after the tick."""
     panel_logits = eng._panel_logits
     prefill_tick = eng._prefill_tick
@@ -2572,8 +2597,9 @@ def record_margins(eng, margins):
         live = [(s, (sch.active[s].rid, len(sch.active[s].generated)))
                 for s in sch.decoding_slots()]
         logits = panel_logits(name, tokens, mask)
-        if name == "decode" and live:
-            note([key for _, key in live], logits[[s for s, _ in live], 0])
+        for j in range(logits.shape[1] if live else 0):
+            note([(rid, n + j) for _, (rid, n) in live],
+                 logits[[s for s, _ in live], j])
         return logits
 
     def rec_prefill(events):
@@ -3057,6 +3083,415 @@ def spec_paged_phase(torch, cfg, params, prompts):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the server path: lifecycle, faults, telemetry and the HTTP frontend
+# ---------------------------------------------------------------------------
+
+class _Client:
+    """One streaming ``POST /v1/generate`` on a thread of its own (stdlib
+    ``http.client``): the NDJSON frames it read, its first frame and its
+    end as events."""
+
+    def __init__(self, port, prompt, body):
+        import threading
+        self.port, self.prompt, self.body = port, prompt, body
+        self.frames, self.error = [], None
+        self.first, self.done = threading.Event(), threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import http.client
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", self.port,
+                                           timeout=300)
+            c.request("POST", "/v1/generate",
+                      json.dumps({"prompt": self.prompt, **self.body}),
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            if r.status != 200:
+                self.error = f"HTTP {r.status}: {r.read()[:200]!r}"
+                return
+            while True:
+                line = r.readline()
+                if not line:
+                    self.error = "the stream ended without a terminal frame"
+                    return
+                self.frames.append(json.loads(line))
+                self.first.set()
+                if self.frames[-1]["finished"]:
+                    break
+            c.close()
+        except Exception as e:          # reported by the phase's gates
+            self.error = repr(e)
+        finally:
+            self.first.set()
+            self.done.set()
+
+    @property
+    def rid(self):
+        return self.frames[0]["request_id"] if self.frames else None
+
+    @property
+    def tokens(self):
+        return [tok for f in self.frames for tok in f["tokens"]]
+
+    @property
+    def reason(self):
+        return self.frames[-1]["finish_reason"] if self.frames else None
+
+    def streaming(self):
+        return bool(self.frames) and not self.frames[-1]["finished"]
+
+
+def _http(port, method, path, obj=None):
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    c.request(method, path, None if obj is None else json.dumps(obj),
+              {"Content-Type": "application/json"})
+    r = c.getresponse()
+    body = r.read()
+    c.close()
+    return r.status, json.loads(body)
+
+
+def _wait(events, what, timeout=300):
+    t_end = time.perf_counter() + timeout
+    for e in events:
+        if not e.wait(max(t_end - time.perf_counter(), 0)):
+            fail(f"server: timed out waiting for {what}")
+
+
+def _prometheus(text):
+    """Parse Prometheus text exposition into ``{series: value}``; fails on
+    a malformed line."""
+    import re
+    series = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.fullmatch(r'([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^}]*\})?) (\S+)',
+                         line)
+        if m is None:
+            fail(f"server: /metrics line {line!r} does not parse")
+        series[m.group(1)] = float(m.group(2))
+    return series
+
+
+def _latency(obs):
+    """TTFT p50 / max and TPOT p50 (s) from obs's own histograms."""
+    reg = obs.registry
+    ttft, tpot = reg.histogram("repro_ttft_seconds"), \
+        reg.histogram("repro_tpot_seconds")
+    return {"ttft_p50_s": ttft.percentile(50),
+            "ttft_max_s": ttft.percentile(100),
+            "tpot_p50_s": tpot.percentile(50), "ttft_count": ttft.count}
+
+
+def _server_engine(cfg, params, max_tokens, **kw):
+    from repro_torch.serving import ContinuousEngine, SpecConfig
+    return ContinuousEngine(params, cfg, slots=SLOTS, max_tokens=max_tokens,
+                            prefill_chunk=PREFILL_CHUNK, device="cuda",
+                            paged=True, spec=SpecConfig(k=PAGED_SPEC_K),
+                            **kw)
+
+
+def server_traffic(port, prompts):
+    """Drive the server: a lead request (it freezes the shared prefix),
+    three more to fill the slots, a burst past the queue bound, a client
+    cancel; returns the clients in submission order and the cancelled
+    one."""
+    clients = []
+
+    def send(**body):
+        c = _Client(port, prompts[len(clients)],
+                    {"max_new_tokens": SERVER_TOKENS, **body})
+        clients.append(c)
+        return c
+    _wait([send().first], "the lead request's first frame")
+    long_c = send(max_new_tokens=SERVER_LONG_TOKENS)
+    send(deadline_s=SERVER_DEADLINE_S)
+    other = send()
+    _wait([long_c.first, other.first], "the slots to fill")
+    for _ in range(SERVER_BURST):
+        send()
+    # cancel a request mid-stream through the endpoint (the long one,
+    # unless the plan took it first)
+    cancelled = None
+    for c in [long_c, other] + clients[4:]:
+        _wait([c.first], "a frame to cancel after")
+        if not c.streaming():
+            continue
+        status, body = _http(port, "POST", "/v1/cancel",
+                             {"request_id": c.rid})
+        if status != 200:
+            fail(f"server: /v1/cancel answered {status} {body}")
+        if body["cancelled"]:
+            cancelled = c
+            break
+    _wait([c.done for c in clients], "the traffic to finish")
+    return clients, cancelled
+
+
+def guarded_tick(torch, eng, prompts):
+    """One overlapped tick with obs on, after a cancel between ticks, under
+    ``torch.cuda.set_sync_debug_mode("error")``: the cancel's release, the
+    admission's lane write, a non-final prefill chunk, the verify dispatch
+    and the obs hooks must not wait for the device; only
+    ``_sync_inflight``'s one token read is exempt."""
+    import numpy as np
+    from repro_torch.serving import SamplingParams
+    sp = SamplingParams(max_new_tokens=SERVER_TOKENS)
+    rids = [eng.submit(p, sp) for p in prompts[:SLOTS]]
+    for _ in range(400):
+        eng.step()
+        if (len(eng.scheduler.decoding_slots()) == SLOTS
+                and eng._inflight is not None):
+            break
+    else:
+        fail("guarded tick: the slots never all decoded")
+    # a request with no prefix hit, whose first chunk is not its last
+    rng = np.random.default_rng(7)
+    eng.submit(rng.integers(0, eng.cfg.vocab, 3 * PREFILL_CHUNK).tolist(),
+               sp)
+    victim = next(r for r in rids if any(q.rid == r for q in
+                                         eng.scheduler.active.values()))
+    before = eng.replay_counts()
+    exempt = [0]
+    sync = eng._sync_inflight
+
+    def exempt_sync(events):
+        exempt[0] += 1
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return sync(events)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    eng._sync_inflight = exempt_sync
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if not eng.cancel(victim):
+            fail("guarded tick: the cancel found nothing to cancel")
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        del eng._sync_inflight
+    after = eng.replay_counts()
+    moved = {k: after[k] - before.get(k, 0) for k in after}
+    for name in ("release", "set_lane", "prefill_chunk", "verify"):
+        if moved.get(name, 0) < 1:
+            fail(f"guarded tick: no {name} replay ran under the guard "
+                 f"({moved})")
+    if exempt[0] < 1:
+        fail("guarded tick: the token read never ran")
+    eng.run()
+    say(f"server: guarded tick: a cancel between ticks and one overlapped "
+        f"k={PAGED_SPEC_K} tick with obs on ran under "
+        f"set_sync_debug_mode('error') (replays {moved}; the token read "
+        f"exempt, {exempt[0]} call)")
+    return {"replays": moved, "token_reads": exempt[0]}
+
+
+def server_phase(torch, cfg, params):
+    """Full-width Qwen3-0.6B on the paged int8 pool with ``k=3``, overlapped,
+    with shedding, degraded mode, telemetry (a metrics port and a trace
+    file) and a seeded fault plan, behind ``ServerFrontend`` on
+    ``127.0.0.1``; clients are ``http.client`` threads.  Then the same
+    requests served serially in-process with no faults (the tokens'
+    baseline and the in-process figures), and the guarded tick."""
+    import tempfile
+    import threading
+    import urllib.request
+    from repro_torch import kernels
+    from repro_torch.obs import MetricsServer, Observability
+    from repro_torch.serving import (FaultPlan, SamplingParams,
+                                     ServerFrontend, stable_trace_counts)
+    from repro_torch.serving.faults import ENGINE_SITES
+
+    tmp = tempfile.TemporaryDirectory()
+    trace_path = str(Path(tmp.name) / "trace.json")
+    obs = Observability(trace_path=trace_path)
+    metrics = MetricsServer(obs.registry, port=0).start()
+    plan = FaultPlan.generate(seed=SERVER_FAULT_SEED,
+                              ticks=SERVER_FAULT_TICKS)
+    prompts = _shared_prompts(cfg, 4 + SERVER_BURST + SERVER_WAVES * SLOTS)
+    max_tokens = SHARED_PREFIX + SUFFIX_RANGE[1] + SERVER_LONG_TOKENS + \
+        cfg.kv_tail
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = _server_engine(cfg, params, max_tokens, overlap=True,
+                         max_queue=SERVER_QUEUE,
+                         degrade_queue=SERVER_DEGRADE, faults=plan, obs=obs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check_captures("server", eng.trace_counts(), eng)
+    entries = {"/".join(map(str, k)) if isinstance(k, tuple) else k:
+               {"capture_s": e.capture_s, "graph_mib": e.graph_bytes / 2 ** 20}
+               for k, e in eng._entries.items()}
+
+    front = ServerFrontend(eng, host="127.0.0.1", port=0)
+    up, box = threading.Event(), {}
+
+    def serve():
+        try:
+            front.run(lambda port: (box.update(port=port), up.set()))
+        except BaseException as e:
+            box["error"] = e
+            up.set()
+    server = threading.Thread(target=serve, daemon=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    server.start()
+    _wait([up], "the server to listen", 60)
+    if "error" in box:
+        fail(f"server: the frontend failed to start: {box['error']!r}")
+    port = box["port"]
+    status, health = _http(port, "GET", "/healthz")
+    if status != 200 or not health["ok"]:
+        fail(f"server: /healthz answered {status} {health}")
+    clients, cancelled = server_traffic(port, prompts)
+    waves = 0
+    while not plan.exhausted() and waves < SERVER_WAVES:
+        wave = [_Client(port, prompts[len(clients) + j],
+                        {"max_new_tokens": SERVER_TOKENS})
+                for j in range(SLOTS)]
+        clients += wave
+        _wait([c.done for c in wave], "a wave to finish")
+        waves += 1
+    with urllib.request.urlopen(metrics.url, timeout=60) as resp:
+        scraped = _prometheus(resp.read().decode())
+    status, body = _http(port, "POST", "/v1/shutdown", {})
+    server.join(timeout=300)
+    serve_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if server.is_alive() or not body.get("shutting_down"):
+        fail("server: /v1/shutdown did not drain the server")
+    if "error" in box or front.loop_thread.error is not None:
+        fail(f"server: the engine thread failed: "
+             f"{box.get('error') or front.loop_thread.error!r}")
+    metrics.close()
+    obs.close()
+
+    # every request ended, with a reason, streaming what the engine holds
+    allowed = {"length", "stop", "cancelled", "timeout", "shed"}
+    for i, c in enumerate(clients):
+        if c.error is not None or c.reason not in allowed:
+            fail(f"server: request {i} ended {c.reason!r} ({c.error})")
+        held = eng.scheduler.finished[c.rid].output()
+        if c.tokens != list(held.token_ids) or c.reason != \
+                held.finish_reason:
+            fail(f"server: request {i} streamed {len(c.tokens)} tokens "
+                 f"({c.reason}); the engine holds {len(held.token_ids)} "
+                 f"({held.finish_reason})")
+    reasons = [c.reason for c in clients]
+    tally = {r: reasons.count(r) for r in sorted(set(reasons))}
+    fc = dict(eng.fault_counters)
+    if cancelled is None or cancelled.reason != "cancelled":
+        fail("server: no request was cancelled mid-stream through "
+             "/v1/cancel")
+    deadline_c = clients[2]
+    if deadline_c.reason not in ("timeout", "cancelled") or (
+            deadline_c.reason == "cancelled" and deadline_c is cancelled):
+        fail(f"server: the {SERVER_DEADLINE_S} s deadline request ended "
+             f"{deadline_c.reason!r}")
+    if tally.get("shed", 0) < 1 or fc["shed"] != tally["shed"]:
+        fail(f"server: {tally.get('shed', 0)} requests shed past the queue "
+             f"bound of {SERVER_QUEUE}; the engine counted {fc['shed']}")
+    if fc["timeout"] != tally.get("timeout", 0) or \
+            fc["cancelled"] != tally.get("cancelled", 0):
+        fail(f"server: fault counters {fc} disagree with the finish "
+             f"reasons {tally}")
+    fired = [site for _, site in plan.fired]
+    if not plan.exhausted() or set(fired) != set(ENGINE_SITES):
+        fail(f"server: the fault plan fired {plan.fired}; pending "
+             f"{plan.pending()}")
+    stable = stable_trace_counts(eng.trace_counts())
+    if any(v > 1 for v in stable.values()):
+        fail(f"server: an entry was captured twice: {eng.trace_counts()}")
+    check_captures("server", eng.trace_counts(), eng)
+    check_launches("server", counts,
+                   ("sparse_matmul_int8", "sparse_decode_attention_fused_paged",
+                    "dense_matmul"),
+                   ("sparse_gemv", "sparse_matmul",
+                    "sparse_decode_attention_fused",
+                    "sparse_decode_attention_partial", "sparse_matmul_f32",
+                    "sparse_matmul_int4"))
+    if int(eng._alloc._ref.sum()) or int(eng.state["refcount"].sum()) or \
+            eng._slot_live.any():
+        fail("server: refcounts or live slots left after the drain")
+    finished = sum(v for k, v in scraped.items()
+                   if k.startswith("repro_requests_finished_total"))
+    if finished != len(clients):
+        fail(f"server: /metrics counts {finished} finished requests; "
+             f"{len(clients)} finished")
+    events = json.loads(Path(trace_path).read_text())
+    fault_events = sorted({e["name"] for e in events
+                           if e["name"].startswith("fault:")})
+    if fault_events != sorted(f"fault:{s}" for s in ENGINE_SITES):
+        fail(f"server: the trace holds fault events {fault_events}")
+    lat = _latency(obs)
+    tokens = sum(len(c.tokens) for c in clients)
+    say(f"server: {len(clients)} requests over HTTP ({SERVER_BURST} in one "
+        f"burst, {waves} later waves) in {serve_s:.2f} s, {tokens} tokens; "
+        f"finish reasons {tally}; fault counters {fc}; fault plan fired "
+        f"{plan.fired}; captures {eng.trace_counts()}; launches {counts}; "
+        f"/metrics parsed ({len(scraped)} series, {finished:.0f} "
+        f"finished); trace {len(events)} events, {fault_events}")
+
+    # the same requests (all but the shed ones) in-process, serially, with
+    # no faults: the tokens' baseline and the in-process figures
+    served = [i for i, c in enumerate(clients) if c.reason != "shed"]
+    base_obs = Observability()
+    base = _server_engine(cfg, params, max_tokens, obs=base_obs)
+    margins = {}
+    with record_margins(base, margins):
+        sp = lambda i: SamplingParams(**{k: v for k, v in clients[i].body
+                                         .items() if k != "deadline_s"})
+        rids = {served[0]: base.submit(clients[served[0]].prompt,
+                                       sp(served[0]))}
+        while not any(r.generated for r in base.scheduler.active.values()):
+            base.step()
+        rids.update({i: base.submit(clients[i].prompt, sp(i))
+                     for i in served[1:]})
+        base.run()
+    untouched = [i for i in served
+                 if clients[i].reason == "length" and clients[i] is not
+                 cancelled and i != 2]
+    got = [clients[i].tokens for i in untouched]
+    want = [base.scheduler.finished[rids[i]].generated for i in untouched]
+    ident = gate_identity("server vs in-process serial (paged int8 k=3)",
+                          got, want, [rids[i] for i in untouched], margins)
+    base_lat = _latency(base_obs)
+    guard = guarded_tick(torch, eng, prompts)
+    if int(eng._alloc._ref.sum()) or int(eng.state["refcount"].sum()):
+        fail("guarded tick: refcounts left after the drain")
+    cap = {k: entries[k] for k in ("release", "set_lane")}
+    say(f"server: TTFT p50 {lat['ttft_p50_s'] * 1e3:.1f} ms, max "
+        f"{lat['ttft_max_s'] * 1e3:.1f} ms, TPOT p50 "
+        f"{lat['tpot_p50_s'] * 1e3:.2f} ms over HTTP (obs percentiles, "
+        f"{lat['ttft_count']} first tokens; open traffic with shedding, "
+        f"faults and degraded ticks); in-process serial, the same requests "
+        f"submitted at once: TTFT p50 {base_lat['ttft_p50_s'] * 1e3:.1f} "
+        f"ms, max {base_lat['ttft_max_s'] * 1e3:.1f} ms, TPOT p50 "
+        f"{base_lat['tpot_p50_s'] * 1e3:.2f} ms")
+    say(f"server: the engine built and captured every entry in "
+        f"{build_s:.2f} s: " + ", ".join(
+            f"{k} {v['capture_s']:.3f} s {v['graph_mib']:.1f} MiB"
+            for k, v in entries.items())
+        + f"; {sum(v['graph_mib'] for v in entries.values()):.1f} MiB of "
+          f"graph pools in all")
+    tmp.cleanup()
+    return {"requests": len(clients), "seconds": serve_s, "tokens": tokens,
+            "finish_reasons": tally, "fault_counters": fc,
+            "fault_plan_fired": plan.fired, "waves": waves,
+            "captures": eng.trace_counts(), "launches": counts,
+            "latency": lat, "in_process_serial": base_lat,
+            "identity": ident, "entries": entries, "build_s": build_s,
+            "release_set_lane_captures": cap, "metrics_series": len(scraped),
+            "trace_events": len(events), "guarded_tick": guard}
+
+
 SOURCES = {
     "sparse_gemv": ("src/repro_torch/kernels/csrc/sparse_gemv.cu",
                     "src/repro/kernels/sparse_gemv.py:47"),
@@ -3095,6 +3530,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--server-only", action="store_true",
+                    help="build, then run the server phase alone (on its "
+                         "own int8 weights) and print no result line")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3113,6 +3551,14 @@ def main() -> int:
     card = card_phase(torch, build)
     t_build = build_phase(build)
     cfg = get_config("qwen3-0.6b")
+    if args.server_only:
+        res = server_phase(torch, cfg, _model(torch, cfg, "int8"))
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(res, indent=1, default=str))
+        say(f"server phase alone passed; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     t0 = time.perf_counter()
     summary, detail = kernel_phase(torch, cfg)
     say(f"kernels: all {len(SOURCES)} agree with their plain versions "
@@ -3131,6 +3577,7 @@ def main() -> int:
     serve["identity"] = identity_phase(torch, cfg, params8, prompts, run8)
     serve["spec_paged_int8"] = spec_paged_phase(torch, cfg, params8,
                                                 prompts)
+    serve["server"] = server_phase(torch, cfg, params8)
     del params8, run8
     serve["paged_int4"] = paged_phase(
         torch, cfg, "int4", INT4_REQUESTS, INT4_NEW_TOKENS,

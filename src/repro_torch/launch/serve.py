@@ -1,9 +1,24 @@
 """Serving launcher, stream mode: sparse weights + sparse KV through the
-continuous-batching engine (twin of ``repro.launch.serve`` without the
-later slices' flags).  ``--int8`` serves int8 block-sparse weights,
+continuous-batching engine (twin of ``repro.launch.serve`` without
+``--one-shot``, ``--batch``, ``--dense``, ``--audit``, ``--mesh`` and
+``--snapshot-dir``).  ``--int8`` serves int8 block-sparse weights,
 ``--paged`` the shared-prefix paged pool (``--phys-blocks`` sizes its
 arena), ``--spec-k K`` draft-verify speculation with an n-gram drafter
 (``--spec-adaptive`` per-slot draft windows), as in the reference.
+
+``--server`` swaps the synthetic request stream for the asyncio HTTP
+frontend (``repro_torch.serving.frontend``: ``POST /v1/generate`` streams
+NDJSON token frames, ``POST /v1/cancel``, ``GET /healthz``, ``POST
+/v1/shutdown``) on ``--host`` / ``--port``.  The lifecycle flags mean what
+they mean in the reference: ``--max-queue`` (load shedding),
+``--deadline`` / ``--ttft-deadline`` (per-request budgets, stream mode),
+``--degrade-queue`` (no drafting under queue pressure, with
+``--spec-k``).  Telemetry: ``--metrics-port`` (Prometheus text on
+``/metrics``), ``--trace-file`` (Chrome trace of request lifecycles and
+fault firings), ``--log-json`` (one JSON line per finished request and a
+summary), ``--report-every`` (a one-line ``[obs]`` report every N
+seconds), ``--profile-dir`` (a ``torch.profiler`` trace of the stream,
+CUDA kernels included on the card, written under the directory).
 
 Stream mode runs overlapped ticks by default, as the reference does: tick
 t+1 is enqueued before tick t's tokens reach the host, and each tick's
@@ -33,11 +48,16 @@ the pooled sparse-KV cache.
   python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
       --device cpu --no-overlap --requests 4 --slots 2 --prompt-len 48 \\
       --steps 12
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
+      --device cpu --server --port 0 --slots 2 --prompt-len 32 --steps 8 \\
+      --prefill-chunk 16 --max-queue 8 --metrics-port 0
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -89,6 +109,46 @@ def main(argv=None) -> int:
                          "on by default: tick t+1 is enqueued before tick "
                          "t's tokens reach the host; --no-overlap is the "
                          "serial token-identity oracle)")
+    ap.add_argument("--server", action="store_true",
+                    help="instead of a synthetic request stream, serve the "
+                         "asyncio HTTP frontend: POST /v1/generate streams "
+                         "NDJSON token frames, POST /v1/cancel aborts, GET "
+                         "/healthz probes, POST /v1/shutdown drains the "
+                         "pipeline and exits")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="with --server: bind address")
+    ap.add_argument("--port", type=int, default=8731,
+                    help="with --server: port (0 = pick a free one)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue: submits past the bound "
+                         "are shed at once (finish_reason='shed'); 0 = "
+                         "unbounded")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="per-request total wall-clock deadline in seconds "
+                         "(finish_reason='timeout' past it); 0 = none")
+    ap.add_argument("--ttft-deadline", type=float, default=0.0,
+                    help="per-request first-token deadline in seconds; 0 = "
+                         "none")
+    ap.add_argument("--degrade-queue", type=int, default=0,
+                    help="with --spec-k: draft nothing while the queue holds "
+                         "at least this many requests; 0 = off")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="serve Prometheus text on http://127.0.0.1:PORT/"
+                         "metrics from a background thread (0 = a free "
+                         "port; -1 = off)")
+    ap.add_argument("--trace-file", default="",
+                    help="write request-lifecycle spans and fault firings "
+                         "as a Chrome trace-event JSON (chrome://tracing or "
+                         "ui.perfetto.dev)")
+    ap.add_argument("--log-json", action="store_true",
+                    help="one JSON line per finished request and a summary "
+                         "instead of the free-form result lines")
+    ap.add_argument("--profile-dir", default="",
+                    help="wrap the stream in a torch.profiler trace (CUDA "
+                         "kernels included on the card) written under DIR")
+    ap.add_argument("--report-every", type=float, default=0.0,
+                    help="print a one-line metrics report every N seconds "
+                         "of serving; 0 = off")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -98,6 +158,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.spec_adaptive and not args.spec_k:
         ap.error("--spec-adaptive requires --spec-k >= 1")
+    if args.degrade_queue and not args.spec_k:
+        ap.error("--degrade-queue needs --spec-k (it degrades by dropping "
+                 "the draft window)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -117,35 +180,115 @@ def main(argv=None) -> int:
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len,
                     global_batch=n_req)
     prompts = host_batch(dc, 0)["tokens"]
+    obs = metrics_server = None
+    if args.metrics_port >= 0 or args.trace_file or args.report_every:
+        from repro_torch.obs import MetricsServer, Observability
+        obs = Observability(trace_path=args.trace_file or None,
+                            report_every=args.report_every)
+        if args.metrics_port >= 0:
+            metrics_server = MetricsServer(obs.registry,
+                                           port=args.metrics_port).start()
+            print(f"[serve] metrics: {metrics_server.url}")
     eng = ContinuousEngine(
         params, cfg, slots=args.slots,
         max_tokens=args.prompt_len + args.steps + cfg.kv_tail,
         prefill_chunk=args.prefill_chunk or None, device=dev,
         paged=args.paged, phys_blocks=args.phys_blocks,
         spec=SpecConfig(k=args.spec_k, adaptive=args.spec_adaptive)
-        if args.spec_k else None, overlap=not args.no_overlap)
+        if args.spec_k else None, max_queue=args.max_queue,
+        degrade_queue=args.degrade_queue, obs=obs,
+        overlap=not args.no_overlap)
     if args.paged:
         print(f"[serve] paged pool: {eng.pool.n_phys} physical blocks of "
               f"{eng.pool.bs} tokens behind {args.slots}x"
               f"{eng.pool.max_blocks} block tables")
 
+    def close_obs():
+        if obs is not None:
+            obs.close()
+            if args.trace_file:
+                print(f"[serve] trace: {args.trace_file} "
+                      f"({obs.trace.events_written} events; load in "
+                      "chrome://tracing or ui.perfetto.dev)")
+        if metrics_server is not None:
+            metrics_server.close()
+
+    if args.server:
+        from repro_torch.serving import ServerFrontend
+        front = ServerFrontend(eng, host=args.host, port=args.port,
+                               on_shutdown=close_obs)
+
+        def ready(port):
+            print(f"[serve] server: http://{args.host}:{port} — POST "
+                  "/v1/generate {'prompt': [ids...]} streams NDJSON token "
+                  "frames; GET /healthz; POST /v1/cancel; POST "
+                  "/v1/shutdown", flush=True)
+        try:
+            front.run(ready)
+        except KeyboardInterrupt:
+            pass
+        print(f"[serve] server drained after {front.loop_thread.ticks} "
+              f"ticks, {front.requests_served} requests; graph captures "
+              f"per entry: {eng.trace_counts()}; fault counters "
+              f"{eng.fault_counters}")
+        return 0
+
+    on_token = None
+    if args.log_json:
+        def on_token(o):
+            """One structured line per finished request."""
+            if not o.finished:
+                return
+            m = o.metrics
+            print(json.dumps({
+                "event": "request", "id": o.request_id,
+                "finish_reason": o.finish_reason,
+                "prompt_tokens": len(o.prompt_token_ids),
+                "tokens": len(o.token_ids),
+                "ttft_s": m.ttft, "tpot_s": m.tpot,
+                "queue_s": m.queue_time, "prefill_s": m.prefill_time,
+                "decode_s": m.decode_time, "e2e_s": m.e2e_latency}))
+
+    profile = contextlib.nullcontext()
+    if args.profile_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profile = torch.profiler.profile(
+            activities=acts, on_trace_ready=torch.profiler
+            .tensorboard_trace_handler(args.profile_dir))
     rng = np.random.default_rng(0)
     reset_launch_counts()
     t0 = time.time()
     rids = []
-    for i in range(n_req):
-        plen = int(rng.integers(max(args.prompt_len // 2, 1),
-                                args.prompt_len + 1))
-        steps = int(rng.integers(max(args.steps // 2, 1), args.steps + 1))
-        sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                            top_p=args.top_p, seed=args.seed + i,
-                            max_new_tokens=steps)
-        rids.append(eng.submit(prompts[i][:plen], sp))
-    out = eng.run()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with profile:
+        for i in range(n_req):
+            plen = int(rng.integers(max(args.prompt_len // 2, 1),
+                                    args.prompt_len + 1))
+            steps = int(rng.integers(max(args.steps // 2, 1),
+                                     args.steps + 1))
+            sp = SamplingParams(
+                temperature=args.temperature, top_k=args.top_k,
+                top_p=args.top_p, seed=args.seed + i, max_new_tokens=steps,
+                deadline_s=args.deadline or None,
+                ttft_deadline_s=args.ttft_deadline or None)
+            rids.append(eng.submit(prompts[i][:plen], sp, on_token=on_token))
+        out = eng.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     dt = time.time() - t0
     total = sum(len(o.token_ids) for o in out.values())
+    reasons = [o.finish_reason for o in out.values()]
+    if args.log_json:
+        print(json.dumps({
+            "event": "summary", "requests": n_req, "tokens": total,
+            "wall_s": dt, "tok_s": total / dt if dt > 0 else None,
+            "slots": args.slots,
+            "finish_reasons": {r: reasons.count(r) for r in set(reasons)},
+            "captures": eng.trace_counts(),
+            "fault_counters": eng.fault_counters}))
+        close_obs()
+        return 0
     print(f"[serve] stream: {n_req} requests, {total} tokens in {dt:.2f}s "
           f"({total/dt:.1f} tok/s) on {args.slots} slots, "
           f"{'serial' if args.no_overlap else 'overlapped'} ticks")
@@ -153,6 +296,7 @@ def main(argv=None) -> int:
           f"(stable: {stable_trace_counts(eng.trace_counts())}; "
           f"prefill_chunk: one per chunk width class); entry replays "
           f"{eng.replay_counts()}")
+    print(f"[serve] fault counters: {eng.fault_counters}")
     ttfts = [o.metrics.ttft for o in out.values()
              if o.metrics.ttft is not None]
     if ttfts:
@@ -176,6 +320,12 @@ def main(argv=None) -> int:
     print("[serve] sample:", list(out[rids[0]].token_ids[:16]))
     print(f"[serve] kernel launches: {launch_counts()} (graph replays "
           f"included)")
+    if obs is not None:
+        print(obs.report_line())
+    close_obs()
+    if args.profile_dir:
+        print(f"[serve] profile: {args.profile_dir} (Perfetto or "
+              "TensorBoard)")
     return 0
 
 

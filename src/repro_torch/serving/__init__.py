@@ -1,14 +1,20 @@
-"""Continuous-batching serving: pool, scheduler, sampler, engine."""
+"""Continuous-batching serving: pool, scheduler, sampler, engine, the
+fault plan and the HTTP frontend."""
 from .cache_pool import BlockAllocator, CachePool
 from .engine import (CapturedEntry, ContinuousEngine, assign_entry,
                      panel_entry, prefill_entry, refreeze_entry,
-                     stable_trace_counts)
+                     release_entry, set_lane_entry, stable_trace_counts)
+from .faults import Fault, FaultError, FaultPlan, corrupt_snapshot
+from .frontend import EngineLoop, ServerFrontend, params_from_json
 from .sampling import RequestOutput, SamplingParams
-from .scheduler import PrefixTrie, block_hashes
+from .scheduler import PrefixTrie, Scheduler, block_hashes
 from .spec import AdaptiveDraft, Drafter, NGramDrafter, SpecConfig
 
 __all__ = ["AdaptiveDraft", "BlockAllocator", "CachePool", "CapturedEntry",
-           "ContinuousEngine", "Drafter", "NGramDrafter", "PrefixTrie",
-           "RequestOutput", "SamplingParams", "SpecConfig", "assign_entry",
-           "block_hashes", "panel_entry", "prefill_entry", "refreeze_entry",
-           "stable_trace_counts"]
+           "ContinuousEngine", "Drafter", "EngineLoop", "Fault",
+           "FaultError", "FaultPlan", "NGramDrafter", "PrefixTrie",
+           "RequestOutput", "SamplingParams", "Scheduler",
+           "ServerFrontend", "SpecConfig", "assign_entry", "block_hashes",
+           "corrupt_snapshot", "panel_entry", "params_from_json",
+           "prefill_entry", "refreeze_entry", "release_entry",
+           "set_lane_entry", "stable_trace_counts"]

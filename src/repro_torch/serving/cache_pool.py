@@ -39,11 +39,6 @@ from repro_torch.core.sparse_kv import (append_tail_panel, device_ids,
 from repro_torch.models import lm
 from repro_torch.models.lm import ARENA_KEYS
 
-# per-block packed capacity over the nominal density (the reference's
-# ``capacity_slack`` default)
-CAPACITY_SLACK = 1.25
-
-
 @dataclasses.dataclass(frozen=True)
 class CachePool:
     """Geometry + state transitions of the pooled serving cache."""
@@ -60,11 +55,12 @@ class CachePool:
 
     @classmethod
     def build(cls, cfg, slots: int, max_tokens: int, bs: int = 0,
+              capacity_slack: float = 1.25,
               device: Optional[torch.device] = None, paged: bool = False,
               n_phys: int = 0) -> "CachePool":
         """Size a pool for ``slots`` requests of up to ``max_tokens`` context
         each; per-block capacity is the nominal density times the block
-        size, times :data:`CAPACITY_SLACK`, rounded to the lane size.
+        size, times ``capacity_slack``, rounded to the lane size.
 
         ``paged=True`` stores compressed blocks in a shared arena of
         ``n_phys`` blocks (default ``slots * max_blocks``, the flat pool's
@@ -82,7 +78,7 @@ class CachePool:
             density = 1.0 - sparsity
             if density >= 1.0:
                 return l
-            return min(_ceil_to(int(round(density * l * CAPACITY_SLACK)),
+            return min(_ceil_to(int(round(density * l * capacity_slack)),
                                 LANE), l)
         max_blocks = max(-(-int(max_tokens) // bs), 1)
         if paged:

@@ -1,46 +1,75 @@
 """Continuous-batching serving engine on the pooled sparse-KV cache (twin of
-``repro.serving.engine.ContinuousEngine`` with no mesh, no fault injection
-and no telemetry; the flat pool or, with ``paged=True``, the shared-prefix
-paged pool; speculative decoding with ``spec=SpecConfig(k)``; serial or,
-with ``overlap=True``, overlapped ticks).
+``repro.serving.engine.ContinuousEngine`` with no mesh and no snapshots;
+the flat pool or, with ``paged=True``, the shared-prefix paged pool;
+speculative decoding with ``spec=SpecConfig(k)``; serial or, with
+``overlap=True``, overlapped ticks; the fault-tolerant lifecycle and the
+telemetry hooks).
 
 One engine tick (:meth:`step`):
 
-1. **refreeze** — every slot whose tail ring is full has its tail pruned
+1. **expiry** — every request past its deadline finishes ``"timeout"`` and
+   the releases flush, so admission only sees fully released slots;
+2. **refreeze** — every slot whose tail ring is full has its tail pruned
    and folded into its compressed prefix, in place;
-2. **admission / chunked prefill** — admitted requests get their sampling
+3. **admission / chunked prefill** — admitted requests get their sampling
    lane; the oldest request owed prompt work gets one chunk prefilled
    against its slot's frozen prefix, and the final chunk samples the
    request's first token;
-3. **decode** — every decoding slot advances one token in one batched
+4. **decode** — every decoding slot advances one token in one batched
    panel forward (``Q == 1``) and the sampler draws each slot's token
    under its own lane.
 
 Host <-> device traffic per tick is one token vector and one chosen-token
 logprob vector; slot lengths are mirrored on the host.  Arguments that
-belong to later slices of the port raise ``NotImplementedError``.
+belong to later slices of the port (``ctx``, ``mesh``, ``checkify``) raise
+``NotImplementedError``.
 
 **Captured entries** (the twin of the reference's ``jax.jit`` entries,
-``engine.py:401-468``).  The decode forward (``[slots, 1]``), the verify
+``engine.py:401-481``).  The decode forward (``[slots, 1]``), the verify
 forward (``[slots, k+1]``), the prefill chunk (one entry per chunk width
 class: the chunk length rounded up to whole blocks, padding behind the
-valid tokens), the refreeze and, paged, the prefix-hit assignment each run
-through one :class:`CapturedEntry` per engine: static inputs (tokens, the
-slot, the valid length, fresh page ids, a slot mask or a write flag, all
-device operands written from pinned host memory without waiting), one
-static output, and on CUDA a ``torch.cuda.CUDAGraph`` captured once and
-replayed, so a tick or a chunk costs one graph launch instead of thousands
-of kernel launches.  A chunked engine captures every entry when it is
-built (:meth:`ContinuousEngine.warmup`), so no capture stalls a request;
-an unchunked one, whose chunk width classes are power-of-two block counts
-up to a slot's capacity, captures each at its first use.  The graphs read the pool's state tensors in place,
+valid tokens), the refreeze, the batched release, the lane write at
+admission and, paged, the prefix-hit assignment each run through one
+:class:`CapturedEntry` per engine: static inputs (tokens, the slot, the
+valid length, fresh page ids, a slot mask, the release vector, the lane's
+values or a write flag, all device operands written from pinned host
+memory without waiting), one static output, and on CUDA a
+``torch.cuda.CUDAGraph`` captured once and replayed, so a tick or a chunk
+costs one graph launch instead of thousands of kernel launches.  A chunked
+engine captures every entry when it is built (:meth:`ContinuousEngine.warmup`),
+so no capture stalls a request; an unchunked one, whose chunk width
+classes are power-of-two block counts up to a slot's capacity, captures
+each at its first use.  The graphs read the pool's state tensors in place,
 and every transition updates those same storages, so no state change
 needs a new capture; :meth:`ContinuousEngine.trace_counts` holds it at one
 capture per entry (per width class for the chunk).  Nothing but the final
-chunk's first token waits for the device on a prefill, a refreeze or an
-admission.  The sampler, the verify's accept and rollback and the release
-stay eager.  ``graphs=False`` runs the same entries eagerly (the twin of
-``jax.disable_jit()``).
+chunk's first token waits for the device on a prefill, a refreeze, a
+release or an admission.  The sampler and the verify's accept and
+rollback stay eager.  ``graphs=False`` runs the same entries eagerly (the
+twin of ``jax.disable_jit()``).
+
+**The engine's stream.**  On CUDA the engine keeps the device and the
+stream it was built on, and every public call that touches the device
+(:meth:`~ContinuousEngine.step`, :meth:`~ContinuousEngine.cancel`,
+:meth:`~ContinuousEngine.quiesce`, :meth:`~ContinuousEngine.warmup`) runs
+on them whichever thread makes it, so a server's engine thread replays,
+copies and syncs on the stream the graphs were captured and synced
+against (a thread's current stream is its own).
+
+**Fault-tolerant lifecycle** (host-side control flow, as in the
+reference).  Per-request deadlines (``SamplingParams.deadline_s`` /
+``ttft_deadline_s``) enforced at tick start, :meth:`ContinuousEngine.cancel`
+for any live request, bounded admission with load shedding
+(``max_queue``; a rejected request finishes ``"shed"`` at submit),
+exponential-backoff requeue when paged admission cannot reserve pages, and
+a degraded mode (``degrade_queue``) that drops the draft window to zero
+under queue pressure, through the same ``[slots, k+1]`` verify graph.
+``fault_counters`` tallies every abnormal event; a double release is
+counted against the ``_slot_live`` mirror, skips the allocator and still
+reaches the device, where it is a masked no-op.  A seeded
+:class:`~.faults.FaultPlan` (``faults=``) fires failures at the five
+engine sites.  An optional :class:`repro_torch.obs.Observability`
+(``obs=``) is fed host values only: no hook reads a device tensor.
 
 **Overlapped ticks** (``overlap=True``, the twin of the reference's
 ``_overlap_decode_tick`` / ``_sync_inflight``).  Tick t+1's decode is
@@ -50,8 +79,9 @@ breaks.  Under speculation the pipeline is shallow: the verify enqueued
 last tick commits after this tick's prefill dispatch and before its
 refreeze and drafting.  :meth:`ContinuousEngine._sync_inflight` is the one
 place a tick's tokens reach the host; it re-checks ``(slot, rid)``, so a
-window dispatched for a request that finished meanwhile is dropped.
-:meth:`ContinuousEngine.quiesce` drains the pipeline.
+window dispatched for a request that finished, was cancelled or expired
+meanwhile is dropped.  :meth:`ContinuousEngine.quiesce` drains the
+pipeline.
 
 Speculation (``spec=SpecConfig(k>0)``) turns the decode tick into a
 draft-verify tick: the host drafter proposes up to ``k`` tokens per slot
@@ -71,6 +101,8 @@ prompt's already-frozen prefix at the shared blocks, skipping its prefill.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
@@ -81,6 +113,8 @@ from repro_torch import kernels, resolve_device
 from repro_torch.models import lm
 from . import sampling
 from .cache_pool import BlockAllocator, CachePool
+from .faults import (CANCEL_PREFILL, CANCEL_SPEC, DOUBLE_RELEASE,
+                     DRAFTER_ERROR, PAGE_EXHAUSTION, FaultPlan)
 from .sampling import RequestOutput, SamplingParams
 from .scheduler import PrefixTrie, Scheduler, block_hashes
 from .spec import AdaptiveDraft, SpecConfig
@@ -246,10 +280,10 @@ def panel_entry(params, state: Dict[str, Any], cfg, bs: int, qn: int,
 def _writing_entry(state: Dict[str, Any], inputs: Dict[str, torch.Tensor],
                    fn: Callable[[], Optional[torch.Tensor]],
                    eager: bool) -> CapturedEntry:
-    """An entry whose ``fn`` writes the pool under a ``write`` flag (bool
+    """An entry whose ``fn`` writes ``state`` under a ``write`` flag (bool
     ``[1]``): false for the warm-up and capture, true once captured."""
     inputs["write"] = torch.zeros(1, dtype=torch.bool,
-                                  device=state["pos"].device)
+                                  device=_leaves(state)[0].device)
     fwd = CapturedEntry(state, inputs, fn, eager=eager)
     fwd.set(write=[True])
     return fwd
@@ -304,16 +338,61 @@ def assign_entry(pool: CachePool, state: Dict[str, Any],
     return _writing_entry(state, inp, fn, eager)
 
 
+def release_entry(pool: CachePool, state: Dict[str, Any],
+                  eager: bool = False) -> CapturedEntry:
+    """The batched release: static input ``slots`` (int32 ``[slots]``, the
+    slots to recycle first, ``-1`` where nothing is released, as the
+    reference's ``_flush_releases`` pads it); no output.  The all ``-1``
+    vector of the warm-up and capture releases nothing, and releasing a
+    free slot is a masked no-op, so no write flag is needed."""
+    inp = {"slots": torch.full((pool.slots,), -1, dtype=torch.int32,
+                               device=pool.device)}
+
+    def fn():
+        pool.release(state, inp["slots"])
+    return CapturedEntry(state, inp, fn, eager=eager)
+
+
+def set_lane_entry(lanes: Dict[str, torch.Tensor],
+                   eager: bool = False) -> CapturedEntry:
+    """One slot's sampling lane written at admission
+    (:func:`~.sampling.set_lane`): static inputs ``slot`` (int64 ``[1]``),
+    ``temperature``, ``top_k``, ``top_p`` (``[1]`` in their lane's dtype)
+    and ``write``; no output."""
+    dev = lanes["temperature"].device
+    inp = {"slot": torch.zeros(1, dtype=torch.long, device=dev),
+           **{k: torch.zeros(1, dtype=v.dtype, device=dev)
+              for k, v in lanes.items()}}
+
+    def fn():
+        sampling.set_lane(lanes, inp["slot"], inp["temperature"],
+                          inp["top_k"], inp["top_p"], inp["write"])
+    return _writing_entry(lanes, inp, fn, eager)
+
+
+def _on_device(method):
+    """Run an engine method on the engine's CUDA device and stream,
+    whichever thread calls it (a no-op on the CPU)."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with self._on_stream():
+            return method(self, *args, **kwargs)
+    return run
+
+
 class ContinuousEngine:
     """Continuous-batching engine: requests stream through a
     :class:`CachePool` of fixed-geometry slots under a :class:`Scheduler`;
     chunked prefill interleaves with decode ticks and slots recycle on
-    completion.  Runs on the CUDA device unless ``device="cpu"``.
+    completion, cancellation or expiry.  Runs on the CUDA device unless
+    ``device="cpu"``.
 
     ``overlap=True`` enqueues each tick before the previous tick's tokens
     reach the host; greedy and seeded output are identical either way.
     ``graphs=False`` runs every entry eagerly instead of through its
-    captured :class:`CapturedEntry` (tests and oracles only)."""
+    captured :class:`CapturedEntry` (tests and oracles only).
+    ``max_queue``, ``degrade_queue``, ``faults``, ``obs`` and
+    ``capacity_slack`` mean what they mean in the reference."""
 
     def __init__(self, params, cfg, slots: int = 4, max_tokens: int = 0,
                  bs: int = 0, prefill_chunk: Optional[int] = None,
@@ -321,21 +400,25 @@ class ContinuousEngine:
                  device: Optional[torch.device] = None, *,
                  ctx=None, spec=None, mesh=None, paged: bool = False,
                  phys_blocks: int = 0, checkify: Optional[bool] = None,
-                 capacity_slack: Optional[float] = None, max_queue: int = 0,
-                 degrade_queue: int = 0, faults=None, obs=None,
-                 overlap: bool = False, graphs: bool = True):
+                 capacity_slack: float = 1.25, max_queue: int = 0,
+                 degrade_queue: int = 0, faults: Optional[FaultPlan] = None,
+                 obs=None, overlap: bool = False, graphs: bool = True):
         later = {"ctx": ctx is not None, "mesh": mesh is not None,
-                 "checkify": bool(checkify),
-                 "capacity_slack": capacity_slack is not None,
-                 "max_queue": bool(max_queue),
-                 "degrade_queue": bool(degrade_queue),
-                 "faults": faults is not None, "obs": obs is not None}
+                 "checkify": bool(checkify)}
         unported = [k for k, v in later.items() if v]
         if unported:
             raise NotImplementedError(
                 f"ContinuousEngine options {unported} belong to later "
                 "slices of the port")
         self.device = resolve_device(device)
+        # the device and stream every device call of this engine runs on,
+        # whichever thread makes it (:meth:`_on_stream`)
+        self.stream: Optional[torch.cuda.Stream] = None
+        if self.device.type == "cuda":
+            index = (self.device.index if self.device.index is not None
+                     else torch.cuda.current_device())
+            self._cuda = torch.device("cuda", index)
+            self.stream = torch.cuda.current_stream(self._cuda)
         self.cfg = cfg
         max_tokens = max_tokens or 4 * cfg.kv_tail
         if not bs:
@@ -345,6 +428,7 @@ class ContinuousEngine:
             bs = next(d for d in range(limit, 0, -1)
                       if cfg.kv_tail % d == 0)
         self.pool = CachePool.build(cfg, slots, max_tokens, bs=bs,
+                                    capacity_slack=capacity_slack,
                                     device=self.device, paged=paged,
                                     n_phys=phys_blocks)
         self.state = self.pool.init_state()
@@ -358,13 +442,34 @@ class ContinuousEngine:
         sch_kw = {} if clock is None else {"clock": clock}
         self.scheduler = Scheduler(slots, self.pool.capacity_tokens,
                                    self.pool.bs, chunk=prefill_chunk,
-                                   **sch_kw)
+                                   max_queue=max_queue, **sch_kw)
         # host mirrors (avoid a device sync per tick)
         self._tail_len = np.zeros(slots, np.int64)
         self._last_tok: Dict[int, int] = {}
         self._callbacks: Dict[int, Callable[[RequestOutput], None]] = {}
-        self._pending_release: List[int] = []
+        self._pending_release: List[int] = []         # flushed once per tick
+        # fault-tolerant lifecycle: the seeded fault plan (None in
+        # production), the degraded-mode queue threshold, and which slots
+        # hold admitted device state (a double release is detected against
+        # it on the host and counted, never acted on twice)
+        self._faults = faults
+        self._degrade_queue = degrade_queue
+        self._tick_no = 0
+        self._in_tick = False
         self._slot_live = np.zeros(slots, bool)
+        self.fault_counters: Dict[str, int] = {
+            "shed": 0, "timeout": 0, "cancelled": 0, "double_release": 0,
+            "drafter_error": 0, "deferred": 0, "degraded_ticks": 0,
+            "injected_page_exhaustion": 0}
+        # observability (repro_torch.obs.Observability or None): fed plain
+        # host values at the tick boundary, the token read and the host
+        # submit and cancel paths, never a device tensor
+        self._obs = obs
+        self._tick_committed = 0          # tokens committed this tick
+        if obs is not None and faults is not None:
+            faults.on_fire = (
+                lambda site, tick: obs.fault(site, tick,
+                                             self.scheduler.clock()))
         # paged pool: host-side id lifecycle + prefix index.  Sharing needs
         # deterministic block content, which needs deterministic chunk
         # boundaries: the trie indexes only blocks frozen by full-width
@@ -396,20 +501,106 @@ class ContinuousEngine:
         if self.scheduler.chunk is not None:
             self.warmup()
 
+    def _on_stream(self):
+        """The engine's CUDA device and stream as the current ones (a
+        thread's current stream is its own: a server's engine thread would
+        otherwise run on the default stream, not the one the graphs were
+        captured and synced against)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self._cuda))
+        stack.enter_context(torch.cuda.stream(self.stream))
+        return stack
+
     # -- public API ---------------------------------------------------------
     def submit(self, prompt, params: Optional[SamplingParams] = None,
                on_token: Optional[Callable[[RequestOutput], None]] = None
                ) -> int:
         """Queue a request under its own :class:`SamplingParams`; returns
-        the request id.  ``on_token`` gets a snapshot per committed token."""
-        if params is not None and (params.deadline_s is not None
-                                   or params.ttft_deadline_s is not None):
-            raise NotImplementedError("request deadlines are not ported yet")
+        the request id.  ``on_token`` gets a snapshot per committed token
+        window.
+
+        Under load shedding (``max_queue`` set, queue full) the request is
+        rejected at once: ``on_token`` fires exactly once with a final
+        ``finish_reason="shed"`` snapshot and nothing is registered."""
         toks = [int(t) for t in np.asarray(prompt).reshape(-1)]
         rid = self.scheduler.submit(toks, params)
+        if self._obs is not None:
+            # the post-submit depth: a shed never entered the queue
+            self._obs.request_submitted(rid, len(toks),
+                                        self.scheduler.clock(),
+                                        queue_depth=len(self.scheduler.queue))
+        req = self.scheduler.finished.get(rid)
+        if req is not None and req.finish_reason == "shed":
+            # one counter path: the scheduler sheds and counts, the engine
+            # mirror re-syncs from it
+            self.fault_counters["shed"] = self.scheduler.shed_count
+            out = req.output()
+            if self._obs is not None:
+                self._obs.request_finished(out, self.scheduler.clock())
+            if on_token is not None:
+                on_token(out)
+            return rid
         if on_token is not None:
             self._callbacks[rid] = on_token
         return rid
+
+    @_on_device
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request wherever it lives (queued, prefilling or
+        decoding).  Returns whether anything was cancelled: a request that
+        already finished (or was never submitted) is a quiet ``False``.  An
+        active request's slot goes through the batched release (at once
+        between ticks); its ``on_token`` gets one final
+        ``finish_reason="cancelled"`` snapshot."""
+        return self._cancel_inner(rid) is not None
+
+    def _cancel_inner(self, rid: int) -> Optional[RequestOutput]:
+        req = self.scheduler.cancel(rid)
+        if req is None:
+            return None
+        self.fault_counters["cancelled"] += 1
+        if req.slot >= 0:
+            self._abort_slot(req.slot)
+        out = req.output()
+        if self._obs is not None:
+            self._obs.request_finished(out, self.scheduler.clock())
+        cb = self._callbacks.pop(rid, None)
+        if cb is not None:
+            cb(out)
+        return out
+
+    def _abort_slot(self, slot: int) -> None:
+        """Tear down an active slot outside the normal finish (cancel or
+        expiry): queue its release and reset the host mirrors.  Outside a
+        tick the release flushes at once, so a cancel between ticks leaves
+        no page pinned."""
+        self._pending_release.append(slot)
+        self._tail_len[slot] = 0
+        self._last_tok.pop(slot, None)
+        if self._adaptive is not None:
+            self._adaptive.reset(slot)
+        if not self._in_tick:
+            self._flush_releases()
+
+    def _expire_deadlines(self, now: float,
+                          events: List[RequestOutput]) -> None:
+        """Finish every request past its deadline (``"timeout"``),
+        releasing the slots of active ones.  Runs at tick start, before
+        this tick's decode, so a stop committed last tick has already won:
+        a deadline never retracts emitted output."""
+        for req in self.scheduler.expire(now):
+            self.fault_counters["timeout"] += 1
+            if req.slot >= 0:
+                self._abort_slot(req.slot)
+            out = req.output()
+            if self._obs is not None:
+                self._obs.request_finished(out, now)
+            events.append(out)
+            cb = self._callbacks.pop(req.rid, None)
+            if cb is not None:
+                cb(out)
 
     def run(self) -> Dict[int, RequestOutput]:
         """Tick until every submitted request finished."""
@@ -425,6 +616,7 @@ class ContinuousEngine:
             yield from self.step()
         yield from self.quiesce()
 
+    @_on_device
     def quiesce(self) -> List[RequestOutput]:
         """Drain the overlapped pipeline: commit (or, for requests that
         finished meanwhile, drop) the in-flight tick's window and flush the
@@ -439,13 +631,13 @@ class ContinuousEngine:
         """Captures per entry (twin of the reference's jit trace counts,
         under its key names): ``decode``; ``prefill_chunk``, one per chunk
         width class (``chunk // bs`` on a chunked engine); ``refreeze``;
-        ``assign`` on the paged pool; ``verify`` under speculation.  Each but
-        ``prefill_chunk`` is 1 once captured (a chunked engine captures
-        every entry when it is built), whatever refreezes, admissions and
-        releases came between; 0 for an entry not captured yet and under
-        ``graphs=False``.  The reference's ``release`` and ``set_lane`` stay
-        eager here."""
-        names = ["decode", "prefill_chunk", "refreeze"]
+        ``release``; ``set_lane``; ``assign`` on the paged pool; ``verify``
+        under speculation.  Each but ``prefill_chunk`` is 1 once captured
+        (a chunked engine captures every entry when it is built), whatever
+        refreezes, admissions, cancellations and releases came between; 0
+        for an entry not captured yet and under ``graphs=False``."""
+        names = ["decode", "prefill_chunk", "refreeze", "release",
+                 "set_lane"]
         names += ["assign"] if self._alloc is not None else []
         names += ["verify"] if self._spec is not None else []
         counts = dict.fromkeys(names, 0)
@@ -462,14 +654,15 @@ class ContinuousEngine:
             counts[name] = counts.get(name, 0) + e.replays
         return counts
 
+    @_on_device
     def warmup(self) -> None:
         """Capture every entry this engine's ticks can run: the decode
         forward (under speculation, the verify forward), the prefill chunk
-        at each width class (:meth:`_width`), the refreeze and, paged, the
-        assignment.  The constructor calls it for a chunked engine, so no
-        capture stalls a request; an unchunked engine captures each class
-        at its first use unless this is called.  A no-op under
-        ``graphs=False``."""
+        at each width class (:meth:`_width`), the refreeze, the release,
+        the lane write and, paged, the assignment.  The constructor calls
+        it for a chunked engine, so no capture stalls a request; an
+        unchunked engine captures each class at its first use unless this
+        is called.  A no-op under ``graphs=False``."""
         if not self._graphs:
             return
         self._entry("verify" if self._spec is not None else "decode")
@@ -477,7 +670,8 @@ class ContinuousEngine:
                 1, (self.scheduler.chunk or self.pool.capacity_tokens) + 1,
                 self.pool.bs)}):
             self._entry("prefill_chunk", w)
-        self._entry("refreeze")
+        for name in ("refreeze", "release", "set_lane"):
+            self._entry(name)
         if self._alloc is not None:
             self._entry("assign")
 
@@ -496,8 +690,8 @@ class ContinuousEngine:
     def _entry(self, name: str, width: int = 0) -> CapturedEntry:
         """The entry ``name`` (``decode``: ``[slots, 1]``; ``verify``:
         ``[slots, k+1]``; ``prefill_chunk`` at the chunk width class
-        ``width``; ``refreeze``; ``assign``), captured at its first use
-        unless :meth:`warmup` captured it."""
+        ``width``; ``refreeze``; ``release``; ``set_lane``; ``assign``),
+        captured at its first use unless :meth:`warmup` captured it."""
         key = (name, width) if name == "prefill_chunk" else name
         fwd = self._entries.get(key)
         if fwd is not None:
@@ -510,8 +704,11 @@ class ContinuousEngine:
         elif name == "prefill_chunk":
             fwd = prefill_entry(self.params, self.state, self.cfg,
                                 self.pool.bs, width, eager=eager)
+        elif name == "set_lane":
+            fwd = set_lane_entry(self.lanes, eager=eager)
         else:
-            make = refreeze_entry if name == "refreeze" else assign_entry
+            make = {"refreeze": refreeze_entry, "release": release_entry,
+                    "assign": assign_entry}[name]
             fwd = make(self.pool, self.state, eager=eager)
         self._entries[key] = fwd
         return fwd
@@ -547,27 +744,83 @@ class ContinuousEngine:
         return None if self._adaptive is None else self._adaptive.hist
 
     # -- one tick -----------------------------------------------------------
+    @_on_device
     def step(self) -> List[RequestOutput]:
         """Advance one tick; returns a snapshot per token emitted.  Slots
-        freed this tick are released together at its end."""
+        freed this tick are released together at its end, in one replay
+        of the ``release`` entry.
+
+        Deadline expiry and the release flush run first, so a slot freed
+        by a timeout (or by a cancel between ticks) is fully released
+        before any request can be admitted into it."""
+        obs = self._obs
+        t_start = self.scheduler.clock() if obs is not None else 0.0
+        self._tick_no += 1
+        self._in_tick = True
+        self._tick_committed = 0
         try:
             return self._step_inner()
         finally:
+            if self._faults is not None:
+                # double-release fault: push an already-freed slot through
+                # the release path again; the flush must absorb it as a
+                # counted warning and the device release as a no-op
+                cand = (list(self._pending_release)
+                        or [s for s in range(self.pool.slots)
+                            if s not in self.scheduler.active])
+                if cand and self._faults.take(DOUBLE_RELEASE, self._tick_no):
+                    self._pending_release.append(self._faults.choose(cand))
             self._flush_releases()
+            self._in_tick = False
+            if obs is not None:
+                sch = self.scheduler
+                obs.tick(
+                    start=t_start, now=sch.clock(), tick_no=self._tick_no,
+                    committed=self._tick_committed,
+                    queue_depth=len(sch.queue), active=len(sch.active),
+                    slots=self.pool.slots, counters=self.fault_counters,
+                    free_blocks=(self._alloc.free_blocks()
+                                 if self._alloc is not None else None),
+                    n_phys=(self.pool.n_phys
+                            if self._alloc is not None else 0),
+                    evictions=(self._alloc.evictions
+                               if self._alloc is not None else 0),
+                    trie_blocks=(len(self._trie)
+                                 if self._trie is not None else 0),
+                    spec_hist=(self.spec_hist.tolist()
+                               if self._spec is not None else None))
 
     def _flush_releases(self) -> None:
+        """Recycle every pending slot in one replay of the ``release``
+        entry (a host-padded ``[slots]`` vector, ``-1`` where nothing is
+        released).
+
+        A slot pending twice, or pushed again after an earlier flush, is
+        found against the ``_slot_live`` mirror and counted as a
+        ``double_release``: its allocator decref is skipped (host
+        refcounts stay exact) while the device release, a masked no-op on
+        a free slot, still gets every unique slot."""
         if not self._pending_release:
             return
-        seen = list(dict.fromkeys(self._pending_release))
-        self._pending_release = []
+        seen = list(dict.fromkeys(self._pending_release))   # ordered unique
+        doubles = len(self._pending_release) - len(seen)
+        live = []
         for s in seen:
-            self._slot_live[s] = False
-            self._gens[s] = None
-        vec = torch.full((self.pool.slots,), -1, dtype=torch.int32)
-        vec[:len(seen)] = torch.tensor(seen, dtype=torch.int32)
-        self.pool.release(self.state, vec.to(self.device, non_blocking=True))
+            if self._slot_live[s]:
+                self._slot_live[s] = False
+                self._gens[s] = None
+                live.append(s)
+            else:
+                doubles += 1
+        self._pending_release = []
+        self.fault_counters["double_release"] += doubles
+        vec = np.full(self.pool.slots, -1, np.int32)
+        vec[:len(seen)] = seen
+        fwd = self._entry("release")
+        fwd.set(slots=vec)
+        fwd.run()
         if self._alloc is not None:
-            for s in seen:
+            for s in live:
                 ids = self._blocks.pop(s, [])
                 if ids:
                     self._alloc.decref(ids)
@@ -579,9 +832,9 @@ class ContinuousEngine:
         Returns the admitted request, or None (the request stays queued,
         backing off) when the arena cannot guarantee its worst-case page
         demand on top of every admitted request's outstanding reservation —
-        the paged analogue of running out of slots.  On admission a
-        prefix-trie hit points the slot's table row at the shared blocks
-        and skips their prefill."""
+        the paged analogue of running out of slots — or when the plan
+        injects that pressure.  On admission a prefix-trie hit points the
+        slot's table row at the shared blocks and skips their prefill."""
         sch, bs, alloc = self.scheduler, self.pool.bs, self._alloc
         nxt = sch.queue[0]
         plen = len(nxt.prompt)
@@ -598,10 +851,19 @@ class ContinuousEngine:
         revived = sum(1 for i in hits if alloc.refcount(i) == 0)
         need = -(-(plen + nxt.params.max_new_tokens) // bs) - len(hits)
         outstanding = sum(self._reserved.values())
-        if need + revived + outstanding > alloc.free_blocks():
+        exhausted = need + revived + outstanding > alloc.free_blocks()
+        if (not exhausted and self._faults is not None
+                and self._faults.take(PAGE_EXHAUSTION, self._tick_no)):
+            # injected arena pressure: behave as if no page were free
+            self.fault_counters["injected_page_exhaustion"] += 1
+            exhausted = True
+        if exhausted:
             sch.defer_admission(now)       # head-of-line: FIFO preserved
+            self.fault_counters["deferred"] += 1
             return None
         req = sch.admit(now)
+        if self._obs is not None and sch.chunk is not None:
+            self._obs.prefix_match(len(hits), plen // bs)
         self._reserved[req.slot] = need
         self._blocks[req.slot] = list(hits)
         if hits:
@@ -615,10 +877,27 @@ class ContinuousEngine:
             self._tail_len[req.slot] = 0
         return req
 
+    def _set_lane(self, slot: int, params: SamplingParams) -> None:
+        """Write an admitted request's sampling lane through the
+        ``set_lane`` entry (its values as device operands) and keep its
+        generator and sort branch on the host."""
+        fwd = self._entry("set_lane")
+        fwd.set(slot=[slot], temperature=[params.temperature],
+                top_k=[params.top_k], top_p=[params.top_p])
+        fwd.run()
+        self._gens[slot] = (
+            sampling.request_generator(params, self.device)
+            if params.temperature > 0 else None)
+        self._exact[slot] = sampling.needs_exact_sort(params, self.cfg.vocab)
+
     def _step_inner(self) -> List[RequestOutput]:
         events: List[RequestOutput] = []
         sch = self.scheduler
+        # expiry, then the release flush, then admission: a pending release
+        # never lands on a slot a new request just took
         now = sch.clock()
+        self._expire_deadlines(now, events)
+        self._flush_releases()
         while sch.queue and sch.free_slots():
             if sch.queue[0].next_admit > now:
                 break                          # head backing off: FIFO waits
@@ -626,13 +905,18 @@ class ContinuousEngine:
                    else self._admit_paged(now))
             if req is None:
                 break                          # arena full: wait for releases
-            sampling.set_lane(self.lanes, req.slot, req.params)
-            self._gens[req.slot] = (
-                sampling.request_generator(req.params, self.device)
-                if req.params.temperature > 0 else None)
-            self._exact[req.slot] = sampling.needs_exact_sort(
-                req.params, self.cfg.vocab)
+            self._set_lane(req.slot, req.params)
             self._slot_live[req.slot] = True
+
+        # cancellation-mid-prefill fault: kill a partly prefilled request
+        # between its chunks
+        if self._faults is not None:
+            mid = [r for r in sch.active.values()
+                   if 0 < r.prefill_done < len(r.prompt)]
+            if mid and self._faults.take(CANCEL_PREFILL, self._tick_no):
+                out = self._cancel_inner(self._faults.choose(mid).rid)
+                if out is not None:
+                    events.append(out)
 
         if self.overlap and self._spec is not None:
             # the shallow pipeline: the verify enqueued last tick commits
@@ -662,6 +946,7 @@ class ContinuousEngine:
         if self.overlap:
             return self._overlap_decode_tick(slots, events)
         b = self.pool.slots
+        t_dec = sch.clock() if self._obs is not None else 0.0
         tokens = torch.zeros((b, 1), dtype=torch.long)
         mask = [False] * b
         for s in slots:
@@ -672,9 +957,13 @@ class ContinuousEngine:
                                          self._gens, mask,
                                          self._exact_for(mask))
         picked, logps = tok.tolist(), logp.tolist()
+        if self._obs is not None:
+            # dispatch through the token read
+            self._obs.decode_tick(t_dec, sch.clock() - t_dec, len(slots),
+                                  spec=False)
         for s in slots:
             if s not in sch.active:
-                continue
+                continue      # cancelled by a callback: the token dies
             self._tail_len[s] += 1
             self._emit(s, [picked[s]], [logps[s]], events)
         return events
@@ -692,6 +981,7 @@ class ContinuousEngine:
         next refreeze decision exact without waiting."""
         sch = self.scheduler
         b = self.pool.slots
+        t_dec = sch.clock() if self._obs is not None else 0.0
         rec = self._inflight
         mask = [False] * b
         for s in slots:
@@ -726,7 +1016,8 @@ class ContinuousEngine:
         # is what the commit reads
         new_rec = {**self._to_host(tok=tok, logp=logp, ncommit=None),
                    "chain": tok, "dlen": None,
-                   "slots": [(s, sch.active[s].rid) for s in slots]}
+                   "slots": [(s, sch.active[s].rid) for s in slots],
+                   "t0": t_dec}
         # commit tick t-1 while tick t runs behind it
         self._sync_inflight(events)
         self._inflight = new_rec
@@ -748,10 +1039,10 @@ class ContinuousEngine:
     def _sync_inflight(self, events: List[RequestOutput]) -> None:
         """Commit the in-flight tick's token window: the overlapped
         pipeline's one sync.  Each slot's ``(slot, rid)`` is checked again:
-        a request that finished, or whose slot was taken by another, while
-        its window was in flight has the window dropped (its appends were
-        dead writes, wiped by the release).  No-op when nothing is in
-        flight."""
+        a request that finished, was cancelled or expired, or whose slot
+        was taken by another, while its window was in flight has the
+        window dropped (its appends were dead writes, wiped by the
+        release).  No-op when nothing is in flight."""
         rec, self._inflight = self._inflight, None
         if rec is None:
             return
@@ -760,6 +1051,12 @@ class ContinuousEngine:
             rec["ready"].synchronize()
         picked, logps = rec["tok"].tolist(), rec["logp"].tolist()
         ncs = rec["ncommit"].tolist() if rec["ncommit"] is not None else None
+        if self._obs is not None:
+            # dispatch to the delayed read: the device's wall time, host
+            # work included only where it failed to hide
+            self._obs.decode_tick(rec["t0"], sch.clock() - rec["t0"],
+                                  len(rec["slots"]), spec=ncs is not None,
+                                  overlapped=True)
         for s, rid in rec["slots"]:
             req = sch.active.get(s)
             if req is None or req.rid != rid:
@@ -799,10 +1096,18 @@ class ContinuousEngine:
         appends ``k + 1`` tokens before the accept, and the kept ones must
         fit the ring; a nearly full tail speculates less and the refreeze
         keeps working unchanged) and, when adaptive, to the slot's window.
-        One verify scores the panel; each slot then commits its window
-        with the stop scan inside it."""
+        In degraded mode (the queue at ``degrade_queue`` or more) every
+        slot drafts nothing, and a drafter that raises leaves its slot
+        draftless: the same ``[slots, k+1]`` verify graph then commits one
+        token for it.  One verify scores the panel; each slot then commits
+        its window with the stop scan inside it."""
         sch = self.scheduler
+        t_dec = sch.clock() if self._obs is not None else 0.0
         b, k = self.pool.slots, self._spec.k
+        degraded = (self._degrade_queue > 0
+                    and len(sch.queue) >= self._degrade_queue)
+        if degraded:
+            self.fault_counters["degraded_ticks"] += 1
         tokens = torch.zeros((b, k + 1), dtype=torch.long)
         mask = [False] * b
         dlen = torch.zeros(b, dtype=torch.long)
@@ -810,28 +1115,54 @@ class ContinuousEngine:
             req = sch.active[s]
             tokens[s, 0] = self._last_tok[s]
             mask[s] = True
-            cap = min(k, self.pool.tail - 1 - int(self._tail_len[s]))
-            if self._adaptive is not None:
+            cap = 0 if degraded else min(
+                k, self.pool.tail - 1 - int(self._tail_len[s]))
+            if self._adaptive is not None and not degraded:
                 cap = min(cap, self._adaptive.draft_len(s))
             if cap > 0:
-                drafts = self.drafter.propose(req.prompt + req.generated,
-                                              cap)
+                try:
+                    if (self._faults is not None
+                            and self._faults.take(DRAFTER_ERROR,
+                                                  self._tick_no)):
+                        self._faults.raise_fault(DRAFTER_ERROR)
+                    drafts = self.drafter.propose(
+                        req.prompt + req.generated, cap)
+                except Exception:
+                    # a failing drafter leaves its slot draftless for this
+                    # tick, never the engine
+                    self.fault_counters["drafter_error"] += 1
+                    drafts = []
                 dlen[s] = len(drafts)
                 tokens[s, 1:1 + len(drafts)] = torch.tensor(
                     drafts, dtype=torch.long)
         slot_rids = [(s, sch.active[s].rid) for s in slots]
         tok, logp, ncommit = self._verify(tokens, mask, dlen)
+        # cancellation-mid-spec-window fault: the victim's drafts were
+        # verified but its window has not committed; it is dropped with
+        # the slot
+        if self._faults is not None:
+            alive = [s for s in slots if s in sch.active]
+            if alive and self._faults.take(CANCEL_SPEC, self._tick_no):
+                out = self._cancel_inner(
+                    sch.active[self._faults.choose(alive)].rid)
+                if out is not None:
+                    events.append(out)
         if self.overlap:
             # dispatched, not synced: the window commits at the next
-            # tick's _sync_inflight
+            # tick's _sync_inflight, which drops it for a dead request
             self._inflight = {**self._to_host(tok=tok, logp=logp,
                                               ncommit=ncommit),
-                              "dlen": dlen, "slots": slot_rids}
+                              "dlen": dlen, "slots": slot_rids,
+                              "t0": t_dec}
             return events
         picked, logps, ncs = tok.tolist(), logp.tolist(), ncommit.tolist()
+        if self._obs is not None:
+            # drafting and the verify dispatch through the token read
+            self._obs.decode_tick(t_dec, sch.clock() - t_dec, len(slots),
+                                  spec=True)
         for s in slots:
             if s not in sch.active:
-                continue
+                continue      # cancelled inside the window: never committed
             nc = ncs[s]
             self._tail_len[s] += nc          # t0 + accepted stay appended
             self.spec_hist[nc - 1] += 1      # nc - 1 = accepted drafts
@@ -888,6 +1219,7 @@ class ContinuousEngine:
         req = sch.next_prefill()
         if req is None:
             return
+        t_pf = sch.clock() if self._obs is not None else 0.0
         off0 = req.prefill_done
         chunk = sch.prefill_chunk(req)
         final = req.prefill_done >= len(req.prompt)
@@ -927,6 +1259,11 @@ class ContinuousEngine:
             tok, logp = sampling.sample_step(logits, lane, [self._gens[s]],
                                              [True], self._exact[s])
             self._emit(s, [int(tok[0])], [float(logp[0])], events)
+        if self._obs is not None:
+            # a non-final chunk is its dispatch; the final one includes
+            # the first token's read
+            self._obs.prefill_chunk(req.rid, req.slot, t_pf,
+                                    sch.clock() - t_pf, n, final)
 
     def _emit(self, slot: int, toks: List[int], logprobs: List[float],
               events: List[RequestOutput]) -> None:
@@ -935,19 +1272,27 @@ class ContinuousEngine:
         recycle the slot if that finished the request."""
         req = self.scheduler.active[slot]
         prefill = not req.generated
+        before = len(req.generated)
         finished = self.scheduler.record_tokens(
             slot, toks, logprobs, decode_tick=not prefill) is not None
+        # a stop inside a speculative window truncates the commit: count
+        # what landed
+        self._tick_committed += len(req.generated) - before
         out = req.output()
         events.append(out)
         cb = self._callbacks.get(req.rid)
         if cb is not None:
             cb(out)
         if finished:
+            if self._obs is not None:
+                self._obs.request_finished(out, self.scheduler.clock())
             self._callbacks.pop(req.rid, None)
             self._pending_release.append(slot)
             self._tail_len[slot] = 0
             self._last_tok.pop(slot, None)
             if self._adaptive is not None:
                 self._adaptive.reset(slot)   # the next tenant starts fresh
-        else:
+        elif req.finish_reason is None:
+            # a cancel from this request's own callback already reset the
+            # slot's mirrors
             self._last_tok[slot] = req.generated[-1]

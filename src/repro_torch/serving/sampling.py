@@ -184,12 +184,19 @@ def request_generator(params: SamplingParams,
     return g
 
 
-def set_lane(lanes: Dict[str, torch.Tensor], slot: int,
-             params: SamplingParams) -> None:
-    """Write one slot's lane at admission (in place)."""
-    lanes["temperature"][slot] = float(params.temperature)
-    lanes["top_k"][slot] = int(params.top_k)
-    lanes["top_p"][slot] = float(params.top_p)
+def set_lane(lanes: Dict[str, torch.Tensor], slot: torch.Tensor,
+             temperature: torch.Tensor, top_k: torch.Tensor,
+             top_p: torch.Tensor, write: torch.Tensor) -> None:
+    """Write one slot's lane at admission, in place (the twin of the
+    reference's ``set_lane``).  Every operand is a ``[1]`` tensor on the
+    lanes' device (``slot`` int64, ``write`` bool, the values in their
+    lane's dtype), so the engine captures this once and any request
+    replays it; a false ``write`` writes the lane back as it was."""
+    for key, value in (("temperature", temperature), ("top_k", top_k),
+                       ("top_p", top_p)):
+        lane = lanes[key]
+        lane.index_copy_(0, slot, torch.where(
+            write, value, lane.index_select(0, slot)))
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ Admission only takes a request whose worst case (prompt +
 max_new_tokens) fits a slot's token capacity, so the refreeze scatter can
 never overflow.  ``max_queue`` sheds submits past the bound; ``cancel`` /
 ``expire`` / ``defer_admission`` are the lifecycle exits the fault-tolerant
-engine of a later slice drives.
+engine drives.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Port engine vs the reference ``ContinuousEngine``: identical greedy
 tokens on a staggered mixed-length wave that crosses refreezes (f32 model,
 default KV sparsity), the sampler's masking held exactly, and seeded draws
-independent of slot placement."""
+independent of slot placement; the options of later slices raise and the
+lifecycle options are taken."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -11,7 +12,9 @@ from repro.serving import ContinuousEngine as JaxEngine
 from repro.serving import SamplingParams as JaxParams
 from repro.serving import sampling as jsampling
 
-from repro_torch.serving import ContinuousEngine, SamplingParams, SpecConfig
+from repro_torch.obs import Observability
+from repro_torch.serving import (CachePool, ContinuousEngine, FaultPlan,
+                                 SamplingParams, SpecConfig)
 from repro_torch.serving import sampling as tsampling
 
 from torch_parity import configs, sparse_params
@@ -44,14 +47,40 @@ def test_greedy_tokens_identical_to_reference_across_refreeze():
 
 
 @pytest.mark.parametrize("option", [
-    {"paged": True, "checkify": True}, {"faults": object()}, {"max_queue": 4},
-    {"capacity_slack": 1.5}, {"spec": SpecConfig(k=2), "degrade_queue": 2},
+    {"paged": True, "checkify": True}, {"ctx": object()}, {"mesh": object()},
 ], ids=lambda o: next(iter(o)))
 def test_later_slice_options_raise(option):
     jcfg, tcfg = configs("float32")
     _, tparams = sparse_params(jcfg, tcfg)
     with pytest.raises(NotImplementedError):
         ContinuousEngine(tparams, tcfg, slots=1, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [
+    {"faults": FaultPlan()}, {"max_queue": 4}, {"capacity_slack": 1.5},
+    {"spec": SpecConfig(k=2), "degrade_queue": 2}, {"obs": Observability()},
+], ids=lambda o: next(iter(o)))
+def test_lifecycle_options_are_taken(option):
+    """The lifecycle and telemetry options the engine refused before this
+    slice build an engine that holds them, with the reference's meaning."""
+    jcfg, tcfg = configs("float32")
+    _, tparams = sparse_params(jcfg, tcfg)
+    eng = ContinuousEngine(tparams, tcfg, slots=1, device="cpu", **option)
+    if "faults" in option:
+        assert eng._faults is option["faults"]
+    if "max_queue" in option:
+        assert eng.scheduler.max_queue == 4
+    if "capacity_slack" in option:
+        wide = CachePool.build(tcfg, 1, eng.pool.capacity_tokens,
+                               bs=eng.pool.bs, device="cpu")
+        assert eng.pool.cap_v >= wide.cap_v and eng.pool.cap_k >= wide.cap_k
+    if "degrade_queue" in option:
+        assert eng._degrade_queue == 2 and eng.trace_counts()["verify"] == 0
+    if "obs" in option:
+        assert eng._obs is option["obs"]
+    rid = eng.submit([1, 2, 3], SamplingParams(max_new_tokens=2,
+                                               deadline_s=60.0))
+    assert eng.run()[rid].finish_reason == "length"
 
 
 LANES = [  # (temperature, top_k, top_p) per lane

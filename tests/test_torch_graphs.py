@@ -7,7 +7,9 @@ engine's tokens and logprobs identical with ``graphs=True`` and
 was; replays count the kernel launches the graph holds and the capture
 counts none; a replay after a state tensor was replaced raises; and the
 kernels' per-device buffers refuse to grow while a CUDA graph is being
-captured."""
+captured.  The ``release`` and ``set_lane`` entries leave the state the
+eager transitions leave, write nothing when captured, and keep one capture
+each across admissions, cancellations and double releases."""
 import numpy as np
 import pytest
 import torch
@@ -18,8 +20,11 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sparse_attention as sa
 from repro_torch.kernels import sparse_gemv as gv
 from repro_torch.models import lm
-from repro_torch.serving import (ContinuousEngine, SamplingParams,
-                                 SpecConfig, panel_entry)
+from repro_torch.serving import (ContinuousEngine, Fault, FaultPlan,
+                                 SamplingParams, SpecConfig, panel_entry,
+                                 release_entry, set_lane_entry)
+from repro_torch.serving import sampling
+from repro_torch.serving.faults import CANCEL_PREFILL, DOUBLE_RELEASE
 
 from torch_parity import configs, sparse_params
 
@@ -272,3 +277,93 @@ def test_buffer_growth_under_capture_raises(monkeypatch, wrapper):
             with pytest.raises(RuntimeError, match="attention's tickets"):
                 _attention_call(b=160)
     assert (gv._SCRATCH, sa._TICKETS) == held
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+def test_release_entry_bit_equal_to_eager(setup, live, paged):
+    """From copies of a live state (two slots decoding, one free): the
+    captured release leaves the state the eager ``pool.release`` leaves,
+    for a live slot, a free slot (a masked no-op) and both at once; the
+    capture with the all ``-1`` vector writes nothing."""
+    eng = live[paged]
+    st_g, st_e = _clone(eng.state), _clone(eng.state)
+    before = _clone(st_g)
+    fwd = release_entry(eng.pool, st_g)
+    assert _equal(st_g, before) and fwd.captures == 1
+    free = next(s for s in range(eng.pool.slots)
+                if s not in eng.scheduler.active)
+    live_slot = eng.scheduler.decoding_slots()[0]
+    for slots in ([free], [live_slot], [live_slot, free]):
+        vec = np.full(eng.pool.slots, -1, np.int32)
+        vec[:len(slots)] = slots
+        fwd.set(slots=vec)
+        fwd.run()
+        eng.pool.release(st_e, torch.from_numpy(vec))
+        assert _equal(st_g, st_e)
+    assert int(st_g["pos"][live_slot]) == 0
+    if paged:
+        assert int(st_g["refcount"].sum()) < int(before["refcount"].sum())
+    assert fwd.replays == 3
+
+
+def test_set_lane_entry_bit_equal_to_eager(setup):
+    """The captured lane write equals the eager one for greedy, sampled
+    and top-p lanes, and the capture (a false write flag) leaves every
+    lane as it was."""
+    lanes = sampling.init_lanes(3, torch.device("cpu"))
+    lanes["temperature"][1] = 0.25
+    ref = _clone(lanes)
+    before = _clone(lanes)
+    fwd = set_lane_entry(lanes)
+    assert _equal(lanes, before) and fwd.captures == 1
+    for slot, p in ((1, SamplingParams(temperature=0.7, top_k=40,
+                                       top_p=0.9)),
+                    (0, SamplingParams()),
+                    (2, SamplingParams(temperature=1.3, top_p=0.55))):
+        fwd.set(slot=[slot], temperature=[p.temperature], top_k=[p.top_k],
+                top_p=[p.top_p])
+        fwd.run()
+        sampling.set_lane(
+            ref, torch.tensor([slot]),
+            torch.tensor([p.temperature], dtype=torch.float32),
+            torch.tensor([p.top_k], dtype=torch.int32),
+            torch.tensor([p.top_p], dtype=torch.float32),
+            torch.ones(1, dtype=torch.bool))
+        assert _equal(lanes, ref)
+        assert lanes["temperature"][slot].item() == \
+            np.float32(p.temperature)
+        assert lanes["top_k"][slot].item() == p.top_k
+    assert fwd.replays == 3
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+def test_release_and_set_lane_captured_once_across_the_lifecycle(
+        setup, paged):
+    """Admissions, a cancel between ticks, a cancel mid-prefill and a
+    double release: ``release`` and ``set_lane`` are captured once, when
+    the engine is built, and replayed for every flush and admission; the
+    double release is counted and the refcounts come back to zero."""
+    cfg, params = setup
+    plan = FaultPlan([Fault(CANCEL_PREFILL, 1), Fault(DOUBLE_RELEASE, 3)])
+    eng = _engine(params, cfg, paged=paged, faults=plan, overlap=True)
+    counts = eng.trace_counts()
+    assert counts["release"] == counts["set_lane"] == 1
+    prompts = _prompts(cfg.vocab, seed=2, lens=(40, 9, 21, 30, 12))
+    rids = [eng.submit(p, SamplingParams(max_new_tokens=12))
+            for p in prompts]
+    for _ in range(6):
+        eng.step()
+    victim = next(r for r in rids if r not in eng.scheduler.finished)
+    assert eng.cancel(victim)
+    eng.run()
+    assert plan.exhausted()
+    assert eng.trace_counts() == counts
+    replays = eng.replay_counts()
+    assert replays["set_lane"] == len(prompts)
+    assert replays["release"] >= 3
+    fc = eng.fault_counters
+    assert fc["cancelled"] == 2 and fc["double_release"] == 1
+    assert not eng._slot_live.any()
+    if paged:
+        assert int(eng._alloc._ref.sum()) == 0
+        assert int(eng.state["refcount"].sum()) == 0

@@ -62,6 +62,25 @@ def test_spec_module_is_numpy_only():
         mods
 
 
+@pytest.mark.parametrize("module,allowed", [
+    ("serving/faults.py", {"numpy", "os"}),
+    ("obs/__init__.py", {".metrics", ".prometheus", ".trace"}),
+    ("obs/metrics.py", {"math", "random", "re", "threading", "bisect",
+                        "collections"}),
+    ("obs/prometheus.py", {"math", "threading", "http.server", ".metrics"}),
+    ("obs/trace.py", {"json", "threading"}),
+    ("serving/frontend.py", {"asyncio", "json", "threading", "collections",
+                             ".sampling"})])
+def test_lifecycle_and_telemetry_modules_are_stdlib_copies(module, allowed):
+    """The fault plan (numpy only), the telemetry (stdlib only) and the
+    frontend (stdlib and the port's sampling parameters) are copies of the
+    reference's modules: none imports torch, jax or either package."""
+    text = (SRC / "repro_torch" / module).read_text()
+    mods = {a or b for a, b in re.findall(
+        r"^\s*(?:import ([\w.]+)|from ([\w.]+) import)", text, re.M)}
+    assert mods <= {"__future__", "dataclasses", "typing"} | allowed, mods
+
+
 def test_no_import_of_jax_or_the_reference_in_the_sources():
     pat = re.compile(r"^\s*(import|from) (jax|repro)\b", re.M)
     files = [ROOT / "chip_smoke.py", ROOT / "tools" / "compare_trees.py",

@@ -6,7 +6,9 @@ engine; one capture per forward entry across refreezes, admissions and
 releases; the host reads a tick's tokens only in ``_sync_inflight``, once
 a tick; ``quiesce`` drains the pipeline; and the in-flight window never
 shares storage with the captured forward's static buffers, which the next
-tick overwrites."""
+tick overwrites.  A cancel or a deadline that lands while a window is in
+flight drops the victim's dispatched tokens and leaves the co-tenant
+untouched; a shed is counted once, by the scheduler."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ import torch
 from repro.serving import ContinuousEngine as JaxEngine
 from repro.serving import SamplingParams as JaxParams
 
+from repro_torch.obs import Observability
 from repro_torch.serving import (CapturedEntry, ContinuousEngine,
                                  SamplingParams, SpecConfig,
                                  stable_trace_counts)
@@ -328,5 +331,137 @@ def test_overlap_serves_the_launcher_config(setup):
     assert [len(out[r].token_ids) for r in rids] == [9, 14, 6]
     # bs = 32: the unchunked prompts take the chunk width classes 32 and 64
     assert eng.trace_counts() == {"decode": 1, "prefill_chunk": 2,
-                                  "refreeze": 1}
+                                  "refreeze": 1, "release": 1,
+                                  "set_lane": 1}
     _assert_drained(eng)
+
+
+# ---------------------------------------------------------------------------
+# lifecycle races against the in-flight tick
+# ---------------------------------------------------------------------------
+
+class FakeClock:
+    """Injected monotonic clock: tests advance time, nothing sleeps."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _step_until_inflight(eng, rid, min_tokens=2, max_ticks=100):
+    """Tick until ``rid`` has committed ``min_tokens`` and a dispatched
+    window is in flight, so the next lifecycle event races it."""
+    for _ in range(max_ticks):
+        eng.step()
+        req = next((r for r in eng.scheduler.active.values()
+                    if r.rid == rid), None)
+        if (req is not None and len(req.generated) >= min_tokens
+                and eng._inflight is not None):
+            return req
+    raise AssertionError("never reached an in-flight state")
+
+
+def _pair(cfg, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, cfg.vocab, (20,)).tolist(),
+            rng.integers(0, cfg.vocab, (24,)).tolist())
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_overlap_cancel_races_inflight_tick(setup, spec):
+    """A cancel between ticks, while the victim's next window is in
+    flight: the window is dropped at the commit, the victim's stream ends
+    at what it had committed, the release runs at once (and only once) and
+    the co-tenant equals the serial run; nothing is captured again."""
+    _, cfg, _, params = setup
+    pa, pb = _pair(cfg)
+    sp = SamplingParams(max_new_tokens=8)
+    kw = dict(spec=SpecConfig(k=3) if spec else None)
+    serial = _engine(params, cfg, **kw)
+    ra, rv = serial.submit(pa, sp), serial.submit(pb, sp)
+    out = serial.run()
+    solo_a, solo_v = list(out[ra].token_ids), list(out[rv].token_ids)
+
+    eng = _engine(params, cfg, overlap=True, **kw)
+    warm = eng.trace_counts()
+    ra, rv = eng.submit(pa, sp), eng.submit(pb, sp)
+    victim = _step_until_inflight(eng, rv)
+    committed = len(victim.generated)
+    releases = eng.replay_counts()["release"]
+    assert eng.cancel(rv) is True
+    assert eng.replay_counts()["release"] == releases + 1   # flushed now
+    assert not eng._pending_release and eng._inflight is not None
+    out = eng.run()
+    assert out[rv].finish_reason == "cancelled"
+    assert list(out[rv].token_ids) == solo_v[:committed]
+    assert list(out[ra].token_ids) == solo_a
+    assert eng.fault_counters == {**eng.fault_counters, "cancelled": 1,
+                                  "double_release": 0}
+    assert eng.trace_counts() == warm
+    _assert_drained(eng)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_overlap_deadline_races_inflight_tick(setup, spec):
+    """A deadline that passes while a window is in flight: the expiry at
+    the next tick's start commits at most that window, never the tokens
+    dispatched past it; the co-tenant equals the serial run."""
+    _, cfg, _, params = setup
+    pa, pb = _pair(cfg)
+    kw = dict(spec=SpecConfig(k=3) if spec else None)
+    serial = _engine(params, cfg, **kw)
+    ra = serial.submit(pa, SamplingParams(max_new_tokens=8))
+    rb = serial.submit(pb, SamplingParams(max_new_tokens=8))
+    out = serial.run()
+    solo_a, solo_b = list(out[ra].token_ids), list(out[rb].token_ids)
+
+    clk = FakeClock()
+    eng = _engine(params, cfg, overlap=True, clock=clk, **kw)
+    ra = eng.submit(pa, SamplingParams(max_new_tokens=8))
+    rb = eng.submit(pb, SamplingParams(max_new_tokens=8, deadline_s=5.0))
+    victim = _step_until_inflight(eng, rb)
+    committed = len(victim.generated)
+    clk.t += 10.0                                # expire rb mid-pipeline
+    out = eng.run()
+    assert out[rb].finish_reason == "timeout"
+    window = 4 if spec else 1
+    assert committed <= len(out[rb].token_ids) <= committed + window
+    assert list(out[rb].token_ids) == solo_b[:len(out[rb].token_ids)]
+    assert list(out[ra].token_ids) == solo_a
+    assert eng.fault_counters["timeout"] == 1
+    _assert_drained(eng)
+
+
+def test_shed_single_counter_path_and_queue_gauge(setup):
+    """``Scheduler.shed_count`` is the one counter: the engine's mirror and
+    the obs lifecycle counter re-sync from it, and the submit path keeps
+    the queue-depth gauge current."""
+    _, cfg, _, params = setup
+    obs = Observability()
+    eng = _engine(params, cfg, overlap=True, max_queue=2, obs=obs)
+    prompts = _prompts(cfg.vocab)
+    sp = SamplingParams(max_new_tokens=4)
+    snaps = []
+    eng.submit(prompts[0], sp)
+    eng.submit(prompts[1], sp)
+    assert obs.snapshot()["repro_queue_depth"] == 2.0
+    eng.submit(prompts[2], sp, on_token=snaps.append)   # bound hit: shed
+    assert [s.finish_reason for s in snaps] == ["shed"]
+    assert eng.scheduler.shed_count == 1
+    assert eng.fault_counters["shed"] == eng.scheduler.shed_count
+    eng.run()
+    assert obs.snapshot()["repro_queue_depth"] == 0.0
+    assert obs.snapshot()[
+        'repro_lifecycle_events_total{event="shed"}'] == 1.0
+    for p in prompts[:2]:
+        eng.submit(p, sp)
+    eng.submit(prompts[3], sp)                   # bound hit again
+    assert eng.scheduler.shed_count == 2
+    assert eng.fault_counters["shed"] == 2
+    eng.run()
+    assert obs.snapshot()[
+        'repro_lifecycle_events_total{event="shed"}'] == 2.0
+    _assert_drained(eng)
+    obs.close()

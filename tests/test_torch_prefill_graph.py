@@ -346,9 +346,11 @@ def test_trace_counts_stay_flat_across_the_lifecycle(setup):
             assert all(v <= 1 for v in stable_trace_counts(counts).values())
         eng.quiesce()
     assert eng.trace_counts() == {"decode": 1, "prefill_chunk": 2,
-                                  "refreeze": 1, "assign": 1}
+                                  "refreeze": 1, "release": 1,
+                                  "set_lane": 1, "assign": 1}
     assert set(eng.replay_counts()) == {"decode", "prefill_chunk",
-                                        "refreeze", "assign"}
+                                        "refreeze", "release", "set_lane",
+                                        "assign"}
     assert eng.replay_counts()["assign"] >= 3
 
 
@@ -356,13 +358,14 @@ def test_trace_counts_stay_flat_across_the_lifecycle(setup):
                          ids=["flat", "paged", "paged-k3"])
 def test_chunked_engine_captures_every_entry_when_built(setup, paged, k):
     """A chunked engine captures every entry its ticks can run when it is
-    built (the forward its ticks use, each chunk width class, the refreeze
-    and, paged, the assignment), leaving the state as an engine without
+    built (the forward its ticks use, each chunk width class, the refreeze,
+    the release, the lane write and, paged, the assignment), leaving the state as an engine without
     graphs starts it; serving then captures nothing more."""
     _, cfg, _, params = setup
     kw = dict(paged=paged, spec=SpecConfig(k=k) if k else None)
     eng = _engine(params, cfg, **kw)
-    want = {"decode": int(not k), "prefill_chunk": W // BS, "refreeze": 1}
+    want = {"decode": int(not k), "prefill_chunk": W // BS, "refreeze": 1,
+            "release": 1, "set_lane": 1}
     if paged:
         want["assign"] = 1
     if k:
