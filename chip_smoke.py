@@ -31,7 +31,12 @@ Phases, each of which exits non-zero on failure:
    with a NaN-poisoned dead page and an all-empty slot, timed (and
    traced) at three panel widths and at a 4096-token prefix; every query
    of a Q-query panel (Q = 1, 5, 9, 17) must be the same bits as a
-   one-query panel at the tail length that query sees.
+   one-query panel at the tail length that query sees.  The prefix-only
+   partial (the same kernel with no tail panel, ``o`` and ``lse``) is held
+   at the serving shape with an empty slot and NaN-poisoned dead blocks,
+   at a 34-row panel whose first rows must be the same bits as the
+   decode tick's, and at a 4096-token prefix, bf16 and f32; timed and
+   traced at the serving shape and at 4096 tokens.
 4. **serve** full-width Qwen3-0.6B (random weights from seed 0, pruned,
    packed and quantised on the card) through ``ContinuousEngine``, with
    every kernel's launch counter zeroed just before each path and read just
@@ -969,11 +974,30 @@ def long_context(torch, cfg, timer, gen, detail, pool, tails, tol):
         _attention_bound(q, 1, g, n_blocks, tail_len, bs, tp, pre_bytes))
 
 
-def partial_kernel(torch, cfg, timer, gen, detail):
-    """The prefix-only partial at the live serving shape (4 slots, bs 128,
-    the serving KV sparsity), one slot empty, one partial, one full, one a
-    single block; in bf16 and widened to f32."""
+def _partial_library(torch, q, k_pre, v_pre, n_blocks, bs, sm):
+    """SDPA over the unpacked valid prefix (o only; it returns no lse): the
+    partial's yardstick (the port never calls it).  q ``[B, Hkv, G, D]``."""
     import torch.nn.functional as F
+    b, hkv, g, hd = q.shape
+    kr, vr = (x.repeat_interleave(g, 1) for x in (k_pre, v_pre))
+    mask = (torch.arange(k_pre.shape[2], device="cuda")[None]
+            < n_blocks[:, None] * bs)[:, None, None, :]
+    qs = q.reshape(b, hkv * g, 1, hd)
+    return lambda: F.scaled_dot_product_attention(qs, kr, vr, attn_mask=mask,
+                                                  scale=sm)
+
+
+def partial_kernel(torch, cfg, timer, gen, detail):
+    """The prefix-only partial (the split kernel in partial mode) at the
+    live serving shape (4 slots, bs 128, the serving KV sparsity), one slot
+    empty, one partial, one full, one a single block, in bf16 and widened
+    to f32: o and live lse held to the plain version, the empty slot's
+    o = 0 and lse <= -1e29, NaN in dead blocks never read; a QG = 34 panel
+    (past the first design's QG * D <= 2048) held the same way, whose first
+    G rows must equal a G-row call's on the same queries bit for bit; at
+    LONG_SB blocks in every slot (4096 tokens) held too.  Both shapes timed
+    (CUDA events, traced device time) beside the plain version, SDPA on the
+    unpacked prefix (o only) and the bound."""
     from repro_torch.core.sparse_format import unpack
     from repro_torch.core.sparse_kv import freeze_chunk_blocks, pooled_view
     from repro_torch.kernels.sparse_attention import (
@@ -983,35 +1007,53 @@ def partial_kernel(torch, cfg, timer, gen, detail):
 
     hkv, hd, g = cfg.n_kv, cfg.hd, cfg.padded_heads // cfg.n_kv
     bs, sb, b = 128, 7, SLOTS
+    wide = g * ATTN_Q["flat"][-1]           # 34 rows
     sm = 1.0 / hd ** 0.5
     pool = CachePool.build(cfg, SLOTS, sb * bs, bs=bs, device="cuda")
     n_blocks = torch.tensor([0, 3, sb, 1], dtype=torch.int32, device="cuda")
-    errs, res = [], {}
+    errs, lse_errs, res = [], [], {}
+
+    def held(name, args):
+        """One call held to the plain version: o within 1e-3 of its range
+        (f32 expansion, scores and sums on both sides, in another order),
+        live lse within 1e-4 + 1e-5 |lse|, empty slots o = 0 and lse <=
+        -1e29 on both sides."""
+        o, lse = sparse_decode_attention_partial(*args)
+        po, plse = sparse_decode_attention_partial_plain(*args)
+        torch.cuda.synchronize()
+        tol = 1e-3 * po.abs().max().item()
+        err, rel = _check(name, o, po, tol, errs)
+        live = args[-1] > 0
+        dl = (lse[live] - plse[live]).abs()
+        if not bool((dl <= 1e-4 + 1e-5 * plse[live].abs()).all()):
+            fail(f"{name}: live lse differs by {dl.max().item():.3e}")
+        lse_errs.append(dl.max().item())
+        for nm, oo, ll in (("kernel", o, lse), ("plain", po, plse)):
+            if not bool(live.all()) and (
+                    oo[~live].abs().max().item() != 0
+                    or ll[~live].max().item() > -1e29):
+                fail(f"{name}: the empty slot's {nm} output is not o = 0, "
+                     "lse <= -1e29")
+        say(f"{name}: o err {err:.2e} (rel {rel:.1e}, tol {tol:.2e}); live "
+            f"lse err {dl.max().item():.2e} (tol 1e-4 + 1e-5 |lse|)"
+            + ("" if bool(live.all()) else
+               f"; empty slot o = 0, lse {lse[~live].max().item():.3e}"))
+        return o, lse
+
     for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split('.')[-1]
         kv = torch.randn((2, b, hkv, sb * bs, hd), generator=gen,
                          device="cuda").to(dt)
         kbm, kvl, vbm, vvl = freeze_chunk_blocks(
             kv[0], kv[1], cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs,
             pool.cap_k, pool.cap_v)
-        q = torch.randn((b, hkv, g, hd), generator=gen, device="cuda").to(dt)
+        # the wide panel's first G rows are the decode tick's queries
+        qw = torch.randn((b, hkv, wide, hd), generator=gen,
+                         device="cuda").to(dt)
+        q = qw[:, :, :g].contiguous()
+        name = f"partial attention {dname}"
         args = (q, kbm, kvl, vbm, vvl, bs, sm, n_blocks)
-        o, lse = sparse_decode_attention_partial(*args)
-        po, plse = sparse_decode_attention_partial_plain(*args)
-        torch.cuda.synchronize()
-        name = f"partial attention {str(dt).split('.')[-1]}"
-        # f32 expansion, scores and sums on both sides, in another order
-        tol = 1e-3 * po.abs().max().item()
-        err, rel = _check(name, o, po, tol, errs)
-        live = n_blocks > 0
-        dl = (lse[live] - plse[live]).abs()
-        lse_ok = dl <= 1e-4 + 1e-5 * plse[live].abs()
-        if not bool(lse_ok.all()):
-            fail(f"{name}: live lse differs by {dl.max().item():.3e}")
-        for nm, oo, ll in (("kernel", o, lse), ("plain", po, plse)):
-            if oo[~live].abs().max().item() != 0 or \
-                    ll[~live].max().item() > -1e29:
-                fail(f"{name}: the empty slot's {nm} output is not o = 0, "
-                     "lse <= -1e29")
+        o, lse = held(name, args)
         # a NaN-poisoned block past n_blocks (every bitmap bit set, NaN
         # values) must never be read
         dead = 1
@@ -1027,45 +1069,55 @@ def partial_kernel(torch, cfg, timer, gen, detail):
         if not (torch.isfinite(o2).all() and torch.equal(o2, o)
                 and torch.equal(lse2, lse)):
             fail(f"{name}: a NaN-poisoned dead block changed the output")
-        say(f"{name}: o err {err:.2e} (rel {rel:.1e}, tol {tol:.2e}); live "
-            f"lse err {dl.max().item():.2e} (tol 1e-4 + 1e-5 |lse|); empty "
-            f"slot o = 0, lse {lse[~live].max().item():.3e}; finite and "
-            f"unchanged with NaN in dead blocks")
-        res[dt] = (args, kbm, kvl, vbm, vvl, q, dl.max().item())
-    args, kbm, kvl, vbm, vvl, q, lse_err = res[torch.bfloat16]
-    t = timer(lambda: sparse_decode_attention_partial(*args))
-    t_plain = timer(lambda: sparse_decode_attention_partial_plain(*args))
-    # the library call: SDPA over the unpacked valid prefix (o only; it
-    # returns no lse)
-    k_pre = unpack(pooled_view(kbm, kvl, bs, hd)).repeat_interleave(g, 1)
-    v_pre = unpack(pooled_view(vbm, vvl, bs, hd)).repeat_interleave(g, 1)
-    mask = (torch.arange(sb * bs, device="cuda")[None]
-            < n_blocks[:, None] * bs)[:, None, None, :]
-    qs = q.reshape(b, hkv * g, 1, hd)
-    t_lib = timer(lambda: F.scaled_dot_product_attention(
-        qs, k_pre, v_pre, attn_mask=mask, scale=sm))
-    # bytes: q, n_blocks, o and lse (f32), the valid blocks' bitmap words
-    # and set values
-    valid = (torch.arange(sb, device="cuda")[None]
-             < n_blocks[:, None])[:, None, :]
-    nnz = (values_read(kbm, bs * hd, pool.cap_k, valid)
-           + values_read(vbm, bs * hd, pool.cap_v, valid))
-    words = bs * hd // 32
-    n_bytes = (q.numel() * 2 + 4 * b + q.numel() * 4 + b * hkv * g * 4
-               + hkv * int(n_blocks.sum()) * 2 * words * 4
-               + nnz * kvl.element_size())
-    n_ops = 4.0 * hd * g * hkv * int(n_blocks.sum()) * bs
-    bnd, bby = bound_ms(n_bytes, n_ops)
-    out = {"ms": t, "plain_ms": t_plain, "library_ms": t_lib,
-           "bound_ms": bnd, "bound_by": bby, "max_abs_err": max(errs),
-           "max_lse_err": lse_err}
-    detail.append({"kernel": "sparse_decode_attention_partial", "B": b,
-                   "Hkv": hkv, "QG": g, "Sb": sb, "bs": bs,
-                   "n_blocks": n_blocks.tolist(), **out})
-    say(f"partial attention B={b}: kernel {t * 1e3:.1f} us, plain "
-        f"{t_plain * 1e3:.1f} us, SDPA on the unpacked prefix (o only) "
-        f"{t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({bby})")
-    return out
+        say(f"{name}: finite and unchanged with NaN in dead blocks")
+        ow, lsew = held(f"{name} QG={wide}",
+                        (qw, kbm, kvl, vbm, vvl, bs, sm, n_blocks))
+        _gate_rows(torch, f"{name} o rows", {g: o.permute(2, 0, 1, 3),
+                                             wide: ow.permute(2, 0, 1, 3)})
+        _gate_rows(torch, f"{name} lse rows", {g: lse.permute(2, 0, 1),
+                                               wide: lsew.permute(2, 0, 1)})
+        say(f"{name}: the first {g} rows of the QG={wide} call are "
+            f"bit-equal to the QG={g} call (o and lse)")
+        res[dt] = (args, kbm, kvl, vbm, vvl, q)
+    del qw, ow, lsew
+
+    def timed(shape, args):
+        q, kbm, kvl, vbm, vvl, _, _, nb = args
+        k_pre = unpack(pooled_view(kbm, kvl, bs, hd))
+        v_pre = unpack(pooled_view(vbm, vvl, bs, hd))
+        # q, n_blocks, o and lse (f32), the valid blocks' bitmap words and
+        # set values, against 4 * D flops per (row, valid token)
+        n_bytes = (q.numel() * q.element_size() + 4 * b + q.numel() * 4
+                   + b * hkv * g * 4
+                   + _flat_prefix_bytes(kbm, kvl, vbm, vvl, nb, bs, hd, pool))
+        return _attention_row(
+            torch, timer, detail, "sparse_decode_attention_partial",
+            {"B": b, "Hkv": hkv, "QG": g, "bs": bs, **shape,
+             "n_blocks": nb.tolist()},
+            lambda: sparse_decode_attention_partial(*args),
+            lambda: sparse_decode_attention_partial_plain(*args),
+            _partial_library(torch, q, k_pre, v_pre, nb, bs, sm),
+            bound_ms(n_bytes, 4.0 * hd * g * hkv * int(nb.sum()) * bs))
+
+    row = timed({"Sb": sb}, res[torch.bfloat16][0])
+    del res
+    # LONG_SB blocks (4096 tokens) in every slot, bf16
+    (kbm, kvl, vbm, vvl), _ = _flat_cache(torch, cfg, gen, b, LONG_SB, bs,
+                                          pool)
+    q = torch.randn((b, hkv, g, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    full = torch.full((b,), LONG_SB, dtype=torch.int32, device="cuda")
+    args = (q, kbm, kvl, vbm, vvl, bs, sm, full)
+    held(f"partial attention bfloat16 Sb={LONG_SB}", args)
+    held(f"partial attention float32 Sb={LONG_SB}",
+         (q.float(), kbm, kvl.float(), vbm, vvl.float(), bs, sm, full))
+    long_row = timed({"Sb": LONG_SB}, args)
+    return {"ms": row["ms"], "device_ms": row["device_ms"],
+            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "max_abs_err": max(errs), "max_lse_err": max(lse_errs),
+            "long": {k: long_row[k] for k in ("ms", "device_ms", "plain_ms",
+                                              "library_ms", "bound_ms")}}
 
 
 def unembed_kernel(torch, cfg, timer, gen, detail):

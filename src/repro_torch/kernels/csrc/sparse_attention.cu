@@ -1,11 +1,12 @@
 // Fused prefix + tail flash-decode over the pooled sparse KV cache.
 // Replaces repro/kernels/sparse_attention.py:
 // sparse_decode_attention_fused_pallas, both branches: the flat pool
-// (_fused_kernel) and the paged pool (_fused_kernel_paged), as two
-// instantiations of the split kernel below; and
-// sparse_decode_attention_pallas (_kernel), the prefix-only partial, which
-// keeps the first design's loop (partial_decode_attention) until its own
-// redesign.
+// (_fused_kernel) and the paged pool (_fused_kernel_paged); and
+// sparse_decode_attention_pallas (_kernel), the prefix-only partial that
+// returns (o, lse) for an lse merge.  All three are instantiations of the
+// split kernel below: PAGED picks the arena, PARTIAL drops the tail splits
+// (Tp = 0, no tail pointer or length is read) and has the merge also write
+// lse = m + log(max(l, 1e-30)), the TPU kernel's epilogue.
 //
 // What both compute: one softmax per query row over each slot's valid
 // compressed prefix blocks (bitmap + packed values per (bs, D) block,
@@ -58,6 +59,15 @@
 // a Q-row panel at tail length L is bit-equal to a one-row panel of the
 // same query at tail length L + r // G.  Scores and PV stay in f32 on
 // CUDA cores; tensor cores are later work.
+//
+// The partial runs the same blocks with Sb splits, no tail panel (224
+// blocks at the serving shape, where the first design's one block per
+// (kv head, slot) walked the slot's blocks as a chain of round trips), so
+// its (acc, m, l) for a prefix block are the fused kernel's bits.  The
+// merge writes o as above and lse once per row.  A slot with n_blocks = 0
+// has no live split: the merge runs over nothing, o = 0 and lse = -1e30 +
+// log(1e-30), which rounds to -1e30 in f32.  The query panel has no width
+// limit here either.
 #include "decompress.cuh"
 
 namespace {
@@ -67,156 +77,7 @@ constexpr int NWARP = NT / 32;
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
-// The prefix-only partial: the first design, one thread block per (kv head,
-// slot) looping over the slot's valid blocks.  Each step expands one K and
-// one V block into f32 shared memory, scores the QG rows, updates the
-// per-row running max / normaliser and rescales accumulators held in
-// registers (MAXACC a thread, so QG * D <= 2048).  It writes the
-// normalised output and lse = m + log(l_safe) beside it, in the TPU
-// kernel's order (l_safe = max(l, 1e-30), o = acc / l_safe).  A slot with
-// n_blocks = 0 reads nothing and returns o = 0, lse = -1e30 + log(1e-30),
-// which rounds to -1e30 in f32.
-// ---------------------------------------------------------------------------
-
-constexpr int MAXACC = 8;              // QG * D <= NT * MAXACC
-
-struct PartialLayout {
-  size_t q, k, v, p, m, l, a, kw, ko, vw, vo, scr, bytes;
-  __host__ __device__ PartialLayout(int QG, int D, int bs) {
-    const int W = bs * D / 32;
-    q = 0;
-    k = q + static_cast<size_t>(QG) * D * 4;
-    v = k + static_cast<size_t>(bs) * (D + 1) * 4;
-    p = v + static_cast<size_t>(bs) * D * 4;
-    m = p + static_cast<size_t>(QG) * bs * 4;
-    l = m + QG * 4;
-    a = l + QG * 4;
-    kw = a + QG * 4;
-    ko = kw + static_cast<size_t>(W) * 4;
-    vw = ko + static_cast<size_t>(W) * 4;
-    vo = vw + static_cast<size_t>(W) * 4;
-    scr = vo + static_cast<size_t>(W) * 4;
-    bytes = scr + 32 * 4;
-  }
-};
-
-template <typename TQ, typename TC>
-__global__ void __launch_bounds__(NT) partial_decode_attention(
-    const TQ* __restrict__ q, const uint32_t* __restrict__ kbm,
-    const TC* __restrict__ kval, const uint32_t* __restrict__ vbm,
-    const TC* __restrict__ vval, const int* __restrict__ n_blocks, int H,
-    int QG, int D, int Sb, int bs, int ck, int cv, float sm_scale,
-    float* __restrict__ out, float* __restrict__ lse) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const PartialLayout L(QG, D, bs);
-  float* s_q = reinterpret_cast<float*>(smem + L.q);
-  float* s_k = reinterpret_cast<float*>(smem + L.k);     // [bs][D+1]
-  float* s_v = reinterpret_cast<float*>(smem + L.v);     // [bs][D]
-  float* s_p = reinterpret_cast<float*>(smem + L.p);     // [QG][bs]
-  float* s_m = reinterpret_cast<float*>(smem + L.m);
-  float* s_l = reinterpret_cast<float*>(smem + L.l);
-  float* s_a = reinterpret_cast<float*>(smem + L.a);
-  uint32_t* s_kw = reinterpret_cast<uint32_t*>(smem + L.kw);
-  int* s_ko = reinterpret_cast<int*>(smem + L.ko);
-  uint32_t* s_vw = reinterpret_cast<uint32_t*>(smem + L.vw);
-  int* s_vo = reinterpret_cast<int*>(smem + L.vo);
-  int* s_scr = reinterpret_cast<int*>(smem + L.scr);
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int W = bs * D / 32;
-  const size_t bh = static_cast<size_t>(b) * H + h;
-  const int nb = min(n_blocks[b], Sb);
-
-  for (int i = t; i < QG * D; i += NT)
-    s_q[i] = to_f32(q[bh * QG * D + i]);
-  for (int r = t; r < QG; r += NT) {
-    s_m[r] = NEG_INF;
-    s_l[r] = 0.f;
-  }
-  float acc[MAXACC];
-#pragma unroll
-  for (int i = 0; i < MAXACC; ++i) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int step = 0; step < nb; ++step) {
-    const size_t blk = bh * Sb + step;
-    stage_word_offsets(kbm + blk * W, W, s_kw, s_ko, s_scr);
-    stage_word_offsets(vbm + blk * W, W, s_vw, s_vo, s_scr);
-    const TC* kv = kval + blk * ck;
-    const TC* vv = vval + blk * cv;
-    for (int p = t; p < bs * D; p += NT) {
-      const int tok = p / D, d = p % D;
-      s_k[tok * (D + 1) + d] = expand_at(p, s_kw, s_ko, kv, ck);
-      s_v[tok * D + d] = expand_at(p, s_vw, s_vo, vv, cv);
-    }
-    __syncthreads();
-
-    for (int i = t; i < QG * bs; i += NT) {
-      const int row = i / bs, tok = i % bs;
-      const float* qr = s_q + row * D;
-      const float* kr = s_k + tok * (D + 1);
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-      s_p[i] = s * sm_scale;
-    }
-    __syncthreads();
-
-    for (int row = warp; row < QG; row += NWARP) {
-      float* pr = s_p + row * bs;
-      float mx = NEG_INF;
-      for (int j = lane; j < bs; j += 32) mx = fmaxf(mx, pr[j]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = s_m[row];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < bs; j += 32) {
-        const float pj = expf(pr[j] - m_new);
-        pr[j] = pj;
-        sum += pj;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        s_a[row] = alpha;
-        s_l[row] = s_l[row] * alpha + sum;
-        s_m[row] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < MAXACC; ++i) {
-      const int idx = t + i * NT;
-      if (idx < QG * D) {
-        const int row = idx / D, d = idx % D;
-        const float* pr = s_p + row * bs;
-        float a = acc[i] * s_a[row];
-        for (int j = 0; j < bs; ++j) a += pr[j] * s_v[j * D + d];
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < MAXACC; ++i) {
-    const int idx = t + i * NT;
-    if (idx < QG * D) {
-      const int row = idx / D;
-      out[bh * QG * D + idx] = acc[i] / fmaxf(s_l[row], 1e-30f);
-    }
-  }
-  for (int r = t; r < QG; r += NT)
-    lse[bh * QG + r] = s_m[r] + logf(fmaxf(s_l[r], 1e-30f));
-}
-
-// ---------------------------------------------------------------------------
-// The split kernel (flat and paged fused attention)
+// The split kernel (flat and paged fused attention, the prefix-only partial)
 // ---------------------------------------------------------------------------
 
 __host__ __device__ constexpr size_t align16(size_t n) {
@@ -280,6 +141,7 @@ struct SplitArgs {
   float* scratch;     // acc [B, H, NS, QG, D], then (m, l) [B, H, NS, QG, 2]
   int* tickets;       // [B, H, row tiles], zero between launches
   float* out;         // [B, H, QG, D]
+  float* lse;         // [B, H, QG], the partial only
 };
 
 // Tail panels some row of a tile sees, the tile's last panel query being
@@ -504,7 +366,7 @@ __device__ __forceinline__ void pv_rows(const float* s_p, float* out, int R,
   }
 }
 
-template <typename TQ, typename TC, bool PAGED, int RPT>
+template <typename TQ, typename TC, bool PAGED, bool PARTIAL, int RPT>
 __global__ void __launch_bounds__(NT, 2) split_decode_attention(
     const SplitArgs<TQ, TC> a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -522,13 +384,14 @@ __global__ void __launch_bounds__(NT, 2) split_decode_attention(
   const int row0 = tile * a.rt, R = min(a.rt, QG - row0);
   const int qlast = (row0 + R - 1) / a.G;
   const int nb = min(max(a.n_blocks[b], 0), a.Sb);
-  const int tl = a.tail_len[b];
-  const int nt = live_tail_panels(tl, qlast, bs, a.Tp / bs);
+  // the partial has no tail and reads no tail length
+  const int tl = PARTIAL ? 0 : a.tail_len[b];
+  const int nt = PARTIAL ? 0 : live_tail_panels(tl, qlast, bs, a.Tp / bs);
   float* part = a.scratch;
   float* ml = a.scratch + static_cast<size_t>(gridDim.y) * a.H * NS * QG * D;
 
   if (split < a.Sb ? split < nb : split - a.Sb < nt) {
-    const bool prefix = split < a.Sb;
+    const bool prefix = PARTIAL || split < a.Sb;
     const int base = prefix ? 0 : (split - a.Sb) * bs;
     const size_t prow = (bh * NS + split) * QG + row0;   // first partial row
     const int ld = L.ld;
@@ -640,12 +503,14 @@ __global__ void __launch_bounds__(NT, 2) split_decode_attention(
       l = fmaf(ls, wb, l * wa);
       m = mn;
     }
-    a.out[(bh * QG + row) * D + d] = acc / fmaxf(l, 1e-30f);
+    const float l_safe = fmaxf(l, 1e-30f);
+    a.out[(bh * QG + row) * D + d] = acc / l_safe;
+    if (PARTIAL && d == 0) a.lse[bh * QG + row] = m + logf(l_safe);
   }
   if (t == 0) *ticket = 0;
 }
 
-template <typename TQ, typename TC, bool PAGED>
+template <typename TQ, typename TC, bool PAGED, bool PARTIAL>
 cudaError_t run_split(const SplitArgs<TQ, TC>& a, int B, int tiles,
                       long smem, cudaStream_t stream) {
   const SplitLayout L(a.D, a.bs, a.rt, a.ck, a.cv, sizeof(TC));
@@ -656,10 +521,10 @@ cudaError_t run_split(const SplitArgs<TQ, TC>& a, int B, int tiles,
   const int need =
       imax((rmax + nrg_s - 1) / nrg_s, (rmax + nrg_v - 1) / nrg_v);
   void (*kern)(const SplitArgs<TQ, TC>);
-  if (need <= 1) kern = split_decode_attention<TQ, TC, PAGED, 1>;
-  else if (need <= 2) kern = split_decode_attention<TQ, TC, PAGED, 2>;
-  else if (need <= 4) kern = split_decode_attention<TQ, TC, PAGED, 4>;
-  else if (need <= 8) kern = split_decode_attention<TQ, TC, PAGED, 8>;
+  if (need <= 1) kern = split_decode_attention<TQ, TC, PAGED, PARTIAL, 1>;
+  else if (need <= 2) kern = split_decode_attention<TQ, TC, PAGED, PARTIAL, 2>;
+  else if (need <= 4) kern = split_decode_attention<TQ, TC, PAGED, PARTIAL, 4>;
+  else if (need <= 8) kern = split_decode_attention<TQ, TC, PAGED, PARTIAL, 8>;
   else return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(kern, L.bytes);
   if (e != cudaSuccess) return e;
@@ -667,7 +532,7 @@ cudaError_t run_split(const SplitArgs<TQ, TC>& a, int B, int tiles,
   return cudaGetLastError();
 }
 
-template <bool PAGED>
+template <bool PAGED, bool PARTIAL>
 int dispatch_split(const void* q, int q_dtype, const void* kbm,
                    const void* kval, const void* vbm, const void* vval,
                    const void* ktail, const void* vtail, int c_dtype,
@@ -675,12 +540,19 @@ int dispatch_split(const void* q, int q_dtype, const void* kbm,
                    const void* table, int n_phys, int B, int H, int QG, int G,
                    int D, int Sb, int bs, int ck, int cv, int Tp,
                    float sm_scale, int splits, int rt, int tiles, long smem,
-                   void* scratch, void* tickets, void* out, void* stream) {
-  if (G < 1 || QG < 1 || QG % G != 0 || bs < 1 || Tp < bs || Tp % bs != 0 ||
-      D < 32 || D % 32 != 0 || ck < 1 || cv < 1 || Sb < 0 ||
-      splits != Sb + Tp / bs || rt != split_row_tile(bs, D) ||
+                   void* scratch, void* tickets, void* out, void* lse,
+                   void* stream) {
+  if (G < 1 || QG < 1 || QG % G != 0 || bs < 1 || D < 32 || D % 32 != 0 ||
+      ck < 1 || cv < 1 || rt != split_row_tile(bs, D) ||
       tiles != (QG + rt - 1) / rt || (PAGED && n_phys < 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the splits: the partial's are its prefix blocks alone; the fused
+  // kernels' are the prefix blocks and at least one tail panel
+  const bool split_ok =
+      PARTIAL ? Tp == 0 && Sb >= 1 && splits == Sb && lse != nullptr
+              : Tp >= bs && Tp % bs == 0 && Sb >= 0 &&
+                    splits == Sb + Tp / bs;
+  if (!split_ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
 #define REPRO_SPLIT_ARGS(TQ, TC)                                            \
@@ -696,13 +568,14 @@ int dispatch_split(const void* q, int q_dtype, const void* kbm,
                     static_cast<const int*>(table),                         \
                     n_phys, H, QG, G, D, Sb, bs, ck, cv, Tp, splits, rt,    \
                     sm_scale, static_cast<float*>(scratch),                 \
-                    static_cast<int*>(tickets), static_cast<float*>(out)}
+                    static_cast<int*>(tickets), static_cast<float*>(out),   \
+                    static_cast<float*>(lse)}
   if (q_dtype == REPRO_BF16 && c_dtype == REPRO_BF16)
-    e = run_split<__nv_bfloat16, __nv_bfloat16, PAGED>(
+    e = run_split<__nv_bfloat16, __nv_bfloat16, PAGED, PARTIAL>(
         REPRO_SPLIT_ARGS(__nv_bfloat16, __nv_bfloat16), B, tiles, smem, s);
   else if (q_dtype == REPRO_F32 && c_dtype == REPRO_F32)
-    e = run_split<float, float, PAGED>(REPRO_SPLIT_ARGS(float, float), B,
-                                       tiles, smem, s);
+    e = run_split<float, float, PAGED, PARTIAL>(
+        REPRO_SPLIT_ARGS(float, float), B, tiles, smem, s);
   else
     e = cudaErrorInvalidValue;
 #undef REPRO_SPLIT_ARGS
@@ -725,11 +598,10 @@ REPRO_EXPORT int fused_attention_launch(
     int QG, int G, int D, int Sb, int bs, int ck, int cv, int Tp,
     float sm_scale, int splits, int row_tile, int tiles, long smem,
     void* scratch, void* tickets, void* out, void* stream) {
-  return dispatch_split<false>(q, q_dtype, kbm, kval, vbm, vval, ktail, vtail,
-                               c_dtype, n_blocks, tail_len, nullptr, 0, B, H,
-                               QG, G, D, Sb, bs, ck, cv, Tp, sm_scale, splits,
-                               row_tile, tiles, smem, scratch, tickets, out,
-                               stream);
+  return dispatch_split<false, false>(
+      q, q_dtype, kbm, kval, vbm, vval, ktail, vtail, c_dtype, n_blocks,
+      tail_len, nullptr, 0, B, H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale,
+      splits, row_tile, tiles, smem, scratch, tickets, out, nullptr, stream);
 }
 
 // The paged pool: kbm/vbm [n_phys, H, bs*D/32] words and kval/vval
@@ -744,46 +616,25 @@ REPRO_EXPORT int fused_attention_paged_launch(
     int bs, int ck, int cv, int Tp, float sm_scale, int splits, int row_tile,
     int tiles, long smem, void* scratch, void* tickets, void* out,
     void* stream) {
-  return dispatch_split<true>(q, q_dtype, kbm, kval, vbm, vval, ktail, vtail,
-                              c_dtype, n_blocks, tail_len, table, n_phys, B,
-                              H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale,
-                              splits, row_tile, tiles, smem, scratch, tickets,
-                              out, stream);
+  return dispatch_split<true, false>(
+      q, q_dtype, kbm, kval, vbm, vval, ktail, vtail, c_dtype, n_blocks,
+      tail_len, table, n_phys, B, H, QG, G, D, Sb, bs, ck, cv, Tp, sm_scale,
+      splits, row_tile, tiles, smem, scratch, tickets, out, nullptr, stream);
 }
 
 // The prefix-only partial over the flat layout: q [B, H, QG, D], the
-// compressed prefix as fused_attention_launch, n_blocks int32 [B]; no tail.
-// out f32 [B, H, QG, D] (normalised) and lse f32 [B, H, QG].  QG * D <=
-// 2048.
+// compressed prefix and n_blocks as fused_attention_launch; no tail.  The
+// plan must be attention_plan(Sb, 0, ...)'s (splits = Sb >= 1); scratch
+// f32 [B, H, Sb, QG, D + 2] and tickets as fused_attention_launch.  out
+// f32 [B, H, QG, D] (normalised) and lse f32 [B, H, QG].  Any QG.
 REPRO_EXPORT int partial_attention_launch(
     const void* q, int q_dtype, const void* kbm, const void* kval,
     const void* vbm, const void* vval, int c_dtype, const void* n_blocks,
     int B, int H, int QG, int D, int Sb, int bs, int ck, int cv,
-    float sm_scale, void* out, void* lse, void* stream) {
-  if (QG * D > NT * MAXACC || (bs * D) % 32 != 0 || lse == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const PartialLayout L(QG, D, bs);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-#define REPRO_PARTIAL(TQ, TC)                                               \
-  do {                                                                      \
-    auto kern = partial_decode_attention<TQ, TC>;                           \
-    e = allow_smem(kern, L.bytes);                                          \
-    if (e != cudaSuccess) break;                                            \
-    kern<<<dim3(H, B), NT, L.bytes, s>>>(                                   \
-        static_cast<const TQ*>(q), static_cast<const uint32_t*>(kbm),       \
-        static_cast<const TC*>(kval), static_cast<const uint32_t*>(vbm),    \
-        static_cast<const TC*>(vval), static_cast<const int*>(n_blocks), H, \
-        QG, D, Sb, bs, ck, cv, sm_scale, static_cast<float*>(out),          \
-        static_cast<float*>(lse));                                          \
-    e = cudaGetLastError();                                                 \
-  } while (0)
-  if (q_dtype == REPRO_BF16 && c_dtype == REPRO_BF16)
-    REPRO_PARTIAL(__nv_bfloat16, __nv_bfloat16);
-  else if (q_dtype == REPRO_F32 && c_dtype == REPRO_F32)
-    REPRO_PARTIAL(float, float);
-  else
-    e = cudaErrorInvalidValue;
-#undef REPRO_PARTIAL
-  return static_cast<int>(e);
+    float sm_scale, int splits, int row_tile, int tiles, long smem,
+    void* scratch, void* tickets, void* out, void* lse, void* stream) {
+  return dispatch_split<false, true>(
+      q, q_dtype, kbm, kval, vbm, vval, nullptr, nullptr, c_dtype, n_blocks,
+      nullptr, nullptr, 0, B, H, QG, QG, D, Sb, bs, ck, cv, 0, sm_scale,
+      splits, row_tile, tiles, smem, scratch, tickets, out, lse, stream);
 }

@@ -26,9 +26,10 @@ tile) to finish, told by a ticket counter that it resets, merges the
 splits in split order.  A block holds at most ``row_tile`` query rows (16
 at bs = D = 128) and a wider panel takes more row tiles, so a verify panel
 has no width cap.  A row's result does not depend on the panel width or
-the number of slots.  The prefix-only partial keeps the first design, one
-block per (kv head, slot) looping over the blocks, and its
-``QG * D <= MAX_PANEL`` limit.
+the number of slots.  The prefix-only partial is the same kernel with no
+tail panel (``attention_plan(Sb, 0, ...)``: ``Sb`` splits, 224 blocks at
+the serving shape), whose merge also writes ``lse``; its panel has no
+width cap either.
 
 CPU tensors take the plain version.
 """
@@ -56,8 +57,7 @@ _PAGED_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
                + [ctypes.c_int] * 11 + _PLAN_ARGS)
 _PARTIAL_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
                  + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8
-                 + [ctypes.c_float] + [ctypes.c_void_p] * 3)
-MAX_PANEL = 2048            # QG * D the partial kernel keeps in registers
+                 + _PLAN_ARGS + [ctypes.c_void_p])
 NEG_INF = -1e30             # the kernels' running-max start and mask value
 THREADS = 256               # threads of one split-attention block
 
@@ -67,6 +67,7 @@ class AttentionPlan(NamedTuple):
     value capacities, the cache dtype) alone; QG sets only the number of
     row tiles (:meth:`tiles`) and the scratch's rows."""
     splits: int             # Sb prefix blocks, then Tp / bs tail panels
+                            # (none for the partial: Tp = 0)
     row_tile: int           # query rows one thread block holds
     smem: int               # dynamic shared memory of one block, bytes
 
@@ -193,24 +194,35 @@ def _check(q, k_bitmap, k_values, v_bitmap, v_values, k_tail, v_tail, bs,
     return q, n_blocks, tail_len, g
 
 
-def _launch(entry, argtypes, head_args, q, g, sb, bs, k_values, v_values,
-            k_tail, sm_scale):
-    """Allocate the output and the scratch, take the ticket counters and
-    make the C call: ``head_args`` (pointers, dtype codes, the paged table),
-    the geometry, then the plan; returns ``out``."""
+def _launch(entry, argtypes, head_args, geometry, plan, q, sm_scale,
+            with_lse=False):
+    """Allocate the output (and ``lse``) and the scratch, take the ticket
+    counters and make the C call: ``head_args`` (pointers, dtype codes, the
+    paged table), the ``geometry``, then the plan; returns ``out`` or
+    ``(out, lse)``."""
     b, hkv, qg, d = q.shape
-    ck, cv, tp = k_values.shape[-1], v_values.shape[-1], k_tail.shape[2]
-    plan = attention_plan(sb, tp, bs, d, ck, cv, k_tail.element_size())
     tiles = plan.tiles(qg)
-    out = torch.empty((b, hkv, qg, d), dtype=torch.float32, device=q.device)
+    outs = [torch.empty((b, hkv, qg, d), dtype=torch.float32,
+                        device=q.device)]
+    if with_lse:
+        outs.append(torch.empty((b, hkv, qg), dtype=torch.float32,
+                                device=q.device))
     scratch = torch.empty((b, hkv, plan.splits, qg, d + 2),
                           dtype=torch.float32, device=q.device)
     tickets = _tickets(q.device, b * hkv * tiles)
     p = build.ptr
-    build.call(_SRC, entry, argtypes, *head_args, b, hkv, qg, g, d, sb, bs,
-               ck, cv, tp, float(sm_scale), plan.splits, plan.row_tile, tiles,
-               plan.smem, p(scratch), p(tickets), p(out), build.stream())
-    return out
+    build.call(_SRC, entry, argtypes, *head_args, *geometry, float(sm_scale),
+               plan.splits, plan.row_tile, tiles, plan.smem, p(scratch),
+               p(tickets), *map(p, outs), build.stream())
+    return tuple(outs) if with_lse else outs[0]
+
+
+def _fused_geometry(q, g, sb, bs, k_values, v_values, k_tail):
+    """The fused entries' geometry and plan."""
+    b, hkv, qg, d = q.shape
+    ck, cv, tp = k_values.shape[-1], v_values.shape[-1], k_tail.shape[2]
+    return ((b, hkv, qg, g, d, sb, bs, ck, cv, tp),
+            attention_plan(sb, tp, bs, d, ck, cv, k_tail.element_size()))
 
 
 def sparse_decode_attention_fused(
@@ -236,7 +248,8 @@ def sparse_decode_attention_fused(
         (p(q), build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
          p(v_bitmap), p(v_values), p(k_tail), p(v_tail),
          build.DTYPE_CODE[k_tail.dtype], p(n_blocks), p(tail_len)),
-        q, g, k_bitmap.shape[2], bs, k_values, v_values, k_tail, sm_scale)
+        *_fused_geometry(q, g, k_bitmap.shape[2], bs, k_values, v_values,
+                         k_tail), q, sm_scale)
     sparse_decode_attention_fused.launches += 1
     return out
 
@@ -310,7 +323,8 @@ def sparse_decode_attention_fused_paged(
          p(v_bitmap), p(v_values), p(k_tail), p(v_tail),
          build.DTYPE_CODE[k_tail.dtype], p(n_blocks), p(tail_len), p(table),
          k_bitmap.shape[0]),
-        q, g, table.shape[1], bs, k_values, v_values, k_tail, sm_scale)
+        *_fused_geometry(q, g, table.shape[1], bs, k_values, v_values,
+                         k_tail), q, sm_scale)
     sparse_decode_attention_fused_paged.launches += 1
     return out
 
@@ -358,21 +372,20 @@ def sparse_decode_attention_partial(
         q: torch.Tensor, k_bitmap: torch.Tensor, k_values: torch.Tensor,
         v_bitmap: torch.Tensor, v_values: torch.Tensor, bs: int,
         sm_scale: float, n_blocks: Optional[torch.Tensor] = None):
-    """The prefix-only partial: q ``[B, Hkv, QG, D]``, the compressed prefix
-    ``[B, Hkv, Sb, X]`` as :func:`sparse_decode_attention_fused`,
-    ``n_blocks`` int32 ``[B]`` (None: every block is valid).  Returns f32
-    ``(o [B, Hkv, QG, D], lse [B, Hkv, QG])``.  CPU tensors take the plain
-    version."""
+    """The prefix-only partial: q ``[B, Hkv, QG, D]`` (any QG), the
+    compressed prefix ``[B, Hkv, Sb, X]`` as
+    :func:`sparse_decode_attention_fused`, ``n_blocks`` int32 ``[B]`` (None:
+    every block is valid).  Returns f32 ``(o [B, Hkv, QG, D], lse [B, Hkv,
+    QG])``.  CPU tensors take the plain version; a CUDA tensor launches the
+    split kernel in partial mode (``attention_plan(Sb, 0, ...)``)."""
     args = (q, k_bitmap, k_values, v_bitmap, v_values, bs, sm_scale,
             n_blocks)
     if q.device.type == "cpu":
         return sparse_decode_attention_partial_plain(*args)
     b, hkv, qg, d = q.shape
     sb = k_bitmap.shape[2]
-    if (bs * d) % 32:
-        raise ValueError(f"bad geometry: bs={bs}, D={d}")
-    if qg * d > MAX_PANEL:
-        raise ValueError(f"query panel QG*D={qg * d} exceeds {MAX_PANEL}")
+    if sb < 1 or d % 32:
+        raise ValueError(f"bad geometry: Sb={sb}, D={d}")
     if k_values.dtype != q.dtype or v_values.dtype != q.dtype \
             or q.dtype not in build.DTYPE_CODE:
         raise TypeError("partial attention kernel takes one f32/bf16 dtype "
@@ -382,15 +395,16 @@ def sparse_decode_attention_partial(
     q = q.contiguous()
     n_blocks = n_blocks.to(torch.int32).contiguous()
     build.require_cuda(q, k_bitmap, k_values, v_bitmap, v_values, n_blocks)
-    out = torch.empty((b, hkv, qg, d), dtype=torch.float32, device=q.device)
-    lse = torch.empty((b, hkv, qg), dtype=torch.float32, device=q.device)
+    ck, cv = k_values.shape[-1], v_values.shape[-1]
     p = build.ptr
-    build.call(_SRC, "partial_attention_launch", _PARTIAL_ARGS, p(q),
-               build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
-               p(v_bitmap), p(v_values), build.DTYPE_CODE[k_values.dtype],
-               p(n_blocks), b, hkv, qg, d, sb, bs, k_values.shape[-1],
-               v_values.shape[-1], float(sm_scale), p(out), p(lse),
-               build.stream())
+    out, lse = _launch(
+        "partial_attention_launch", _PARTIAL_ARGS,
+        (p(q), build.DTYPE_CODE[q.dtype], p(k_bitmap), p(k_values),
+         p(v_bitmap), p(v_values), build.DTYPE_CODE[k_values.dtype],
+         p(n_blocks)),
+        (b, hkv, qg, d, sb, bs, ck, cv),
+        attention_plan(sb, 0, bs, d, ck, cv, k_values.element_size()), q,
+        sm_scale, with_lse=True)
     sparse_decode_attention_partial.launches += 1
     return out, lse
 

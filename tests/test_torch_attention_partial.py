@@ -2,7 +2,8 @@
 
 * The plain partial against ``sparse_decode_attention_pallas`` in interpret
   mode, ``o`` and ``lse``, over per-slot valid-block counts {0, 1, partial,
-  all}, G in {1, 2, 4}, bs in {16, 128}, KV sparsity 0/0 and 0.3/0.5 and
+  all}, G in {1, 2, 4, 72} (72 * D = 2304: past the first CUDA design's
+  QG * D <= 2048), bs in {16, 128}, KV sparsity 0/0 and 0.3/0.5 and
   f32 and bf16 inputs, with poisoned blocks past each slot's count:
   atol = rtol = 1e-5 at f32 inputs, 1e-4 at bf16 inputs (both sides
   expand to f32 and sum in another order).
@@ -60,7 +61,7 @@ def _case(g, bs, ks, vs, dtype, seed=0):
 @pytest.mark.parametrize("ks,vs", [(0.0, 0.0), (0.3, 0.5)],
                          ids=["dense", "sparse"])
 @pytest.mark.parametrize("bs", [16, 128])
-@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("g", [1, 2, 4, 72])
 def test_partial_plain_matches_pallas(g, bs, ks, vs, dtype):
     q, arrays = _case(g, bs, ks, vs, jnp.dtype(dtype))
     sm = 1.0 / D ** 0.5

@@ -31,10 +31,13 @@ With ``--attention`` each run instead builds its checkout's
 inputs: the serving decode geometry (4 slots, 8 kv heads, 7 prefix blocks
 of 128 tokens, a 128-token ring; the lengths and the paged table of
 ``chip_smoke.py``'s kernel phase) at panels of 1, the verify panel and 9
-queries, and a 32-block (4096-token) prefix in every slot at 1 query.
-Each shape gives the CUDA-event time (L2 flushed) and the traced device
-time per call, or the error with which the checkout refused it, in step
-1's order (parent, change, change, parent); step 2 is skipped.
+queries, and a 32-block (4096-token) prefix in every slot at 1 query;
+and its prefix-only partial (``sparse_decode_attention_partial``) on the
+same flat prefix at G and 34 rows (``n_blocks`` 0, 3, 7, 1: the kernel
+phase's) and at 32 blocks in every slot.  Each shape gives the CUDA-event
+time (L2 flushed) and the traced device time per call, or the error with
+which the checkout refused it, in step 1's order (parent, change, change,
+parent); step 2 is skipped.
 
 With ``--linears`` each run instead builds its checkout's
 ``sparse_gemv.cu`` and ``dense_matmul.cu`` alone and times the sparse
@@ -162,7 +165,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.sparse_kv import freeze_chunk_blocks
 from repro_torch.kernels import build
 from repro_torch.kernels.sparse_attention import (
-    sparse_decode_attention_fused, sparse_decode_attention_fused_paged)
+    sparse_decode_attention_fused, sparse_decode_attention_fused_paged,
+    sparse_decode_attention_partial)
 from repro_torch.serving.cache_pool import CachePool
 cs.card_phase(torch, build)
 build.build_all(["sparse_attention.cu"])
@@ -212,17 +216,28 @@ cases.append((f"flat QG={g} Sb=32", 1, sparse_decode_attention_fused,
 cases.append((f"paged QG={g} Sb=32", 1, sparse_decode_attention_fused_paged,
                (*arena32, table32), ints([32] * b), ints([tp // 2] * b)))
 out = {}
-for name, qn, fn, prefix, n_blocks, tail_len in cases:
-    q = randn(b, hkv, qn * g, hd)
-    args = (q, *prefix, tails[0], tails[1], bs, sm, n_blocks, tail_len, g)
+
+
+def measure(name, fn, args):
     try:
         fn(*args)
     except ValueError as e:
         out[name] = {"refused": str(e)}
-        continue
+        return
     torch.cuda.synchronize()
     out[name] = {"ms": timer(lambda: fn(*args)),
                  "device_ms": cs.device_ms_per_call(torch, lambda: fn(*args))}
+
+
+for name, qn, fn, prefix, n_blocks, tail_len in cases:
+    q = randn(b, hkv, qn * g, hd)
+    measure(name, fn, (q, *prefix, tails[0], tails[1], bs, sm, n_blocks,
+                       tail_len, g))
+for qg, sb, prefix, n_blocks in ((g, 7, flat7, ints([0, 3, 7, 1])),
+                                 (17 * g, 7, flat7, ints([0, 3, 7, 1])),
+                                 (g, 32, flat32, ints([32] * b))):
+    measure(f"partial QG={qg} Sb={sb}", sparse_decode_attention_partial,
+            (randn(b, hkv, qg, hd), *prefix, bs, sm, n_blocks))
 print("RESULT " + json.dumps(out), flush=True)
 """
 
