@@ -94,7 +94,37 @@ Phases, each of which exits non-zero on failure:
      an in-process serial run's (near-tie rule), and one overlapped tick
      after a cancel runs under ``set_sync_debug_mode("error")``; its TTFT
      and TPOT (obs's percentiles) are printed beside the in-process ones.
-     ``--server-only`` runs the build and this phase alone.
+     ``--server-only`` runs the build and this phase alone;
+   * warm restart (``snapshot``), paged int8: engine A serves a wave on the
+     shared prefix, saves a snapshot (``save_snapshot``) and serves a
+     follow-up wave of new requests on the same prefix; a fresh engine B
+     (every entry captured when built) loads it and serves the follow-up
+     wave: the pages restored, B's device refcounts and tables zero, its
+     arena tensors where they were, one capture per entry, a prefix hit on
+     every follow-up admission and B's greedy tokens identical to A's; a
+     truncated snapshot raises a readable ``ValueError`` and leaves a fresh
+     engine cold and serving; the snapshot's bytes and the save and load
+     seconds are reported;
+   * the sanitized pool (``checkify``), paged int8, overlapped: the paged
+     int8 requests through an unchecked and a checked engine, tokens
+     identical to each other and to the paged int8 run's first tokens,
+     one capture per entry, chunks, refreezes and assignments sync-free and
+     one overlapped decode tick under ``set_sync_debug_mode("error")``; the
+     decode step and the decode graph's replay with and without the checks;
+     a planted device double free raises at a following token read, naming
+     its check;
+   * the one-shot ``Engine`` (``one_shot``), bf16: 4 prompts of 512 tokens,
+     160 new (a refreeze grows the prefix from 4 to 5 blocks), eager: the
+     gemv, fused attention, sparse matmul (the prefill at M = 2048) and
+     unembedding launched exactly once per linear, layer and step; the
+     first 8 decode ticks' logits within 5e-2 of the plain range of the
+     same ticks through the plain versions; greedy tokens equal to the
+     all-plain engine's but at bf16 near-ties; at f32 with KV sparsity 0
+     the sparse-KV and dense-KV engines within 1e-3 of the range; tok/s
+     and the median decode and prefill step reported.  The kernel phase
+     also holds, times and row-gates the bf16 sparse matmul at M = 2048.
+     ``--only one_shot,snapshot,checkify`` runs the build and these
+     phases alone.
 
 Every traced tick and chunk reports the unembedding's and the gemv's
 device time and launches.  The lines before the last carry the kernel
@@ -161,6 +191,26 @@ PAGED_SPEC_K, PAGED_SPEC_TOKENS = 3, 32
 SERVER_QUEUE, SERVER_DEGRADE, SERVER_BURST = 8, 3, 14
 SERVER_TOKENS, SERVER_LONG_TOKENS, SERVER_DEADLINE_S = 48, 160, 0.25
 SERVER_FAULT_SEED, SERVER_FAULT_TICKS, SERVER_WAVES = 0, 40, 4
+# the warm-restart phase: engine A serves a wave of SLOTS requests on the
+# shared prefix, snapshots, then serves a follow-up wave of SLOTS new requests
+# on the same prefix; a fresh engine B restores the snapshot and serves the
+# follow-up wave again (SNAP_TOKENS new tokens each)
+SNAP_TOKENS = 32
+# the sanitized phase: the paged int8 requests, CHECK_TOKENS new tokens each
+# (the first tokens of the paged int8 run's), served overlapped by an
+# unchecked and a checked engine
+CHECK_TOKENS = 64
+CHECK_REPLAYS = 50          # decode graph replays per engine for the A/B time
+# the one-shot phase: the legacy Engine on ONESHOT_BATCH prompts of
+# ONESHOT_PROMPT tokens (its prefill linears run at M = ONESHOT_M rows),
+# ONESHOT_TOKENS new tokens (159 decode steps: the 128-token tail fills once
+# and the refreeze grows the prefix from 4 to 5 blocks); logits held to the
+# plain versions over the first ONESHOT_LOGIT_TICKS decode ticks, and the
+# f32 sparse-KV and dense-KV engines over ONESHOT_F32_TICKS
+ONESHOT_BATCH, ONESHOT_PROMPT, ONESHOT_TOKENS = 4, 512, 160
+ONESHOT_M = ONESHOT_BATCH * ONESHOT_PROMPT
+ONESHOT_LOGIT_TICKS, ONESHOT_F32_TICKS = 8, 4
+ONESHOT_TOL = {"bf16": 5e-2, "f32": 1e-3}   # max|diff| over the plain range
 # the prefill chunk's width classes at bs = 128: a chunk runs padded to the
 # next whole block, one captured graph per class
 CHUNK_WIDTHS = tuple(range(128, PREFILL_CHUNK + 1, 128))
@@ -532,9 +582,11 @@ def linear_kernels(torch, cfg, timer, gen, detail):
     # row count past the gemv and a ragged chunk; the flat verify panel and
     # the prefill chunk also traced
     traced = (SLOTS * (SPEC_K + 1), PREFILL_CHUNK)
+    # bf16 also at the one-shot engine's prefill, M = B * S rows
     out["sparse_matmul"] = rows("sparse_matmul", "bf16", sparse_matmul,
-                                sparse_matmul_plain, mm_library, MATMUL_M,
-                                PREFILL_CHUNK, traced=traced)
+                                sparse_matmul_plain, mm_library,
+                                MATMUL_M + (ONESHOT_M,), PREFILL_CHUNK,
+                                traced=traced)
     out["sparse_matmul_f32"] = rows(
         "sparse_matmul_f32", "f32", sparse_matmul_f32, sparse_matmul_plain,
         mm_library, MATMUL_M, PREFILL_CHUNK, traced=traced)
@@ -572,29 +624,29 @@ def row_independence(torch, cfg, gen):
                             "int8"),
                            ("sparse_matmul_int4", sparse_matmul_int4,
                             "int4")):
+        # bf16 also at the one-shot engine's prefill rows
+        ms = ROW_GATE_M + ((ONESHOT_M,) if name == "sparse_matmul" else ())
         for kn in shapes:
             sw = _packed(torch, *kn, gen,
                          mode="bf16" if mode == "f32" else mode)
-            x = torch.randn((max(ROW_GATE_M), kn[0]), generator=gen,
-                            device="cuda")
+            x = torch.randn((max(ms), kn[0]), generator=gen, device="cuda")
             if mode in ("int8", "int4"):
                 xq, sx = quantize_act_int8(x.to(torch.bfloat16))
                 first = [fn(xq[:m], sx[:m], sw, torch.bfloat16)
-                         [:ROW_GATE_ROWS].clone() for m in ROW_GATE_M]
+                         [:ROW_GATE_ROWS].clone() for m in ms]
             else:
                 x = x.to(torch.float32 if mode == "f32" else torch.bfloat16)
-                first = [fn(x[:m], sw)[:ROW_GATE_ROWS].clone()
-                         for m in ROW_GATE_M]
+                first = [fn(x[:m], sw)[:ROW_GATE_ROWS].clone() for m in ms]
             torch.cuda.synchronize()
-            for m, got in zip(ROW_GATE_M[1:], first[1:]):
+            for m, got in zip(ms[1:], first[1:]):
                 if not torch.equal(got, first[0]):
                     diff = (got.float() - first[0].float()).abs().max()
                     fail(f"{name} K,N={kn}: the first {ROW_GATE_ROWS} rows "
-                         f"differ between M={ROW_GATE_M[0]} and M={m} "
+                         f"differ between M={ms[0]} and M={m} "
                          f"(max |diff| {diff.item():.3e})")
         checked[name] = len(shapes)
         say(f"{name}: the first {ROW_GATE_ROWS} rows are bit-equal across "
-            f"M={ROW_GATE_M} at {len(shapes)} (K, N) shapes")
+            f"M={ms} at {len(shapes)} (K, N) shapes")
     for label, dtype in (("bf16", torch.bfloat16), ("f32 x", torch.float32)):
         for kn in shapes:
             sw = _packed(torch, *kn, gen)
@@ -2672,10 +2724,11 @@ def record_margins(eng, margins):
         del eng._panel_logits, eng._prefill_tick
 
 
-def gate_identity(label, got, want, want_rids, margins):
+def gate_identity(label, got, want, want_rids, margins, tie=TIE_MARGIN):
     """Greedy token lists of two paths: identical, or the first divergence
     of a request lies where the reference path's top-1 margin is below
-    ``TIE_MARGIN`` of its largest |logit| (an honest near-tie flip)."""
+    ``tie`` of its largest |logit| (an honest near-tie flip; ``TIE_MARGIN``
+    between two f32 paths)."""
     same, flips = 0, []
     for i, (a, b) in enumerate(zip(got, want)):
         if a == b:
@@ -2687,8 +2740,8 @@ def gate_identity(label, got, want, want_rids, margins):
         flips.append({"request": i, "position": j, "margin": m})
         say(f"{label}: request {i} first differs at token {j} "
             f"({a[j:j + 1]} vs {b[j:j + 1]}); the reference's top-1 margin "
-            f"there is {m} of its largest |logit| (tie below {TIE_MARGIN})")
-        if m is None or not m < TIE_MARGIN:
+            f"there is {m} of its largest |logit| (tie below {tie})")
+        if m is None or not m < tie:
             fail(f"{label}: request {i} differs at token {j} where the "
                  f"reference's margin {m} is no near-tie")
     say(f"{label}: {same} of {len(got)} requests token-identical; "
@@ -3544,6 +3597,536 @@ def server_phase(torch, cfg, params):
             "trace_events": len(events), "guarded_tick": guard}
 
 
+# ---------------------------------------------------------------------------
+# warm restart, the sanitized pool and the one-shot engine
+# ---------------------------------------------------------------------------
+
+def _followup_prompts(cfg, n):
+    """``n`` new prompts on the shared-prefix phases' 512-token prefix, with
+    suffixes drawn from another seed."""
+    import numpy as np
+    shared = _shared_prompts(cfg, 1)[0][:SHARED_PREFIX]
+    rng = np.random.default_rng(2)
+    lo, hi = SUFFIX_RANGE
+    return [shared + rng.integers(0, cfg.vocab,
+                                  int(rng.integers(lo, hi + 1))).tolist()
+            for _ in range(n)]
+
+
+def _serve_wave(torch, eng, prompts, n_tokens):
+    """Greedy requests through a paged engine to the end; returns their
+    token lists and the prefix blocks each admission skipped."""
+    from repro_torch.serving import SamplingParams
+    hits = []
+    admit = eng._admit_paged
+
+    def counting(now):
+        req = admit(now)
+        if req is not None:
+            hits.append(req.prefill_done // eng.pool.bs)
+        return req
+    eng._admit_paged = counting
+    try:
+        sp = SamplingParams(max_new_tokens=n_tokens)
+        rids = [eng.submit(p, sp) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        del eng._admit_paged
+    return [list(out[r].token_ids) for r in rids], hits
+
+
+def _first_diff(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def snapshot_phase(torch, cfg, params):
+    """The warm restart on the paged int8 pool: engine A serves a wave on
+    the shared prefix, saves a snapshot, then serves a follow-up wave of new
+    requests on the same prefix; a fresh engine B (every entry captured
+    when built) loads the snapshot and serves the follow-up wave.  Gates:
+    the pages restored, B's device refcounts and tables zero after the load,
+    its arena tensors where they were and one capture per entry, a prefix
+    hit on every follow-up admission, B's greedy tokens identical to A's; a
+    truncated snapshot raises a readable ValueError and leaves a fresh
+    engine cold and serving."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.serving import corrupt_snapshot
+    label = "snapshot"
+    wave = _shared_prompts(cfg, SLOTS)
+    follow = _followup_prompts(cfg, SLOTS)
+    max_tokens = SHARED_PREFIX + SUFFIX_RANGE[1] + SNAP_TOKENS + cfg.kv_tail
+    paused = [0.0]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    a = _engine(cfg, params, paused, max_tokens, paged=True)
+    _serve_wave(torch, a, wave, SNAP_TOKENS)
+    pages = len(a._trie)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = a.save_snapshot(tmp)
+        save_s = time.perf_counter() - t0
+        npz = Path(tmp) / f"step_{step:010d}" / "arrays.npz"
+        n_bytes = npz.stat().st_size
+        want, hits_a = _serve_wave(torch, a, follow, SNAP_TOKENS)
+        n_phys = a.pool.n_phys
+        del a
+        torch.cuda.empty_cache()
+        b = _engine(cfg, params, paused, max_tokens, paged=True)
+        ptrs = [t.data_ptr() for d in b.pool.arena_leaves(b.state).values()
+                for t in d.values()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = b.load_snapshot(tmp)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if restored != pages or len(b._trie) != pages:
+            fail(f"{label}: restored {restored} pages (trie "
+                 f"{len(b._trie)}); A's trie held {pages}")
+        if int(b.state["refcount"].abs().sum()) or \
+                int(b.state["table"].abs().sum()):
+            fail(f"{label}: device refcounts or tables not zero after the "
+                 "load")
+        if [t.data_ptr() for d in b.pool.arena_leaves(b.state).values()
+                for t in d.values()] != ptrs:
+            fail(f"{label}: the load replaced an arena tensor")
+        check_captures(label, b.trace_counts(), b)
+        got, hits_b = _serve_wave(torch, b, follow, SNAP_TOKENS)
+        counts = kernels.launch_counts()
+        check_captures(label, b.trace_counts(), b)
+        if min(hits_b) <= 0:
+            fail(f"{label}: a follow-up admission skipped no prefix block "
+                 f"({hits_b})")
+        for i, (x, y) in enumerate(zip(got, want)):
+            if x != y:
+                fail(f"{label}: follow-up request {i} differs from the "
+                     f"never-restarted engine at token {_first_diff(x, y)}")
+        del b
+        torch.cuda.empty_cache()
+        corrupt_snapshot(tmp, mode="truncate")
+        c = _engine(cfg, params, paused, max_tokens, paged=True)
+        try:
+            c.load_snapshot(tmp)
+        except ValueError as e:
+            err = str(e)
+        else:
+            fail(f"{label}: a truncated snapshot loaded")
+        if "corrupt" not in err or len(c._trie) or \
+                c._alloc.free_blocks() != c.pool.n_phys:
+            fail(f"{label}: the truncated snapshot's error ({err[:80]}) or "
+                 "the engine's state after it is wrong")
+        cold, cold_hits = _serve_wave(torch, c, follow[:1], SNAP_TOKENS)
+        if len(cold[0]) != SNAP_TOKENS or cold_hits != [0]:
+            fail(f"{label}: the cold engine served {len(cold[0])} tokens "
+                 f"with {cold_hits} prefix blocks skipped")
+        del c
+        torch.cuda.empty_cache()
+    check_launches(label, counts,
+                   ("dense_matmul", "sparse_decode_attention_fused_paged",
+                    "sparse_matmul_int8"),
+                   ("sparse_gemv", "sparse_matmul",
+                    "sparse_decode_attention_fused",
+                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
+    res = {"pages": pages, "n_phys": n_phys, "bytes": n_bytes,
+           "bytes_per_phys_block": n_bytes / n_phys, "save_s": save_s,
+           "load_s": load_s, "hits_a": hits_a, "hits_b": hits_b,
+           "identical_requests": len(got), "tokens": SNAP_TOKENS,
+           "cold_error": err[:200], "cold_identical": cold[0] == want[0],
+           "launches": counts}
+    say(f"{label}: A froze {pages} prefix pages; snapshot step {step}: "
+        f"{n_bytes / 1e6:.1f} MB for the {n_phys}-block arena "
+        f"({n_bytes / n_phys / 1e6:.2f} MB a block), saved in {save_s:.3f} s "
+        f"and loaded into a fresh engine in {load_s:.3f} s; the load kept "
+        f"the arena tensors, zero refcounts and one capture per entry; the "
+        f"{len(got)} follow-up requests skipped {hits_b} blocks and are "
+        f"token-identical to the never-restarted engine ({SNAP_TOKENS} "
+        f"tokens); a truncated snapshot: '{err[:60]}...', the cold engine "
+        f"served (its first request identical to A's: {cold[0] == want[0]});"
+        f" launches {counts}")
+    return res
+
+
+def guarded_decode_tick(torch, eng, prompts):
+    """One overlapped decode tick under ``set_sync_debug_mode("error")``
+    (the token read, which carries the error word, exempt)."""
+    from repro_torch.serving import SamplingParams
+    sp = SamplingParams(max_new_tokens=CHECK_TOKENS)
+    for p in prompts[:SLOTS]:
+        eng.submit(p, sp)
+    for _ in range(400):
+        eng.step()
+        if (len(eng.scheduler.decoding_slots()) == SLOTS
+                and eng._inflight is not None):
+            break
+    else:
+        fail("checkify: the slots never all decoded")
+    before = eng.replay_counts().get("decode", 0)
+    exempt = [0]
+    sync = eng._sync_inflight
+
+    def exempt_sync(events):
+        exempt[0] += 1
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return sync(events)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    eng._sync_inflight = exempt_sync
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        del eng._sync_inflight
+    if eng.replay_counts()["decode"] - before != 1 or exempt[0] != 1:
+        fail("checkify: the guarded tick ran no decode replay or no token "
+             "read")
+    eng.run()
+
+
+def planted_violation(torch, eng, prompts):
+    """Zero the device refcounts of a live slot's pages and cancel its
+    request: the release underflows on the device, and a token read within
+    the next ticks must raise naming the check."""
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.cache_pool import PoolCheckError
+    sp = SamplingParams(max_new_tokens=CHECK_TOKENS)
+    for p in prompts[:2]:
+        eng.submit(p, sp)
+    for _ in range(400):
+        eng.step()
+        if len(eng.scheduler.decoding_slots()) == 2:
+            break
+    else:
+        fail("checkify: the planted run never decoded")
+    victim = next(iter(eng.scheduler.active.values()))
+    ids = eng._blocks[victim.slot]
+    eng.state["refcount"][torch.tensor(ids, device="cuda")] = 0
+    eng.cancel(victim.rid)
+    ticks = 0
+    try:
+        for ticks in range(1, 5):
+            eng.step()
+    except PoolCheckError as e:
+        msg = str(e)
+    else:
+        fail("checkify: a device double free raised nothing at the token "
+             "reads")
+    if "release: refcount underflow" not in msg:
+        fail(f"checkify: the planted violation raised {msg!r}")
+    return {"message": msg, "raised_at_tick": ticks, "pages_zeroed": len(ids)}
+
+
+def checkify_phase(torch, cfg, params, prompts, paged_run=None):
+    """The sanitized paged int8 pool, overlapped, on the shared-prefix
+    requests: the same traffic through an unchecked and a checked engine
+    (every chunk, refreeze and assignment through a captured entry under the
+    sync-free guard, one capture per entry); greedy tokens identical to the
+    unchecked engine's and to the paged int8 run's first tokens; one
+    overlapped decode tick under ``set_sync_debug_mode("error")``; the
+    decode graph's replay time with and without the checks; a planted
+    device double free raising at the next token read."""
+    from repro_torch.serving import ContinuousEngine, SamplingParams
+    label = "checkify"
+    max_tokens = SHARED_PREFIX + SUFFIX_RANGE[1] + CHECK_TOKENS + cfg.kv_tail
+    params_of = [SamplingParams(max_new_tokens=CHECK_TOKENS)] * len(prompts)
+    runs, engines = {}, {}
+    for chk in (False, True):
+        paused = [0.0]
+        eng = ContinuousEngine(
+            params, cfg, slots=SLOTS, max_tokens=max_tokens,
+            prefill_chunk=PREFILL_CHUNK, device="cuda", paged=True,
+            checkify=chk, overlap=True,
+            clock=lambda p=paused: time.perf_counter() - p[0])
+        if eng.pool.checkify != chk:
+            fail(f"{label}: the pool's checkify flag is "
+                 f"{eng.pool.checkify}")
+        name = "checked" if chk else "unchecked"
+        runs[name] = serve_stream(torch, eng, cfg, prompts, params_of,
+                                  paused, lead=True, label=f"{label} {name}")
+        check_sync_free(f"{label} {name}", runs[name],
+                        ("chunk", "refreeze", "assign"))
+        check_outputs(f"{label} {name}", runs[name], cfg, CHECK_TOKENS)
+        engines[name] = eng
+    chk_eng = engines["checked"]
+    if chk_eng.state["err"].tolist() != [0]:
+        fail(f"{label}: the clean run set error bits "
+             f"{chk_eng.state['err'].tolist()}")
+    check_launches(label, runs["checked"]["counts"],
+                   ("dense_matmul", "sparse_decode_attention_fused_paged",
+                    "sparse_matmul_int8"),
+                   ("sparse_gemv", "sparse_matmul",
+                    "sparse_decode_attention_fused",
+                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
+    toks = {n: [list(r["out"][i].token_ids) for i in r["rids"]]
+            for n, r in runs.items()}
+    for i, (x, y) in enumerate(zip(toks["checked"], toks["unchecked"])):
+        if x != y:
+            fail(f"{label}: request {i} differs from the unchecked engine at "
+                 f"token {_first_diff(x, y)}")
+    vs_paged = None
+    if paged_run is not None:
+        # the paged run's last request was seeded; its greedy ones gate
+        vs_paged = 0
+        for i, (x, r) in enumerate(zip(toks["checked"][:-1],
+                                       paged_run["rids"][:-1])):
+            y = list(paged_run["out"][r].token_ids[:CHECK_TOKENS])
+            if x != y:
+                fail(f"{label}: request {i} differs from the paged int8 "
+                     f"run at token {_first_diff(x, y)}")
+            vs_paged += 1
+    guarded_decode_tick(torch, chk_eng, prompts)
+    # the decode graph with and without the checks, all slots masked (a
+    # replay then writes nothing), in turns
+    times = {"unchecked": [], "checked": []}
+    for name in ("unchecked", "checked", "checked", "unchecked"):
+        fwd = engines[name]._entries["decode"]
+        fwd.set(mask=[False] * SLOTS)
+        times[name].append(_replay_ms(torch, fwd.run, CHECK_REPLAYS))
+    replay_ms = {n: statistics.median(v) for n, v in times.items()}
+    del engines["unchecked"]
+    torch.cuda.empty_cache()
+    planted = planted_violation(torch, chk_eng, prompts)
+    step_ms = {n: statistics.median(r["steps"]["decode"]) * 1e3
+               for n, r in runs.items()}
+    tok_s = {n: sum(len(t) for t in toks[n]) / r["seconds"]
+             for n, r in runs.items()}
+    res = {"step_ms": step_ms, "tok_s": tok_s, "replay_ms": replay_ms,
+           "replays": CHECK_REPLAYS, "identical_requests": len(toks["checked"]),
+           "identical_to_paged_run": vs_paged, "planted": planted,
+           "captures": runs["checked"]["captures"],
+           "sync_free": runs["checked"]["sync_free"],
+           "launches": runs["checked"]["counts"]}
+    say(f"{label}: {len(prompts)} requests x {CHECK_TOKENS} tokens "
+        f"overlapped: checked tokens identical to the unchecked engine's "
+        f"(and the paged int8 run's first {CHECK_TOKENS}: {vs_paged} greedy "
+        f"requests); median decode step {step_ms['checked']:.2f} ms checked "
+        f"vs {step_ms['unchecked']:.2f} ms unchecked; tok/s "
+        f"{tok_s['checked']:.1f} vs {tok_s['unchecked']:.1f}; decode graph "
+        f"replay {replay_ms['checked']:.3f} vs {replay_ms['unchecked']:.3f} "
+        f"ms (CUDA events, {CHECK_REPLAYS} replays each, in turns unchecked, "
+        f"checked, checked, unchecked, all slots masked); "
+        f"captures {runs['checked']['captures']}; sync-free "
+        f"{runs['checked']['sync_free']} and one guarded overlapped tick; "
+        f"the planted double free raised at tick {planted['raised_at_tick']}"
+        f": {planted['message']!r}")
+    return res
+
+
+@contextlib.contextmanager
+def _timed_calls(torch, module, name, times):
+    """Time every call of ``module.name`` (a module's function or an
+    object's method; host clock between two syncs)."""
+    fn = getattr(module, name)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    with patched(module, name, timed):
+        yield
+
+
+def _range_err(got, ref):
+    """max |got - ref| over the plain logits' range."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max()
+            / (ref.max() - ref.min())).item()
+
+
+def _dense_weights(torch, cfg, batch):
+    """The baseline of ``launch.serve --one-shot --dense``: dense bf16
+    weights (each layer's linears stored column-major by the engine, so
+    the dense kernel reads them as rows in place) and the dense KV cache.
+    One prefill and one decode tick through the kernels, their logits
+    within 5e-2 of the range of the same calls through the plain versions,
+    and every linear through the dense kernel: one launch per
+    ``launch_rows(K)`` rows."""
+    from repro_torch import kernels
+    from repro_torch.kernels.dense_matmul import launch_rows
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine
+    eng = Engine(lm.init_params(cfg, seed=0, device="cuda"), cfg,
+                 kv_mode="dense", device="cuda")
+    kernels.reset_launch_counts()
+    cache, lk = eng.prefill(batch)
+    counts = kernels.launch_counts()
+    with plain_kernels():
+        cache_p, lp = eng.prefill(batch)
+    errs = [_range_err(lk, lp)]
+    tok = lp.argmax(-1)[:, None]
+    dk, _ = lm.forward_decode(eng.params, cache, tok, cfg)
+    with plain_kernels():
+        dp, _ = lm.forward_decode(eng.params, cache_p, tok, cfg)
+    errs.append(_range_err(dk, dp))
+    # one launch per launch_rows(K) rows: 64 at K = 1024, fewer for wo and
+    # w_down, whose x rows would not fit shared memory whole
+    want = cfg.n_layers * sum(-(-ONESHOT_M // launch_rows(k))
+                              for _, k, _ in _layer_linears(cfg)) + 1
+    if counts["dense_matmul"] != want or sum(counts.values()) != want:
+        fail(f"one_shot dense weights: launches {counts}; {want} dense "
+             "kernel launches and no other expected")
+    if not max(errs) <= ONESHOT_TOL["bf16"]:
+        fail(f"one_shot dense weights: logits through the kernels differ "
+             f"from the plain versions by {max(errs):.3e} of the range")
+    del eng, cache, cache_p
+    torch.cuda.empty_cache()
+    say(f"one_shot dense weights and KV: the prefill ran {want} dense "
+        f"kernel launches (every linear at M = {ONESHOT_M}, 64, 32 or 16 "
+        f"rows a launch by K, and the unembedding); prefill and one decode "
+        f"tick's logits {max(errs):.2e} of the range from the plain "
+        f"versions")
+    return {"launches": counts, "logits_rel_range": max(errs)}
+
+
+def oneshot_phase(torch, cfg, params, cfg32, params32):
+    """The legacy one-shot ``Engine`` on bf16 sparse weights: ``ONESHOT_BATCH``
+    prompts of ``ONESHOT_PROMPT`` tokens, ``ONESHOT_TOKENS`` new tokens,
+    eager.  Gates: the gemv, fused attention, sparse matmul and unembedding
+    counters at exactly one launch per linear, layer and row block; a
+    refreeze grew the prefix to 5 blocks; the first decode ticks' logits
+    through the kernels within 5e-2 of the plain range of the same ticks
+    through the plain versions; greedy tokens equal to the all-plain
+    engine's but where its top-1 margin is a bf16 near-tie (below
+    ``TOP1_CLEAR``, the logits gates' rounding-noise bar); at f32 with KV
+    sparsity 0 the sparse-KV and dense-KV engines' logits within 1e-3 of
+    the range."""
+    import copy
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine, SamplingParams
+    label = "one_shot"
+    toks = host_batch(DataConfig(vocab=cfg.vocab, seq_len=ONESHOT_PROMPT,
+                                 global_batch=ONESHOT_BATCH), 0)["tokens"]
+    batch = {"tokens": toks}
+    sp = SamplingParams(max_new_tokens=ONESHOT_TOKENS)
+    eng = Engine(params, cfg, device="cuda")
+    steps = {"decode": [], "prefill": []}
+    with _timed_calls(torch, lm, "forward_decode", steps["decode"]), \
+            _timed_calls(torch, eng, "prefill", steps["prefill"]):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, cache = eng.generate(batch, sp)
+        got = got.cpu()
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    decodes = ONESHOT_TOKENS - 1
+    linears = len(_layer_linears(cfg)) * cfg.n_layers
+    want = {"sparse_matmul": linears, "sparse_gemv": linears * decodes,
+            "sparse_decode_attention_fused": cfg.n_layers * decodes,
+            "dense_matmul": ONESHOT_TOKENS}
+    check_launches(label, counts, tuple(want),
+                   ("sparse_decode_attention_fused_paged",
+                    "sparse_matmul_int8", "sparse_matmul_int4",
+                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"{label}: launches {counts}; {want} expected (the prefill's "
+             "linears once at M = B * S, the decode's once a step, the "
+             "attention once a layer a step, the unembedding once a step)")
+    sb = cache["layers"]["l0"]["kv"].k_sp.bitmap.shape[3]
+    if sb != ONESHOT_PROMPT // 128 + 1:
+        fail(f"{label}: the prefix holds {sb} blocks after {decodes} decode "
+             "steps; one refreeze to 5 expected")
+    if got.shape != (ONESHOT_BATCH, ONESHOT_TOKENS) or \
+            int(got.min()) < 0 or int(got.max()) >= cfg.vocab:
+        fail(f"{label}: tokens of shape {tuple(got.shape)} or out of range")
+    del cache
+    # the first decode ticks, teacher-forced from one prefill: kernels
+    # against the plain versions on copies of the same cache
+    cache_k, logits = eng.prefill(batch)
+    cache_p = copy.deepcopy(cache_k)
+    tok = logits.argmax(-1)
+    errs = []
+    for _ in range(ONESHOT_LOGIT_TICKS):
+        lk, cache_k = lm.forward_decode(eng.params, cache_k, tok[:, None],
+                                        cfg)
+        with plain_kernels():
+            lp, cache_p = lm.forward_decode(eng.params, cache_p,
+                                            tok[:, None], cfg)
+        errs.append(_range_err(lk, lp))
+        tok = lp.argmax(-1)
+    del cache_k, cache_p
+    if not max(errs) <= ONESHOT_TOL["bf16"]:
+        fail(f"{label}: decode logits through the kernels differ from the "
+             f"plain versions by {max(errs):.3e} of the range")
+    # greedy tokens against the all-plain engine, near-ties excused
+    margins = {}
+
+    def note(step, logits):
+        top2 = logits.float().topk(2, -1).values
+        rel = (top2[:, 0] - top2[:, 1]) / logits.float().abs().amax(-1)
+        margins.update(((b, step), m) for b, m in enumerate(rel.tolist()))
+    plain_eng = Engine(params, cfg, device="cuda")
+    prefill, decode = plain_eng.prefill, lm.forward_decode
+
+    def prefill_noted(b):
+        c, lg = prefill(b)
+        note(0, lg)
+        return c, lg
+
+    n_dec = [0]
+
+    def decode_noted(*a, **k):
+        lg, c = decode(*a, **k)
+        n_dec[0] += 1
+        note(n_dec[0], lg)
+        return lg, c
+    plain_eng.prefill = prefill_noted
+    with plain_kernels(), patched(lm, "forward_decode", decode_noted):
+        ref, _ = plain_eng.generate(batch, sp)
+    ident = gate_identity(label, got.tolist(), ref.cpu().tolist(),
+                          list(range(ONESHOT_BATCH)), margins,
+                          tie=TOP1_CLEAR)
+    del plain_eng
+    # f32, KV sparsity 0: the sparse-KV and dense-KV engines
+    c0 = dataclasses.replace(cfg32, kv_k_sparsity=0.0, kv_v_sparsity=0.0)
+    caches, lgs = {}, {}
+    for mode in ("sparse", "dense"):
+        e = Engine(params32, c0, kv_mode=mode, device="cuda")
+        caches[mode], lgs[mode] = e.prefill(batch)
+        p32 = e.params
+    f32_errs = [_range_err(lgs["sparse"], lgs["dense"])]
+    tok = lgs["dense"].argmax(-1)
+    for _ in range(ONESHOT_F32_TICKS):
+        l_s, _ = lm.forward_decode(p32, caches["sparse"], tok[:, None], c0)
+        l_d, _ = lm.forward_decode(p32, caches["dense"], tok[:, None], c0)
+        f32_errs.append(_range_err(l_s, l_d))
+        tok = l_d.argmax(-1)
+    del caches, e
+    torch.cuda.empty_cache()
+    if not max(f32_errs) <= ONESHOT_TOL["f32"]:
+        fail(f"{label}: f32 sparse-KV and dense-KV logits differ by "
+             f"{max(f32_errs):.3e} of the range")
+    dense = _dense_weights(torch, cfg, batch)
+    step_ms = {k: statistics.median(v) * 1e3 for k, v in steps.items()}
+    res = {"batch": ONESHOT_BATCH, "prompt": ONESHOT_PROMPT,
+           "tokens": ONESHOT_TOKENS, "seconds": dt,
+           "tok_s": ONESHOT_BATCH * ONESHOT_TOKENS / dt,
+           "median_step_ms": step_ms, "launches": counts,
+           "logits_rel_range": max(errs), "identity": ident,
+           "f32_sparse_vs_dense": max(f32_errs), "prefix_blocks": sb,
+           "dense_weights": dense}
+    say(f"{label}: {ONESHOT_BATCH} x {ONESHOT_PROMPT}-token prompts, "
+        f"{ONESHOT_TOKENS} new tokens in {dt:.2f} s ({res['tok_s']:.1f} "
+        f"tok/s, eager, a sync after each step for its time); median decode "
+        f"step {step_ms['decode']:.2f} ms, prefill {step_ms['prefill']:.2f} "
+        f"ms; launches {counts}; prefix {ONESHOT_PROMPT // 128} -> {sb} "
+        f"blocks; logits kernels vs plain over {ONESHOT_LOGIT_TICKS} ticks "
+        f"{max(errs):.2e} of the range (tol {ONESHOT_TOL['bf16']}); f32 "
+        f"sparse-KV vs dense-KV over the prefill and {ONESHOT_F32_TICKS} "
+        f"ticks {max(f32_errs):.2e} (tol {ONESHOT_TOL['f32']})")
+    return res
+
+
 SOURCES = {
     "sparse_gemv": ("src/repro_torch/kernels/csrc/sparse_gemv.cu",
                     "src/repro/kernels/sparse_gemv.py:47"),
@@ -3585,6 +4168,11 @@ def main() -> int:
     ap.add_argument("--server-only", action="store_true",
                     help="build, then run the server phase alone (on its "
                          "own int8 weights) and print no result line")
+    ap.add_argument("--only", default="",
+                    help="build, then run these of the phases one_shot, "
+                         "snapshot and checkify alone (comma-separated; "
+                         "checkify without the paged int8 run to compare "
+                         "with) and print no result line")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3611,6 +4199,29 @@ def main() -> int:
         say(f"server phase alone passed; total "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.only:
+        res = {}
+        only = set(args.only.split(","))
+        if "one_shot" in only:
+            params = _model(torch, cfg, "bf16")
+            cfg32, params32 = _widened(torch, cfg, params)
+            res["one_shot"] = oneshot_phase(torch, cfg, params, cfg32,
+                                            params32)
+            del params, params32
+        if only & {"snapshot", "checkify"}:
+            params8 = _model(torch, cfg, "int8")
+            if "snapshot" in only:
+                res["snapshot"] = snapshot_phase(torch, cfg, params8)
+            if "checkify" in only:
+                res["checkify"] = checkify_phase(
+                    torch, cfg, params8,
+                    _shared_prompts(cfg, PAGED_REQUESTS))
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(res, indent=1, default=str))
+        say(f"phases {sorted(only)} alone passed; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     t0 = time.perf_counter()
     summary, detail = kernel_phase(torch, cfg)
     say(f"kernels: all {len(SOURCES)} agree with their plain versions "
@@ -3622,6 +4233,7 @@ def main() -> int:
     serve["two_pass"] = two_pass_phase(torch, cfg32, params32, Timer(torch))
     spec_f32 = spec_identity_f32(torch, cfg32, params32)
     serve["spec_f32"], serve["spec_f32_k8"] = spec_f32[SPEC_K], spec_f32[8]
+    serve["one_shot"] = oneshot_phase(torch, cfg, params, cfg32, params32)
     del params, params32
     serve["paged_int8"], params8, prompts, run8 = paged_phase(
         torch, cfg, "int8", PAGED_REQUESTS, PAGED_NEW_TOKENS,
@@ -3630,6 +4242,8 @@ def main() -> int:
     serve["spec_paged_int8"] = spec_paged_phase(torch, cfg, params8,
                                                 prompts)
     serve["server"] = server_phase(torch, cfg, params8)
+    serve["snapshot"] = snapshot_phase(torch, cfg, params8)
+    serve["checkify"] = checkify_phase(torch, cfg, params8, prompts, run8)
     del params8, run8
     serve["paged_int4"] = paged_phase(
         torch, cfg, "int4", INT4_REQUESTS, INT4_NEW_TOKENS,

@@ -86,6 +86,10 @@ class BlockSparseWeight:
             lead *= d
         return lead * k * n * self.values.element_size()
 
+    def compression_ratio(self) -> float:
+        """compressed bytes / dense bytes (lower is better)."""
+        return self.nbytes_compressed() / self.nbytes_dense()
+
 
 # ---------------------------------------------------------------------------
 # int4 nibble packing (paper §8: int4 values are dequantised to int8 before
@@ -233,6 +237,35 @@ def pack(w: torch.Tensor, mask: torch.Tensor,
     return BlockSparseWeight(bitmap=bitmap, values=vals, scale=scale,
                              shape=(int(w.shape[0]), int(w.shape[1])),
                              block=tuple(block))
+
+
+def repack_capacity(sw: BlockSparseWeight, capacity: int
+                    ) -> BlockSparseWeight:
+    """Re-store ``sw`` at exactly ``capacity`` packed values per block.
+
+    Growing pads the values (a bit-exact round trip).  Shrinking re-ranks
+    each block's kept entries by magnitude and drops the overflow from the
+    bitmap and the values together, so :func:`unpack` of the result always
+    equals the dense weight its own bitmap describes."""
+    if sw.packed4:
+        raise ValueError("repack of nibble-packed int4 not supported")
+    cap = int(capacity)
+    if cap == sw.capacity:
+        return sw
+    if cap > sw.capacity:
+        vals = F.pad(sw.values, (0, cap - sw.values.shape[-1]))
+        return BlockSparseWeight(sw.bitmap, vals, sw.scale, sw.shape,
+                                 sw.block, sw.packed4)
+    # shrink: decompress block-locally, re-pack at the smaller capacity
+    mask, idx = block_gather_indices(sw.bitmap, sw.block)
+    idx = idx.clamp(max=sw.capacity - 1)
+    dense_flat = torch.gather(sw.values, -1, idx)
+    dense_flat = torch.where(mask > 0, dense_flat,
+                             torch.zeros((), dtype=sw.values.dtype,
+                                         device=sw.values.device))
+    bitmap, vals = pack_blocks(dense_flat, mask > 0, cap)
+    return BlockSparseWeight(bitmap, vals, sw.scale, sw.shape, sw.block,
+                             sw.packed4)
 
 
 def block_gather_indices(bitmap: torch.Tensor, block: Tuple[int, int]):

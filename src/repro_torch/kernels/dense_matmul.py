@@ -10,12 +10,13 @@ Design (``csrc/dense_matmul.cu``): one persistent block per SM streams its
 128-row tiles of ``w_nk`` through a ring of shared-memory stages filled by
 16-byte ``cp.async`` copies, reading ``tok`` in place through its ``[N, K]``
 row layout (no ``tok.T`` copy exists anywhere), so the table is read once
-per call at every M up to 64.  bf16 runs ``mma.sync`` m16n8k16 with x
+per call at every M up to 64 (fewer rows a pass where a wide K's x
+would not fit shared memory: :func:`launch_rows`).  bf16 runs ``mma.sync`` m16n8k16 with x
 staged once per block as the A operand (M padded to 16-row m-tiles) and
 the table rows as the column-major B operand as they stand; f32 runs f32
 FMAs in K order (no TF32).  A row's result does not depend on M
 (:func:`dense_plan` sizes only x's staging).  Output is f32; more than 64
-rows take one launch per 64.
+rows take one launch per 64 (per :func:`launch_rows`).
 
 CPU tensors take the plain version; CUDA operands the kernel does not take
 (dtype, K or a row stride not a multiple of 8, a pointer not 16-byte
@@ -36,6 +37,7 @@ _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_long,
          ctypes.c_void_p, ctypes.c_void_p]
 MAX_ROWS = 64               # rows of x one launch (one pass) takes
+SMEM_LIMIT = 232448         # bytes of shared memory a Hopper block may use
 TILE = 128                  # table rows a block streams at a time
 STAGES = 5                  # ring depth of the stream
 F32_BUCKETS = (1, 2, 4, 8, 16, 32, 48, 64)
@@ -75,6 +77,23 @@ def dense_plan(m: int, k: int, n: int, w_bytes: int = 2) -> DensePlan:
     return DensePlan(-(-n // TILE), rows, smem)
 
 
+@functools.lru_cache(maxsize=None)
+def launch_rows(k: int, w_bytes: int = 2) -> int:
+    """Rows of x one launch takes at inner dimension ``k``: ``MAX_ROWS``,
+    or, where bf16 x staged whole for 64 rows would overflow a block's
+    shared memory (K past 1120: a dense model's wider linears, ``wo`` and
+    ``w_down``), the most 16-row m-tiles that fit; each launch is one pass
+    over the weight.  A row's result is the same bits at any of these
+    counts.  Raises where not even 16 rows fit."""
+    rows = MAX_ROWS
+    while dense_plan(rows, k, TILE, w_bytes).smem > SMEM_LIMIT:
+        rows -= 16
+        if rows <= 0:
+            raise ValueError(f"dense_matmul kernel: x rows of K={k} do not "
+                             f"fit a block's shared memory")
+    return rows
+
+
 def dense_matmul_plain(x: torch.Tensor, w_nk: torch.Tensor,
                        out_dtype=None) -> torch.Tensor:
     """Plain version (twin of ``kernels/ref.py:dense_matmul_ref`` with the
@@ -109,8 +128,9 @@ def dense_matmul(x: torch.Tensor, w_nk: torch.Tensor,
                          "stride multiples of 8 and 16-byte aligned x and "
                          "weight (16-byte copies)")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    for r0 in range(0, m, MAX_ROWS):
-        rows = min(MAX_ROWS, m - r0)
+    step = launch_rows(k, x.element_size())
+    for r0 in range(0, m, step):
+        rows = min(step, m - r0)
         p = dense_plan(rows, k, n, x.element_size())
         build.call(_SRC, "dense_matmul_launch", _ARGS, build.ptr(x[r0:]),
                    build.DTYPE_CODE[x.dtype], rows, k, build.ptr(w_nk), n,

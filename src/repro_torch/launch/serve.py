@@ -1,10 +1,24 @@
-"""Serving launcher, stream mode: sparse weights + sparse KV through the
-continuous-batching engine (twin of ``repro.launch.serve`` without
-``--one-shot``, ``--batch``, ``--dense``, ``--audit``, ``--mesh`` and
-``--snapshot-dir``).  ``--int8`` serves int8 block-sparse weights,
-``--paged`` the shared-prefix paged pool (``--phys-blocks`` sizes its
-arena), ``--spec-k K`` draft-verify speculation with an n-gram drafter
+"""Serving launcher: sparse weights + sparse KV (twin of
+``repro.launch.serve`` without ``--audit`` and ``--mesh``, which wait for
+the sharded part of the port).
+
+* **stream mode** (the default) drives the continuous-batching engine with
+  a stream of requests of mixed prompt and output lengths;
+* ``--one-shot`` runs the legacy static-batch ``Engine`` instead: the
+  first ``--batch`` prompts prefilled whole, frozen into the sparse KV
+  cache and decoded lockstep (eagerly: each refreeze grows the prefix).
+
+``--dense`` is the baseline: dense weights and, one-shot, the dense KV
+cache; in stream mode it sets the KV sparsity to 0 (the pooled compression
+is then a bit-exact round trip).  ``--int8`` serves int8 block-sparse
+weights, ``--paged`` the shared-prefix paged pool (``--phys-blocks`` sizes
+its arena), ``--spec-k K`` draft-verify speculation with an n-gram drafter
 (``--spec-adaptive`` per-slot draft windows), as in the reference.
+``--snapshot-dir DIR`` (with ``--paged``) restores the prefix cache from
+the newest snapshot under DIR on start (a cold start says why when there
+is none) and snapshots it once the stream drains, or at a server's
+shutdown.  ``REPRO_CHECKIFY=1`` builds the sanitized pool (a device error
+word the engine reads with each tick's tokens).
 
 ``--server`` swaps the synthetic request stream for the asyncio HTTP
 frontend (``repro_torch.serving.frontend``: ``POST /v1/generate`` streams
@@ -51,6 +65,10 @@ the pooled sparse-KV cache.
   python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
       --device cpu --server --port 0 --slots 2 --prompt-len 32 --steps 8 \\
       --prefill-chunk 16 --max-queue 8 --metrics-port 0
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
+      --device cpu --paged --prefill-chunk 16 --snapshot-dir /tmp/snap
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --device cuda \\
+      --one-shot --batch 4 --prompt-len 512 --steps 160 [--dense]
 """
 from __future__ import annotations
 
@@ -69,16 +87,19 @@ from repro_torch.core.convert import convert_concrete, sparsity_report
 from repro_torch.data.pipeline import DataConfig, host_batch
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import lm
-from repro_torch.serving import (ContinuousEngine, SamplingParams, SpecConfig,
-                                 stable_trace_counts)
+from repro_torch.serving import (ContinuousEngine, Engine, SamplingParams,
+                                 SpecConfig, stable_trace_counts)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=0,
+                    help="stream mode: number of requests (default: batch)")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="stream mode: cache-pool slots (default: batch)")
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--steps", type=int, default=16,
                     help="max_new_tokens per request")
@@ -87,6 +108,17 @@ def main(argv=None) -> int:
     ap.add_argument("--sparsity", type=float, default=0.5)
     ap.add_argument("--int8", action="store_true",
                     help="int8 block-sparse weights (per-channel scale)")
+    ap.add_argument("--dense", action="store_true",
+                    help="baseline: dense weights + dense KV (stream mode: "
+                         "KV sparsity 0)")
+    ap.add_argument("--one-shot", action="store_true",
+                    help="the legacy static-batch engine instead of the "
+                         "continuous-batching stream")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="stream mode, with --paged: restore the prefix "
+                         "cache (arena + trie + allocator) from the newest "
+                         "snapshot on start, and snapshot it once the "
+                         "stream drains (or at a server's shutdown)")
     ap.add_argument("--paged", action="store_true",
                     help="paged shared-prefix pool: compressed blocks live "
                          "once in a pool-global arena behind per-slot block "
@@ -161,25 +193,61 @@ def main(argv=None) -> int:
     if args.degrade_queue and not args.spec_k:
         ap.error("--degrade-queue needs --spec-k (it degrades by dropping "
                  "the draft window)")
+    if args.one_shot and (args.metrics_port >= 0 or args.trace_file
+                          or args.log_json or args.profile_dir
+                          or args.report_every):
+        ap.error("observability flags (--metrics-port/--trace-file/"
+                 "--log-json/--profile-dir/--report-every) are stream-mode "
+                 "only")
+    if args.snapshot_dir and not args.paged:
+        ap.error("--snapshot-dir needs --paged (only the shared-prefix "
+                 "arena + trie persist across restarts)")
+    if args.server and args.one_shot:
+        ap.error("--server is stream-mode only (the one-shot engine has no "
+                 "scheduler to serve requests through)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
     cfg = dataclasses.replace(cfg, sparsity=args.sparsity)
     params = lm.init_params(cfg, seed=0, device=dev)
-    params = convert_concrete(params, lm.model_specs(cfg), cfg,
-                              mode="int8" if args.int8 else "bf16",
-                              device=dev)
-    rep = sparsity_report(params)
-    tot_d = sum(r["dense_bytes"] for r in rep.values())
-    tot_c = sum(r["compressed_bytes"] for r in rep.values())
-    print(f"[serve] sparse-converted {len(rep)} weights: {tot_d/1e6:.1f}MB "
-          f"-> {tot_c/1e6:.1f}MB ({tot_c/tot_d:.3f}x) on {dev}")
+    if not args.dense:
+        params = convert_concrete(params, lm.model_specs(cfg), cfg,
+                                  mode="int8" if args.int8 else "bf16",
+                                  device=dev)
+        rep = sparsity_report(params)
+        tot_d = sum(r["dense_bytes"] for r in rep.values())
+        tot_c = sum(r["compressed_bytes"] for r in rep.values())
+        print(f"[serve] sparse-converted {len(rep)} weights: "
+              f"{tot_d/1e6:.1f}MB -> {tot_c/1e6:.1f}MB "
+              f"({tot_c/tot_d:.3f}x) on {dev}")
 
-    n_req = args.requests
+    n_req = args.requests or args.batch
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len,
-                    global_batch=n_req)
+                    global_batch=max(n_req, args.batch))
     prompts = host_batch(dc, 0)["tokens"]
+    if args.one_shot:
+        eng = Engine(params, cfg, kv_mode="dense" if args.dense else "sparse",
+                     device=dev)
+        sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                            top_p=args.top_p, seed=args.seed,
+                            max_new_tokens=args.steps)
+        reset_launch_counts()
+        t0 = time.time()
+        toks, _ = eng.generate({"tokens": prompts[:args.batch]}, sp)
+        toks = toks.cpu()
+        dt = time.time() - t0
+        print(f"[serve] one-shot: {args.steps} tokens x {args.batch} reqs "
+              f"in {dt:.2f}s ({args.steps * args.batch / dt:.1f} tok/s, "
+              f"{'dense' if args.dense else 'sparse'} KV, eager)")
+        print("[serve] sample:", toks[0][:16].tolist())
+        print(f"[serve] kernel launches: {launch_counts()}")
+        return 0
+    if args.dense:
+        # dense-KV baseline: zero KV sparsity makes the pooled compression
+        # a bit-exact round trip at full per-block capacity
+        cfg = dataclasses.replace(cfg, kv_k_sparsity=0.0, kv_v_sparsity=0.0)
+    slots = args.slots or args.batch
     obs = metrics_server = None
     if args.metrics_port >= 0 or args.trace_file or args.report_every:
         from repro_torch.obs import MetricsServer, Observability
@@ -190,7 +258,7 @@ def main(argv=None) -> int:
                                            port=args.metrics_port).start()
             print(f"[serve] metrics: {metrics_server.url}")
     eng = ContinuousEngine(
-        params, cfg, slots=args.slots,
+        params, cfg, slots=slots,
         max_tokens=args.prompt_len + args.steps + cfg.kv_tail,
         prefill_chunk=args.prefill_chunk or None, device=dev,
         paged=args.paged, phys_blocks=args.phys_blocks,
@@ -200,8 +268,21 @@ def main(argv=None) -> int:
         overlap=not args.no_overlap)
     if args.paged:
         print(f"[serve] paged pool: {eng.pool.n_phys} physical blocks of "
-              f"{eng.pool.bs} tokens behind {args.slots}x"
+              f"{eng.pool.bs} tokens behind {slots}x"
               f"{eng.pool.max_blocks} block tables")
+    if args.snapshot_dir:
+        try:
+            n = eng.load_snapshot(args.snapshot_dir)
+            print(f"[serve] warm restart: restored {n} prefix pages from "
+                  f"{args.snapshot_dir} (trie holds {len(eng._trie)} "
+                  "blocks; matching prompts skip their prefill)")
+        except ValueError as e:
+            print(f"[serve] cold start: {e}")
+
+    def snapshot():
+        step = eng.save_snapshot(args.snapshot_dir)
+        print(f"[serve] snapshot: step {step} -> {args.snapshot_dir} "
+              f"({len(eng._trie)} prefix blocks persisted)")
 
     def close_obs():
         if obs is not None:
@@ -215,8 +296,13 @@ def main(argv=None) -> int:
 
     if args.server:
         from repro_torch.serving import ServerFrontend
+        def on_shutdown():
+            if args.snapshot_dir:
+                snapshot()
+            close_obs()
+
         front = ServerFrontend(eng, host=args.host, port=args.port,
-                               on_shutdown=close_obs)
+                               on_shutdown=on_shutdown)
 
         def ready(port):
             print(f"[serve] server: http://{args.host}:{port} — POST "
@@ -283,14 +369,16 @@ def main(argv=None) -> int:
         print(json.dumps({
             "event": "summary", "requests": n_req, "tokens": total,
             "wall_s": dt, "tok_s": total / dt if dt > 0 else None,
-            "slots": args.slots,
+            "slots": slots,
             "finish_reasons": {r: reasons.count(r) for r in set(reasons)},
             "captures": eng.trace_counts(),
             "fault_counters": eng.fault_counters}))
+        if args.snapshot_dir:
+            snapshot()
         close_obs()
         return 0
     print(f"[serve] stream: {n_req} requests, {total} tokens in {dt:.2f}s "
-          f"({total/dt:.1f} tok/s) on {args.slots} slots, "
+          f"({total/dt:.1f} tok/s) on {slots} slots, "
           f"{'serial' if args.no_overlap else 'overlapped'} ticks")
     print(f"[serve] graph captures per entry: {eng.trace_counts()} "
           f"(stable: {stable_trace_counts(eng.trace_counts())}; "
@@ -322,6 +410,8 @@ def main(argv=None) -> int:
           f"included)")
     if obs is not None:
         print(obs.report_line())
+    if args.snapshot_dir:
+        snapshot()
     close_obs()
     if args.profile_dir:
         print(f"[serve] profile: {args.profile_dir} (Perfetto or "

@@ -1,17 +1,48 @@
-"""GQA attention on the pooled serving cache (twin of the pooled half of
-``repro.models.attention``)."""
+"""GQA attention (twin of ``repro.models.attention``, dense family): the
+full-sequence prefill, the one-token decode over the legacy dense or
+sparse KV cache, and the panel and chunk attention of the pooled serving
+cache.  Sequences longer than ``cfg.full_attn_max`` need the blocked
+attention, which is not ported yet."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.sparse_format import unpack
-from repro_torch.core.sparse_kv import append_tail_panel, pooled_view
+from repro_torch.core.sparse_kv import (NAN_CHECK, SparseKVCache,
+                                         append_tail_panel, append_token,
+                                         flag_, pooled_view)
 from repro_torch.kernels import ops
 from .flash import full_attention
 from .layers import apply_rope, rms_norm, rope_angles
 from .module import ParamSpec
+
+
+# ---------------------------------------------------------------------------
+# the legacy dense cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DenseKVCache:
+    """Baseline decode cache: preallocated ``[B, Hkv, S_max, D]`` and an
+    int32 scalar length (optionally stacked over periods, sliced by
+    :meth:`layer`)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    def layer(self, i: int) -> "DenseKVCache":
+        return DenseKVCache(self.k[i], self.v[i], self.length[i])
+
+
+def init_dense_cache(batch, hkv, s_max, d, dtype=torch.bfloat16,
+                     device="cpu") -> DenseKVCache:
+    z = lambda: torch.zeros((batch, hkv, s_max, d), dtype=dtype,
+                            device=device)
+    return DenseKVCache(z(), z(), torch.zeros((), dtype=torch.int32,
+                                              device=device))
 
 
 def attn_specs(cfg) -> Dict[str, ParamSpec]:
@@ -48,11 +79,94 @@ def _project_kv(p, x, cfg):
     return k, v
 
 
+def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
+    """``[B, Hkv, S, D]`` -> ``[B, Hkv * g, S, D]`` (prefill and the dense
+    decode only; the decode kernels expand the groups in registers)."""
+    return torch.repeat_interleave(k, g, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# full sequence (prefill)
+# ---------------------------------------------------------------------------
+
+def attn_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor,
+               causal: bool = True, return_kv: bool = False):
+    """Self-attention over ``x [B, S, d]`` at ``positions [S]``; with
+    ``return_kv`` also the post-RoPE ``(k, v)`` ``[B, Hkv, S, hd]`` for the
+    cache.  Up to ``cfg.full_attn_max`` tokens run as one unblocked
+    attention, as in the reference; longer sequences need the blocked
+    attention, which is not ported."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
+    q = _project_q(p, x, cfg)                                # [B,S,Hq,hd]
+    k, v = _project_kv(p, x, cfg)                            # [B,S,Hkv,hd]
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin).transpose(1, 2)              # [B,Hq,S,hd]
+    k = apply_rope(k, cos, sin).transpose(1, 2)              # [B,Hkv,S,hd]
+    v = v.transpose(1, 2)
+    if s > getattr(cfg, "full_attn_max", 4096):
+        raise NotImplementedError(
+            f"a {s}-token sequence needs the blocked attention, which is "
+            "not ported yet")
+    g = hq // hkv
+    o = full_attention(q, _repeat_kv(k, g), _repeat_kv(v, g),
+                       1.0 / hd ** 0.5, causal=causal)
+    out = ops.linear(o.transpose(1, 2).reshape(b, s, hq * hd), p["wo"])
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# decode (one token over the legacy cache)
+# ---------------------------------------------------------------------------
+
+def attn_decode(p, x_t: torch.Tensor, cache: Any, cfg,
+                position: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """One new token ``x_t [B, d]`` at ``position`` (an int32 scalar on the
+    device) over a :class:`DenseKVCache` or
+    :class:`~repro_torch.core.sparse_kv.SparseKVCache`.  The token's K/V
+    are written into the cache **in place** and the cache is returned.
+    The sparse cache runs the fused prefix + tail kernel
+    (``ops.sparse_decode_attention``); the dense cache is plain PyTorch, as
+    the reference's is plain ``jnp``."""
+    b, _ = x_t.shape
+    hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
+    q = _project_q(p, x_t, cfg)                              # [B,Hq,hd]
+    k_new, v_new = _project_kv(p, x_t, cfg)                  # [B,Hkv,hd]
+    cos, sin = rope_angles(position, hd, cfg.rope_theta)     # [hd//2]
+    q = apply_rope(q[:, None], cos[None, None], sin[None, None])[:, 0]
+    k_new = apply_rope(k_new[:, None], cos[None, None], sin[None, None])[:, 0]
+    sm = 1.0 / hd ** 0.5
+    if isinstance(cache, SparseKVCache):
+        append_token(cache, k_new, v_new)
+        o = ops.sparse_decode_attention(q, cache.k_sp, cache.v_sp, hkv, sm,
+                                        cache.k_tail, cache.v_tail,
+                                        cache.tail_len)
+    else:
+        idx = cache.length.long().reshape(1)
+        cache.k.index_copy_(2, idx, k_new[:, :, None].to(cache.k.dtype))
+        cache.v.index_copy_(2, idx, v_new[:, :, None].to(cache.v.dtype))
+        cache.length += 1
+        valid = torch.arange(cache.k.shape[2], device=x_t.device) \
+            < cache.length
+        g = hq // hkv
+        o = full_attention(q[:, :, None], _repeat_kv(cache.k, g),
+                           _repeat_kv(cache.v, g), sm, causal=False,
+                           kv_valid=valid.expand(b, -1))[:, :, 0]
+    out = ops.linear(o.reshape(b, hq * hd).to(x_t.dtype), p["wo"])
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# the pooled serving cache
+# ---------------------------------------------------------------------------
+
 def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
                       positions: torch.Tensor, prefix_blocks: torch.Tensor,
                       tail_len: torch.Tensor, slot_mask: torch.Tensor,
-                      bs: int, table: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      bs: int, table: Optional[torch.Tensor] = None,
+                      err: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One ``[B, Qn]`` query panel per slot over one layer's pooled cache.
 
     The ``Qn`` fresh K/V land in each live slot's tail ring **in place**
@@ -61,8 +175,9 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
     tail and panel tokens ``<= j``.  ``table`` (int32 ``[B, Sb]``, paged
     pool only) switches the frozen prefix to the pool-global arena: ``kv``'s
     compressed leaves are then ``[n_phys, Hkv, X]`` and each slot reaches
-    its blocks through its table row.  Returns the attention output
-    projected by ``wo``, ``[B, Qn, d]``."""
+    its blocks through its table row.  ``err`` (the sanitized pool's error
+    word) gets the NaN bit where a live slot appends a NaN.  Returns the
+    attention output projected by ``wo``, ``[B, Qn, d]``."""
     b, qn, _ = x.shape
     hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
     q = _project_q(p, x, cfg)                                 # [B,Qn,Hq,hd]
@@ -74,6 +189,10 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
 
     live = slot_mask.to(torch.int32)
     n_valid = live * qn
+    if err is not None:
+        nan = torch.isnan(k_new).flatten(1).any(1) | \
+            torch.isnan(v_new).flatten(1).any(1)
+        flag_(err, nan & slot_mask, NAN_CHECK)
     append_tail_panel(kv["k_tail"], k_new.transpose(1, 2), tail_len, n_valid)
     append_tail_panel(kv["v_tail"], v_new.transpose(1, 2), tail_len, n_valid)
     # panel query 0 sees its own token; each later query j sees j more

@@ -1,5 +1,7 @@
-"""The decoder-only LM on the pooled serving cache, dense family (twin of
-the pooled serving half of ``repro.models.lm``).
+"""The decoder-only LM, dense family (twin of ``repro.models.lm``): the
+full prefill and the one-token decode over the legacy per-batch cache of
+the one-shot engine, and the panel forward and the prefill chunk over the
+pooled serving cache.
 
 A Python loop over the layer-stacked params replaces the reference's
 ``lax.scan``; each layer works on views of the pool storage, which the
@@ -17,11 +19,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.sparse_format import BlockSparseWeight
-from repro_torch.core.sparse_kv import (device_ids, distinct_ids,
-                                         freeze_chunk_blocks, put_rows_)
+from repro_torch.core.sparse_kv import (NAN_CHECK, device_ids, distinct_ids,
+                                         flag_, freeze_chunk_blocks,
+                                         put_rows_)
 from . import module as mod
-from .attention import attn_specs, pooled_attn_panel, \
-    pooled_attn_prefill_chunk
+from repro_torch.core.sparse_kv import SparseKVCache, abstract_cache
+from .attention import (DenseKVCache, attn_apply, attn_decode, attn_specs,
+                        pooled_attn_panel, pooled_attn_prefill_chunk)
 from .layers import (embed_apply, embed_specs, mlp_apply, mlp_specs,
                      norm_spec, rms_norm, unembed_apply)
 from .module import ParamSpec
@@ -92,6 +96,114 @@ def logits_fn(params, hidden: torch.Tensor, cfg) -> torch.Tensor:
     return unembed_apply(params["embed"], hidden, cfg)
 
 
+# ---------------------------------------------------------------------------
+# prefill: the full forward, collecting every layer's K/V (one-shot engine)
+# ---------------------------------------------------------------------------
+
+def _sublayer_prefill(x, p, cfg, positions):
+    h, (k, v) = attn_apply(p["mixer"], rms_norm(x, p["ln1"]), cfg,
+                           positions, return_kv=True)
+    x = x + h
+    return x + mlp_apply(p["ffn"], rms_norm(x, p["ln2"])), {"k": k, "v": v}
+
+
+def forward_prefill(params, batch: Dict[str, torch.Tensor], cfg
+                    ) -> Tuple[torch.Tensor, Dict]:
+    """The full forward over ``batch["tokens"] [B, S]``; returns ``(final
+    hidden [B, S, d], collected)``, ``collected["layers"][f"l{j}"]``
+    holding the post-RoPE ``k`` / ``v`` ``[P, B, Hkv, S, hd]`` stacked over
+    periods and ``collected["len"] = S``."""
+    kinds = _attn_kinds(cfg)
+    tokens = batch["tokens"]
+    x = embed_apply(params["embed"], tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    n_periods = cfg.n_layers // len(kinds)
+    got = {f"l{j}": {"k": [], "v": []} for j in range(len(kinds))}
+    for i in range(n_periods):
+        pp = _layer(params["blocks"], i)
+        for j in range(len(kinds)):
+            x, kv = _sublayer_prefill(x, pp[f"l{j}"], cfg, positions)
+            for key in ("k", "v"):
+                got[f"l{j}"][key].append(kv[key])
+    hidden = rms_norm(x, params["final_norm"])
+    layers = {name: {key: torch.stack(vals) for key, vals in d.items()}
+              for name, d in got.items()}
+    return hidden, {"layers": layers, "len": x.shape[1]}
+
+
+# ---------------------------------------------------------------------------
+# the legacy decode cache and the one-token decode
+# ---------------------------------------------------------------------------
+
+def _cache_map(c, fn):
+    """A cache of the same kind with ``fn`` applied to each tensor."""
+    if isinstance(c, SparseKVCache):
+        sw = lambda w: BlockSparseWeight(fn(w.bitmap), fn(w.values), None,
+                                         w.shape, w.block, w.packed4)
+        return SparseKVCache(sw(c.k_sp), sw(c.v_sp), fn(c.k_tail),
+                             fn(c.v_tail), fn(c.tail_len))
+    return DenseKVCache(fn(c.k), fn(c.v), fn(c.length))
+
+
+def init_cache(cfg, batch: int, prefix: int, mode: str = "sparse",
+               abstract: bool = False,
+               device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """The one-shot cache, every leaf stacked over periods.  ``"sparse"``:
+    the compressed frozen prefix (at the balanced capacity the KV
+    sparsities imply) and the dense tail; ``"dense"``: a preallocated cache
+    of ``prefix + kv_tail`` tokens.  ``abstract=True`` gives meta tensors
+    (nothing allocated), otherwise zeros on ``device`` (the CUDA device
+    unless the caller asks for the CPU)."""
+    kinds = _attn_kinds(cfg)
+    n_periods = cfg.n_layers // len(kinds)
+    hkv, hd, dt = cfg.n_kv, cfg.hd, cfg.cdtype
+    if mode == "sparse":
+        one = abstract_cache(batch, hkv, prefix, hd, 1.0 - cfg.kv_k_sparsity,
+                             1.0 - cfg.kv_v_sparsity,
+                             tail_size=cfg.kv_tail, dtype=dt)
+    else:
+        meta = lambda shape, d: torch.empty(shape, dtype=d, device="meta")
+        kv = meta((batch, hkv, prefix + cfg.kv_tail, hd), dt)
+        one = DenseKVCache(kv, kv, meta((), torch.int32))
+    dev = torch.device("meta") if abstract else resolve_device(device)
+    stack = lambda t: torch.zeros((n_periods,) + tuple(t.shape),
+                                  dtype=t.dtype, device=dev)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+            "layers": {f"l{j}": {"kv": _cache_map(one, stack)}
+                       for j in range(len(kinds))}}
+
+
+def _sublayer_decode(x_t, p, cache_j, cfg, position):
+    h, cache_j = attn_decode(p["mixer"], rms_norm(x_t, p["ln1"]), cache_j,
+                             cfg, position)
+    x_t = x_t + h
+    return x_t + mlp_apply(p["ffn"], rms_norm(x_t, p["ln2"])), cache_j
+
+
+def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
+                   cfg) -> Tuple[torch.Tensor, Dict]:
+    """``tokens [B, 1]`` -> ``(logits [B, V] f32, cache)``: one decode step
+    over the legacy cache, whose tails (or dense rows) and lengths are
+    written **in place**, ``cache["pos"]`` advanced by one."""
+    kinds = _attn_kinds(cfg)
+    x_t = embed_apply(params["embed"], tokens[:, 0], cfg)
+    position = cache["pos"]
+    n_periods = cfg.n_layers // len(kinds)
+    for i in range(n_periods):
+        pp = _layer(params["blocks"], i)
+        for j in range(len(kinds)):
+            kv = cache["layers"][f"l{j}"]["kv"].layer(i)
+            x_t, _ = _sublayer_decode(x_t, pp[f"l{j}"], kv, cfg, position)
+    x_t = rms_norm(x_t, params["final_norm"])
+    logits = unembed_apply(params["embed"], x_t, cfg)
+    cache["pos"] += 1
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# the pooled serving cache
+# ---------------------------------------------------------------------------
+
 def _pooled_ffn(pj, h2: torch.Tensor) -> torch.Tensor:
     """The MLP half of a pooled panel block, run on rows (the panel width
     is invisible to it, as in the reference)."""
@@ -126,7 +238,8 @@ def forward_panel_pooled(params, state: Dict[str, Any],
             kv = {k: a[i] for k, a in state["layers"][f"l{j}"]["kv"].items()}
             h = pooled_attn_panel(pj["mixer"], rms_norm(x, pj["ln1"]), kv,
                                   cfg, positions, prefix_blocks, tail_len,
-                                  slot_mask, bs, table=table)
+                                  slot_mask, bs, table=table,
+                                  err=state.get("err"))
             x = x + h
             x = x + _pooled_ffn(pj, rms_norm(x, pj["ln2"]))
     x = rms_norm(x, params["final_norm"])
@@ -193,6 +306,9 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
     live_row = (r < rem) & wr                                # [bs]
     src_row = (nb * bs + r).clamp(max=w - 1)
     slot_row = slot.expand(bs)
+    err = state.get("err")               # the sanitized pool's error word
+    if err is not None:
+        valid = (torch.arange(w, device=dev) < ln) & wr
     kv0 = state["layers"]["l0"]["kv"]
     if paged:
         sb = state["table"].shape[1]
@@ -224,6 +340,10 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
                 bs, slot, table_row=table_row)
             x = x + h
             x = x + mlp_apply(pj["ffn"], rms_norm(x, pj["ln2"]))
+            if err is not None:
+                nan = torch.isnan(k_c[0]).any(2).any(0) | \
+                    torch.isnan(v_c[0]).any(2).any(0)
+                flag_(err, nan & valid, NAN_CHECK)
             # this layer's attention has read the slot's prefix: freeze the
             # chunk into it now (layers never read each other's storage)
             if nbw:

@@ -19,12 +19,31 @@ construction).
 
 The transitions update the state dict's tensors **in place** (the pool is
 the largest state on the card; the reference's functional copies would
-double its traffic) and return the same dict.  The sanitized
-``checkify`` mode and the arena snapshot helpers belong to a later slice.
+double its traffic) and return the same dict.
+
+**Sanitized mode** (``checkify=True``, or ``REPRO_CHECKIFY=1`` in the
+environment; the reference's ``jax.experimental.checkify`` mode).  The
+state then carries an int32 **error word** ``err [1]`` on the device, and
+every check of the reference ORs its own bit into it (:data:`CHECKS`) with
+tensor operations alone: no host read, so a checked transition is captured
+into a CUDA graph like any other.  One more bit flags a NaN in the values
+a transition or a forward writes into the pool, in place of the
+reference's ``nan_checks``; its ``div_checks`` have nothing to screen in
+the port's integer transitions.  :func:`checkified` reads the word after
+an eager call and raises naming every set bit; the engine reads it in the
+same device-to-host copy as a tick's tokens.  Without the flag no
+transition holds a single extra operation.
+
+**Snapshots.**  :meth:`CachePool.geometry`, :meth:`CachePool.arena_leaves`
+and :meth:`CachePool.load_arena` (which writes into the live arena tensors,
+so every captured entry that reads them stays valid) with the allocator's
+:meth:`BlockAllocator.export_registered` / :meth:`BlockAllocator.restore_registered`
+carry the paged arena and its prefix index across a restart.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -32,10 +51,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core.sparse_format import LANE, _ceil_to
-from repro_torch.core.sparse_kv import (append_tail_panel, device_ids,
-                                         distinct_ids, freeze_chunk_blocks,
-                                         put_rows_)
+from repro_torch.core.sparse_kv import (CHECKS, NAN_CHECK, append_tail_panel,
+                                         device_ids, distinct_ids, flag_,
+                                         freeze_chunk_blocks, put_rows_)
 from repro_torch.models import lm
 from repro_torch.models.lm import ARENA_KEYS
 
@@ -52,19 +72,23 @@ class CachePool:
     device: torch.device = torch.device("cpu")
     paged: bool = False      # pool-global arena + per-slot block table
     n_phys: int = 0          # physical blocks in the paged arena
+    checkify: bool = False   # sanitized mode: the device error word
 
     @classmethod
     def build(cls, cfg, slots: int, max_tokens: int, bs: int = 0,
               capacity_slack: float = 1.25,
               device: Optional[torch.device] = None, paged: bool = False,
-              n_phys: int = 0) -> "CachePool":
+              n_phys: int = 0, checkify: Optional[bool] = None
+              ) -> "CachePool":
         """Size a pool for ``slots`` requests of up to ``max_tokens`` context
         each; per-block capacity is the nominal density times the block
         size, times ``capacity_slack``, rounded to the lane size.
 
         ``paged=True`` stores compressed blocks in a shared arena of
         ``n_phys`` blocks (default ``slots * max_blocks``, the flat pool's
-        prefix bytes) behind per-slot block tables."""
+        prefix bytes) behind per-slot block tables.  ``checkify`` (default:
+        ``REPRO_CHECKIFY`` set to anything but ``0``) builds the sanitized
+        mode."""
         lm._attn_kinds(cfg)
         bs = bs or min(128, cfg.kv_tail)
         if cfg.kv_tail % bs != 0:
@@ -83,16 +107,48 @@ class CachePool:
         max_blocks = max(-(-int(max_tokens) // bs), 1)
         if paged:
             n_phys = n_phys or slots * max_blocks
+        if checkify is None:
+            checkify = os.environ.get("REPRO_CHECKIFY", "0") not in ("", "0")
         return cls(cfg=cfg, slots=slots, max_blocks=max_blocks, bs=bs,
                    tail=cfg.kv_tail, cap_k=cap(cfg.kv_k_sparsity),
                    cap_v=cap(cfg.kv_v_sparsity),
                    device=resolve_device(device), paged=paged,
-                   n_phys=n_phys if paged else 0)
+                   n_phys=n_phys if paged else 0, checkify=bool(checkify))
 
     @property
     def capacity_tokens(self) -> int:
         """Max context a slot may be admitted for (prefix storage alone)."""
         return self.max_blocks * self.bs
+
+    def nbytes(self) -> int:
+        """Total pooled storage, for capacity planning (nothing is
+        allocated to count it)."""
+        meta = dataclasses.replace(self, device=torch.device("meta"))
+        return sum(t.numel() * t.element_size()
+                   for t in tensors(meta.init_state()))
+
+    def geometry(self) -> Dict[str, Any]:
+        """Everything a snapshot of the paged arena depends on, under the
+        reference's field names and values, so that either package's
+        manifest checks against the other's pool.  ``slots`` is absent on
+        purpose: the arena ``[P, n_phys, Hkv, X]`` does not depend on it, so
+        a restarted server may change its slot count and still restore."""
+        cfg = self.cfg
+        return {
+            "arch": cfg.name,
+            "paged": self.paged,
+            "bs": self.bs,
+            "max_blocks": self.max_blocks,
+            "n_phys": self.n_phys,
+            "cap_k": self.cap_k,
+            "cap_v": self.cap_v,
+            "n_kv": cfg.n_kv,
+            "hd": cfg.hd,
+            "n_periods": cfg.n_layers // lm.period_len(cfg),
+            "cdtype": str(cfg.cdtype).replace("torch.", ""),
+            "kv_k_sparsity": cfg.kv_k_sparsity,
+            "kv_v_sparsity": cfg.kv_v_sparsity,
+        }
 
     def init_state(self) -> Dict[str, Any]:
         """Zeroed pool state.  Layer leaves carry a leading period axis:
@@ -129,6 +185,8 @@ class CachePool:
         if self.paged:
             state["table"] = z((b, sb), torch.int32)
             state["refcount"] = z((self.n_phys,), torch.int32)
+        if self.checkify:
+            state["err"] = z((1,), torch.int32)
         return state
 
     def refreeze(self, state: Dict[str, Any], new_ids=None,
@@ -142,7 +200,10 @@ class CachePool:
         others are written back as they were, so those slots come back
         bit-identical).  ``write`` (bool ``[1]``, default true) false folds
         nothing.  The caller guarantees no full slot overflows
-        ``max_blocks`` (scheduler admission).
+        ``max_blocks`` (scheduler admission); the sanitized mode checks it,
+        and that each full slot's fresh ids lie in the arena (an id the
+        reference would drop is clamped here, so both bounds are checked)
+        and are unreferenced.
 
         Paged pool: ``new_ids`` ``[slots, tail // bs]`` (int64 on the
         device, or host values) carries a fresh physical id per (full
@@ -168,6 +229,13 @@ class CachePool:
         if self.paged:
             ids = device_ids(new_ids, (b, tb), dev).reshape(-1)
             dest = distinct_ids(ids, live, self.n_phys)
+            if self.checkify:
+                rc = state["refcount"][ids.clamp(0, self.n_phys - 1)]
+                flag_(state["err"],
+                      live & ((ids < 0) | (ids >= self.n_phys)), 0)
+                flag_(state["err"], live & (rc != 0), 1)
+        if self.checkify:
+            flag_(state["err"], full & (pb + tb > self.max_blocks), 2)
         for leaf in state["layers"].values():
             kv = leaf["kv"]
             p_, _, hkv, _, hd = kv["k_tail"].shape
@@ -180,6 +248,9 @@ class CachePool:
                 # [P*B, Hkv, tb, X] -> rows [P, B*tb, Hkv, X]
                 rows = upd.reshape(p_, b, hkv, tb, -1).permute(
                     0, 1, 3, 2, 4).reshape(p_, b * tb, hkv, -1)
+                if self.checkify and rows.is_floating_point():
+                    nan = torch.isnan(rows).any(3).any(2).any(0)
+                    flag_(state["err"], nan & live, NAN_CHECK)
                 if self.paged:                      # [P, n_phys, Hkv, X]
                     put_rows_(kv[key], (slice(None), dest), rows, live)
                 else:                               # [P, B, Sb, Hkv, X]
@@ -203,7 +274,8 @@ class CachePool:
         ``slot`` and ``n`` (int64 ``[1]``) and ``ids`` (int64
         ``[max_blocks]``, entries past ``n`` ignored) may be device tensors
         or host values; ``write`` (bool ``[1]``, default true) false changes
-        nothing.  Paged pools only."""
+        nothing.  The sanitized mode checks ``0 <= n <= max_blocks`` and the
+        ids in ``[0, n)`` against the arena.  Paged pools only."""
         if not self.paged:
             raise ValueError("assign_blocks is a paged-pool transition")
         dev, sb = self.device, self.max_blocks
@@ -211,8 +283,13 @@ class CachePool:
         n = device_ids(n, (1,), dev)
         wr = (torch.ones(1, dtype=torch.bool, device=dev) if write is None
               else write.to(dev, torch.bool).reshape(1))
-        ids = device_ids(ids, (sb,), dev).clamp(0, self.n_phys - 1)
+        ids = device_ids(ids, (sb,), dev)
         live = (torch.arange(sb, device=dev) < n) & wr
+        if self.checkify:
+            flag_(state["err"], wr & ((n < 0) | (n > sb)), 3)
+            flag_(state["err"],
+                  live & ((ids < 0) | (ids >= self.n_phys)), 4)
+        ids = ids.clamp(0, self.n_phys - 1)
         put_rows_(state["table"], (slot,),
                   torch.where(live, ids, 0)[None], wr)
         state["refcount"].index_add_(0, ids, live.to(torch.int32))
@@ -256,7 +333,9 @@ class CachePool:
         released slot's live table entries decrement their blocks'
         refcounts (shared blocks once per referencing slot) and its table
         row resets to 0; the host allocator decides what a refcount-0 block
-        becomes.  Idempotent: a free slot has no live entries."""
+        becomes.  Idempotent: a free slot has no live entries, so even the
+        sanitized mode's underflow check (a live entry whose block has
+        refcount 0) passes."""
         slot = torch.atleast_1d(torch.as_tensor(slot, dtype=torch.int32,
                                                 device=self.device))
         rel = (slot[:, None] == torch.arange(
@@ -265,6 +344,10 @@ class CachePool:
             live = rel[:, None] & (
                 torch.arange(self.max_blocks, device=self.device)[None]
                 < state["prefix_blocks"][:, None])
+            if self.checkify:
+                rc = state["refcount"][state["table"].long().clamp(
+                    0, self.n_phys - 1)]
+                flag_(state["err"], live & (rc <= 0), 5)
             # every table entry adds -1 if live, else 0: no data-dependent
             # shape, so the release never waits for the device
             state["refcount"].index_add_(
@@ -275,14 +358,106 @@ class CachePool:
             state[key].masked_fill_(rel, 0)
         return state
 
+    # -- snapshot (the paged arena) -----------------------------------------
+    def arena_leaves(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The shared-arena storage of a paged pool, ``{layer: {leaf:
+        tensor}}``: exactly the leaves a warm-restart snapshot persists
+        (tails, tables and lengths are in-flight request state; after a
+        crash only the shareable frozen content survives).  The live
+        tensors themselves, not copies:
+        :meth:`~repro_torch.checkpoint.CheckpointManager.save` copies them
+        to the host."""
+        if not self.paged:
+            raise ValueError("arena_leaves is a paged-pool helper")
+        return {name: {k: leaf["kv"][k] for k in ARENA_KEYS}
+                for name, leaf in state["layers"].items()}
+
+    def load_arena(self, state: Dict[str, Any],
+                   leaves: Dict[str, Any]) -> Dict[str, Any]:
+        """Inverse of :meth:`arena_leaves`: copy ``leaves`` (tensors on any
+        device, or the reference's numpy arrays) **into** the live arena
+        tensors, which every captured entry reads by address, so nothing
+        is captured again.  Every leaf's shape and dtype is checked, the
+        failing one named, before any is copied: a restore never
+        half-applies.  Returns ``state``."""
+        if not self.paged:
+            raise ValueError("load_arena is a paged-pool helper")
+        pairs = []
+        for name, leaf in state["layers"].items():
+            for k in ARENA_KEYS:
+                have = leaf["kv"][k]
+                got = leaves[name][k]
+                if not torch.is_tensor(got):
+                    got = tensor_from_numpy(got, "cpu")
+                if have.shape != got.shape or have.dtype != got.dtype:
+                    raise ValueError(
+                        f"arena leaf {name}/{k}: pool expects "
+                        f"{tuple(have.shape)} {have.dtype}, snapshot carries "
+                        f"{tuple(got.shape)} {got.dtype}")
+                pairs.append((have, got))
+        for have, got in pairs:
+            have.copy_(got)
+        return state
+
+
+def tensors(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a state dict (nested dicts), in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors(v)]
+    return [tree]
+
+
+class PoolCheckError(RuntimeError):
+    """A check of the sanitized pool failed (the port's counterpart of the
+    reference's ``JaxRuntimeError`` from ``err.throw()``)."""
+
+
+def check_errors(word: int) -> None:
+    """Raise :class:`PoolCheckError` naming every check whose bit is set in
+    the error word ``word`` (a host int); a zero word passes."""
+    if word:
+        failed = [msg for i, msg in enumerate(CHECKS) if word >> i & 1]
+        raise PoolCheckError("sanitized pool: " + "; ".join(failed))
+
+
+def checkified_raw(fn: Callable) -> Callable:
+    """The capture-safe half of :func:`checkified`: ``fn'(state, ...)``
+    runs the transition and returns ``(err, out)``, ``err`` being the
+    state's device error word (int32 ``[1]``; zeros for an unchecked
+    pool), not read.  The engine reads it at its own token read."""
+    def run(state, *args, **kwargs):
+        out = fn(state, *args, **kwargs)
+        err = state.get("err")
+        if err is None:
+            err = torch.zeros(1, dtype=torch.int32,
+                              device=state["pos"].device)
+        return err, out
+    return run
+
+
+def checkified(fn: Callable) -> Callable:
+    """Run a pool transition eagerly and then read the error word: raises
+    :class:`PoolCheckError` naming every failed check (the twin of the
+    reference's ``err.throw()``) and clears the word, so each failure is
+    raised once.  The read waits for the device; captured entries use
+    :func:`checkified_raw` instead."""
+    def run(state, *args, **kwargs):
+        out = fn(state, *args, **kwargs)
+        err = state.get("err")
+        word = 0 if err is None else int(err.item())
+        if word:
+            err.zero_()
+            check_errors(word)
+        return out
+    return run
+
 
 class BlockAllocator:
     """Host-side physical-block lifecycle of the paged pool (a copy of the
     reference's, numpy only).
 
     The device transitions are pure data motion; this object decides which
-    ids they move (the snapshot export and restore of the reference belong
-    to a later slice).  Three populations partition ``[0, n_phys)``:
+    ids they move.  Three populations partition ``[0, n_phys)``:
 
     * **free** — never used or fully reclaimed; a LIFO stack;
     * **live** — refcount > 0: referenced by at least one slot's table row;
@@ -364,6 +539,42 @@ class BlockAllocator:
             if self._ref[bid] == 0:
                 self._cached.pop(bid, None)
             self._ref[bid] += 1
+
+    # -- snapshot -------------------------------------------------------------
+    def export_registered(self) -> List[tuple]:
+        """``(hash, id)`` of every registered (content-hashed) block, coldest
+        first: the cached refcount-0 blocks in eviction order, then the
+        live ones.  Unregistered live blocks (private pages of in-flight
+        requests) are left out: no prefix hit can revive them."""
+        pairs = [(h, bid) for bid, h in self._cached.items()]
+        pairs.extend((h, bid) for h, bid in self._hash2id.items()
+                     if self._ref[bid] > 0)
+        return pairs
+
+    def validate_registered(self, pairs: Sequence[tuple]) -> None:
+        """Raise ``ValueError`` on ids out of range or duplicated."""
+        seen = set()
+        for _, bid in pairs:
+            if not 0 <= bid < self.n_phys:
+                raise ValueError(f"snapshot block id {bid} outside arena "
+                                 f"[0, {self.n_phys})")
+            if bid in seen:
+                raise ValueError(f"snapshot block id {bid} duplicated")
+            seen.add(bid)
+
+    def restore_registered(self, pairs: Sequence[tuple]) -> None:
+        """Reset to a freshly restarted warm state: every ``(hash, id)``
+        becomes a cached refcount-0 block (revivable by a prefix hit,
+        evictable from the cold end in ``pairs`` order), every other id is
+        free.  Validates first (:meth:`validate_registered`), so a corrupt
+        snapshot changes nothing."""
+        self.validate_registered(pairs)
+        seen = {bid for _, bid in pairs}
+        self._ref = np.zeros(self.n_phys, np.int64)
+        self._free = [i for i in range(self.n_phys - 1, -1, -1)
+                      if i not in seen]
+        self._cached = OrderedDict((bid, h) for h, bid in pairs)
+        self._hash2id = {h: bid for h, bid in pairs}
 
     def decref(self, ids: Sequence[int]) -> None:
         """Drop references (slot release).  A block reaching refcount 0

@@ -1,9 +1,11 @@
-"""Continuous-batching serving engine on the pooled sparse-KV cache (twin of
-``repro.serving.engine.ContinuousEngine`` with no mesh and no snapshots;
-the flat pool or, with ``paged=True``, the shared-prefix paged pool;
-speculative decoding with ``spec=SpecConfig(k)``; serial or, with
-``overlap=True``, overlapped ticks; the fault-tolerant lifecycle and the
-telemetry hooks).
+"""Serving engines over the compressed KV cache (twins of
+``repro.serving.engine``): the legacy one-shot :class:`Engine` (one static
+batch: prefill, freeze, decode lockstep) and the continuous-batching
+:class:`ContinuousEngine` (no mesh; the flat pool or, with ``paged=True``,
+the shared-prefix paged pool; speculative decoding with
+``spec=SpecConfig(k)``; serial or, with ``overlap=True``, overlapped
+ticks; the fault-tolerant lifecycle, warm-restart snapshots, the sanitized
+pool and the telemetry hooks).
 
 One engine tick (:meth:`step`):
 
@@ -21,7 +23,7 @@ One engine tick (:meth:`step`):
 
 Host <-> device traffic per tick is one token vector and one chosen-token
 logprob vector; slot lengths are mirrored on the host.  Arguments that
-belong to later slices of the port (``ctx``, ``mesh``, ``checkify``) raise
+belong to a later slice of the port (``ctx``, ``mesh``) raise
 ``NotImplementedError``.
 
 **Captured entries** (the twin of the reference's ``jax.jit`` entries,
@@ -98,6 +100,17 @@ by full-width prefill chunks under their chained content hashes.
 Admission reserves each request's worst-case page demand (deferring the
 queue head with backoff when the arena cannot cover it) and points a
 prompt's already-frozen prefix at the shared blocks, skipping its prefill.
+:meth:`ContinuousEngine.save_snapshot` / :meth:`ContinuousEngine.load_snapshot`
+persist the arena and the prefix index through
+:class:`repro_torch.checkpoint.CheckpointManager` for a warm restart; the
+load copies into the live arena tensors, so no entry is captured again.
+
+**Sanitized mode** (``checkify=True`` or ``REPRO_CHECKIFY=1``).  The pool's
+checks OR bits into a device error word (``serving/cache_pool.py``) inside
+the captured entries; the engine reads the word in the same device-to-host
+copy as a tick's tokens and raises :class:`~.cache_pool.PoolCheckError`
+there, naming every failed check.  Chunks, refreezes and assignments stay
+free of host syncs: their bits surface at the next token read.
 """
 from __future__ import annotations
 
@@ -108,11 +121,16 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import kernels, resolve_device
+from repro_torch.core.sparse_format import repack_capacity
+from repro_torch.core.sparse_kv import SparseKVCache, freeze_prefix, refreeze
 from repro_torch.models import lm
+from repro_torch.models.attention import DenseKVCache
 from . import sampling
-from .cache_pool import BlockAllocator, CachePool
+from .cache_pool import BlockAllocator, CachePool, check_errors
+from .cache_pool import tensors as _leaves
 from .faults import (CANCEL_PREFILL, CANCEL_SPEC, DOUBLE_RELEASE,
                      DRAFTER_ERROR, PAGE_EXHAUSTION, FaultPlan)
 from .sampling import RequestOutput, SamplingParams
@@ -121,10 +139,165 @@ from .spec import AdaptiveDraft, SpecConfig
 
 
 def params_to(tree: Any, device: torch.device) -> Any:
-    """Move a params tree (tensors and sparse weights) to ``device``."""
+    """Move a params tree (tensors and sparse weights) to ``device``.  On
+    CUDA a dense layer-stacked linear weight ``[L, K, N]`` is also stored
+    column-major (the same values), so that the dense kernel reads each
+    layer's weight as ``[N, K]`` rows in place, as it reads the tied
+    embedding."""
     if isinstance(tree, dict):
         return {k: params_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    out = tree.to(device)
+    if torch.is_tensor(out) and out.dim() == 3 and out.is_cuda:
+        out = out.transpose(1, 2).contiguous().transpose(1, 2)
+    return out
+
+
+class Engine:
+    """The legacy one-shot engine: one static batch, prefilled whole,
+    frozen into a :class:`~repro_torch.core.sparse_kv.SparseKVCache` (or a
+    :class:`~repro_torch.models.attention.DenseKVCache` with
+    ``kv_mode="dense"``) and decoded lockstep; the numerical baseline of
+    the continuous engine.  Runs on the CUDA device unless
+    ``device="cpu"``, through the same kernels: the gemv (decode linears,
+    ``M = B``), the sparse matmul (the prefill's linears at ``M = B * S``),
+    the fused attention over the sparse cache, and the unembedding.
+
+    It runs **eagerly**: every refreeze grows the prefix (a new shape), so
+    the reference retraces its jitted decode at each one, and a CUDA graph
+    would have to be captured again just as often."""
+
+    def __init__(self, params, cfg, kv_mode: str = "sparse",
+                 device: Optional[torch.device] = None):
+        if kv_mode not in ("sparse", "dense"):
+            raise ValueError(f"unknown kv_mode {kv_mode!r}")
+        lm._attn_kinds(cfg)
+        self.device = resolve_device(device)
+        self.params = params_to(params, self.device)
+        self.cfg = cfg
+        self.kv_mode = kv_mode
+        self._tail = 0            # host mirror of every layer's tail_len
+
+    def prefill(self, batch: Dict[str, Any]):
+        """Prefill ``batch["tokens"] [B, S]`` (host or device); returns
+        ``(cache, logits [B, V] f32 of the last prompt token)``."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        if not torch.is_tensor(tokens):
+            tokens = torch.as_tensor(np.asarray(tokens))
+        tokens = tokens.to(self.device, torch.long)
+        hidden, collected = lm.forward_prefill(self.params,
+                                               {"tokens": tokens}, cfg)
+        layers = {name: {"kv": self._build_kv(got["k"], got["v"])}
+                  for name, got in collected["layers"].items()}
+        cache = {"pos": torch.tensor(collected["len"], dtype=torch.int32,
+                                     device=self.device),
+                 "layers": layers}
+        self._tail = 0
+        logits = lm.logits_fn(self.params, hidden[:, -1:], cfg)
+        return cache, logits[:, 0]
+
+    def _build_kv(self, k_stack: torch.Tensor, v_stack: torch.Tensor):
+        """``k/v [P, B, Hkv, S, hd]`` -> the per-period caches, stacked.
+        Sparse: a first pass finds the largest capacity any period's data
+        needs, a second packs every period at it, so the stack is
+        rectangular (the paper's fixed offline capacity)."""
+        cfg = self.cfg
+        n_periods, s = k_stack.shape[0], k_stack.shape[3]
+        if self.kv_mode == "dense":
+            pad = lambda a: F.pad(a, (0, 0, 0, cfg.kv_tail))
+            return DenseKVCache(pad(k_stack), pad(v_stack), torch.full(
+                (n_periods,), s, dtype=torch.int32, device=self.device))
+        bs = min(128, s)
+        cap_k = cap_v = None
+        if n_periods > 1:
+            probes = [freeze_prefix(k_stack[i], v_stack[i],
+                                    cfg.kv_k_sparsity, cfg.kv_v_sparsity,
+                                    tail_size=cfg.kv_tail, bs=bs)
+                      for i in range(n_periods)]
+            cap_k = max(p.k_sp.capacity for p in probes)
+            cap_v = max(p.v_sp.capacity for p in probes)
+        return SparseKVCache.stack([
+            freeze_prefix(k_stack[i], v_stack[i], cfg.kv_k_sparsity,
+                          cfg.kv_v_sparsity, tail_size=cfg.kv_tail, bs=bs,
+                          capacity_k=cap_k, capacity_v=cap_v)
+            for i in range(n_periods)])
+
+    def generate(self, batch: Dict[str, Any],
+                 params: Optional[SamplingParams] = None):
+        """Decode ``params.max_new_tokens`` tokens for the whole batch under
+        one shared ``params`` (eos and stop sequences are refused: a static
+        batch decodes a fixed length; the continuous engine handles them).
+        Returns ``([B, max_new_tokens] int32 tokens on the device, final
+        cache)``; the first token is sampled from the prompt's last
+        logits."""
+        params = params if params is not None else SamplingParams()
+        if params.eos_id is not None or params.stop_ids:
+            raise ValueError(
+                "the one-shot Engine decodes fixed-length lockstep batches "
+                "and cannot honor eos_id/stop_ids; submit to "
+                "ContinuousEngine for per-request stop handling")
+        if self.kv_mode == "dense" and \
+                params.max_new_tokens - 1 > self.cfg.kv_tail:
+            raise ValueError(
+                f"the dense cache holds the prompt + kv_tail "
+                f"({self.cfg.kv_tail}) tokens: {params.max_new_tokens} new "
+                f"tokens decode {params.max_new_tokens - 1} past the prompt")
+        cache, logits = self.prefill(batch)
+        b = logits.shape[0]
+        lanes = sampling.broadcast_lanes(params, b, self.device)
+        gens = [sampling.request_generator(params, self.device)
+                if params.temperature > 0 else None for _ in range(b)]
+        live = [True] * b
+        exact = sampling.needs_exact_sort(params, self.cfg.vocab)
+        tok, _ = sampling.sample_step(logits, lanes, gens, live, exact)
+        toks = []
+        for _ in range(params.max_new_tokens - 1):
+            toks.append(tok)
+            if self.kv_mode == "sparse":
+                cache = self._maybe_refreeze(cache)
+            logits, cache = lm.forward_decode(self.params, cache,
+                                              tok[:, None], self.cfg)
+            self._tail += 1
+            tok, _ = sampling.sample_step(logits, lanes, gens, live, exact)
+        toks.append(tok)
+        return torch.stack(toks, dim=1).to(torch.int32), cache
+
+    def _maybe_refreeze(self, cache):
+        """Fold full tails back into the compressed prefix (paper §6.2's
+        amortised step), between decode steps.  The tails fill in lockstep,
+        so the host mirror of ``tail_len`` decides without reading the
+        device; the prefix grows, so the caches are rebuilt (re-packed at
+        a common capacity when the periods' differ)."""
+        cfg = self.cfg
+        changed = False
+        layers = dict(cache["layers"])
+        for name, leaf in layers.items():
+            kv = leaf["kv"]
+            if self._tail < kv.k_tail.shape[3]:
+                continue
+            per = [refreeze(kv.layer(i), cfg.kv_k_sparsity,
+                            cfg.kv_v_sparsity)
+                   for i in range(kv.k_tail.shape[0])]
+            cap_k = max(p.k_sp.capacity for p in per)
+            cap_v = max(p.v_sp.capacity for p in per)
+            if any(p.k_sp.capacity != cap_k or p.v_sp.capacity != cap_v
+                   for p in per):
+                per = [self._repack(p, cap_k, cap_v) for p in per]
+            layers[name] = {**leaf, "kv": SparseKVCache.stack(per)}
+            changed = True
+        if not changed:
+            return cache
+        self._tail = 0
+        return {**cache, "layers": layers}
+
+    def _repack(self, kvc: SparseKVCache, cap_k: int, cap_v: int
+                ) -> SparseKVCache:
+        """One period's cache at the stack-wide capacity
+        (:func:`~repro_torch.core.sparse_format.repack_capacity` keeps the
+        bitmap and the values consistent either way)."""
+        return SparseKVCache(repack_capacity(kvc.k_sp, cap_k),
+                             repack_capacity(kvc.v_sp, cap_v),
+                             kvc.k_tail, kvc.v_tail, kvc.tail_len)
 
 
 def stable_trace_counts(counts: Dict[str, int],
@@ -139,12 +312,6 @@ def stable_trace_counts(counts: Dict[str, int],
 def _entry_name(key) -> str:
     """An entry's name from its key (``(name, width)`` for prefill)."""
     return key if isinstance(key, str) else key[0]
-
-
-def _leaves(tree: Any) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    return [tree]
 
 
 def _counted(fn: Callable[[], Any]):
@@ -391,8 +558,9 @@ class ContinuousEngine:
     reach the host; greedy and seeded output are identical either way.
     ``graphs=False`` runs every entry eagerly instead of through its
     captured :class:`CapturedEntry` (tests and oracles only).
-    ``max_queue``, ``degrade_queue``, ``faults``, ``obs`` and
-    ``capacity_slack`` mean what they mean in the reference."""
+    ``max_queue``, ``degrade_queue``, ``faults``, ``obs``,
+    ``capacity_slack`` and ``checkify`` mean what they mean in the
+    reference."""
 
     def __init__(self, params, cfg, slots: int = 4, max_tokens: int = 0,
                  bs: int = 0, prefill_chunk: Optional[int] = None,
@@ -403,13 +571,12 @@ class ContinuousEngine:
                  capacity_slack: float = 1.25, max_queue: int = 0,
                  degrade_queue: int = 0, faults: Optional[FaultPlan] = None,
                  obs=None, overlap: bool = False, graphs: bool = True):
-        later = {"ctx": ctx is not None, "mesh": mesh is not None,
-                 "checkify": bool(checkify)}
+        later = {"ctx": ctx is not None, "mesh": mesh is not None}
         unported = [k for k, v in later.items() if v]
         if unported:
             raise NotImplementedError(
-                f"ContinuousEngine options {unported} belong to later "
-                "slices of the port")
+                f"ContinuousEngine options {unported} belong to the sharded "
+                "slice of the port")
         self.device = resolve_device(device)
         # the device and stream every device call of this engine runs on,
         # whichever thread makes it (:meth:`_on_stream`)
@@ -430,7 +597,7 @@ class ContinuousEngine:
         self.pool = CachePool.build(cfg, slots, max_tokens, bs=bs,
                                     capacity_slack=capacity_slack,
                                     device=self.device, paged=paged,
-                                    n_phys=phys_blocks)
+                                    n_phys=phys_blocks, checkify=checkify)
         self.state = self.pool.init_state()
         self.lanes = sampling.init_lanes(slots, self.device)
         # per-slot request generators (sampled requests only) and whether
@@ -743,6 +910,108 @@ class ContinuousEngine:
         adaptive K is off."""
         return None if self._adaptive is None else self._adaptive.hist
 
+    # -- crash-safe warm restart --------------------------------------------
+    def _snapshot_guard(self, what: str) -> None:
+        if self._alloc is None:
+            raise ValueError(f"{what} needs the paged pool: only the shared "
+                             "arena + prefix index persist (build the "
+                             "engine with paged=True)")
+
+    @_on_device
+    def save_snapshot(self, directory: str) -> int:
+        """Persist the warm-restart state of the paged pool under
+        ``directory`` (written to a temporary directory and renamed into
+        place by :class:`~repro_torch.checkpoint.CheckpointManager`): the
+        arena leaves, the chained-hash -> page pairs of the prefix index
+        and the allocator's registered population.  In-flight request state
+        (tails, tables, lengths) is not saved: after a crash only the
+        shareable frozen content survives.  Drains the overlapped pipeline
+        first, so no dispatched tick writes the arena while it is copied.
+        Returns the step written."""
+        self._snapshot_guard("save_snapshot")
+        self.quiesce()
+        from repro_torch.checkpoint import CheckpointManager
+        t0 = self.scheduler.clock() if self._obs is not None else 0.0
+        pairs = self._alloc.export_registered()
+        tree = {"arena": self.pool.arena_leaves(self.state),
+                "hashes": np.asarray([h for h, _ in pairs], np.int64),
+                "ids": np.asarray([b for _, b in pairs], np.int32)}
+        mgr = CheckpointManager(directory, keep=2)
+        step = (mgr.latest_step() or 0) + 1
+        mgr.save(step, tree,
+                 meta={"kind": "serving-prefix-cache",
+                       "geometry": self.pool.geometry(),
+                       "n_registered": len(pairs)},
+                 blocking=True)
+        if self._obs is not None:
+            self._obs.snapshot_event("save", t0,
+                                     self.scheduler.clock() - t0,
+                                     len(pairs))
+        return step
+
+    @_on_device
+    def load_snapshot(self, directory: str) -> int:
+        """Warm-restart from the newest snapshot under ``directory`` (the
+        port's or the reference's: the files are the same): copy the arena
+        leaves into the live arena tensors, and rebuild the prefix trie and
+        the allocator's cached population (every restored page at refcount
+        0, revivable by a prefix hit, evictable from the cold end in
+        snapshot order).  A later prompt whose prefix was frozen before the
+        crash skips its prefill.  No captured entry is made again: the
+        arena tensors keep their storage.
+
+        Idle engines only, and the device refcounts and tables of an idle
+        engine must be all zero (checked, not assumed).  A snapshot of
+        another geometry raises a ``ValueError`` naming every mismatched
+        field; a corrupt one raises a readable ``ValueError``; neither
+        changes anything.  Returns the number of restored pages."""
+        self._snapshot_guard("load_snapshot")
+        self.quiesce()
+        t0 = self.scheduler.clock() if self._obs is not None else 0.0
+        if self.scheduler.active or self.scheduler.queue or self._blocks:
+            raise ValueError("load_snapshot on a busy engine: restore "
+                             "before submitting traffic")
+        if self.state["refcount"].any() or self.state["table"].any():
+            raise RuntimeError("load_snapshot: an idle engine's device "
+                               "refcounts and block tables must be zero")
+        from repro_torch.checkpoint import CheckpointManager
+        mgr = CheckpointManager(directory, keep=2)
+        step = mgr.latest_step()
+        if step is None:
+            raise ValueError(f"no snapshot under {directory!r}")
+        manifest = mgr.read_manifest(step)
+        if manifest.get("kind") != "serving-prefix-cache":
+            raise ValueError(
+                f"snapshot step {step} under {directory!r} is not a serving "
+                f"prefix cache (kind={manifest.get('kind')!r})")
+        mine, theirs = self.pool.geometry(), manifest.get("geometry") or {}
+        bad = [f"{k}: engine has {mine[k]!r}, snapshot has "
+               f"{theirs.get(k)!r}" for k in mine if theirs.get(k) != mine[k]]
+        if bad:
+            raise ValueError("snapshot geometry mismatch — " + "; ".join(bad))
+        n = int(manifest["n_registered"])
+        # the template has the live arena's shapes and dtypes and allocates
+        # nothing (a second arena on the card would double its memory)
+        like = {"arena": {name: {k: torch.empty(t.shape, dtype=t.dtype,
+                                                device="meta")
+                                 for k, t in leaves.items()}
+                          for name, leaves in
+                          self.pool.arena_leaves(self.state).items()},
+                "hashes": np.zeros(n, np.int64),
+                "ids": np.zeros(n, np.int32)}
+        tree, _ = mgr.restore(step, like, to_device=False)
+        pairs = list(zip((int(h) for h in tree["hashes"]),
+                         (int(b) for b in tree["ids"])))
+        self._alloc.validate_registered(pairs)
+        self.pool.load_arena(self.state, tree["arena"])
+        self._alloc.restore_registered(pairs)
+        self._trie.reload(pairs)
+        if self._obs is not None:
+            self._obs.snapshot_event("load", t0,
+                                     self.scheduler.clock() - t0,
+                                     len(pairs))
+        return len(pairs)
+
     # -- one tick -----------------------------------------------------------
     @_on_device
     def step(self) -> List[RequestOutput]:
@@ -956,7 +1225,7 @@ class ContinuousEngine:
         tok, logp = sampling.sample_step(logits[:, 0], self.lanes,
                                          self._gens, mask,
                                          self._exact_for(mask))
-        picked, logps = tok.tolist(), logp.tolist()
+        picked, logps = self._tokens(tok), logp.tolist()
         if self._obs is not None:
             # dispatch through the token read
             self._obs.decode_tick(t_dec, sch.clock() - t_dec, len(slots),
@@ -1014,8 +1283,9 @@ class ContinuousEngine:
             self._tail_len[s] += 1
         # the device token vector chains into the next tick; the host copy
         # is what the commit reads
-        new_rec = {**self._to_host(tok=tok, logp=logp, ncommit=None),
-                   "chain": tok, "dlen": None,
+        new_rec = {**self._to_host(tok=self._with_err(tok), logp=logp,
+                                   ncommit=None),
+                   "tok_shape": tuple(tok.shape), "chain": tok, "dlen": None,
                    "slots": [(s, sch.active[s].rid) for s in slots],
                    "t0": t_dec}
         # commit tick t-1 while tick t runs behind it
@@ -1036,6 +1306,34 @@ class ContinuousEngine:
         ready.record()
         return {**host, "ready": ready}
 
+    def _with_err(self, tok: torch.Tensor) -> torch.Tensor:
+        """``tok`` with the sanitized pool's error word appended (flat), so
+        that one device-to-host copy carries both; ``tok`` itself on an
+        unchecked pool."""
+        err = self.state.get("err")
+        if err is None:
+            return tok
+        return torch.cat([tok.reshape(-1), err.to(tok.dtype)])
+
+    def _split_err(self, host: torch.Tensor, shape) -> list:
+        """The tokens (as a list of ``shape``) from the host copy of
+        :meth:`_with_err`; raises :class:`~.cache_pool.PoolCheckError`,
+        naming every failed check, when the word has a bit set (and clears
+        the device word, so each failure is raised once)."""
+        err = self.state.get("err")
+        if err is None:
+            return host.tolist()
+        word = int(host[-1])
+        if word:
+            err.zero_()
+            check_errors(word)
+        return host[:-1].reshape(shape).tolist()
+
+    def _tokens(self, tok: torch.Tensor) -> list:
+        """The tick's token read (``tok.tolist()``), the error word read in
+        the same copy."""
+        return self._split_err(self._with_err(tok).cpu(), tuple(tok.shape))
+
     def _sync_inflight(self, events: List[RequestOutput]) -> None:
         """Commit the in-flight tick's token window: the overlapped
         pipeline's one sync.  Each slot's ``(slot, rid)`` is checked again:
@@ -1049,7 +1347,8 @@ class ContinuousEngine:
         sch = self.scheduler
         if rec["ready"] is not None:
             rec["ready"].synchronize()
-        picked, logps = rec["tok"].tolist(), rec["logp"].tolist()
+        picked = self._split_err(rec["tok"], rec["tok_shape"])
+        logps = rec["logp"].tolist()
         ncs = rec["ncommit"].tolist() if rec["ncommit"] is not None else None
         if self._obs is not None:
             # dispatch to the delayed read: the device's wall time, host
@@ -1150,12 +1449,13 @@ class ContinuousEngine:
         if self.overlap:
             # dispatched, not synced: the window commits at the next
             # tick's _sync_inflight, which drops it for a dead request
-            self._inflight = {**self._to_host(tok=tok, logp=logp,
-                                              ncommit=ncommit),
-                              "dlen": dlen, "slots": slot_rids,
-                              "t0": t_dec}
+            self._inflight = {**self._to_host(tok=self._with_err(tok),
+                                              logp=logp, ncommit=ncommit),
+                              "tok_shape": tuple(tok.shape), "dlen": dlen,
+                              "slots": slot_rids, "t0": t_dec}
             return events
-        picked, logps, ncs = tok.tolist(), logp.tolist(), ncommit.tolist()
+        picked, logps, ncs = (self._tokens(tok), logp.tolist(),
+                              ncommit.tolist())
         if self._obs is not None:
             # drafting and the verify dispatch through the token read
             self._obs.decode_tick(t_dec, sch.clock() - t_dec, len(slots),
@@ -1258,7 +1558,7 @@ class ContinuousEngine:
             lane = {k: v[s:s + 1] for k, v in self.lanes.items()}
             tok, logp = sampling.sample_step(logits, lane, [self._gens[s]],
                                              [True], self._exact[s])
-            self._emit(s, [int(tok[0])], [float(logp[0])], events)
+            self._emit(s, self._tokens(tok), [float(logp[0])], events)
         if self._obs is not None:
             # a non-final chunk is its dispatch; the final one includes
             # the first token's read

@@ -176,6 +176,21 @@ def init_lanes(slots: int, device: torch.device) -> Dict[str, torch.Tensor]:
     }
 
 
+def broadcast_lanes(params: SamplingParams, batch: int,
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """Uniform lanes for a static batch (the one-shot engine): every row
+    shares ``params``; with the same seed, as the reference's rows share
+    the key (rows are independent requests decoded lockstep)."""
+    return {
+        "temperature": torch.full((batch,), float(params.temperature),
+                                  dtype=torch.float32, device=device),
+        "top_k": torch.full((batch,), int(params.top_k), dtype=torch.int32,
+                            device=device),
+        "top_p": torch.full((batch,), float(params.top_p),
+                            dtype=torch.float32, device=device),
+    }
+
+
 def request_generator(params: SamplingParams,
                       device: torch.device) -> torch.Generator:
     """The per-request generator — seeded from the request alone."""

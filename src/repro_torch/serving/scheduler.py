@@ -114,6 +114,16 @@ class PrefixTrie:
     def drop(self, h: int) -> None:
         self._map.pop(h, None)
 
+    def reload(self, items) -> None:
+        """Replace the whole index (a warm restart).  In place, so the
+        allocator's ``on_evict`` keeps pointing at the live object.  The
+        chained hashes are Python's ``hash`` of int tuples, the same in
+        every process, so a saved index stays valid."""
+        self._map = dict(items)
+
+    def items(self):
+        return self._map.items()
+
     def __len__(self) -> int:
         return len(self._map)
 

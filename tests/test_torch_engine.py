@@ -1,8 +1,8 @@
 """Port engine vs the reference ``ContinuousEngine``: identical greedy
 tokens on a staggered mixed-length wave that crosses refreezes (f32 model,
 default KV sparsity), the sampler's masking held exactly, and seeded draws
-independent of slot placement; the options of later slices raise and the
-lifecycle options are taken."""
+independent of slot placement; the sharded slice's options raise and the
+lifecycle options and the sanitized pool are taken."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -46,9 +46,8 @@ def test_greedy_tokens_identical_to_reference_across_refreeze():
     assert port == ref
 
 
-@pytest.mark.parametrize("option", [
-    {"paged": True, "checkify": True}, {"ctx": object()}, {"mesh": object()},
-], ids=lambda o: next(iter(o)))
+@pytest.mark.parametrize("option", [{"ctx": object()}, {"mesh": object()}],
+                         ids=lambda o: next(iter(o)))
 def test_later_slice_options_raise(option):
     jcfg, tcfg = configs("float32")
     _, tparams = sparse_params(jcfg, tcfg)
@@ -59,10 +58,12 @@ def test_later_slice_options_raise(option):
 @pytest.mark.parametrize("option", [
     {"faults": FaultPlan()}, {"max_queue": 4}, {"capacity_slack": 1.5},
     {"spec": SpecConfig(k=2), "degrade_queue": 2}, {"obs": Observability()},
+    {"paged": True, "checkify": True},
 ], ids=lambda o: next(iter(o)))
 def test_lifecycle_options_are_taken(option):
-    """The lifecycle and telemetry options the engine refused before this
-    slice build an engine that holds them, with the reference's meaning."""
+    """The lifecycle and telemetry options and the sanitized pool, which
+    the engine refused in earlier slices, build an engine that holds them,
+    with the reference's meaning."""
     jcfg, tcfg = configs("float32")
     _, tparams = sparse_params(jcfg, tcfg)
     eng = ContinuousEngine(tparams, tcfg, slots=1, device="cpu", **option)
@@ -78,6 +79,8 @@ def test_lifecycle_options_are_taken(option):
         assert eng._degrade_queue == 2 and eng.trace_counts()["verify"] == 0
     if "obs" in option:
         assert eng._obs is option["obs"]
+    if "checkify" in option:
+        assert eng.pool.checkify and eng.state["err"].tolist() == [0]
     rid = eng.submit([1, 2, 3], SamplingParams(max_new_tokens=2,
                                                deadline_s=60.0))
     assert eng.run()[rid].finish_reason == "length"

@@ -1,5 +1,6 @@
 """The port's fault-tolerant lifecycle, mirroring ``tests/test_faults.py``
-apart from its snapshot and checkify cases (a later slice): the seeded
+apart from its snapshot and checkify cases (``test_torch_snapshot.py``,
+``test_torch_checkify.py``): the seeded
 fault plan; the scheduler's shedding, backoff, deadlines and cancellation;
 the release a masked no-op on a free slot; the engine's shedding,
 deadlines (a committed stop beats a later deadline), cancellation with

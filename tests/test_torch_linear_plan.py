@@ -223,6 +223,30 @@ def test_unembed_takes_one_launch_per_64_rows(monkeypatch):
     assert seen[1][3][0].shape == (36, CFG.d_model)
 
 
+@pytest.mark.parametrize("dtype", list(WEIGHT_DTYPES))
+def test_dense_linears_take_the_rows_that_fit(monkeypatch, dtype):
+    """Dense weights (``--dense``) run every linear through this kernel: at
+    Qwen3-0.6B's K = 1024, 2048 and 3072 a bf16 launch takes 64, 32 and 16
+    rows (x staged whole must fit shared memory), f32 64; a 100-row call
+    at K = 3072 is launches of 16 rows, each plan within 227 KB."""
+    dt = WEIGHT_DTYPES[dtype]
+    want = {1024: 64, 2048: 32, 3072: 16} if dtype == "bf16" else \
+        dict.fromkeys((1024, 2048, 3072), 64)
+    for k, rows in want.items():
+        assert dm.launch_rows(k, dt.itemsize) == rows
+        assert dm.dense_plan(rows, k, 1024, dt.itemsize).smem <= SMEM_LIMIT
+    seen = _record(monkeypatch, dm.dense_matmul)
+    x = torch.empty((100, 3072), dtype=dt, device="meta")
+    w = torch.empty((1024, 3072), dtype=dt, device="meta")
+    out = dm.dense_matmul(x, w, torch.float32)
+    assert out.shape == (100, 1024)
+    step = want[3072]
+    assert [s[2][1] for s in seen] == [min(step, 100 - r)
+                                       for r in range(0, 100, step)]
+    with pytest.raises(ValueError, match="do not fit"):
+        dm.launch_rows(8192, 2)
+
+
 def test_unembed_refuses_what_16_byte_copies_cannot_take(monkeypatch):
     _record(monkeypatch, dm.dense_matmul)
     tok = torch.empty((512, 100), dtype=torch.bfloat16, device="meta")

@@ -1,6 +1,6 @@
 """The port's telemetry (``repro_torch.obs``, a copy of ``repro.obs``),
-mirroring ``tests/test_obs.py`` apart from its snapshot events (a later
-slice): ``percentile`` equal to NumPy's; histogram bucket edges and exact
+mirroring ``tests/test_obs.py`` apart from its snapshot events
+(``test_torch_snapshot.py``): ``percentile`` equal to NumPy's; histogram bucket edges and exact
 percentiles; the rolling median; the registry, the Prometheus text and a
 live scrape; the Chrome trace; the facade's delta sync and periodic
 report.  The port's ``percentile``, ``Histogram``, ``render`` and
