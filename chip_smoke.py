@@ -125,6 +125,41 @@ Phases, each of which exits non-zero on failure:
      also holds, times and row-gates the bf16 sparse matmul at M = 2048.
      ``--only one_shot,snapshot,checkify`` runs the build and these
      phases alone.
+5. **the other dense configs and the VLM** at their published widths:
+   * ``wide_kernels``: the kernels at Llama-3-8B's shapes (the paper's
+     model): its seven linears through the gemv at M = 1 (the paper's
+     Table 2, batch 1, with a "sparse against dense ``torch.matmul``" line
+     per projection) and M = 4, through the sparse matmul at the 256-row
+     chunk and through the int8 / int4 kernels at M = 1 and 4, the gemv's
+     and the int kernels' rows bit-equal across M = 1, 4 and 8; its untied
+     head (``lm_head [4096, 128256]`` laid out column-major by the
+     engine's ``params_to``) at M = 1, 4 and 20 beside ``torch.matmul``;
+     the flat and paged attention at QG = 4 and 20 (and 36 and 68 held),
+     the row-independence gate and a 4096-token prefix; Phi-3-mini's
+     attention at D = 96, QG = 1 and its untied head; InternVL2's at D =
+     64, QG = 8, its tied 151655-row table, and the gemv and sparse matmul
+     at its ragged K = 896 (its decode batch and one-shot prefill rows);
+   * ``llama3_8b``: Llama-3-8B at full width and depth (32 layers), bf16
+     sparse weights from seed 0 on the card, the flat pool, every entry
+     captured when the engine is built, overlapped ticks: 6 requests of
+     200-1000 tokens, 64 new, one seeded, through 4 slots and 256-token
+     chunks.  Gates: decode logits within 5e-2 of the plain range and
+     top-1 where the margin is clear; greedy tokens equal to an all-plain
+     engine's (serial, eager) but at bf16 near-ties (below ``TOP1_CLEAR``,
+     as the one-shot phase); one capture per entry; per decode tick 224
+     gemv and 32 attention launches, one head launch a tick and a chunk;
+     graphs bit-equal to eager.  Reported: tok/s, TPOT, TTFT, a traced
+     decode tick (device busy, idle share) and 256-token chunk, the
+     weights' GB, the graph pools and the peak memory;
+   * ``phi3_mini``: Phi-3-mini at full width, 8 of its 32 layers (MHA, D =
+     96, the untied 32064-row head), 4 requests, 32 new, the same gates;
+   * ``internvl2``: InternVL2-1B at full width and depth through the
+     one-shot ``Engine`` (a frontend config has no pooled path): 2 x (256
+     seeded frontend embeddings + 128 prompt tokens), 32 new; exact launch
+     counts, the prefill's and the first decode ticks' logits and the
+     greedy tokens against the plain versions.
+   ``--only wide_kernels,llama3_8b,phi3_mini,internvl2`` runs the build and
+   these phases alone.
 
 Every traced tick and chunk reports the unembedding's and the gemv's
 device time and launches.  The lines before the last carry the kernel
@@ -255,6 +290,36 @@ GEMV_GATE_M = (1, SLOTS, 8)
 UNEMBED_M = {"bf16": (1, SLOTS, SLOTS * (PAGED_SPEC_K + 1),
                       SLOTS * (SPEC_K + 1)),
              "f32": (SLOTS, SLOTS * (max(SPEC_F32_K) + 1))}
+# the thirteenth slice: the other dense configs and the VLM at their
+# published widths.  Kernel rows at Llama-3-8B's shapes (the paper's
+# model; its Table 2 times the projections at batch 1): the seven linears
+# at the decode rows through the gemv and the int kernels and at the
+# prefill chunk through the sparse matmul, the untied head at the last
+# prefill token, the decode tick and the flat verify panel, the attention
+# at QG = 4 and 20 (and a 4096-token prefix); Phi-3-mini's D = 96 at
+# QG = 1 and InternVL2's D = 64 at QG = 8 (the one-shot decode); a gemv
+# and a sparse matmul at InternVL2's ragged K = 896 (its decode batch and
+# one-shot prefill rows)
+WIDE_LINEARS = {"sparse_gemv": ((1, SLOTS), SLOTS, (SLOTS,)),
+                "sparse_matmul": ((PREFILL_CHUNK,), PREFILL_CHUNK,
+                                  (PREFILL_CHUNK,)),
+                "sparse_matmul_int8": ((1, SLOTS), SLOTS, ()),
+                "sparse_matmul_int4": ((1, SLOTS), SLOTS, ())}
+WIDE_ROW_GATE_M = (1, SLOTS, 8)
+WIDE_UNEMBED_M = (1, SLOTS, SLOTS * (SPEC_K + 1))
+WIDE_ATTN_Q = {"flat": (1, 2, SPEC_K + 1, 9, 17),
+               "paged": (1, 2, SPEC_K + 1, 9, 17)}
+WIDE_ATTN_TIMED_Q = {"flat": (1, SPEC_K + 1), "paged": (1, SPEC_K + 1)}
+# Llama-3-8B served at full width and depth: 6 requests of 200-1000
+# tokens, 64 new, one seeded; Phi-3-mini at full width, PHI_LAYERS of its
+# 32 layers, 4 requests, 32 new; InternVL2-1B at full width and depth
+# through the one-shot engine: VLM_BATCH prompts of VLM_PROMPT tokens after
+# its 256 seeded frontend embeddings, VLM_TOKENS new
+LLAMA_REQUESTS, LLAMA_NEW_TOKENS, LLAMA_PROMPT_RANGE = 6, 64, (200, 1000)
+PHI_LAYERS, PHI_REQUESTS, PHI_NEW_TOKENS = 8, 4, 32
+PHI_PROMPT_RANGE = PROMPT_RANGE
+VLM_BATCH, VLM_PROMPT, VLM_TOKENS = 2, 128, 32
+WIDE_CHECKS = (("bf16", "bf16", (), True),)
 # kernels a traced tick reports by name: (substring of the trace's kernel
 # name); the flat decode tick must hold one gemv launch per linear and no
 # sum_partials
@@ -433,10 +498,12 @@ def _layer_linears(cfg):
             if len(s.shape) == 3]
 
 
-def linear_kernels(torch, cfg, timer, gen, detail):
+def linear_kernels(torch, cfg, timer, gen, detail, plan=None):
     """Sparse gemv and matmul (bf16 values; bf16 or, for an engine served
     at f32, f32 activations) and the int8 / int4 kernels at every (K, N) of
-    the layer; per-layer sums at the serving row counts."""
+    the layer; per-layer sums at the serving row counts.  ``plan`` maps a
+    kernel to its (row counts, the row count of its summary, the row counts
+    also traced); by default every kernel at Qwen3-0.6B's serving rows."""
     from repro_torch.core.quant import quantize_act_int8
     from repro_torch.core.sparse_format import unpack
     from repro_torch.kernels.sparse_gemv import sparse_gemv, \
@@ -519,7 +586,8 @@ def linear_kernels(torch, cfg, timer, gen, detail):
                 tl = timer(library(args, wd, m))
                 nb, no = sparse_costs(m, kn, sw, xb, ob)
                 b, by = bound_ms(nb, no, rate)
-                row = {"kernel": name, "M": m, "K": kn[0], "N": kn[1],
+                row = {"kernel": name, "config": cfg.name, "M": m,
+                       "K": kn[0], "N": kn[1],
                        "max_abs_err": err, "tol": tol, "ms": t,
                        "plain_ms": tp, "library_ms": tl, "bound_ms": b,
                        "bound_by": by}
@@ -536,7 +604,8 @@ def linear_kernels(torch, cfg, timer, gen, detail):
                     traced_txt += (f", host enqueue "
                                    f"{row['host_ms'] * 1e3:.1f} us")
                 detail.append(row)
-                say(f"{name} M={m} K={kn[0]} N={kn[1]}: err {err:.2e} (rel "
+                say(f"{cfg.name} {name} M={m} K={kn[0]} N={kn[1]}: err "
+                    f"{err:.2e} (rel "
                     f"{rel:.1e}, tol {tol:.2e}) kernel {t * 1e3:.1f} us"
                     f"{traced_txt}, plain {tp * 1e3:.1f} us, library "
                     f"{tl * 1e3:.1f} us, bound {b * 1e3:.2f} us")
@@ -554,7 +623,8 @@ def linear_kernels(torch, cfg, timer, gen, detail):
             dev_txt = (f" (traced device {pm['device_ms'] * 1e3:.1f} us, "
                        f"host enqueue {pm['host_ms'] * 1e3:.1f} us)"
                        if "device_ms" in pm else "")
-            say(f"{name} per layer at M={m}: kernel {pm['ms'] * 1e3:.1f} us"
+            say(f"{cfg.name} {name} per layer at M={m}: kernel "
+                f"{pm['ms'] * 1e3:.1f} us"
                 f"{dev_txt}, plain {pm['plain_ms'] * 1e3:.1f} us, library "
                 f"{pm['library_ms'] * 1e3:.1f} us, bound "
                 f"{pm['bound_ms'] * 1e3:.2f} us ({pm['bound_by']})")
@@ -574,33 +644,37 @@ def linear_kernels(torch, cfg, timer, gen, detail):
             xq = torch.nn.functional.pad(xq, (0, 0, 0, 32 - m))
         return lambda: torch._int_mm(xq, wd)
 
-    out = {}
-    out["sparse_gemv"] = rows("sparse_gemv", "bf16", sparse_gemv,
-                              sparse_gemv_plain, mm_library, (1, 4, 8),
-                              SLOTS, traced=(SLOTS,))
     # the prefill chunk, the verify panels of the spec phases, the first
     # row count past the gemv and a ragged chunk; the flat verify panel and
     # the prefill chunk also traced
     traced = (SLOTS * (SPEC_K + 1), PREFILL_CHUNK)
-    # bf16 also at the one-shot engine's prefill, M = B * S rows
-    out["sparse_matmul"] = rows("sparse_matmul", "bf16", sparse_matmul,
-                                sparse_matmul_plain, mm_library,
-                                MATMUL_M + (ONESHOT_M,), PREFILL_CHUNK,
-                                traced=traced)
-    out["sparse_matmul_f32"] = rows(
-        "sparse_matmul_f32", "f32", sparse_matmul_f32, sparse_matmul_plain,
-        mm_library, MATMUL_M, PREFILL_CHUNK, traced=traced)
-    # the int kernels carry every row count of the int paths: the decode
-    # tick and below, both verify panels, the prefill chunk and a ragged
-    # chunk; the decode tick and the prefill chunk also traced
-    out["sparse_matmul_int8"] = rows(
-        "sparse_matmul_int8", "int8", sparse_matmul_int8,
-        sparse_matmul_int8_plain, int_library, INT_M, SLOTS,
-        traced=INT_TRACED)
-    out["sparse_matmul_int4"] = rows(
-        "sparse_matmul_int4", "int4", sparse_matmul_int4,
-        sparse_matmul_int4_plain, int_library, INT_M, SLOTS,
-        traced=INT_TRACED)
+    if plan is None:
+        plan = {"sparse_gemv": ((1, 4, 8), SLOTS, (SLOTS,)),
+                # bf16 also at the one-shot engine's prefill, M = B * S rows
+                "sparse_matmul": (MATMUL_M + (ONESHOT_M,), PREFILL_CHUNK,
+                                  traced),
+                "sparse_matmul_f32": (MATMUL_M, PREFILL_CHUNK, traced),
+                # the int kernels carry every row count of the int paths:
+                # the decode tick and below, both verify panels, the prefill
+                # chunk and a ragged chunk; the decode tick and the prefill
+                # chunk also traced
+                "sparse_matmul_int8": (INT_M, SLOTS, INT_TRACED),
+                "sparse_matmul_int4": (INT_M, SLOTS, INT_TRACED)}
+    kinds = {"sparse_gemv": ("bf16", sparse_gemv, sparse_gemv_plain,
+                             mm_library),
+             "sparse_matmul": ("bf16", sparse_matmul, sparse_matmul_plain,
+                               mm_library),
+             "sparse_matmul_f32": ("f32", sparse_matmul_f32,
+                                   sparse_matmul_plain, mm_library),
+             "sparse_matmul_int8": ("int8", sparse_matmul_int8,
+                                    sparse_matmul_int8_plain, int_library),
+             "sparse_matmul_int4": ("int4", sparse_matmul_int4,
+                                    sparse_matmul_int4_plain, int_library)}
+    out = {}
+    for name, (m_list, summary_m, traced_m) in plan.items():
+        mode, fn, plain, library = kinds[name]
+        out[name] = rows(name, mode, fn, plain, library, m_list, summary_m,
+                         traced=traced_m)
     return out
 
 
@@ -777,12 +851,13 @@ def _paged_prefix_bytes(arena, table, n_blocks, bs, hd, pool):
             * 4 + nnz * arena[1].element_size()), len(live)
 
 
-def attention_kernels(torch, cfg, timer, gen, detail):
+def attention_kernels(torch, cfg, timer, gen, detail, attn_q=ATTN_Q,
+                      timed_q=ATTN_TIMED_Q, long=True):
     """The fused decode attention on the flat pool and on the paged arena,
     at the serving geometry (4 slots, bs 128, a 128-token ring): held to
-    the plain versions at every panel width of ATTN_Q (past the first
-    kernel's 16-row cap), timed at the panel widths of ATTN_TIMED_Q and at
-    a LONG_SB-block prefix."""
+    the plain versions at every panel width of ``attn_q`` (past the first
+    kernel's 16-row cap), timed at the panel widths of ``timed_q`` and
+    (``long``) at a LONG_SB-block prefix."""
     from repro_torch.core.sparse_format import unpack
     from repro_torch.core.sparse_kv import pooled_view
     from repro_torch.kernels.sparse_attention import (
@@ -819,7 +894,7 @@ def attention_kernels(torch, cfg, timer, gen, detail):
     tol = 1e-3 * vmax
     pre_bytes = _flat_prefix_bytes(kbm, kvl, vbm, vvl, n_blocks, bs, hd, pool)
     errs, rows = [], {}
-    for qn in ATTN_Q["flat"]:
+    for qn in attn_q["flat"]:
         q = query(qn)
         args = (q, kbm, kvl, vbm, vvl, tails[0], tails[1], bs, sm,
                 n_blocks, tail_len, g)
@@ -832,12 +907,13 @@ def attention_kernels(torch, cfg, timer, gen, detail):
         if (ref[3, :, :g].abs().max().item() != 0
                 or got[3, :, :g].abs().max().item() != 0):
             fail("attention: the all-empty slot must return zeros")
-        say(f"attention Q={qn} (QG={qn * g}): err {err:.2e} (rel {rel:.1e}, "
+        say(f"{cfg.name} attention Q={qn} (QG={qn * g}, D={hd}): err {err:.2e} (rel {rel:.1e}, "
             f"tol {tol:.2e})")
-        if qn in ATTN_TIMED_Q["flat"]:
+        if qn in timed_q["flat"]:
             rows[qn] = _attention_row(
                 torch, timer, detail, "sparse_decode_attention_fused",
-                {"B": b, "QG": qn * g, "Sb": sb, "n_blocks": n_blocks.tolist(),
+                {"config": cfg.name, "B": b, "QG": qn * g, "D": hd, "Sb": sb,
+                 "n_blocks": n_blocks.tolist(),
                  "tail_len": tail_len.tolist()},
                 lambda: sparse_decode_attention_fused(*args),
                 lambda: sparse_decode_attention_fused_plain(*args),
@@ -875,7 +951,7 @@ def attention_kernels(torch, cfg, timer, gen, detail):
     pre_bytes, n_live = _paged_prefix_bytes(arena, table, n_blocks, bs, hd,
                                             pool)
     errs, rows = [], {}
-    for qn in ATTN_Q["paged"]:
+    for qn in attn_q["paged"]:
         q = query(qn)
         rest = (tails[0], tails[1], bs, sm, n_blocks, tail_len, g)
         got = sparse_decode_attention_fused_paged(q, *poisoned, table, *rest)
@@ -892,13 +968,14 @@ def attention_kernels(torch, cfg, timer, gen, detail):
         err, rel = _check(f"paged attention Q={qn}", got, ref, tol, errs)
         if got[3, :, :g].abs().max().item() != 0:
             fail("paged attention: the all-empty slot must return zeros")
-        say(f"paged attention Q={qn} (QG={qn * g}): err {err:.2e} (rel "
+        say(f"{cfg.name} paged attention Q={qn} (QG={qn * g}, D={hd}): err {err:.2e} (rel "
             f"{rel:.1e}, tol {tol:.2e}); finite and unchanged with NaN in "
             f"dead page {dead}")
-        if qn in ATTN_TIMED_Q["paged"]:
+        if qn in timed_q["paged"]:
             rows[qn] = _attention_row(
                 torch, timer, detail, "sparse_decode_attention_fused_paged",
-                {"B": b, "QG": qn * g, "Sb": sb, "live_pages": n_live,
+                {"config": cfg.name, "B": b, "QG": qn * g, "D": hd, "Sb": sb,
+                 "live_pages": n_live,
                  "n_blocks": n_blocks.tolist(),
                  "tail_len": tail_len.tolist()},
                 lambda: sparse_decode_attention_fused_paged(
@@ -915,7 +992,8 @@ def attention_kernels(torch, cfg, timer, gen, detail):
         "max_abs_err": max(errs)}
     out["attention_row_independence"] = attention_row_independence(
         torch, cfg, gen, flat_case, (arena, table), tails)
-    long_context(torch, cfg, timer, gen, detail, pool, tails, tol)
+    if long:
+        long_context(torch, cfg, timer, gen, detail, pool, tails, tol)
     return out
 
 
@@ -989,8 +1067,8 @@ def long_context(torch, cfg, timer, gen, detail, pool, tails, tol):
             tail_len, g)
     _check(f"attention Sb={sb}", sparse_decode_attention_fused(*args),
            sparse_decode_attention_fused_plain(*args), tol, [])
-    shape = {"B": b, "QG": g, "Sb": sb, "n_blocks": n_blocks.tolist(),
-             "tail_len": tail_len.tolist()}
+    shape = {"config": cfg.name, "B": b, "QG": g, "D": hd, "Sb": sb,
+             "n_blocks": n_blocks.tolist(), "tail_len": tail_len.tolist()}
     _attention_row(
         torch, timer, detail, "sparse_decode_attention_fused", shape,
         lambda: sparse_decode_attention_fused(*args),
@@ -1174,63 +1252,15 @@ def partial_kernel(torch, cfg, timer, gen, detail):
 
 def unembed_kernel(torch, cfg, timer, gen, detail):
     """The tied unembedding at every serving row count (UNEMBED_M), bf16
-    and f32 tables: held to its plain version (1e-4 of the range), timed
-    (CUDA events, L2 flushed) and traced beside its bound, the plain
-    version and ``torch.matmul``; every call's rows bit-equal to the first
-    rows of the largest call of its dtype.  The summary is the bf16 decode
-    tick's row."""
-    from repro_torch.kernels.dense_matmul import (dense_matmul,
-                                                  dense_matmul_plain)
-    errs = []
-    dense = {}
-    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        tok_w = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                             device="cuda") * 0.02).to(dtype)
-        m_list = UNEMBED_M[dname]
-        xs = torch.randn((max(m_list), cfg.d_model), generator=gen,
-                         device="cuda").to(dtype)
-        outs = {}
-        for m in m_list:
-            x = xs[:m]
-            got = dense_matmul(x, tok_w, torch.float32)
-            ref = dense_matmul_plain(x, tok_w, torch.float32)
-            torch.cuda.synchronize()
-            outs[m] = got.clone()
-            # same f32 products, summed in another order
-            tol = 1e-4 * ref.abs().max().item()
-            err, rel = _check(f"dense_matmul {dname} M={m}", got, ref, tol,
-                              errs)
-            t = timer(lambda: dense_matmul(x, tok_w, torch.float32))
-            t_plain = timer(lambda: dense_matmul_plain(x, tok_w,
-                                                       torch.float32))
-            t_lib = timer(lambda: torch.matmul(x, tok_w.t()))
-            dev = device_ms_per_call(
-                torch, lambda: dense_matmul(x, tok_w, torch.float32))
-            size = tok_w.element_size()
-            n_bytes = (tok_w.numel() + x.numel()) * size + m * cfg.vocab * 4
-            bnd, bby = bound_ms(n_bytes, 2.0 * m * tok_w.numel(),
-                                BF16_OPS_PER_S if size == 2
-                                else F32_OPS_PER_S)
-            row = {"kernel": "dense_matmul", "dtype": dname, "M": m,
-                   "K": cfg.d_model, "N": cfg.vocab, "max_abs_err": err,
-                   "tol": tol, "ms": t, "device_ms": dev,
-                   "plain_ms": t_plain, "library_ms": t_lib,
-                   "bound_ms": bnd, "bound_by": bby}
-            detail.append(row)
-            if dname == "bf16" and m == SLOTS:
-                dense = dict(row)
-            dev_txt = (f"traced device {dev * 1e3:.1f} us"
-                       if isinstance(dev, float) else dev)
-            say(f"dense_matmul {dname} M={m}: err {err:.2e} (rel {rel:.1e}, "
-                f"tol {tol:.2e}) kernel {t * 1e3:.1f} us, {dev_txt}, plain "
-                f"{t_plain * 1e3:.1f} us, torch.matmul {t_lib * 1e3:.1f} us, "
-                f"bound {bnd * 1e3:.2f} us ({bby})")
-        _gate_rows(torch, f"dense_matmul {dname}", outs)
-        say(f"dense_matmul {dname}: every row of the calls of M={m_list} is "
-            f"bit-equal to the same row of the {max(m_list)}-row call")
-        del tok_w
-    dense["max_abs_err"] = max(errs)
-    return dense
+    and f32 tables (``head_kernel``).  The summary is the bf16 decode
+    tick's row, with the largest error of both."""
+    rows = {dname: head_kernel(torch, cfg, timer, gen, detail,
+                               UNEMBED_M[dname], dtype)
+            for dname, dtype in (("bf16", torch.bfloat16),
+                                 ("f32", torch.float32))}
+    errs = [r["max_abs_err"] for by_m in rows.values()
+            for r in by_m.values()]
+    return {**rows["bf16"][SLOTS], "max_abs_err": max(errs)}
 
 
 def kernel_phase(torch, cfg):
@@ -1929,7 +1959,7 @@ def _model(torch, cfg, mode):
     params = convert_concrete(params, lm.model_specs(cfg), cfg, mode=mode,
                               device="cuda")
     torch.cuda.synchronize()
-    say(f"serve: qwen3-0.6b full width ({cfg.n_layers} layers), {mode} "
+    say(f"serve: {cfg.name} full width ({cfg.n_layers} layers), {mode} "
         f"weights initialised and packed on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     return params
@@ -3985,67 +4015,24 @@ def _dense_weights(torch, cfg, batch):
     return {"launches": counts, "logits_rel_range": max(errs)}
 
 
-def oneshot_phase(torch, cfg, params, cfg32, params32):
-    """The legacy one-shot ``Engine`` on bf16 sparse weights: ``ONESHOT_BATCH``
-    prompts of ``ONESHOT_PROMPT`` tokens, ``ONESHOT_TOKENS`` new tokens,
-    eager.  Gates: the gemv, fused attention, sparse matmul and unembedding
-    counters at exactly one launch per linear, layer and row block; a
-    refreeze grew the prefix to 5 blocks; the first decode ticks' logits
-    through the kernels within 5e-2 of the plain range of the same ticks
-    through the plain versions; greedy tokens equal to the all-plain
-    engine's but where its top-1 margin is a bf16 near-tie (below
-    ``TOP1_CLEAR``, the logits gates' rounding-noise bar); at f32 with KV
-    sparsity 0 the sparse-KV and dense-KV engines' logits within 1e-3 of
-    the range."""
+def _oneshot_against_plain(torch, label, eng, params, cfg, batch, sp, got):
+    """The one-shot engine ``eng`` against the plain versions: the first
+    ONESHOT_LOGIT_TICKS decode ticks, teacher-forced from one prefill, on
+    copies of the same cache (the prefill's logits too), within
+    ``ONESHOT_TOL["bf16"]`` of the plain range; and its greedy tokens
+    ``got`` equal to an all-plain engine's but where that engine's top-1
+    margin is a bf16 near-tie (below ``TOP1_CLEAR``, the logits gates'
+    rounding-noise bar).  Returns the logit errors and the identity
+    result."""
     import copy
-    import dataclasses
-    from repro_torch import kernels
-    from repro_torch.data.pipeline import DataConfig, host_batch
     from repro_torch.models import lm
-    from repro_torch.serving import Engine, SamplingParams
-    label = "one_shot"
-    toks = host_batch(DataConfig(vocab=cfg.vocab, seq_len=ONESHOT_PROMPT,
-                                 global_batch=ONESHOT_BATCH), 0)["tokens"]
-    batch = {"tokens": toks}
-    sp = SamplingParams(max_new_tokens=ONESHOT_TOKENS)
-    eng = Engine(params, cfg, device="cuda")
-    steps = {"decode": [], "prefill": []}
-    with _timed_calls(torch, lm, "forward_decode", steps["decode"]), \
-            _timed_calls(torch, eng, "prefill", steps["prefill"]):
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        got, cache = eng.generate(batch, sp)
-        got = got.cpu()
-        dt = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-    decodes = ONESHOT_TOKENS - 1
-    linears = len(_layer_linears(cfg)) * cfg.n_layers
-    want = {"sparse_matmul": linears, "sparse_gemv": linears * decodes,
-            "sparse_decode_attention_fused": cfg.n_layers * decodes,
-            "dense_matmul": ONESHOT_TOKENS}
-    check_launches(label, counts, tuple(want),
-                   ("sparse_decode_attention_fused_paged",
-                    "sparse_matmul_int8", "sparse_matmul_int4",
-                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
-    if any(counts[k] != n for k, n in want.items()):
-        fail(f"{label}: launches {counts}; {want} expected (the prefill's "
-             "linears once at M = B * S, the decode's once a step, the "
-             "attention once a layer a step, the unembedding once a step)")
-    sb = cache["layers"]["l0"]["kv"].k_sp.bitmap.shape[3]
-    if sb != ONESHOT_PROMPT // 128 + 1:
-        fail(f"{label}: the prefix holds {sb} blocks after {decodes} decode "
-             "steps; one refreeze to 5 expected")
-    if got.shape != (ONESHOT_BATCH, ONESHOT_TOKENS) or \
-            int(got.min()) < 0 or int(got.max()) >= cfg.vocab:
-        fail(f"{label}: tokens of shape {tuple(got.shape)} or out of range")
-    del cache
-    # the first decode ticks, teacher-forced from one prefill: kernels
-    # against the plain versions on copies of the same cache
+    from repro_torch.serving import Engine
     cache_k, logits = eng.prefill(batch)
     cache_p = copy.deepcopy(cache_k)
-    tok = logits.argmax(-1)
-    errs = []
+    with plain_kernels():
+        _, logits_p = eng.prefill(batch)
+    errs = [_range_err(logits, logits_p)]
+    tok = logits_p.argmax(-1)
     for _ in range(ONESHOT_LOGIT_TICKS):
         lk, cache_k = lm.forward_decode(eng.params, cache_k, tok[:, None],
                                         cfg)
@@ -4084,9 +4071,85 @@ def oneshot_phase(torch, cfg, params, cfg32, params32):
     with plain_kernels(), patched(lm, "forward_decode", decode_noted):
         ref, _ = plain_eng.generate(batch, sp)
     ident = gate_identity(label, got.tolist(), ref.cpu().tolist(),
-                          list(range(ONESHOT_BATCH)), margins,
+                          list(range(got.shape[0])), margins,
                           tie=TOP1_CLEAR)
     del plain_eng
+    return errs, ident
+
+
+def _oneshot_generate(torch, label, eng, cfg, batch, sp):
+    """One eager ``generate`` through the one-shot engine, every counter
+    zeroed before and read after, each decode step and the prefill timed
+    (a sync after each).  Gates the launches exactly (the prefill's
+    linears once at M = B * S, the decode's once a step, the attention
+    once a layer a step, the unembedding once a step) and the tokens'
+    shape and range.  Returns the host tokens, the cache, the counts, the
+    seconds and the median step ms."""
+    from repro_torch import kernels
+    from repro_torch.models import lm
+    steps = {"decode": [], "prefill": []}
+    with _timed_calls(torch, lm, "forward_decode", steps["decode"]), \
+            _timed_calls(torch, eng, "prefill", steps["prefill"]):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, cache = eng.generate(batch, sp)
+        got = got.cpu()
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    n = sp.max_new_tokens
+    linears = len(_layer_linears(cfg)) * cfg.n_layers
+    want = {"sparse_matmul": linears, "sparse_gemv": linears * (n - 1),
+            "sparse_decode_attention_fused": cfg.n_layers * (n - 1),
+            "dense_matmul": n}
+    check_launches(label, counts, tuple(want),
+                   ("sparse_decode_attention_fused_paged",
+                    "sparse_matmul_int8", "sparse_matmul_int4",
+                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
+    if any(counts[k] != c for k, c in want.items()):
+        fail(f"{label}: launches {counts}; {want} expected (the prefill's "
+             "linears once at M = B * S, the decode's once a step, the "
+             "attention once a layer a step, the unembedding once a step)")
+    b = len(batch["tokens"])
+    if got.shape != (b, n) or int(got.min()) < 0 or \
+            int(got.max()) >= cfg.vocab:
+        fail(f"{label}: tokens of shape {tuple(got.shape)} or out of range")
+    step_ms = {k: statistics.median(v) * 1e3 for k, v in steps.items()}
+    return got, cache, counts, dt, step_ms
+
+
+def oneshot_phase(torch, cfg, params, cfg32, params32):
+    """The legacy one-shot ``Engine`` on bf16 sparse weights: ``ONESHOT_BATCH``
+    prompts of ``ONESHOT_PROMPT`` tokens, ``ONESHOT_TOKENS`` new tokens,
+    eager.  Gates: the gemv, fused attention, sparse matmul and unembedding
+    counters at exactly one launch per linear, layer and row block; a
+    refreeze grew the prefix to 5 blocks; the first decode ticks' logits
+    through the kernels within 5e-2 of the plain range of the same ticks
+    through the plain versions; greedy tokens equal to the all-plain
+    engine's but where its top-1 margin is a bf16 near-tie (below
+    ``TOP1_CLEAR``, the logits gates' rounding-noise bar); at f32 with KV
+    sparsity 0 the sparse-KV and dense-KV engines' logits within 1e-3 of
+    the range."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine, SamplingParams
+    label = "one_shot"
+    toks = host_batch(DataConfig(vocab=cfg.vocab, seq_len=ONESHOT_PROMPT,
+                                 global_batch=ONESHOT_BATCH), 0)["tokens"]
+    batch = {"tokens": toks}
+    sp = SamplingParams(max_new_tokens=ONESHOT_TOKENS)
+    eng = Engine(params, cfg, device="cuda")
+    got, cache, counts, dt, step_ms = _oneshot_generate(torch, label, eng,
+                                                         cfg, batch, sp)
+    decodes = ONESHOT_TOKENS - 1
+    sb = cache["layers"]["l0"]["kv"].k_sp.bitmap.shape[3]
+    if sb != ONESHOT_PROMPT // 128 + 1:
+        fail(f"{label}: the prefix holds {sb} blocks after {decodes} decode "
+             "steps; one refreeze to 5 expected")
+    del cache
+    errs, ident = _oneshot_against_plain(torch, label, eng, params, cfg,
+                                         batch, sp, got)
     # f32, KV sparsity 0: the sparse-KV and dense-KV engines
     c0 = dataclasses.replace(cfg32, kv_k_sparsity=0.0, kv_v_sparsity=0.0)
     caches, lgs = {}, {}
@@ -4107,7 +4170,6 @@ def oneshot_phase(torch, cfg, params, cfg32, params32):
         fail(f"{label}: f32 sparse-KV and dense-KV logits differ by "
              f"{max(f32_errs):.3e} of the range")
     dense = _dense_weights(torch, cfg, batch)
-    step_ms = {k: statistics.median(v) * 1e3 for k, v in steps.items()}
     res = {"batch": ONESHOT_BATCH, "prompt": ONESHOT_PROMPT,
            "tokens": ONESHOT_TOKENS, "seconds": dt,
            "tok_s": ONESHOT_BATCH * ONESHOT_TOKENS / dt,
@@ -4125,6 +4187,409 @@ def oneshot_phase(torch, cfg, params, cfg32, params32):
         f"sparse-KV vs dense-KV over the prefill and {ONESHOT_F32_TICKS} "
         f"ticks {max(f32_errs):.2e} (tol {ONESHOT_TOL['f32']})")
     return res
+
+
+# ---------------------------------------------------------------------------
+# the other dense configs and the VLM (the thirteenth slice)
+# ---------------------------------------------------------------------------
+
+def _wide_config(name):
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if name == "phi3-mini-3.8b":
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=PHI_LAYERS)
+    return cfg
+
+
+def head_kernel(torch, cfg, timer, gen, detail, m_list,
+                dtype=None):
+    """The LM head of ``cfg`` through ``ops.dense_matmul`` as the model
+    calls it: a tied table's ``tok.T``, or an untied ``lm_head [K, N]``
+    laid out column-major by the engine's ``params_to`` (once, as an
+    engine stores it); bf16 (or ``dtype``) weights and x.  Held to the
+    plain version (1e-4 of the range), timed (CUDA events, L2 flushed) and
+    traced beside its bound, the plain version and ``torch.matmul``; every
+    call's rows bit-equal to the first rows of the largest call.  Returns
+    the rows by M."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dense_matmul import dense_matmul_plain
+    from repro_torch.serving.engine import params_to
+    dtype = dtype or torch.bfloat16
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    d, v = cfg.d_model, cfg.vocab
+    if cfg.tie_embeddings:
+        tok = (torch.randn((v, d), generator=gen, device="cuda")
+               * 0.02).to(dtype)
+        w, kind = tok.T, "tied tok.T"
+    else:
+        w = (torch.randn((d, v), generator=gen, device="cuda")
+             / d ** 0.5).to(dtype)
+        w = params_to({"lm_head": w}, torch.device("cuda"))["lm_head"]
+        kind = "untied lm_head"
+        if w.is_cuda and w.stride(0) != 1:
+            fail(f"{cfg.name}: params_to left the untied head row-major")
+    xs = torch.randn((max(m_list), d), generator=gen,
+                     device="cuda").to(dtype)
+    outs, rows = {}, {}
+    for m in m_list:
+        x = xs[:m]
+        got = ops.dense_matmul(x, w, torch.float32)
+        ref = dense_matmul_plain(x, w.t(), torch.float32)
+        torch.cuda.synchronize()
+        outs[m] = got.clone()
+        # same f32 products, summed in another order
+        tol = 1e-4 * ref.abs().max().item()
+        err, rel = _check(f"{cfg.name} {kind} {dname} M={m}", got, ref, tol,
+                          [])
+        t = timer(lambda: ops.dense_matmul(x, w, torch.float32))
+        t_plain = timer(lambda: dense_matmul_plain(x, w.t(), torch.float32))
+        t_lib = timer(lambda: torch.matmul(x, w))
+        dev = device_ms_per_call(
+            torch, lambda: ops.dense_matmul(x, w, torch.float32))
+        size = w.element_size()
+        n_bytes = (w.numel() + x.numel()) * size + m * v * 4
+        bnd, bby = bound_ms(n_bytes, 2.0 * m * w.numel(),
+                            BF16_OPS_PER_S if size == 2 else F32_OPS_PER_S)
+        rows[m] = {"kernel": "dense_matmul", "config": cfg.name,
+                   "head": kind, "dtype": dname, "M": m, "K": d, "N": v,
+                   "max_abs_err": err, "tol": tol, "ms": t,
+                   "device_ms": dev, "plain_ms": t_plain,
+                   "library_ms": t_lib, "bound_ms": bnd, "bound_by": bby}
+        detail.append(rows[m])
+        dev_txt = (f"traced device {dev * 1e3:.1f} us"
+                   if isinstance(dev, float) else dev)
+        say(f"{cfg.name} {kind} [{d}, {v}] {dname} M={m}: err {err:.2e} "
+            f"(rel {rel:.1e}, tol {tol:.2e}) kernel {t * 1e3:.1f} us, "
+            f"{dev_txt}, plain {t_plain * 1e3:.1f} us, torch.matmul "
+            f"{t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({bby})")
+    _gate_rows(torch, f"{cfg.name} head {dname}", outs)
+    say(f"{cfg.name} head {dname}: every row of the calls of "
+        f"M={tuple(m_list)} is bit-equal to the same row of the "
+        f"{max(m_list)}-row call")
+    del w, xs
+    return rows
+
+
+def wide_row_gates(torch, cfg, gen):
+    """The gemv and the int8 / int4 kernels at every (K, N) of ``cfg``'s
+    layer: each call of WIDE_ROW_GATE_M rows bit-equal to the first rows
+    of the largest call."""
+    from repro_torch.core.quant import quantize_act_int8
+    from repro_torch.kernels.sparse_gemv import sparse_gemv
+    from repro_torch.kernels.sparse_matmul_int4 import sparse_matmul_int4
+    from repro_torch.kernels.sparse_matmul_int8 import sparse_matmul_int8
+    shapes = sorted({(k, n) for _, k, n in _layer_linears(cfg)})
+    ms = WIDE_ROW_GATE_M
+    for name, fn, mode in (("sparse_gemv", sparse_gemv, "bf16"),
+                           ("sparse_matmul_int8", sparse_matmul_int8,
+                            "int8"),
+                           ("sparse_matmul_int4", sparse_matmul_int4,
+                            "int4")):
+        for kn in shapes:
+            sw = _packed(torch, *kn, gen, mode=mode)
+            x = torch.randn((max(ms), kn[0]), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            if mode == "bf16":
+                outs = {m: fn(x[:m], sw).clone() for m in ms}
+            else:
+                xq, sx = quantize_act_int8(x)
+                outs = {m: fn(xq[:m], sx[:m], sw, torch.bfloat16).clone()
+                        for m in ms}
+            torch.cuda.synchronize()
+            _gate_rows(torch, f"{cfg.name} {name} K,N={kn}", outs)
+        say(f"{cfg.name} {name}: every row of the calls of M={ms} is "
+            f"bit-equal to the same row of the {max(ms)}-row call at "
+            f"{len(shapes)} (K, N) shapes")
+    return {"M": list(ms), "shapes": len(shapes)}
+
+
+def wide_kernels(torch, timer):
+    """The kernels at the shapes of the new configs (WIDE_LINEARS and
+    friends): Llama-3-8B's linears, untied head and attention (with a
+    batch-1 "sparse against dense" line per projection, the paper's Table
+    2 shape), Phi-3-mini's D = 96 and InternVL2's D = 64 attention and
+    untied / tied heads, and the gemv and sparse matmul at InternVL2's
+    ragged K = 896.  Each held to its plain version as the Qwen3 kernel
+    phase holds it; returns the summary and the detail rows."""
+    import dataclasses
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    detail, out = [], {}
+    llama = _wide_config("llama3-8b")
+    res = {"linears": linear_kernels(torch, llama, timer, gen, detail,
+                                     plan=WIDE_LINEARS)}
+    table2 = {}
+    for name, k, n in _layer_linears(llama):
+        row = next(r for r in detail if r["kernel"] == "sparse_gemv"
+                   and r["M"] == 1 and (r["K"], r["N"]) == (k, n))
+        table2[name] = {"K": k, "N": n, "sparse_ms": row["ms"],
+                        "dense_ms": row["library_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "speedup": row["library_ms"] / row["ms"]}
+        say(f"llama3-8b {name} [{k}, {n}] at batch 1 (Table 2's shape): "
+            f"sparse gemv {row['ms'] * 1e3:.1f} us against dense "
+            f"torch.matmul {row['library_ms'] * 1e3:.1f} us "
+            f"({table2[name]['speedup']:.2f}x), bound "
+            f"{row['bound_ms'] * 1e3:.2f} us")
+    res["table2"] = table2
+    res["row_gates"] = wide_row_gates(torch, llama, gen)
+    res["head"] = head_kernel(torch, llama, timer, gen, detail,
+                              WIDE_UNEMBED_M)
+    res["attention"] = attention_kernels(torch, llama, timer, gen, detail,
+                                         WIDE_ATTN_Q, WIDE_ATTN_TIMED_Q)
+    out["llama3-8b"] = res
+    phi = _wide_config("phi3-mini-3.8b")
+    out["phi3-mini-3.8b"] = {
+        "attention": attention_kernels(
+            torch, phi, timer, gen, detail, WIDE_ATTN_Q,
+            {"flat": (1,), "paged": (1,)}, long=False),
+        "head": head_kernel(torch, phi, timer, gen, detail, (SLOTS,))}
+    vlm = _wide_config("internvl2-1b")
+    vlm_m = VLM_BATCH * (vlm.frontend_tokens + VLM_PROMPT)
+    # the kernel's shapes are the backbone's (the pool sizing the cache
+    # refuses a frontend config, whose serving is one-shot)
+    backbone = dataclasses.replace(vlm, frontend="", frontend_tokens=0)
+    out["internvl2-1b"] = {
+        "attention": attention_kernels(
+            torch, backbone, timer, gen, detail, WIDE_ATTN_Q,
+            {"flat": (1,), "paged": (1,)}, long=False),
+        "head": head_kernel(torch, vlm, timer, gen, detail, (VLM_BATCH,)),
+        "linears": linear_kernels(
+            torch, vlm, timer, gen, detail,
+            plan={"sparse_gemv": ((VLM_BATCH,), VLM_BATCH, ()),
+                  "sparse_matmul": ((vlm_m,), vlm_m, ())})}
+    return out, detail
+
+
+def _tree_bytes(tree):
+    from repro_torch.core.sparse_format import BlockSparseWeight
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, BlockSparseWeight):
+        return tree.nbytes_compressed()
+    return tree.numel() * tree.element_size()
+
+
+@contextlib.contextmanager
+def kept_outputs(eng):
+    """An engine built with ``graphs=False`` runs its entries eagerly, and
+    an eager entry returns a fresh output each run; keep the last one as
+    its ``out``, which ``record_margins`` reads for a final chunk."""
+    entry = eng._entry
+
+    def kept(name, width=0):
+        e = entry(name, width)
+        if e.eager and not hasattr(e, "_fresh"):
+            e._fresh = e.run
+
+            def run(e=e):
+                e.out = e._fresh()
+                return e.out
+            e.run = run
+        return e
+    eng._entry = kept
+    try:
+        yield eng
+    finally:
+        del eng._entry
+
+
+def wide_serve_phase(torch, name, n_req, new_tokens, prompt_range):
+    """``name`` at full width (Phi-3-mini at PHI_LAYERS layers), bf16
+    sparse weights from seed 0 on the card, the flat pool, every entry
+    captured when the engine is built, overlapped ticks as by default: 4
+    slots, prefill chunk 256, ``n_req`` requests of ``prompt_range``
+    tokens, ``new_tokens`` new, the last one seeded.  Gates: the logits of
+    LOGIT_TICKS teacher-forced ticks through the kernels within 5e-2 of the
+    plain range, top-1 where the margin is clear; the greedy requests'
+    tokens equal to an all-plain engine's (serial, eager) but at bf16
+    near-ties (below ``TOP1_CLEAR``, as the one-shot phase); one capture
+    per entry; per decode tick one gemv launch per linear and one attention
+    launch per layer; one head launch per decode tick and per chunk.
+    Reports the stream (tok/s, TPOT, TTFT), a traced decode tick and
+    256-token chunk, the weights' bytes, the graph pools and the peak
+    memory."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.serving import ContinuousEngine, SamplingParams
+    cfg = _wide_config(name)
+    label = name
+    torch.cuda.reset_peak_memory_stats()
+    params = _model(torch, cfg, "bf16")
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lo, hi = prompt_range
+    max_tokens = hi + new_tokens + cfg.kv_tail
+    paused = [0.0]
+    torch.cuda.reset_peak_memory_stats()
+    eng = _engine(cfg, params, paused, max_tokens, overlap=True)
+    # the engine's tree holds the head laid out for the kernel; drop ours
+    params = eng.params
+    weight_gb = _tree_bytes(params) / 1e9
+    prompts = host_batch(DataConfig(vocab=cfg.vocab, seq_len=hi,
+                                    global_batch=n_req), 0)["tokens"]
+    rng = np.random.default_rng(0)
+    lens = rng.integers(lo, hi + 1, n_req)
+    params_of = [SamplingParams(max_new_tokens=new_tokens)] * (n_req - 1)
+    params_of.append(SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                    seed=1234, max_new_tokens=new_tokens))
+    reqs = [prompts[i][:lens[i]] for i in range(n_req)]
+
+    def ready(e):
+        # every slot decoding: drain the overlapped pipeline so the checks
+        # start from the committed state
+        if len(e.scheduler.decoding_slots()) == SLOTS:
+            e.quiesce()
+            return True
+        return False
+
+    run = serve_stream(torch, eng, cfg, reqs, params_of, paused, ready,
+                       checks=WIDE_CHECKS, prefill=True, graph_qn=(1,),
+                       label=label)
+    check_replays(label, run, "sparse_decode_attention_fused", cfg.n_layers)
+    check_launches(label, run["counts"],
+                   ("sparse_gemv", "sparse_decode_attention_fused",
+                    "sparse_matmul", "dense_matmul"),
+                   ("sparse_decode_attention_fused_paged",
+                    "sparse_matmul_int8", "sparse_matmul_int4",
+                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
+    linears = len(_layer_linears(cfg)) * cfg.n_layers
+    ticks = run["ticks"]
+    want = {"sparse_gemv": linears * ticks["decode"],
+            "dense_matmul": ticks["decode"] + ticks["prefill"]}
+    if any(run["counts"][k] != n for k, n in want.items()):
+        fail(f"{label}: launches {run['counts']}; {want} expected (one gemv "
+             f"launch per linear, {linears} a decode tick; one head launch "
+             "a decode tick and a chunk)")
+    total = check_outputs(label, run, cfg, new_tokens)
+    check_sync_free(label, run, ("chunk",))
+    gate_logits(label, run["check"])
+    res = report(label, run, total, n_req)
+    res.update(prompt_lens=[int(x) for x in lens], weight_gb=weight_gb,
+               init_peak_gib=init_peak,
+               serve_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               layers=cfg.n_layers, launches_per_tick={
+                   "sparse_gemv": linears,
+                   "sparse_decode_attention_fused": cfg.n_layers,
+                   "dense_matmul": 1})
+    say(f"{label}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.padded_heads}/{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab} ({'tied' if cfg.tie_embeddings else 'untied'}); "
+        f"weights {weight_gb:.2f} GB on the card; peak allocated "
+        f"{init_peak:.2f} GiB while initialised and packed, "
+        f"{res['serve_peak_gib']:.2f} GiB while served; graph pools "
+        f"{res['graph_mib']:.1f} MiB; per decode tick {linears} gemv, "
+        f"{cfg.n_layers} attention and 1 head launches")
+    # the all-plain engine on the same traffic: serial and eager (a graph
+    # of the plain versions would capture their host-built constants)
+    del eng
+    torch.cuda.empty_cache()
+    plain = ContinuousEngine(params, cfg, slots=SLOTS, max_tokens=max_tokens,
+                             prefill_chunk=PREFILL_CHUNK, device="cuda",
+                             graphs=False)
+    margins = {}
+    t0 = time.perf_counter()
+    with plain_kernels(), kept_outputs(plain), \
+            record_margins(plain, margins):
+        rids = [plain.submit(p, sp) for p, sp in zip(reqs, params_of)]
+        ref = plain.run()
+    torch.cuda.synchronize()
+    res["plain_engine_s"] = time.perf_counter() - t0
+    say(f"{label}: the all-plain engine served the same traffic in "
+        f"{res['plain_engine_s']:.1f} s (serial, eager)")
+    greedy = [i for i, sp in enumerate(params_of) if sp.temperature == 0]
+    res["identity"] = gate_identity(
+        f"{label} against the all-plain engine",
+        [list(run["out"][run["rids"][i]].token_ids) for i in greedy],
+        [list(ref[rids[i]].token_ids) for i in greedy],
+        [rids[i] for i in greedy], margins, tie=TOP1_CLEAR)
+    del plain, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def vlm_phase(torch):
+    """InternVL2-1B at full width and depth through the one-shot
+    ``Engine``: VLM_BATCH prompts of VLM_PROMPT tokens after the stub
+    frontend's 256 seeded embeddings, VLM_TOKENS new, eager; ragged K =
+    896 in every linear of the prefill (the sparse matmul at M = B * (256 +
+    S)) and the decode (the gemv), G = 8 and D = 64 in the fused attention,
+    the tied 151655-row table.  Gates: one launch per linear, layer and
+    step; the prefill's and the first decode ticks' logits within 5e-2 of
+    the plain range; greedy tokens equal to the all-plain engine's but at
+    bf16 near-ties."""
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.serving import Engine, SamplingParams
+    label = "internvl2-1b"
+    cfg = _wide_config(label)
+    params = _model(torch, cfg, "bf16")
+    toks = host_batch(DataConfig(vocab=cfg.vocab, seq_len=VLM_PROMPT,
+                                 global_batch=VLM_BATCH), 0)["tokens"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    fe = torch.randn((VLM_BATCH, cfg.frontend_tokens, cfg.d_model),
+                     generator=gen, device="cuda") * 0.02
+    batch = {"tokens": toks, "frontend_embeds": fe}
+    sp = SamplingParams(max_new_tokens=VLM_TOKENS)
+    eng = Engine(params, cfg, device="cuda")
+    got, cache, counts, dt, step_ms = _oneshot_generate(torch, label, eng,
+                                                         cfg, batch, sp)
+    decodes = VLM_TOKENS - 1
+    seq = cfg.frontend_tokens + VLM_PROMPT
+    if int(cache["pos"]) != seq + decodes:
+        fail(f"{label}: the cache is at position {int(cache['pos'])}; the "
+             f"frontend's {cfg.frontend_tokens} and the prompt's "
+             f"{VLM_PROMPT} tokens and {decodes} decodes expected")
+    del cache
+    errs, ident = _oneshot_against_plain(torch, label, eng, params, cfg,
+                                         batch, sp, got)
+    res = {"batch": VLM_BATCH, "frontend": cfg.frontend_tokens,
+           "prompt": VLM_PROMPT, "tokens": VLM_TOKENS, "seconds": dt,
+           "tok_s": VLM_BATCH * VLM_TOKENS / dt, "median_step_ms": step_ms,
+           "launches": counts, "logits_rel_range": max(errs),
+           "identity": ident}
+    say(f"{label}: {VLM_BATCH} x ({cfg.frontend_tokens} frontend + "
+        f"{VLM_PROMPT} prompt) tokens, {VLM_TOKENS} new in {dt:.2f} s "
+        f"({res['tok_s']:.1f} tok/s, eager, a sync after each step for its "
+        f"time); median decode step {step_ms['decode']:.2f} ms, prefill "
+        f"{step_ms['prefill']:.2f} ms; launches {counts}; logits kernels vs "
+        f"plain over the prefill and {ONESHOT_LOGIT_TICKS} ticks "
+        f"{max(errs):.2e} of the range (tol {ONESHOT_TOL['bf16']})")
+    del eng, params
+    torch.cuda.empty_cache()
+    return res
+
+
+WIDE_PHASES = ("wide_kernels", "llama3_8b", "phi3_mini", "internvl2")
+
+
+def wide_phases(torch, only=WIDE_PHASES):
+    """The thirteenth slice's phases: the kernel rows at the new shapes,
+    then Llama-3-8B, Phi-3-mini and InternVL2-1B served."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, detail = {}, []
+    t0 = time.perf_counter()
+    if "wide_kernels" in only:
+        res["wide_kernels"], detail = wide_kernels(torch, Timer(torch))
+        say(f"wide_kernels: every kernel agrees with its plain version at "
+            f"the new configs' shapes ({time.perf_counter() - t0:.1f} s)")
+    for phase, args in (("llama3_8b", ("llama3-8b", LLAMA_REQUESTS,
+                                       LLAMA_NEW_TOKENS, LLAMA_PROMPT_RANGE)),
+                        ("phi3_mini", ("phi3-mini-3.8b", PHI_REQUESTS,
+                                       PHI_NEW_TOKENS, PHI_PROMPT_RANGE))):
+        if phase in only:
+            t0 = time.perf_counter()
+            res[phase] = wide_serve_phase(torch, *args)
+            gc.collect()
+            torch.cuda.empty_cache()
+            say(f"{phase}: passed ({time.perf_counter() - t0:.1f} s)")
+    if "internvl2" in only:
+        t0 = time.perf_counter()
+        res["internvl2"] = vlm_phase(torch)
+        say(f"internvl2: passed ({time.perf_counter() - t0:.1f} s)")
+    return res, detail
 
 
 SOURCES = {
@@ -4170,7 +4635,8 @@ def main() -> int:
                          "own int8 weights) and print no result line")
     ap.add_argument("--only", default="",
                     help="build, then run these of the phases one_shot, "
-                         "snapshot and checkify alone (comma-separated; "
+                         "snapshot, checkify, wide_kernels, llama3_8b, "
+                         "phi3_mini and internvl2 alone (comma-separated; "
                          "checkify without the paged int8 run to compare "
                          "with) and print no result line")
     args = ap.parse_args()
@@ -4202,6 +4668,9 @@ def main() -> int:
     if args.only:
         res = {}
         only = set(args.only.split(","))
+        unknown = only - {"one_shot", "snapshot", "checkify", *WIDE_PHASES}
+        if unknown:
+            fail(f"--only: no phase {sorted(unknown)}")
         if "one_shot" in only:
             params = _model(torch, cfg, "bf16")
             cfg32, params32 = _widened(torch, cfg, params)
@@ -4216,6 +4685,9 @@ def main() -> int:
                 res["checkify"] = checkify_phase(
                     torch, cfg, params8,
                     _shared_prompts(cfg, PAGED_REQUESTS))
+            del params8
+        if only & set(WIDE_PHASES):
+            res["wide"], res["wide_detail"] = wide_phases(torch, only)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(res, indent=1, default=str))
@@ -4248,6 +4720,9 @@ def main() -> int:
     serve["paged_int4"] = paged_phase(
         torch, cfg, "int4", INT4_REQUESTS, INT4_NEW_TOKENS,
         "sparse_matmul_int4")[0]
+    wide, wide_detail = wide_phases(torch)
+    serve.update(wide)
+    detail += wide_detail
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -1,19 +1,37 @@
-"""Architecture configuration (twin of ``repro.configs``).
+"""Architecture and shape configuration (twin of ``repro.configs``).
 
-``pdtype`` / ``cdtype`` return torch dtypes.  Only the architectures the
-port serves so far are registered; the rest raise a ``KeyError`` that says
-so.
+Each registered architecture has a ``<id>.py`` here exporting ``CONFIG``.
+``pdtype`` / ``cdtype`` return torch dtypes.  The dense family (and the
+VLM, a dense backbone behind a stub frontend) is registered; an id of a
+family the port does not serve yet (MoE, SSM, hybrid, encoder-decoder)
+raises a ``KeyError`` that names its family.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +112,10 @@ class ArchConfig:
         return True
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
@@ -125,14 +147,46 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+ARCH_IDS = [
+    "qwen3-0.6b", "deepseek-67b", "llama3.2-3b", "phi3-mini-3.8b",
+    "llama4-scout-17b-a16e", "phi3.5-moe-42b-a6.6b", "seamless-m4t-medium",
+    "internvl2-1b", "rwkv6-7b", "jamba-1.5-large-398b",
+]
+PAPER_ARCH = "llama3-8b"          # the paper's own evaluation model
+
 _MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "deepseek-67b": "deepseek_67b",
+    "llama3.2-3b": "llama3_2_3b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "internvl2-1b": "internvl2_1b",
+    "llama3-8b": "llama3_8b",
+}
+# the reference's other ids, by family: not served by the port yet
+_NOT_PORTED = {
+    "llama4-scout-17b-a16e": "moe",
+    "phi3.5-moe-42b-a6.6b": "moe",
+    "seamless-m4t-medium": "encdec",
+    "rwkv6-7b": "ssm",
+    "jamba-1.5-large-398b": "hybrid",
 }
 
 
 def get_config(name: str) -> ArchConfig:
+    if name in _NOT_PORTED:
+        raise KeyError(f"architecture {name!r} ({_NOT_PORTED[name]} family) "
+                       f"is not ported to repro_torch yet (ported: "
+                       f"{sorted(_MODULES)})")
     if name not in _MODULES:
-        raise KeyError(f"architecture {name!r} is not ported to repro_torch "
-                       f"yet (ported: {sorted(_MODULES)})")
+        raise KeyError(f"unknown architecture {name!r} (ported: "
+                       f"{sorted(_MODULES)})")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def applicable_shapes(cfg: ArchConfig) -> Tuple[str, ...]:
+    """long_500k needs sub-quadratic attention: SSM/hybrid only."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in ("ssm", "hybrid"):
+        out.append("long_500k")
+    return tuple(out)

@@ -1,17 +1,20 @@
 """Dense -> sparse parameter conversion.
 
 Twin of two reference pieces: ``repro.core.convert`` (which leaves are
-linear weights: ``default_predicate`` / ``EXCLUDE_KEYS``) and the
-single-device path of ``repro.distributed.convert_plan.convert_concrete``
-(per-leaf block fitted by ``_fit_block`` / ``_plan_leaf``, capacity from
-``balanced_capacity``, layer-stacked leaves packed per layer) in its three
-modes: ``"bf16"`` values, ``"int8"`` values with a per-channel f32 scale,
-and ``"int4"`` (the int8 path quantised to ``[-7, 7]`` and nibble-packed).
-There is no mesh, so no block-count padding.
+linear weights: ``default_predicate`` / ``EXCLUDE_KEYS``;
+``convert_to_sparse``, which prunes and packs every selected leaf of any
+params tree, and ``sparsity_report``) and the single-device path of
+``repro.distributed.convert_plan.convert_concrete`` (per-leaf block fitted
+by ``_fit_block`` / ``_plan_leaf``, capacity from ``balanced_capacity``,
+layer-stacked leaves packed per layer) in its three modes: ``"bf16"``
+values, ``"int8"`` values with a per-channel f32 scale, and ``"int4"``
+(the int8 path quantised to ``[-7, 7]`` and nibble-packed).  There is no
+mesh, so ``convert_concrete`` pads no block counts (``convert_to_sparse``
+takes the reference's ``pad_to_blocks``).
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -32,8 +35,10 @@ EXCLUDE_KEYS = ("embed", "norm", "scale", "bias", "router", "pos",
                 "a_log", "dt", "mu_", "decay", "bonus")
 
 
-def default_predicate(path: str, shape: Tuple[int, ...]) -> bool:
-    if len(shape) < 2:
+def default_predicate(path: str, leaf: Any) -> bool:
+    """Is the leaf (a tensor or a ``ParamSpec``) at ``path`` a linear
+    weight?"""
+    if len(leaf.shape) < 2:
         return False
     if any(k in path for k in EXCLUDE_KEYS):
         return False
@@ -56,7 +61,7 @@ def _plan_leaf(spec: mod.ParamSpec, block=DEFAULT_BLOCK) -> Tuple[int, int]:
 
 def _is_sparsifiable(path: str, spec) -> bool:
     """2D weights, or layer-stacked 2D weights (leading 'layers' axis)."""
-    if not mod.is_spec(spec) or not default_predicate(path, spec.shape):
+    if not mod.is_spec(spec) or not default_predicate(path, spec):
         return False
     if len(spec.shape) == 2:
         return True
@@ -73,15 +78,13 @@ def _to_int4(sw: BlockSparseWeight) -> BlockSparseWeight:
 
 def _pack_one(w2: torch.Tensor, cfg, blk, cap, mode: str
               ) -> BlockSparseWeight:
+    if mode != "int4":
+        # packed bf16 values whatever the model dtype (as the reference)
+        return _pack_leaf(w2, cfg.sparsity, cfg.sparse_policy, blk, mode,
+                          (1, 1), cap)
     mask = make_mask(w2, cfg.sparsity, cfg.sparse_policy, blk)
-    if mode == "bf16":
-        # packed values are bf16 whatever the model dtype (as the reference)
-        return pack(w2.to(torch.bfloat16), mask, blk, capacity=cap)
-    quant = quantize_weight_int8 if mode == "int8" else quantize_weight_int4
-    q, scale = quant(torch.where(mask, w2, torch.zeros((), dtype=w2.dtype,
-                                                       device=w2.device)))
-    sw = pack(q, mask, blk, capacity=cap, scale=scale)
-    return _to_int4(sw) if mode == "int4" else sw
+    q, scale = quantize_weight_int4(torch.where(mask, w2, 0))
+    return _to_int4(pack(q, mask, blk, capacity=cap, scale=scale))
 
 
 def convert_concrete(params: Any, spec_tree: Any, cfg, mode: str = "bf16",
@@ -124,13 +127,56 @@ def _zip(spec_tree, params):
     return (spec_tree, params)
 
 
-def sparsity_report(params: Any) -> dict:
+def _pack_leaf(w: torch.Tensor, sparsity: float, policy: str,
+               block: Tuple[int, int], mode: str,
+               pad_to_blocks: Tuple[int, int],
+               capacity: Optional[int]) -> BlockSparseWeight:
+    if w.dim() == 3:
+        # stacked experts [E, K, N]: fold E into K; blocks never straddle
+        # experts as long as K % bk == 0
+        e, k, n = w.shape
+        if k % block[0] != 0:
+            raise ValueError(
+                f"expert in-dim {k} must be a multiple of bk={block[0]}")
+        w = w.reshape(e * k, n)
+    mask = make_mask(w, sparsity, policy, block)
+    if mode == "int8":
+        q, scale = quantize_weight_int8(torch.where(mask, w, 0))
+        return pack(q, mask, block, capacity=capacity,
+                    pad_to_blocks=pad_to_blocks, scale=scale)
+    return pack(w.to(torch.bfloat16) if mode == "bf16" else w, mask, block,
+                capacity=capacity, pad_to_blocks=pad_to_blocks)
+
+
+def convert_to_sparse(params: Any,
+                      sparsity: float = 0.5,
+                      policy: str = "balanced",
+                      block: Tuple[int, int] = DEFAULT_BLOCK,
+                      mode: str = "bf16",
+                      pad_to_blocks: Tuple[int, int] = (1, 1),
+                      capacity: Optional[int] = None,
+                      predicate: Callable[[str, Any], bool] = default_predicate
+                      ) -> Any:
+    """Replace every dense tensor of ``params`` that ``predicate(path,
+    leaf)`` selects with a :class:`BlockSparseWeight`, on the tensor's own
+    device.  ``mode``: ``"bf16"`` (values cast to bf16), ``"keep"`` (the
+    leaf's dtype) or ``"int8"`` (per-channel scales).  A 3-D leaf is a
+    stack of experts ``[E, K, N]``, packed as one ``[E*K, N]`` weight."""
+    return mod.map_with_path(
+        lambda p, leaf: (_pack_leaf(leaf, sparsity, policy, block, mode,
+                                    pad_to_blocks, capacity)
+                         if predicate(p, leaf) else leaf),
+        params, is_leaf=torch.is_tensor)
+
+
+def sparsity_report(params: Any) -> Dict[str, Dict[str, float]]:
     """Per-leaf compression statistics for converted trees."""
     out = {}
 
     def one(path, leaf):
         out[path] = {"dense_bytes": leaf.nbytes_dense(),
                      "compressed_bytes": leaf.nbytes_compressed(),
+                     "ratio": leaf.compression_ratio(),
                      "capacity": leaf.capacity}
         return leaf
     mod.map_with_path(one, params,

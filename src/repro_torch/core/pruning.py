@@ -1,4 +1,5 @@
-"""Magnitude pruning masks (twin of ``repro.core.pruning``).
+"""Pruning masks (twin of ``repro.core.pruning``): global and
+block-balanced magnitude, and Wanda.
 
 Tie order matters for parity: the reference ranks with ``lax.top_k``,
 which keeps the lower index first among equal magnitudes, so the ranking
@@ -6,7 +7,7 @@ here is a *stable* descending sort.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +42,22 @@ def prune_balanced(w: torch.Tensor, sparsity: float,
     return _from_blocks(mb, block, tuple(w.shape)) > 0
 
 
+def prune_wanda(w: torch.Tensor, act_norm: torch.Tensor, sparsity: float,
+                per_output: bool = True) -> torch.Tensor:
+    """Wanda (Sun et al., 2024): score ``|w| * ||x_k||``, pruned per output
+    channel (column), or over the whole tensor with ``per_output=False``.
+    The thresholds are read off a sort, as in the reference, so every entry
+    tied with a threshold is kept exactly where the reference keeps it."""
+    score = w.abs() * act_norm[:, None]
+    if not per_output:
+        k = int(round(sparsity * score.numel()))
+        thr = torch.sort(score.reshape(-1)).values[max(k - 1, 0)]
+        return score >= thr
+    keep = max(int(round((1.0 - sparsity) * w.shape[0])), 1)
+    thr = torch.sort(score, dim=0).values[-keep, :]
+    return score >= thr[None, :]
+
+
 def prune_kv(kv: torch.Tensor, sparsity: float) -> torch.Tensor:
     """Magnitude mask over the whole tensor: drop the lowest-|.| values."""
     if sparsity <= 0.0:
@@ -60,11 +77,14 @@ def prune_kv_rows(rows: torch.Tensor, sparsity: float) -> torch.Tensor:
 
 
 def make_mask(w: torch.Tensor, sparsity: float, policy: str = "balanced",
-              block: Tuple[int, int] = DEFAULT_BLOCK) -> torch.Tensor:
+              block: Tuple[int, int] = DEFAULT_BLOCK,
+              act_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     if policy == "global":
         return prune_global(w, sparsity)
     if policy == "balanced":
         return prune_balanced(w, sparsity, block)
     if policy == "wanda":
-        raise NotImplementedError("wanda pruning is not ported yet")
+        if act_norm is None:
+            raise ValueError("wanda needs per-input-channel act norms")
+        return prune_wanda(w, act_norm, sparsity)
     raise ValueError(f"unknown pruning policy {policy!r}")

@@ -7,6 +7,13 @@ the sharded part of the port).
 * ``--one-shot`` runs the legacy static-batch ``Engine`` instead: the
   first ``--batch`` prompts prefilled whole, frozen into the sparse KV
   cache and decoded lockstep (eagerly: each refreeze grows the prefix).
+  A config with a frontend (``internvl2-1b``) has no pooled path and falls
+  back to it, as in the reference, with zero frontend embeddings before
+  each prompt.
+
+``--arch`` takes every registered id: the dense family (``llama3-8b``, the
+paper's model, ``llama3.2-3b``, ``phi3-mini-3.8b``, ``deepseek-67b``,
+``qwen3-0.6b``) and the VLM ``internvl2-1b``.
 
 ``--dense`` is the baseline: dense weights and, one-shot, the dense KV
 cache; in stream mode it sets the KV sparsity to 0 (the pooled compression
@@ -69,6 +76,11 @@ the pooled sparse-KV cache.
       --device cpu --paged --prefill-chunk 16 --snapshot-dir /tmp/snap
   python -m repro_torch.launch.serve --arch qwen3-0.6b --device cuda \\
       --one-shot --batch 4 --prompt-len 512 --steps 160 [--dense]
+  python -m repro_torch.launch.serve --arch llama3-8b --device cuda \\
+      --requests 6 --slots 4 --prompt-len 1000 --steps 64 \\
+      --prefill-chunk 256
+  python -m repro_torch.launch.serve --arch internvl2-1b --reduced \\
+      --device cpu --batch 2 --prompt-len 16 --steps 4
 """
 from __future__ import annotations
 
@@ -226,7 +238,22 @@ def main(argv=None) -> int:
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len,
                     global_batch=max(n_req, args.batch))
     prompts = host_batch(dc, 0)["tokens"]
-    if args.one_shot:
+    one_shot = args.one_shot
+    if not one_shot:
+        try:
+            lm._attn_kinds(cfg)
+        except ValueError:
+            print(f"[serve] {cfg.family}/frontend={bool(cfg.frontend)} has "
+                  "no continuous-batching path yet; falling back to the "
+                  "one-shot engine (see --one-shot)")
+            one_shot = True
+    if one_shot:
+        batch = {"tokens": prompts[:args.batch]}
+        if cfg.frontend:
+            # the stub frontend: zero embeddings before the prompt
+            batch["frontend_embeds"] = torch.zeros(
+                (args.batch, cfg.frontend_tokens, cfg.d_model),
+                dtype=torch.float32, device=dev)
         eng = Engine(params, cfg, kv_mode="dense" if args.dense else "sparse",
                      device=dev)
         sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -234,7 +261,7 @@ def main(argv=None) -> int:
                             max_new_tokens=args.steps)
         reset_launch_counts()
         t0 = time.time()
-        toks, _ = eng.generate({"tokens": prompts[:args.batch]}, sp)
+        toks, _ = eng.generate(batch, sp)
         toks = toks.cpu()
         dt = time.time() - t0
         print(f"[serve] one-shot: {args.steps} tokens x {args.batch} reqs "

@@ -1,7 +1,8 @@
-"""The decoder-only LM, dense family (twin of ``repro.models.lm``): the
-full prefill and the one-token decode over the legacy per-batch cache of
+"""The decoder-only LM, dense family and VLM (twin of
+``repro.models.lm``): the full prefill (after a VLM's stub frontend
+embeddings) and the one-token decode over the legacy per-batch cache of
 the one-shot engine, and the panel forward and the prefill chunk over the
-pooled serving cache.
+pooled serving cache, which a frontend config does not take.
 
 A Python loop over the layer-stacked params replaces the reference's
 ``lax.scan``; each layer works on views of the pool storage, which the
@@ -48,13 +49,26 @@ def layer_kind(cfg, i: int) -> Tuple[str, str]:
     return (mixer, ffn)
 
 
-def _attn_kinds(cfg) -> List[Tuple[str, str]]:
-    """The pooled path serves attention + MLP stacks; other families (MoE,
-    recurrent, encoder-decoder, frontends) are not ported yet."""
-    if cfg.family != "dense" or cfg.frontend or cfg.n_experts:
+def _kinds(cfg) -> List[Tuple[str, str]]:
+    """The layer kinds of a period: attention + MLP stacks at any width,
+    the dense family and the VLM (a dense backbone behind a stub frontend);
+    the other families (MoE, recurrent, hybrid, encoder-decoder) are not
+    ported yet."""
+    if cfg.family not in ("dense", "vlm") or cfg.n_experts:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and vlm only)")
     return [layer_kind(cfg, j) for j in range(period_len(cfg))]
+
+
+def _attn_kinds(cfg) -> List[Tuple[str, str]]:
+    """The pooled serving path's kinds: as :func:`_kinds`, but a frontend
+    config takes the one-shot path only, as in the reference (its
+    ``ValueError`` is what the launcher's one-shot fallback catches)."""
+    kinds = _kinds(cfg)
+    if cfg.frontend:
+        raise ValueError(
+            "pooled serving has no cross-attention / frontend-embedding path")
+    return kinds
 
 
 def _stack_specs(tree: Any, n: int) -> Any:
@@ -66,7 +80,7 @@ def _stack_specs(tree: Any, n: int) -> Any:
 
 
 def model_specs(cfg) -> Dict[str, Any]:
-    kinds = _attn_kinds(cfg)
+    kinds = _kinds(cfg)
     n_periods = cfg.n_layers // len(kinds)
     period = {f"l{j}": {"ln1": norm_spec(cfg), "mixer": attn_specs(cfg),
                         "ln2": norm_spec(cfg), "ffn": mlp_specs(cfg)}
@@ -112,10 +126,15 @@ def forward_prefill(params, batch: Dict[str, torch.Tensor], cfg
     """The full forward over ``batch["tokens"] [B, S]``; returns ``(final
     hidden [B, S, d], collected)``, ``collected["layers"][f"l{j}"]``
     holding the post-RoPE ``k`` / ``v`` ``[P, B, Hkv, S, hd]`` stacked over
-    periods and ``collected["len"] = S``."""
-    kinds = _attn_kinds(cfg)
+    periods and ``collected["len"] = S``.  A frontend config's
+    ``batch["frontend_embeds"] [B, F, d]`` are prepended to the token
+    embeddings, so ``S`` and the positions count them."""
+    kinds = _kinds(cfg)
     tokens = batch["tokens"]
     x = embed_apply(params["embed"], tokens, cfg)
+    if cfg.frontend and "frontend_embeds" in batch:
+        x = torch.cat([batch["frontend_embeds"].to(x.device, x.dtype), x],
+                      dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     n_periods = cfg.n_layers // len(kinds)
     got = {f"l{j}": {"k": [], "v": []} for j in range(len(kinds))}
@@ -154,7 +173,7 @@ def init_cache(cfg, batch: int, prefix: int, mode: str = "sparse",
     of ``prefix + kv_tail`` tokens.  ``abstract=True`` gives meta tensors
     (nothing allocated), otherwise zeros on ``device`` (the CUDA device
     unless the caller asks for the CPU)."""
-    kinds = _attn_kinds(cfg)
+    kinds = _kinds(cfg)
     n_periods = cfg.n_layers // len(kinds)
     hkv, hd, dt = cfg.n_kv, cfg.hd, cfg.cdtype
     if mode == "sparse":
@@ -185,7 +204,7 @@ def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
     """``tokens [B, 1]`` -> ``(logits [B, V] f32, cache)``: one decode step
     over the legacy cache, whose tails (or dense rows) and lengths are
     written **in place**, ``cache["pos"]`` advanced by one."""
-    kinds = _attn_kinds(cfg)
+    kinds = _kinds(cfg)
     x_t = embed_apply(params["embed"], tokens[:, 0], cfg)
     position = cache["pos"]
     n_periods = cfg.n_layers // len(kinds)

@@ -138,17 +138,20 @@ from .scheduler import PrefixTrie, Scheduler, block_hashes
 from .spec import AdaptiveDraft, SpecConfig
 
 
-def params_to(tree: Any, device: torch.device) -> Any:
+def params_to(tree: Any, device: torch.device, key: str = "") -> Any:
     """Move a params tree (tensors and sparse weights) to ``device``.  On
-    CUDA a dense layer-stacked linear weight ``[L, K, N]`` is also stored
-    column-major (the same values), so that the dense kernel reads each
-    layer's weight as ``[N, K]`` rows in place, as it reads the tied
-    embedding."""
+    CUDA a dense layer-stacked linear weight ``[L, K, N]`` and the untied
+    LM head ``lm_head [K, N]`` are also stored column-major (the same
+    values, laid out once here), so that the dense kernel reads each as
+    ``[N, K]`` rows in place, as it reads the tied embedding; a leaf
+    already so laid out is left as it is."""
     if isinstance(tree, dict):
-        return {k: params_to(v, device) for k, v in tree.items()}
+        return {k: params_to(v, device, k) for k, v in tree.items()}
     out = tree.to(device)
-    if torch.is_tensor(out) and out.dim() == 3 and out.is_cuda:
-        out = out.transpose(1, 2).contiguous().transpose(1, 2)
+    if torch.is_tensor(out) and out.is_cuda and (
+            out.dim() == 3 or (out.dim() == 2 and key == "lm_head")) \
+            and out.stride(-2) != 1:
+        out = out.transpose(-1, -2).contiguous().transpose(-1, -2)
     return out
 
 
@@ -170,7 +173,7 @@ class Engine:
                  device: Optional[torch.device] = None):
         if kv_mode not in ("sparse", "dense"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
-        lm._attn_kinds(cfg)
+        lm._kinds(cfg)
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         self.cfg = cfg
@@ -178,15 +181,16 @@ class Engine:
         self._tail = 0            # host mirror of every layer's tail_len
 
     def prefill(self, batch: Dict[str, Any]):
-        """Prefill ``batch["tokens"] [B, S]`` (host or device); returns
-        ``(cache, logits [B, V] f32 of the last prompt token)``."""
+        """Prefill ``batch["tokens"] [B, S]`` (host or device), after a
+        frontend config's ``batch["frontend_embeds"] [B, F, d]`` when the
+        batch holds them; returns ``(cache, logits [B, V] f32 of the last
+        prompt token)``."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        if not torch.is_tensor(tokens):
-            tokens = torch.as_tensor(np.asarray(tokens))
-        tokens = tokens.to(self.device, torch.long)
-        hidden, collected = lm.forward_prefill(self.params,
-                                               {"tokens": tokens}, cfg)
+        feed = {"tokens": self._on_device(batch["tokens"]).long()}
+        if "frontend_embeds" in batch:
+            feed["frontend_embeds"] = self._on_device(
+                batch["frontend_embeds"])
+        hidden, collected = lm.forward_prefill(self.params, feed, cfg)
         layers = {name: {"kv": self._build_kv(got["k"], got["v"])}
                   for name, got in collected["layers"].items()}
         cache = {"pos": torch.tensor(collected["len"], dtype=torch.int32,
@@ -195,6 +199,11 @@ class Engine:
         self._tail = 0
         logits = lm.logits_fn(self.params, hidden[:, -1:], cfg)
         return cache, logits[:, 0]
+
+    def _on_device(self, a) -> torch.Tensor:
+        if not torch.is_tensor(a):
+            a = torch.as_tensor(np.asarray(a))
+        return a.to(self.device)
 
     def _build_kv(self, k_stack: torch.Tensor, v_stack: torch.Tensor):
         """``k/v [P, B, Hkv, S, hd]`` -> the per-period caches, stacked.

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch``,
-serving on the CPU and importing ``chip_smoke`` load no JAX and nothing of
-the reference package; the entry points refuse to run without a CUDA card
+serving on the CPU (Qwen3 stream, paged int8 and speculative; Llama-3-8B
+stream; InternVL2 through the one-shot fallback) and importing
+``chip_smoke`` load no JAX and nothing of the reference package; the entry points refuse to run without a CUDA card
 unless the caller asks for the CPU; ``chip_smoke.py`` fails without a card
 and without the repository around it."""
 import os
@@ -32,6 +33,11 @@ serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
 serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
             "--requests", "2", "--slots", "2", "--prompt-len", "24",
             "--steps", "6", "--spec-k", "3", "--spec-adaptive"])
+serve.main(["--arch", "llama3-8b", "--reduced", "--device", "cpu",
+            "--requests", "2", "--slots", "2", "--prompt-len", "24",
+            "--steps", "4", "--prefill-chunk", "16"])
+serve.main(["--arch", "internvl2-1b", "--reduced", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "24", "--steps", "3"])
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -46,7 +52,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout[-2000:]
-    assert out.stdout.count("[serve] stream: 2 requests") == 3
+    assert out.stdout.count("[serve] stream: 2 requests") == 4
+    assert "falling back to the one-shot engine" in out.stdout
+    assert "[serve] one-shot: 3 tokens x 2 reqs" in out.stdout
     assert "[serve] kernel launches:" in out.stdout
     assert "[serve] paged: prefix trie holds" in out.stdout
     assert "[serve] spec: accepted-draft histogram" in out.stdout
