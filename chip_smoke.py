@@ -160,6 +160,30 @@ Phases, each of which exits non-zero on failure:
      greedy tokens against the plain versions.
    ``--only wide_kernels,llama3_8b,phi3_mini,internvl2`` runs the build and
    these phases alone.
+   The MoE family (the fourteenth slice), each with the same gates and
+   reports as ``llama3_8b``:
+   * ``phi35_moe``: Phi-3.5-MoE at full width (d 4096, 16 experts of d_ff
+     6400, top-2, 32/8 heads, untied 32064-row head), 8 of its 32 layers
+     (its dense bf16 experts take 2.52 GB a layer), 6 requests of 200-600
+     tokens, 32 new, one seeded; per decode tick 4 gemv launches a layer
+     (the attention; the router and the expert stacks stay dense, as in
+     the reference, and run as torch products);
+   * ``scout``: Llama-4-Scout at full width (d 5120, 16 experts of d_ff
+     8192, top-1 and a sparse shared expert, 40/8 heads padded to 48, so
+     G = 6, untied 202048-row head), 4 of its 48 layers, 4 requests, 32
+     new; 7 gemv launches a layer.
+   Each first holds its kernel rows (the gemv at its sparse linears, M = 1
+   and 4; the sparse matmul at them, M = 20 and 256; the head at M = 1, 4
+   and 20; Scout's attention at QG = 6 and 30), then serves; the logits
+   check runs its plain forward on the kernel forward's routing (every
+   decision it moves within ``ROUTER_TIE`` of a tie); the kernels also
+   serve the traffic on the all-plain engine's routing, whose greedy
+   tokens must be the all-plain engine's but at top-1 near-ties, and the
+   served engine's divergences are excused only at top-1 near-ties or
+   after a routing decision shown to differ; ``moe_layer`` times layer 0's
+   MoE alone at 4 and 256 rows beside its bounds and reports whether its
+   rows keep their bits across the two.
+   ``--only phi35_moe,scout`` runs the build and these alone.
 
 Every traced tick and chunk reports the unembedding's and the gemv's
 device time and launches.  The lines before the last carry the kernel
@@ -320,11 +344,39 @@ PHI_LAYERS, PHI_REQUESTS, PHI_NEW_TOKENS = 8, 4, 32
 PHI_PROMPT_RANGE = PROMPT_RANGE
 VLM_BATCH, VLM_PROMPT, VLM_TOKENS = 2, 128, 32
 WIDE_CHECKS = (("bf16", "bf16", (), True),)
+# the MoE family: Phi-3.5-MoE at full width, 8 of its 32 layers (its dense
+# bf16 experts take 2.52 GB a layer), 6 requests of 200-600 tokens, 32 new,
+# one seeded; Llama-4-Scout at full width, 4 of its 48 layers (4.03 GB of
+# experts a layer; 40 heads padded to 48, so G = 6), 4 requests, 32 new;
+# their heads at M = 1, the slots and the 20-row verify panel, Scout's
+# attention at its decode tick and verify panel, the MoE layer alone at the
+# decode tick's and the chunk's rows
+MOE_LAYERS = {"phi3.5-moe-42b-a6.6b": 8, "llama4-scout-17b-a16e": 4}
+PHI_MOE_REQUESTS, PHI_MOE_NEW_TOKENS = 6, 32
+SCOUT_REQUESTS, SCOUT_NEW_TOKENS = 4, 32
+MOE_HEAD_M = (1, SLOTS, SLOTS * (SPEC_K + 1))
+# the sparse linears (the attention; Scout's shared expert too) through the
+# gemv at the decode tick and below, and through the sparse matmul at the
+# verify panel and the prefill chunk, the chunk also traced
+MOE_LINEARS = {"sparse_gemv": ((1, SLOTS), SLOTS, (SLOTS,)),
+               "sparse_matmul": ((SLOTS * (SPEC_K + 1), PREFILL_CHUNK),
+                                 PREFILL_CHUNK, (PREFILL_CHUNK,))}
+MOE_ROWS = (SLOTS, PREFILL_CHUNK)
 # kernels a traced tick reports by name: (substring of the trace's kernel
 # name); the flat decode tick must hold one gemv launch per linear and no
 # sum_partials
 TRACED_KERNELS = {"unembed": "unembed_", "gemv": "sparse_gemv<",
                   "sum_partials": "sum_partials"}
+# a traced tick's device time by class: a kernel counts in the first class
+# one of whose substrings its name holds; cuBLAS's GEMMs (the MoE's expert
+# products and router, the chunk's f32 attention) in "library_gemm"
+TRACE_CLASSES = (("gemv", ("sparse_gemv<",)),
+                 ("attention", ("split_decode_attention",)),
+                 ("head", ("unembed_",)),
+                 ("sparse_matmul", ("sparse_matmul", "sum_partials",
+                                    "int_epilogue")),
+                 ("library_gemm", ("gemm", "gemv", "nvjet", "cutlass",
+                                   "xmma")))
 # the decode-logits checks a serve phase runs: (name, dtype, kernels the
 # plain path keeps, gated).  On the int paths the attention kernel's f32
 # sums, in another order than its plain version's, round to bf16 a ulp
@@ -355,6 +407,20 @@ LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cuLaunchKernel",
                 "cudaMemcpyAsync", "cudaMemsetAsync")
 TOP1_CLEAR = 1e-2
 TOP1_MIN_COUNTED = 50
+# an MoE's routing is a discontinuity: where a row's router logits of its
+# k-th and (k+1)-th expert lie within the bf16 noise of each other, the
+# kernels and the plain versions may pick different experts, and the row's
+# output then differs by a whole expert.  The logits check therefore runs
+# its plain forward on the kernel forward's routing (its own router
+# probabilities at those experts), which leaves the kernels' error alone;
+# every routing decision that the plain forward would have made otherwise
+# must lie within ROUTER_TIE of a tie (router logit gap).  On the H100 the
+# largest gap at which such a decision moved was 0.040 (Phi-3.5-MoE, 8
+# layers: 13 of 800 decisions moved; Scout 3 of 400, at most 0.003).  The
+# greedy identity gate holds the kernels on the plain engine's routing
+# (``forced_replay``) and excuses a divergence of the served engine only
+# after a routing decision shown to differ
+ROUTER_TIE = 5e-2
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -490,12 +556,20 @@ def _check(name, got, ref, tol, errs):
 
 
 def _layer_linears(cfg):
-    """The seven linears of one layer as (name, K, N), from the specs."""
+    """The sparse linears of one layer as (name, K, N), from the specs:
+    the leaves ``convert_concrete`` packs (a dense layer's seven; an MoE's
+    attention and Scout's shared expert, not its router or expert
+    stacks)."""
+    from repro_torch.core.convert import _is_sparsifiable
     from repro_torch.models import lm
-    blk = lm.model_specs(cfg)["blocks"]["l0"]
-    return [(k, s.shape[-2], s.shape[-1])
-            for part in ("mixer", "ffn") for k, s in blk[part].items()
-            if len(s.shape) == 3]
+    from repro_torch.models import module as mod
+    out = []
+    mod.map_with_path(
+        lambda p, s: out.append((p.rsplit("/", 1)[-1], s.shape[-2],
+                                 s.shape[-1]))
+        if _is_sparsifiable(p, s) else None,
+        lm.model_specs(cfg)["blocks"]["l0"])
+    return out
 
 
 def linear_kernels(torch, cfg, timer, gen, detail, plan=None):
@@ -1331,6 +1405,56 @@ def plain_kernels(keep=(), held=None):
             setattr(ops, k, v)
 
 
+def _router_gaps(p, x, k):
+    """Per row of ``x [T, d]``: the router logit of its k-th expert less
+    that of its (k+1)-th, in f32 as ``moe.route`` computes them."""
+    from repro_torch.models import moe
+    with moe._exact_f32():
+        lg = x.float() @ p["router"]
+    s = lg.sort(-1, descending=True).values
+    return s[:, k - 1] - s[:, k]
+
+
+@contextlib.contextmanager
+def moe_routing(log, replay=False):
+    """Patch ``moe.route`` for ``logits_check``'s eager forwards (no graph
+    is captured under it).  Recording: each call's expert ids go to
+    ``log["calls"]``.  Replaying: call ``i`` returns the ids recorded by
+    call ``i`` of the recording, weighted by this forward's own router
+    probabilities at them; each row whose own top-k set differs is counted
+    (``log["decisions"]``, ``log["flips"]``) with its own router gap
+    (``log["flip_gaps"]``)."""
+    import torch
+    from repro_torch.models import moe
+    route = moe.route
+    calls = iter(list(log.get("calls", ()))) if replay else None
+
+    def record(p, x, k):
+        top_p, top_i = route(p, x, k)
+        log.setdefault("calls", []).append(top_i)
+        return top_p, top_i
+
+    def follow(p, x, k):
+        _, own = route(p, x, k)
+        want = next(calls)
+        with moe._exact_f32():
+            probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        top_p = probs.gather(1, want)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+        moved = (own.sort(-1).values != want.sort(-1).values).any(-1)
+        log["decisions"] = log.get("decisions", 0) + moved.numel()
+        log["flips"] = log.get("flips", 0) + int(moved.sum())
+        log.setdefault("flip_gaps", []).extend(
+            _router_gaps(p, x, k)[moved].tolist())
+        return top_p, want
+
+    moe.route = follow if replay else record
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
 def _clone(tree, dtype=None):
     """Copy a state or params tree; ``dtype`` widens the floating leaves
     (sparse weights keep their packed values, bitmaps and scales)."""
@@ -1380,7 +1504,8 @@ def logits_check(torch, eng, cfg, dtype=None, n_ticks=LOGIT_TICKS, keep=()):
     the drafter's proposals (clamped to the tail headroom, as the engine
     clamps them), accepted greedily against the plain logits, both states
     then rolled back alike.  Every row within the headroom is compared.
-    Full tails are folded between ticks as the engine folds them."""
+    Full tails are folded between ticks as the engine folds them.  An MoE's
+    plain forward follows the kernel forward's routing (``moe_routing``)."""
     import dataclasses
     from repro_torch.models import lm
     slots, mask, tokens = _decode_inputs(torch, eng)
@@ -1396,6 +1521,11 @@ def logits_check(torch, eng, cfg, dtype=None, n_ticks=LOGIT_TICKS, keep=()):
     st_k, st_p = _clone(eng.state, dtype), _clone(eng.state, dtype)
     tail_len = eng._tail_len.copy()
     worst, agree, margins, held = 0.0, [], [], {}
+    routing = {} if cfg.n_experts else None
+
+    def moe_ctx(replay):
+        return (moe_routing(routing, replay) if routing is not None
+                else contextlib.nullcontext())
     for _ in range(n_ticks):
         _refreeze_copies(eng, (st_k, st_p), tail_len)
         panel = torch.zeros((pool.slots, k + 1), dtype=torch.long,
@@ -1407,9 +1537,12 @@ def logits_check(torch, eng, cfg, dtype=None, n_ticks=LOGIT_TICKS, keep=()):
             drafts[s] = eng.drafter.propose(hist[s], cap) if cap > 0 else []
             if drafts[s]:
                 panel[s, 1:1 + len(drafts[s])] = torch.tensor(drafts[s])
-        lk, st_k = lm.forward_panel_pooled(params, st_k, panel, mask, cfg,
-                                           pool.bs)
-        with plain_kernels(keep, held):
+        if routing is not None:
+            routing.pop("calls", None)
+        with moe_ctx(False):
+            lk, st_k = lm.forward_panel_pooled(params, st_k, panel, mask,
+                                               cfg, pool.bs)
+        with plain_kernels(keep, held), moe_ctx(True):
             lp, st_p = lm.forward_panel_pooled(params, st_p, panel, mask,
                                                cfg, pool.bs)
         n_rows = [1 + min(k, pool.tail - 1 - int(tail_len[s]))
@@ -1448,7 +1581,11 @@ def logits_check(torch, eng, cfg, dtype=None, n_ticks=LOGIT_TICKS, keep=()):
             "clear_slot_ticks": len(clear),
             "top1_margin_min": min(margins),
             "flip_margins": sorted(m for a, m in zip(agree, margins)
-                                   if not a)}
+                                   if not a),
+            "routing": None if routing is None else {
+                "decisions": routing.get("decisions", 0),
+                "flips": routing.get("flips", 0),
+                "flip_gaps": sorted(routing.get("flip_gaps", []))}}
 
 
 def _decode_inputs(torch, eng):
@@ -1678,6 +1815,12 @@ def _profiled(torch, fn, n, res):
     res["host_launches"] = {k: c for k, _, c in host
                             if k.startswith(LAUNCH_CALLS)}
     res["device_kernels"] = sum(c for _, _, c in rows)
+    by_class = {}
+    for k, t, _ in rows:
+        cls = next((c for c, pats in TRACE_CLASSES
+                    if any(p in k for p in pats)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + t
+    res["by_class_ms"] = by_class
     busy = sum(r[1] for r in rows)
     res.update(device_ms=busy, idle_share=max(0.0, 1 - busy / res["wall_ms"]),
                top=[{"kernel": k[:80], "ms_per_tick": t, "per_tick": c}
@@ -2162,6 +2305,18 @@ def gate_logits(label, check):
                f"{', '.join(c['kept'])} each within 1e-3 of its plain "
                f"version on the same inputs (worst {c['held']['max_rel_err']:.1e})"
                if c["kept"] else ""))
+        r = c.get("routing")
+        if r is not None:
+            gaps = r["flip_gaps"]
+            say(f"{label}: {name}: the plain forward followed the kernel "
+                f"forward's routing; of its {r['decisions']} routing "
+                f"decisions (rows x layers) {r['flips']} would have picked "
+                f"other experts, at router logit gaps "
+                f"{[float(f'{g:.2e}') for g in gaps[-8:]]} (largest last; "
+                f"near-tie below {ROUTER_TIE})")
+            if c["gated"] and gaps and not gaps[-1] < ROUTER_TIE:
+                fail(f"{label}: {name}: a routing decision moved at a router "
+                     f"logit gap of {gaps[-1]:.3e}, no near-tie")
         if not c["gated"]:
             continue
         if not (c["rel_err"] <= tol):
@@ -2709,16 +2864,54 @@ def two_pass_dispatch():
 
 
 @contextlib.contextmanager
-def record_margins(eng, margins):
+def record_margins(eng, margins, routes=None, force=None):
     """Record the top-1 margin (top-1 minus top-2 over the largest |logit|)
     of every token a serial engine samples (decode ticks, verify panels and
     final prefill chunks), keyed ``(request id, position)``.  The decode
     and verify logits are read where the engine's captured forward returns
     them (row ``j`` of a verify panel scores position ``generated + j``;
     rows past the accepted window are overwritten by the next tick's), a
-    final chunk's from its width class's static logits after the tick."""
+    final chunk's from its width class's static logits after the tick.
+    ``routes`` (an MoE): every row's routing, keyed ``(request id, row)``,
+    the row being the position of its input token in the request's prompt
+    and generated tokens (row ``len(prompt) - 1 + n`` scores token ``n``):
+    per layer, the top-k expert ids in the router's order and the router
+    logit gap (``_router_gaps``).  ``force`` (a function of a request id
+    and a row, returning another engine's ``routes`` entry or None): such
+    a row routes to that entry's experts, weighted by its own router
+    probabilities at them, and ``routes`` records its own routing."""
+    import torch
+    from repro_torch.models import moe
     panel_logits = eng._panel_logits
     prefill_tick = eng._prefill_tick
+    route = moe.route
+    # the rows of the forward under way: (row of x, key), and its layer
+    cur = {"keys": (), "layer": 0}
+
+    def rec_route(p, x, k):
+        layer, keys = cur["layer"], cur["keys"]
+        cur["layer"] += 1
+        top_p, top_i = route(p, x, k)
+        if not keys:
+            return top_p, top_i
+        rows = [r for r, _ in keys]
+        own = top_i[rows].tolist()
+        gaps = _router_gaps(p, x, k)[rows].tolist()
+        for (_, key), ids, g in zip(keys, own, gaps):
+            routes.setdefault(key, {})[layer] = (tuple(ids), g)
+        if force is None:
+            return top_p, top_i
+        sub = [(r, force(*key)) for r, key in keys]
+        sub = [(r, e[layer][0]) for r, e in sub if e and layer in e]
+        if not sub:
+            return top_p, top_i
+        want = top_i.clone()
+        want[[r for r, _ in sub]] = torch.tensor(
+            [ids for _, ids in sub], dtype=top_i.dtype, device=x.device)
+        with moe._exact_f32():
+            probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        top_p = probs.gather(1, want)
+        return top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9), want
 
     def note(keys, logits):
         logits = logits.float()
@@ -2728,11 +2921,17 @@ def record_margins(eng, margins):
 
     def rec_panel(name, tokens, mask):
         sch = eng.scheduler
-        live = [(s, (sch.active[s].rid, len(sch.active[s].generated)))
-                for s in sch.decoding_slots()]
-        logits = panel_logits(name, tokens, mask)
-        for j in range(logits.shape[1] if live else 0):
-            note([(rid, n + j) for _, (rid, n) in live],
+        live = [(s, sch.active[s]) for s in sch.decoding_slots()]
+        qn = tokens.shape[-1]
+        cur.update(layer=0, keys=[
+            (s * qn + j, (r.rid, len(r.prompt) - 1 + len(r.generated) + j))
+            for s, r in live for j in range(qn)])
+        try:
+            logits = panel_logits(name, tokens, mask)
+        finally:
+            cur["keys"] = ()
+        for j in range(qn if live else 0):
+            note([(r.rid, len(r.generated) + j) for _, r in live],
                  logits[[s for s, _ in live], j])
         return logits
 
@@ -2740,7 +2939,21 @@ def record_margins(eng, margins):
         sch = eng.scheduler
         req = sch.next_prefill()
         left = 0 if req is None else len(req.prompt) - req.prefill_done
-        prefill_tick(events)
+        if req is not None:
+            # the chunk the scheduler slices (Scheduler.prefill_chunk)
+            take = left if sch.chunk is None else min(sch.chunk, left)
+            if take < left:
+                take = take // sch.bs * sch.bs
+            start = req.prefill_done
+            cur.update(layer=0, keys=[(r, (req.rid, start + r))
+                                      for r in range(take)])
+        try:
+            prefill_tick(events)
+        finally:
+            cur["keys"] = ()
+        if req is not None and req.prefill_done != start + take:
+            fail("record_margins: the engine sliced another chunk than "
+                 "Scheduler.prefill_chunk's")
         if req is not None and (sch.chunk is None or left <= sch.chunk):
             w = eng._width(left)
             note([(req.rid, 0)], eng._entries[("prefill_chunk", w)].out)
@@ -2748,17 +2961,51 @@ def record_margins(eng, margins):
     if eng.overlap:
         fail("record_margins reads a serial engine's ticks")
     eng._panel_logits, eng._prefill_tick = rec_panel, rec_prefill
+    if routes is not None:
+        moe.route = rec_route
     try:
         yield margins
     finally:
         del eng._panel_logits, eng._prefill_tick
+        moe.route = route
 
 
-def gate_identity(label, got, want, want_rids, margins, tie=TIE_MARGIN):
+def first_moves(routes, want, prompt_len):
+    """Per request id of ``want`` (an engine's ``record_margins`` routes),
+    the first row, in row then layer order, whose top-k experts in
+    ``routes`` differ from ``want``'s (as sets), given as the token it
+    scores (``row - len(prompt) + 1``: at most 0 in the prompt), with the
+    router gap of ``want`` there; the number of decisions compared and
+    moved, and the gaps of the moved ones."""
+    out = {}
+    for (rid, row), layers in sorted(want.items()):
+        got = routes.get((rid, row))
+        if got is None:
+            continue
+        o = out.setdefault(rid, {"first": None, "decisions": 0, "moved": 0,
+                                 "moved_gaps": []})
+        for layer in sorted(layers):
+            ids, gap = layers[layer]
+            if layer not in got:
+                continue
+            o["decisions"] += 1
+            if sorted(got[layer][0]) != sorted(ids):
+                o["moved"] += 1
+                o["moved_gaps"].append(gap)
+                if o["first"] is None:
+                    o["first"] = {"token": row - prompt_len[rid] + 1,
+                                  "layer": layer, "gap": gap}
+    return out
+
+
+def gate_identity(label, got, want, want_rids, margins, tie=TIE_MARGIN,
+                  moves=None):
     """Greedy token lists of two paths: identical, or the first divergence
     of a request lies where the reference path's top-1 margin is below
     ``tie`` of its largest |logit| (an honest near-tie flip; ``TIE_MARGIN``
-    between two f32 paths)."""
+    between two f32 paths) or, for an MoE (``moves``: ``first_moves`` of
+    the other path's routing against the reference path's), at or after
+    a row where the two paths' experts were shown to differ."""
     same, flips = 0, []
     for i, (a, b) in enumerate(zip(got, want)):
         if a == b:
@@ -2767,15 +3014,27 @@ def gate_identity(label, got, want, want_rids, margins, tie=TIE_MARGIN):
         j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y),
                  min(len(a), len(b)))
         m = margins.get((want_rids[i], j))
-        flips.append({"request": i, "position": j, "margin": m})
+        mv = None if moves is None else \
+            (moves.get(want_rids[i]) or {}).get("first")
+        flips.append({"request": i, "position": j, "margin": m,
+                      "first_routing_move": mv})
         say(f"{label}: request {i} first differs at token {j} "
             f"({a[j:j + 1]} vs {b[j:j + 1]}); the reference's top-1 margin "
-            f"there is {m} of its largest |logit| (tie below {tie})")
+            f"there is {m} of its largest |logit| (tie below {tie})"
+            + ("" if moves is None else
+               f"; the two paths' experts first differ at {mv} (token "
+               f"scored by the row; at most 0 in the prompt)"))
+        if mv is not None and mv["token"] <= j:
+            continue
         if m is None or not m < tie:
             fail(f"{label}: request {i} differs at token {j} where the "
-                 f"reference's margin {m} is no near-tie")
+                 f"reference's margin {m} is no near-tie"
+                 + ("" if moves is None else
+                    " and no routing decision before it was shown to "
+                    "differ"))
     say(f"{label}: {same} of {len(got)} requests token-identical; "
-        f"{len(flips)} near-tie divergences")
+        f"{len(flips)} divergences at near-ties"
+        + ("" if moves is None else " or after a shown routing move"))
     return {"identical": same, "requests": len(got), "divergences": flips}
 
 
@@ -4194,11 +4453,12 @@ def oneshot_phase(torch, cfg, params, cfg32, params32):
 # ---------------------------------------------------------------------------
 
 def _wide_config(name):
+    import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(name)
-    if name == "phi3-mini-3.8b":
-        import dataclasses
-        cfg = dataclasses.replace(cfg, n_layers=PHI_LAYERS)
+    layers = {"phi3-mini-3.8b": PHI_LAYERS, **MOE_LAYERS}.get(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     return cfg
 
 
@@ -4408,8 +4668,10 @@ def wide_serve_phase(torch, name, n_req, new_tokens, prompt_range):
     per entry; per decode tick one gemv launch per linear and one attention
     launch per layer; one head launch per decode tick and per chunk.
     Reports the stream (tok/s, TPOT, TTFT), a traced decode tick and
-    256-token chunk, the weights' bytes, the graph pools and the peak
-    memory."""
+    256-token chunk (and their device time by ``TRACE_CLASSES``), the
+    weights' bytes, the graph pools and the peak memory.  An MoE config
+    (Phi-3.5-MoE, Scout at MOE_LAYERS layers) also runs ``moe_layer`` on
+    the served weights, and its greedy gate runs ``forced_replay``."""
     import numpy as np
     from repro_torch.data.pipeline import DataConfig, host_batch
     from repro_torch.serving import ContinuousEngine, SamplingParams
@@ -4465,6 +4727,18 @@ def wide_serve_phase(torch, name, n_req, new_tokens, prompt_range):
     check_sync_free(label, run, ("chunk",))
     gate_logits(label, run["check"])
     res = report(label, run, total, n_req)
+    prof = run["profile"] or {}
+    res["by_class_ms"] = {}
+    for what, p in (("graph decode tick", prof),
+                    ("graph prefill chunk", prof.get("prefill") or {})):
+        if "by_class_ms" in p:
+            res["by_class_ms"][what] = p["by_class_ms"]
+            say(f"{label}: {what}: device ms by class " + ", ".join(
+                f"{k} {v:.3f}" for k, v in sorted(
+                    p["by_class_ms"].items(), key=lambda kv: -kv[1]))
+                + f" of {p['device_ms']:.3f}")
+    if cfg.n_experts:
+        res["moe_layer"] = moe_layer(torch, cfg, params, Timer(torch))
     res.update(prompt_lens=[int(x) for x in lens], weight_gb=weight_gb,
                init_peak_gib=init_peak,
                serve_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -4472,8 +4746,12 @@ def wide_serve_phase(torch, name, n_req, new_tokens, prompt_range):
                    "sparse_gemv": linears,
                    "sparse_decode_attention_fused": cfg.n_layers,
                    "dense_matmul": 1})
+    experts = (f", {cfg.n_experts} experts top-{cfg.top_k}"
+               + (" and a shared expert" if cfg.shared_expert else "")
+               if cfg.n_experts else "")
     say(f"{label}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.padded_heads}/{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"{cfg.padded_heads}/{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}"
+        f"{experts}, "
         f"vocab {cfg.vocab} ({'tied' if cfg.tie_embeddings else 'untied'}); "
         f"weights {weight_gb:.2f} GB on the card; peak allocated "
         f"{init_peak:.2f} GiB while initialised and packed, "
@@ -4488,24 +4766,195 @@ def wide_serve_phase(torch, name, n_req, new_tokens, prompt_range):
                              prefill_chunk=PREFILL_CHUNK, device="cuda",
                              graphs=False)
     margins = {}
+    routes = {} if cfg.n_experts else None
     t0 = time.perf_counter()
     with plain_kernels(), kept_outputs(plain), \
-            record_margins(plain, margins):
+            record_margins(plain, margins, routes):
         rids = [plain.submit(p, sp) for p, sp in zip(reqs, params_of)]
         ref = plain.run()
     torch.cuda.synchronize()
     res["plain_engine_s"] = time.perf_counter() - t0
     say(f"{label}: the all-plain engine served the same traffic in "
         f"{res['plain_engine_s']:.1f} s (serial, eager)")
+    del plain
     greedy = [i for i, sp in enumerate(params_of) if sp.temperature == 0]
+    want = [list(ref[rids[i]].token_ids) for i in greedy]
+    moves = None
+    if cfg.n_experts:
+        moves, res["forced"] = forced_replay(
+            torch, label, cfg, params, max_tokens, reqs, params_of, rids,
+            routes, margins, greedy, want)
     res["identity"] = gate_identity(
         f"{label} against the all-plain engine",
         [list(run["out"][run["rids"][i]].token_ids) for i in greedy],
-        [list(ref[rids[i]].token_ids) for i in greedy],
-        [rids[i] for i in greedy], margins, tie=TOP1_CLEAR)
-    del plain, params
+        want, [rids[i] for i in greedy], margins, tie=TOP1_CLEAR,
+        moves=moves)
+    del params
     torch.cuda.empty_cache()
     return res
+
+
+def forced_replay(torch, label, cfg, params, max_tokens, reqs, params_of,
+                  rids, routes, margins, greedy, want):
+    """An MoE's kernels on the all-plain engine's routing: the same traffic
+    through a serial, eager engine of the kernels in which every row
+    routes to the experts the all-plain engine's row chose
+    (``record_margins(force=...)``).  Gate: its greedy tokens equal the
+    all-plain engine's but at top-1 near-ties (below ``TOP1_CLEAR``), so
+    a kernel fault cannot hide behind the routing.  Reported: the routing
+    decisions its rows would have made themselves, up to each request's
+    first divergence, and the router gaps at which they differ.  Returns
+    ``first_moves`` of its own routing against the all-plain engine's (the
+    rows agree bit for bit with the served engine's up to the first move:
+    graphs are bit-equal to eager and a row's kernels do not depend on its
+    co-tenants) and the report."""
+    from repro_torch.serving import ContinuousEngine
+    eng = ContinuousEngine(params, cfg, slots=SLOTS, max_tokens=max_tokens,
+                           prefill_chunk=PREFILL_CHUNK, device="cuda",
+                           graphs=False)
+    own, marg, ids = {}, {}, {}
+    t0 = time.perf_counter()
+    with kept_outputs(eng), record_margins(
+            eng, marg, own, force=lambda rid, row: routes.get(
+                (ids[rid], row))):
+        for p, sp, rid in zip(reqs, params_of, rids):
+            ids[eng.submit(p, sp)] = rid
+        out = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    back = {v: k for k, v in ids.items()}
+    got = [list(out[back[rids[i]]].token_ids) for i in greedy]
+    say(f"{label}: the kernels on the all-plain engine's routing served the "
+        f"same traffic in {dt:.1f} s (serial, eager)")
+    ident = gate_identity(f"{label} kernels on the plain routing against "
+                          f"the all-plain engine", got, want,
+                          [rids[i] for i in greedy], margins, tie=TOP1_CLEAR)
+    plen = {rid: len(r) for rid, r in zip(rids, reqs)}
+    # compare rows up to each greedy request's first divergence
+    stop = {rids[i]: next((n for n, (a, b) in enumerate(zip(g, w))
+                           if a != b), len(w)) + plen[rids[i]] - 1
+            for i, g, w in zip(greedy, got, want)}
+    mine = {(ids[r], row): v for (r, row), v in own.items()
+            if ids[r] in stop and row <= stop[ids[r]]}
+    moves = first_moves(mine, routes, plen)
+    gaps = sorted(g for m in moves.values() for g in m["moved_gaps"])
+    rep = {"seconds": dt, "identity": ident,
+           "decisions": sum(m["decisions"] for m in moves.values()),
+           "moved": len(gaps), "moved_gaps_top": gaps[-8:],
+           "first_moves": {str(r): m["first"] for r, m in moves.items()}}
+    say(f"{label}: of the {rep['decisions']} routing decisions (rows x "
+        f"layers) of the greedy requests up to their first divergence, the "
+        f"kernels would have moved {len(gaps)}, at all-plain router gaps "
+        f"{[float(f'{g:.2e}') for g in gaps[-8:]]} (largest last); first "
+        f"moves {rep['first_moves']}")
+    del eng
+    torch.cuda.empty_cache()
+    return moves, rep
+
+
+def moe_layer(torch, cfg, params, timer):
+    """Layer 0's MoE FFN of the served weights (``moe.moe_apply``: the f32
+    router, the dispatch, the expert products in cuBLAS, the weighted sum;
+    Scout's shared expert through the gemv or the sparse matmul) alone, at
+    the decode tick's and the chunk's rows (MOE_ROWS) of seeded bf16 x:
+    CUDA-event and traced device time beside two bounds, every expert's
+    weights read once (the reference's semantics: its einsums read all of
+    them) and only those of the experts this call routes to.  And the row
+    rule, reported and not gated (the products are cuBLAS's): the first
+    SLOTS rows' router logits and outputs in the decode tick's call (C =
+    8) against the same rows at the head of the chunk's call (C = 40 for
+    Phi-3.5-MoE), bit for bit."""
+    from repro_torch.models import lm, moe
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    p = lm._layer(params["blocks"], 0)["l0"]["ffn"]
+    d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    xs = torch.randn((max(MOE_ROWS), d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    expert = sum(p[w].numel() * p[w].element_size()
+                 for w in ("w_gate", "w_up", "w_down"))
+    shared = _tree_bytes(p["shared"]) if cfg.shared_expert else 0
+    res, outs = {}, {}
+    for t in MOE_ROWS:
+        x = xs[:t][None]
+
+        def call(x=x):
+            return moe.moe_apply(p, x, cfg)
+        outs[t] = call()[0].clone()
+        _, top_i = moe.route(p, x[0], k)
+        used = int(top_i.unique().numel())
+        # x in, the output out, the f32 router; each routed row through
+        # three d x d_ff products per expert it takes (and the shared one)
+        io = 2 * t * d * 2 + d * e * 4
+        ops = 2.0 * t * (k + int(cfg.shared_expert)) * 3 * d * cfg.d_ff
+        b_all, by = bound_ms(expert + shared + io, ops)
+        b_used, _ = bound_ms(expert * used / e + shared + io, ops)
+        row = {"T": t, "C": moe._capacity(t, k, e, cfg.capacity_factor),
+               "experts_used": used, "ms": timer(call),
+               "device_ms": device_ms_per_call(torch, call),
+               "bound_ms": b_all, "bound_by": by, "bound_used_ms": b_used,
+               "expert_gb": expert / 1e9}
+        res[str(t)] = row
+        dev = row["device_ms"]
+        say(f"{cfg.name} MoE layer at T={t} (C={row['C']}, {used} of {e} "
+            f"experts routed to): {row['ms'] * 1e3:.1f} us, "
+            + (f"traced device {dev * 1e3:.1f} us"
+               if isinstance(dev, float) else dev)
+            + f"; bound {b_all * 1e3:.1f} us ({by}; every expert's "
+              f"{expert / 1e9:.2f} GB read once), {b_used * 1e3:.1f} us "
+              f"(the routed experts' only)")
+    with moe._exact_f32():
+        la = xs[:SLOTS].float() @ p["router"]
+        lb = (xs.float() @ p["router"])[:SLOTS]
+    small, big = outs[SLOTS], outs[max(MOE_ROWS)][:SLOTS]
+    res["row_rule"] = {
+        "rows": SLOTS, "T": list(MOE_ROWS),
+        "router_bit_equal": bool(torch.equal(la, lb)),
+        "router_max_abs_diff": (la - lb).abs().max().item(),
+        "output_bit_equal": bool(torch.equal(small, big)),
+        "output_max_abs_diff": (small.float() - big.float()).abs().max()
+        .item(),
+        "output_max_abs": small.float().abs().max().item()}
+    rr = res["row_rule"]
+    say(f"{cfg.name} MoE row rule (reported, not gated): the first {SLOTS} "
+        f"rows at T={SLOTS} against the same rows at T={max(MOE_ROWS)}: "
+        f"router logits bit-equal {rr['router_bit_equal']} (max |diff| "
+        f"{rr['router_max_abs_diff']:.2e}), outputs bit-equal "
+        f"{rr['output_bit_equal']} (max |diff| "
+        f"{rr['output_max_abs_diff']:.2e} of max |out| "
+        f"{rr['output_max_abs']:.2e})")
+    return res
+
+
+# MoE configs whose attention geometry no earlier kernel row holds:
+# Scout's G = 6 (Phi-3.5-MoE's G = 4, D = 128 is Llama-3-8B's)
+MOE_ATTENTION = ("llama4-scout-17b-a16e",)
+
+
+def moe_phase(torch, name, n_req, new_tokens):
+    """An MoE config at MOE_LAYERS layers: its kernel rows (MOE_LINEARS: the
+    gemv at a layer's sparse linears at M = 1 and the slots, the sparse
+    matmul at the verify panel's and the chunk's rows; the untied head at
+    MOE_HEAD_M rows, Scout's attention at its decode tick and verify panel
+    on the flat pool and at its decode tick on the paged one), each held
+    to its plain version beside its bound and library call, then the
+    served stream (``wide_serve_phase``).  Returns the results and the
+    kernel rows."""
+    cfg = _wide_config(name)
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    detail = []
+    kern = {"linears": linear_kernels(torch, cfg, timer, gen, detail,
+                                      plan=MOE_LINEARS),
+            "head": head_kernel(torch, cfg, timer, gen, detail, MOE_HEAD_M)}
+    if name in MOE_ATTENTION:
+        q = {"flat": (1, SPEC_K + 1), "paged": (1,)}
+        kern["attention"] = attention_kernels(torch, cfg, timer, gen, detail,
+                                              q, q, long=False)
+    res = wide_serve_phase(torch, name, n_req, new_tokens, PROMPT_RANGE)
+    res["kernels"] = kern
+    return res, detail
 
 
 def vlm_phase(torch):
@@ -4560,12 +5009,14 @@ def vlm_phase(torch):
     return res
 
 
-WIDE_PHASES = ("wide_kernels", "llama3_8b", "phi3_mini", "internvl2")
+WIDE_PHASES = ("wide_kernels", "llama3_8b", "phi3_mini", "internvl2",
+               "phi35_moe", "scout")
 
 
 def wide_phases(torch, only=WIDE_PHASES):
-    """The thirteenth slice's phases: the kernel rows at the new shapes,
-    then Llama-3-8B, Phi-3-mini and InternVL2-1B served."""
+    """The thirteenth and fourteenth slices' phases: the kernel rows at the
+    new shapes, then Llama-3-8B, Phi-3-mini and InternVL2-1B served, then
+    the MoE family (Phi-3.5-MoE, Llama-4-Scout) with its kernel rows."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -4589,6 +5040,17 @@ def wide_phases(torch, only=WIDE_PHASES):
         t0 = time.perf_counter()
         res["internvl2"] = vlm_phase(torch)
         say(f"internvl2: passed ({time.perf_counter() - t0:.1f} s)")
+    for phase, args in (("phi35_moe", ("phi3.5-moe-42b-a6.6b",
+                                       PHI_MOE_REQUESTS, PHI_MOE_NEW_TOKENS)),
+                        ("scout", ("llama4-scout-17b-a16e", SCOUT_REQUESTS,
+                                   SCOUT_NEW_TOKENS))):
+        if phase in only:
+            t0 = time.perf_counter()
+            res[phase], rows = moe_phase(torch, *args)
+            detail += rows
+            gc.collect()
+            torch.cuda.empty_cache()
+            say(f"{phase}: passed ({time.perf_counter() - t0:.1f} s)")
     return res, detail
 
 
@@ -4636,7 +5098,8 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="build, then run these of the phases one_shot, "
                          "snapshot, checkify, wide_kernels, llama3_8b, "
-                         "phi3_mini and internvl2 alone (comma-separated; "
+                         "phi3_mini, internvl2, phi35_moe and scout alone "
+                         "(comma-separated; "
                          "checkify without the paged int8 run to compare "
                          "with) and print no result line")
     args = ap.parse_args()

@@ -8,7 +8,8 @@ and hand them here.  Nothing is re-packed:
 * uint32 arrays (bitmap words) become int32 bit-views of the same bits;
 * bfloat16 arrays (numpy's ``bfloat16`` extension dtype) are reinterpreted
   through ``uint16`` without importing the package that defines the dtype;
-* everything else is copied as is.
+* everything else is copied as is (an MoE's f32 router and its dense
+  ``[L, E, K, N]`` expert stacks among them).
 
 This module imports neither JAX nor anything of the reference package.
 """

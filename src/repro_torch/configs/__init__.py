@@ -1,10 +1,11 @@
 """Architecture and shape configuration (twin of ``repro.configs``).
 
 Each registered architecture has a ``<id>.py`` here exporting ``CONFIG``.
-``pdtype`` / ``cdtype`` return torch dtypes.  The dense family (and the
-VLM, a dense backbone behind a stub frontend) is registered; an id of a
-family the port does not serve yet (MoE, SSM, hybrid, encoder-decoder)
-raises a ``KeyError`` that names its family.
+``pdtype`` / ``cdtype`` return torch dtypes.  The dense family, the VLM
+(a dense backbone behind a stub frontend) and the MoE family
+(Phi-3.5-MoE, Llama-4-Scout) are registered; an id of a family the port
+does not serve yet (SSM, hybrid, encoder-decoder) raises a ``KeyError``
+that names its family.
 """
 from __future__ import annotations
 
@@ -161,11 +162,11 @@ _MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "internvl2-1b": "internvl2_1b",
     "llama3-8b": "llama3_8b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 # the reference's other ids, by family: not served by the port yet
 _NOT_PORTED = {
-    "llama4-scout-17b-a16e": "moe",
-    "phi3.5-moe-42b-a6.6b": "moe",
     "seamless-m4t-medium": "encdec",
     "rwkv6-7b": "ssm",
     "jamba-1.5-large-398b": "hybrid",

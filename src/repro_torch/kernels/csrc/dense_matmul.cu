@@ -13,7 +13,10 @@
 // b, b + grid, ... and streams them, K in stages, through a ring of
 // NSTAGE shared-memory buffers filled by 16-byte cp.async copies
 // (NSTAGE - 1 stages in flight), read in place through tok's [N, K] row
-// layout (no tok.T copy exists anywhere).
+// layout (no tok.T copy exists anywhere).  A bf16 launch of 16 rows whose
+// x does not fit beside the 5-stage ring (K in (4672, 5184]:
+// Llama-4-Scout's 5120) takes a ring of 4 stages (the NS template
+// argument); the K order, and so the result, is the same.
 //   * bf16: x is staged once per block as the mma.sync A operand, M padded
 //     to 16-row m-tiles (MT = 1..4, a template argument), rows padded by 64
 //     bytes against bank conflicts.  Each warp owns 16 table rows (two n8
@@ -38,7 +41,7 @@ namespace {
 
 constexpr int NT = 256;                // threads per block, 8 warps
 constexpr int BN = 128;                // table rows (output columns) a tile
-constexpr int NSTAGE = 5;              // ring buffers
+constexpr int NSTAGE = 5;              // ring buffers (f32; bf16 default)
 constexpr int MAXM = 64;               // rows of x a launch takes
 constexpr int KC16 = 64;               // bf16: K of a stage (128 bytes)
 constexpr int KC32 = 32;               // f32: K of a stage (128 bytes)
@@ -56,7 +59,8 @@ __host__ __device__ constexpr size_t align16(size_t n) {
 struct Layout {
   int ldx;
   size_t off_ring, stage, bytes;
-  __host__ __device__ Layout(int w_bytes, int rows, int K) {
+  __host__ __device__ Layout(int w_bytes, int rows, int K,
+                             int nstage = NSTAGE) {
     if (w_bytes == 2) {
       ldx = (K + KC16 - 1) / KC16 * KC16 + 32;
       off_ring = align16(static_cast<size_t>(rows) * ldx * 2);
@@ -67,7 +71,7 @@ struct Layout {
       stage = static_cast<size_t>(BN) * LDW32 * 4 +
               static_cast<size_t>(rows) * KC32 * 4;
     }
-    bytes = off_ring + NSTAGE * stage;
+    bytes = off_ring + nstage * stage;
   }
 };
 
@@ -103,7 +107,7 @@ struct Walk {
   __device__ int tile(int s) const { return blockIdx.x + s / nkc * gridDim.x; }
 };
 
-template <int MT>
+template <int MT, int NS>
 __global__ void __launch_bounds__(NT, 1)
 unembed_bf16(const Args<__nv_bfloat16> a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -117,7 +121,7 @@ unembed_bf16(const Args<__nv_bfloat16> a) {
   // stage s: tile rows x 64 k, chunk c of row r at (r, c ^ 4 (r & 1))
   auto load = [&](int s) {
     const int n0 = wk.tile(s) * BN, k0 = s % wk.nkc * KC16;
-    unsigned char* buf = ring + s % NSTAGE * STAGE;
+    unsigned char* buf = ring + s % NS * STAGE;
     for (int i = t; i < BN * 8; i += NT) {
       const int r = i >> 3, c = i & 7;
       const int n = n0 + r, k = k0 + c * 8;
@@ -134,7 +138,7 @@ unembed_bf16(const Args<__nv_bfloat16> a) {
     cp_async16(s_x + r * L.ldx + k,
                ok ? a.x + static_cast<size_t>(r) * a.K + k : a.x, ok);
   }
-  for (int s = 0; s < NSTAGE - 1; ++s) {
+  for (int s = 0; s < NS - 1; ++s) {
     if (s < wk.total) load(s);
     cp_async_commit();
   }
@@ -142,9 +146,9 @@ unembed_bf16(const Args<__nv_bfloat16> a) {
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, tq = lane & 3;
   float acc[MT][2][4];
   for (int s = 0; s < wk.total; ++s) {
-    cp_async_wait<NSTAGE - 2>();
+    cp_async_wait<NS - 2>();
     __syncthreads();                   // stage s landed; s - 1's buffer free
-    if (s + NSTAGE - 1 < wk.total) load(s + NSTAGE - 1);
+    if (s + NS - 1 < wk.total) load(s + NS - 1);
     cp_async_commit();
     const int kc = s % wk.nkc;
     if (kc == 0) {
@@ -155,7 +159,7 @@ unembed_bf16(const Args<__nv_bfloat16> a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
     }
-    const unsigned char* buf = ring + s % NSTAGE * STAGE;
+    const unsigned char* buf = ring + s % NS * STAGE;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       // this 32-k step: lane (g, tq) holds k = 8 tq .. 8 tq + 7 of its
@@ -314,13 +318,16 @@ cudaError_t run_bf16(const Args<__nv_bfloat16>& a, long smem,
                      cudaStream_t s) {
   const int mt = (a.M + 15) / 16;
   const Layout L(2, 16 * mt, a.K);
-  if (static_cast<size_t>(smem) != L.bytes) return cudaErrorInvalidValue;
-  switch (mt) {
-    case 1: return launch(unembed_bf16<1>, a, L.bytes, s);
-    case 2: return launch(unembed_bf16<2>, a, L.bytes, s);
-    case 3: return launch(unembed_bf16<3>, a, L.bytes, s);
-    default: return launch(unembed_bf16<4>, a, L.bytes, s);
-  }
+  if (static_cast<size_t>(smem) == L.bytes) switch (mt) {
+      case 1: return launch(unembed_bf16<1, NSTAGE>, a, L.bytes, s);
+      case 2: return launch(unembed_bf16<2, NSTAGE>, a, L.bytes, s);
+      case 3: return launch(unembed_bf16<3, NSTAGE>, a, L.bytes, s);
+      default: return launch(unembed_bf16<4, NSTAGE>, a, L.bytes, s);
+    }
+  // the 4-stage ring, 16 rows only (kernels/dense_matmul.py:dense_plan)
+  if (mt == 1 && static_cast<size_t>(smem) == Layout(2, 16, a.K, 4).bytes)
+    return launch(unembed_bf16<1, 4>, a, smem, s);
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t run_f32(const Args<float>& a, long smem, cudaStream_t s) {

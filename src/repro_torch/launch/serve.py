@@ -13,7 +13,10 @@ the sharded part of the port).
 
 ``--arch`` takes every registered id: the dense family (``llama3-8b``, the
 paper's model, ``llama3.2-3b``, ``phi3-mini-3.8b``, ``deepseek-67b``,
-``qwen3-0.6b``) and the VLM ``internvl2-1b``.
+``qwen3-0.6b``), the MoE family (``phi3.5-moe-42b-a6.6b``,
+``llama4-scout-17b-a16e``: the attention and Scout's shared expert are
+sparse-converted, the expert stacks and the router stay dense, as in the
+reference) and the VLM ``internvl2-1b``.
 
 ``--dense`` is the baseline: dense weights and, one-shot, the dense KV
 cache; in stream mode it sets the KV sparsity to 0 (the pooled compression

@@ -1,8 +1,10 @@
-"""The decoder-only LM, dense family and VLM (twin of
+"""The decoder-only LM, dense and MoE families and the VLM (twin of
 ``repro.models.lm``): the full prefill (after a VLM's stub frontend
 embeddings) and the one-token decode over the legacy per-batch cache of
 the one-shot engine, and the panel forward and the prefill chunk over the
-pooled serving cache, which a frontend config does not take.
+pooled serving cache, which a frontend config does not take.  An MoE
+layer's FFN is :func:`repro_torch.models.moe.moe_apply`, on the same rows
+as the reference gives it.
 
 A Python loop over the layer-stacked params replaces the reference's
 ``lax.scan``; each layer works on views of the pool storage, which the
@@ -30,6 +32,7 @@ from .attention import (DenseKVCache, attn_apply, attn_decode, attn_specs,
 from .layers import (embed_apply, embed_specs, mlp_apply, mlp_specs,
                      norm_spec, rms_norm, unembed_apply)
 from .module import ParamSpec
+from .moe import moe_apply, moe_specs
 
 
 def period_len(cfg) -> int:
@@ -50,13 +53,14 @@ def layer_kind(cfg, i: int) -> Tuple[str, str]:
 
 
 def _kinds(cfg) -> List[Tuple[str, str]]:
-    """The layer kinds of a period: attention + MLP stacks at any width,
-    the dense family and the VLM (a dense backbone behind a stub frontend);
-    the other families (MoE, recurrent, hybrid, encoder-decoder) are not
-    ported yet."""
-    if cfg.family not in ("dense", "vlm") or cfg.n_experts:
+    """The layer kinds of a period: attention + MLP or MoE stacks at any
+    width, the dense and MoE families and the VLM (a dense backbone behind
+    a stub frontend); the other families (recurrent, hybrid,
+    encoder-decoder) are not ported yet."""
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and vlm only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe and vlm "
+            "only)")
     return [layer_kind(cfg, j) for j in range(period_len(cfg))]
 
 
@@ -83,7 +87,9 @@ def model_specs(cfg) -> Dict[str, Any]:
     kinds = _kinds(cfg)
     n_periods = cfg.n_layers // len(kinds)
     period = {f"l{j}": {"ln1": norm_spec(cfg), "mixer": attn_specs(cfg),
-                        "ln2": norm_spec(cfg), "ffn": mlp_specs(cfg)}
+                        "ln2": norm_spec(cfg),
+                        "ffn": (moe_specs(cfg) if kinds[j][1] == "moe"
+                                else mlp_specs(cfg))}
               for j in range(len(kinds))}
     return {"embed": embed_specs(cfg),
             "blocks": _stack_specs(period, n_periods),
@@ -110,15 +116,23 @@ def logits_fn(params, hidden: torch.Tensor, cfg) -> torch.Tensor:
     return unembed_apply(params["embed"], hidden, cfg)
 
 
+def _ffn(p, kind, h2: torch.Tensor, cfg, length=None) -> torch.Tensor:
+    """The MLP or MoE half of a block on ``h2 [B, S, d]`` (an MoE routes
+    all ``B * S`` rows; ``length``: a padded chunk's valid rows)."""
+    if kind[1] == "moe":
+        return moe_apply(p["ffn"], h2, cfg, length=length)
+    return mlp_apply(p["ffn"], h2)
+
+
 # ---------------------------------------------------------------------------
 # prefill: the full forward, collecting every layer's K/V (one-shot engine)
 # ---------------------------------------------------------------------------
 
-def _sublayer_prefill(x, p, cfg, positions):
+def _sublayer_prefill(x, p, kind, cfg, positions):
     h, (k, v) = attn_apply(p["mixer"], rms_norm(x, p["ln1"]), cfg,
                            positions, return_kv=True)
     x = x + h
-    return x + mlp_apply(p["ffn"], rms_norm(x, p["ln2"])), {"k": k, "v": v}
+    return x + _ffn(p, kind, rms_norm(x, p["ln2"]), cfg), {"k": k, "v": v}
 
 
 def forward_prefill(params, batch: Dict[str, torch.Tensor], cfg
@@ -141,7 +155,8 @@ def forward_prefill(params, batch: Dict[str, torch.Tensor], cfg
     for i in range(n_periods):
         pp = _layer(params["blocks"], i)
         for j in range(len(kinds)):
-            x, kv = _sublayer_prefill(x, pp[f"l{j}"], cfg, positions)
+            x, kv = _sublayer_prefill(x, pp[f"l{j}"], kinds[j], cfg,
+                                      positions)
             for key in ("k", "v"):
                 got[f"l{j}"][key].append(kv[key])
     hidden = rms_norm(x, params["final_norm"])
@@ -192,11 +207,13 @@ def init_cache(cfg, batch: int, prefix: int, mode: str = "sparse",
                        for j in range(len(kinds))}}
 
 
-def _sublayer_decode(x_t, p, cache_j, cfg, position):
+def _sublayer_decode(x_t, p, kind, cache_j, cfg, position):
     h, cache_j = attn_decode(p["mixer"], rms_norm(x_t, p["ln1"]), cache_j,
                              cfg, position)
     x_t = x_t + h
-    return x_t + mlp_apply(p["ffn"], rms_norm(x_t, p["ln2"])), cache_j
+    # an MoE sees the B tokens as [B, 1, d], as in the reference
+    h2 = _ffn(p, kind, rms_norm(x_t, p["ln2"])[:, None, :], cfg)[:, 0]
+    return x_t + h2, cache_j
 
 
 def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
@@ -212,7 +229,8 @@ def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
         pp = _layer(params["blocks"], i)
         for j in range(len(kinds)):
             kv = cache["layers"][f"l{j}"]["kv"].layer(i)
-            x_t, _ = _sublayer_decode(x_t, pp[f"l{j}"], kv, cfg, position)
+            x_t, _ = _sublayer_decode(x_t, pp[f"l{j}"], kinds[j], kv, cfg,
+                                      position)
     x_t = rms_norm(x_t, params["final_norm"])
     logits = unembed_apply(params["embed"], x_t, cfg)
     cache["pos"] += 1
@@ -223,11 +241,12 @@ def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
 # the pooled serving cache
 # ---------------------------------------------------------------------------
 
-def _pooled_ffn(pj, h2: torch.Tensor) -> torch.Tensor:
-    """The MLP half of a pooled panel block, run on rows (the panel width
-    is invisible to it, as in the reference)."""
+def _pooled_ffn(pj, kind, h2: torch.Tensor, cfg) -> torch.Tensor:
+    """The MLP or MoE half of a pooled panel block, run on rows (the panel
+    width is invisible to it, as in the reference): an MoE routes all
+    ``B * Qn`` rows, masked slots included, in row order."""
     rows = h2.reshape(-1, h2.shape[-1])
-    out = mlp_apply(pj["ffn"], rows)
+    out = _ffn(pj, kind, rows[:, None, :], cfg)[:, 0]
     return out.reshape(*h2.shape[:-1], out.shape[-1])
 
 
@@ -260,7 +279,7 @@ def forward_panel_pooled(params, state: Dict[str, Any],
                                   slot_mask, bs, table=table,
                                   err=state.get("err"))
             x = x + h
-            x = x + _pooled_ffn(pj, rms_norm(x, pj["ln2"]))
+            x = x + _pooled_ffn(pj, kinds[j], rms_norm(x, pj["ln2"]), cfg)
     x = rms_norm(x, params["final_norm"])
     logits = logits_fn(params, x, cfg)
     grow = qn * slot_mask.to(state["pos"].dtype)
@@ -358,7 +377,10 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
                 {k: kvl[k][i] for k in ARENA_KEYS}, cfg, positions, ctx_len,
                 bs, slot, table_row=table_row)
             x = x + h
-            x = x + mlp_apply(pj["ffn"], rms_norm(x, pj["ln2"]))
+            # an MoE takes the capacity of the L valid rows, as the
+            # reference's chunk of length L does
+            x = x + _ffn(pj, kinds[jj], rms_norm(x, pj["ln2"]), cfg,
+                         length=ln)
             if err is not None:
                 nan = torch.isnan(k_c[0]).any(2).any(0) | \
                     torch.isnan(v_c[0]).any(2).any(0)

@@ -1,17 +1,21 @@
-"""The dense configs and the VLM in the port against the reference, at the
-reduced sizes: every registered config equal to the reference's field by
-field (and the registry's shapes, ids and paper model), the unported
-families refused by name; the full configs' parameter shapes equal (the
-untied head, the padded heads of Llama-3.2-3B, no allocation); each new
-architecture's prefill logits at f32 within 1e-5 of the logit range of
-the JAX ``forward_prefill`` (InternVL2 after its frontend embeddings);
+"""The dense and MoE configs and the VLM in the port against the
+reference, at the reduced sizes: every registered config equal to the
+reference's field by field (and the registry's shapes, ids and paper
+model), the unported families refused by name; the full configs'
+parameter shapes equal (the untied head, the padded heads of Llama-3.2-3B,
+the 4-D expert stacks, no allocation); ``convert_concrete`` packs an MoE's
+attention and shared expert and leaves its router and expert stacks
+dense; each new architecture's prefill logits at f32 within 1e-5 of the
+logit range of the JAX ``forward_prefill`` (InternVL2 after its frontend
+embeddings);
 greedy tokens of the port's ``ContinuousEngine`` identical to the JAX
 engine's for reduced Llama-3-8B (untied head, no ``qk_norm``) and an MHA
 Phi-3-mini at D = 96 across a refreeze; the one-shot ``Engine`` on reduced
 InternVL2 with seeded frontend embeddings identical to the JAX
 ``Engine``; a frontend config refused by the pooled path; the launcher
-serving Llama-3-8B in stream mode and InternVL2 through the one-shot
-fallback."""
+serving Llama-3-8B and Phi-3.5-MoE in stream mode and InternVL2 through
+the one-shot fallback; the kernels' launch plans at every full config's
+shapes."""
 import contextlib
 import dataclasses
 import io
@@ -38,10 +42,11 @@ from repro_torch.serving import (CachePool, ContinuousEngine, Engine,
 from torch_parity import sparse_params, to_numpy
 
 PORTED = ["qwen3-0.6b", "llama3-8b", "llama3.2-3b", "phi3-mini-3.8b",
-          "deepseek-67b", "internvl2-1b"]
+          "deepseek-67b", "internvl2-1b", "phi3.5-moe-42b-a6.6b",
+          "llama4-scout-17b-a16e"]
 NEW = PORTED[1:]
-NOT_PORTED = {"llama4-scout-17b-a16e": "moe", "phi3.5-moe-42b-a6.6b": "moe",
-              "seamless-m4t-medium": "encdec", "rwkv6-7b": "ssm",
+MOE = ["phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e"]
+NOT_PORTED = {"seamless-m4t-medium": "encdec", "rwkv6-7b": "ssm",
               "jamba-1.5-large-398b": "hybrid"}
 
 
@@ -102,6 +107,36 @@ def test_full_width_param_shapes_equal_the_reference(name):
         assert t.padded_heads == 32 and t.n_heads == 24
         assert lm.model_specs(t)["blocks"]["l0"]["mixer"]["wq"].shape == \
             (28, 3072, 32 * 128)
+    if name in MOE:
+        ffn = lm.model_specs(t)["blocks"]["l0"]["ffn"]
+        assert ffn["w_gate"].shape == (t.n_layers, 16, t.d_model, t.d_ff)
+        assert ffn["router"].shape == (t.n_layers, t.d_model, 16)
+        assert ("shared" in ffn) == t.shared_expert
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_convert_concrete_leaves_the_expert_stacks_dense(name):
+    """At the reduced sizes: the attention (and Scout's shared expert)
+    packed per layer, the f32 router and the ``[L, E, K, N]`` expert
+    stacks left dense and bit-equal, as the reference's
+    ``_is_sparsifiable`` leaves them."""
+    from repro_torch.core.convert import convert_concrete
+    from repro_torch.core.sparse_format import BlockSparseWeight
+    cfg = tconfigs.get_config(name).reduced()
+    specs = lm.model_specs(cfg)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    out = convert_concrete(params, specs, cfg, device="cpu")
+    ffn, got = params["blocks"]["l0"]["ffn"], out["blocks"]["l0"]["ffn"]
+    for key in ("router", "w_gate", "w_up", "w_down"):
+        assert torch.is_tensor(got[key]) and torch.equal(got[key], ffn[key])
+    assert got["router"].dtype == torch.float32
+    assert got["w_gate"].dim() == 4
+    assert all(isinstance(w, BlockSparseWeight)
+               for w in out["blocks"]["l0"]["mixer"].values())
+    assert ("shared" in got) == cfg.shared_expert
+    if cfg.shared_expert:
+        assert all(isinstance(w, BlockSparseWeight)
+                   for w in got["shared"].values())
 
 
 def _pair(name, **kw):
@@ -212,15 +247,18 @@ def _serve(args):
     return buf.getvalue()
 
 
-@pytest.mark.parametrize("arch,extra,expect", [
-    ("llama3-8b", ["--requests", "2", "--slots", "2", "--prefill-chunk",
-                   "16"], "[serve] stream: 2 requests"),
-    ("internvl2-1b", ["--batch", "2"], "[serve] one-shot: 3 tokens x 2"),
-], ids=["llama3-8b-stream", "internvl2-1b-fallback"])
-def test_launcher_serves_the_new_archs(arch, extra, expect):
+STREAM = ["--requests", "2", "--slots", "2", "--prefill-chunk", "16"]
+
+
+@pytest.mark.parametrize("arch,extra,expect,packed", [
+    ("llama3-8b", STREAM, "[serve] stream: 2 requests", 7),
+    ("internvl2-1b", ["--batch", "2"], "[serve] one-shot: 3 tokens x 2", 7),
+    ("phi3.5-moe-42b-a6.6b", STREAM, "[serve] stream: 2 requests", 4),
+], ids=["llama3-8b-stream", "internvl2-1b-fallback", "phi3.5-moe-stream"])
+def test_launcher_serves_the_new_archs(arch, extra, expect, packed):
     out = _serve(["--arch", arch, "--reduced", "--device", "cpu",
                   "--prompt-len", "24", "--steps", "3", *extra])
-    assert "[serve] sparse-converted 7 weights" in out
+    assert f"[serve] sparse-converted {packed} weights" in out
     assert expect in out
     if arch == "internvl2-1b":
         assert "falling back to the one-shot engine" in out
@@ -230,7 +268,7 @@ SMEM_LIMIT = 232448         # bytes of shared memory a Hopper block may use
 
 
 @pytest.mark.parametrize("name", ["llama3-8b", "phi3-mini-3.8b",
-                                  "internvl2-1b", "llama3.2-3b"])
+                                  "internvl2-1b", "llama3.2-3b", *MOE])
 def test_kernel_plans_fit_the_new_shapes(name):
     """The launch plans at the full configs' shapes (no card, no tensor):
     every linear's gemv, sparse matmul and int plans fit a block's shared
@@ -238,31 +276,39 @@ def test_kernel_plans_fit_the_new_shapes(name):
     (Llama-3-8B's ``w_down``: 224 splits); the head's launch takes the rows
     that fit at K = d and tiles the whole vocabulary; the attention's plan
     at the config's head dim fits, with one 16-row tile per 16 query rows
-    at QG = G (decode) and 5 G (a verify panel)."""
+    at QG = G (decode) and 5 G (a verify panel; Scout's G is 5).  An MoE's
+    linears are those ``convert_concrete`` packs (its attention, Scout's
+    shared expert)."""
+    from repro_torch.core.convert import _is_sparsifiable
     from repro_torch.core.sparse_format import DEFAULT_BLOCK
     from repro_torch.kernels import dense_matmul as dm
     from repro_torch.kernels.sparse_attention import attention_plan
     from repro_torch.kernels.sparse_gemv import gemv_plan
     from repro_torch.kernels.sparse_matmul import launch_plan
     from repro_torch.kernels.sparse_matmul_int8 import int_launch_plan
+    from repro_torch.models import module as mod
     cfg = tconfigs.get_config(name)
     bk, bn = DEFAULT_BLOCK
-    blk = lm.model_specs(cfg)["blocks"]["l0"]
-    for part in ("mixer", "ffn"):
-        for key, spec in blk[part].items():
-            k, n = spec.shape[-2:]
-            kp, np_ = -(-k // bk) * bk, -(-n // bn) * bn
-            g = gemv_plan(kp, np_, DEFAULT_BLOCK)
-            assert len(g.splits) == kp // g.rows_per_split, key
-            assert 2 * g.smem <= SMEM_LIMIT
-            for x_bytes in (2, 4):
-                assert launch_plan(kp, np_, DEFAULT_BLOCK,
-                                   x_bytes).smem <= SMEM_LIMIT
-            for int4 in (False, True):
-                assert int_launch_plan(kp, np_, DEFAULT_BLOCK,
-                                       int4).smem <= SMEM_LIMIT
-            if name == "llama3-8b" and key == "w_down":
-                assert len(g.splits) == 224
+    linears = []
+    mod.map_with_path(lambda p, s: linears.append((p.rsplit("/", 1)[-1], s))
+                      if _is_sparsifiable(p, s) else None,
+                      lm.model_specs(cfg)["blocks"]["l0"])
+    assert len(linears) == (4 if cfg.n_experts and not cfg.shared_expert
+                            else 7)
+    for key, spec in linears:
+        k, n = spec.shape[-2:]
+        kp, np_ = -(-k // bk) * bk, -(-n // bn) * bn
+        g = gemv_plan(kp, np_, DEFAULT_BLOCK)
+        assert len(g.splits) == kp // g.rows_per_split, key
+        assert 2 * g.smem <= SMEM_LIMIT
+        for x_bytes in (2, 4):
+            assert launch_plan(kp, np_, DEFAULT_BLOCK,
+                               x_bytes).smem <= SMEM_LIMIT
+        for int4 in (False, True):
+            assert int_launch_plan(kp, np_, DEFAULT_BLOCK,
+                                   int4).smem <= SMEM_LIMIT
+        if name == "llama3-8b" and key == "w_down":
+            assert len(g.splits) == 224
     rows = dm.launch_rows(cfg.d_model)
     assert rows >= 16 and rows % 16 == 0
     head = dm.dense_plan(rows, cfg.d_model, cfg.vocab)

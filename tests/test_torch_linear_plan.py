@@ -247,6 +247,32 @@ def test_dense_linears_take_the_rows_that_fit(monkeypatch, dtype):
         dm.launch_rows(8192, 2)
 
 
+def test_wide_k_head_takes_a_shallower_ring(monkeypatch):
+    """Llama-4-Scout's head ``[5120, 202048]``: 16 bf16 rows of x staged
+    whole do not fit beside the 5-stage ring, so a launch of 16 rows takes
+    a 4-stage ring (the plan's bytes handed to the C launcher); every K
+    of the other configs keeps the full ring at its row count, and f32
+    (whose x is staged per stage) keeps it at 64 rows."""
+    assert dm.launch_rows(5120, 2) == 16
+    plan = dm.dense_plan(16, 5120, 202048)
+    assert plan.stages == 4 and plan.tiles == 1579
+    assert plan.smem == 16 * (5120 + 32) * 2 + 4 * dm.TILE * 64 * 2 \
+        <= SMEM_LIMIT
+    assert dm.dense_plan(16, 5120, 202048, 2, dm.STAGES).smem > SMEM_LIMIT
+    for k, rows in ((896, 64), (1024, 64), (2048, 32), (3072, 16),
+                    (4096, 16)):
+        assert dm.launch_rows(k, 2) == rows
+        assert dm.dense_plan(rows, k, 1024).stages == dm.STAGES
+    assert dm.launch_rows(5120, 4) == 64
+    assert dm.dense_plan(64, 5120, 202048, 4).stages == dm.STAGES
+    seen = _record(monkeypatch, dm.dense_matmul)
+    x = torch.empty((20, 5120), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((202048, 5120), dtype=torch.bfloat16, device="meta")
+    dm.dense_matmul(x, w, torch.float32)
+    assert [s[2][1] for s in seen] == [16, 4]
+    assert {s[2][-1] for s in seen} == {plan.smem}
+
+
 def test_unembed_refuses_what_16_byte_copies_cannot_take(monkeypatch):
     _record(monkeypatch, dm.dense_matmul)
     tok = torch.empty((512, 100), dtype=torch.bfloat16, device="meta")
