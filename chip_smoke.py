@@ -184,6 +184,45 @@ Phases, each of which exits non-zero on failure:
    MoE alone at 4 and 256 rows beside its bounds and reports whether its
    rows keep their bits across the two.
    ``--only phi35_moe,scout`` runs the build and these alone.
+   The recurrent, hybrid and encoder-decoder families (the fifteenth
+   slice), all through the one-shot ``Engine`` (the reference serves them
+   only there), each gated as ``internvl2`` is (launches exact, counted
+   from the port's forward; the prefill's and the first 8 decode steps'
+   logits within 5e-2 of the plain range and top-1 agreement where the
+   plain margin is clear; greedy tokens equal to the all-plain engine's
+   but at bf16 near-ties) and reporting tok/s, the median decode and
+   prefill step, the weights' GB, the peak memory and one traced decode
+   step (device busy, idle share, top kernels):
+   * ``rwkv6``: RWKV-6-7B at full width and depth (32 layers, d 4096, 64
+     heads of 64, d_ff 14336, untied 65536-row head), 4 prompts of 512
+     tokens, 32 new: 256 gemv launches a decode step (8 a layer) and one
+     head launch, no attention; the prefill's 256 sparse matmuls at
+     M = 2048 and its recurrences (plain torch, a loop over time).  Its
+     kernel rows first: the gemv at its linears at M = 1 and 4, the sparse
+     matmul at M = 2048, the head at M = 1 and 4, and the dense kernel at
+     ``w_cv``'s K = 14336 (x streamed in K panels) at M = 1, 4, 16, 64 and
+     300, each row bit-equal across M.  Random weights make its 32 layers
+     chaotic in bf16 (two correct bf16 paths end about 5e-2 of the range
+     apart), so its logits and token gates run on the same traffic served
+     again at f32 activations (the f32 gemv, matmul and head kernels),
+     within 1e-3 of the range and tokens equal but at f32 near-ties
+     (``TIE_MARGIN``); the bf16 run keeps its exact launches and every
+     kernel launch of its logits check held to its plain version;
+   * ``seamless``: SeamlessM4T-medium at full width and depth (12 encoder
+     and 12 decoder layers, d 1024, 16 heads of 64, untied 256206-row
+     head, held first at M = 1 and 4), 4 x (256 seeded ``src_embeds``
+     frames + 128 prompt tokens), 32 new: 12 attention launches a decode
+     step (the cross attention is plain torch, as in the reference);
+   * ``jamba``: Jamba-1.5-Large ``reduced()`` (a Mamba and an attention
+     layer a period, MoE every other layer), 4 x 256 tokens, 32 new;
+   * ``jamba_mamba``: one Mamba mixer at Jamba's full width (d 8192,
+     d_inner 16384; sparse ``w_in`` and ``w_out``, dense ``w_bcdt``
+     [16384, 544]): the gemv and sparse matmul rows at ``w_in`` / ``w_out``
+     (M = 1, 4 and 1024), the dense kernel at K = 16384, then
+     ``mamba_apply`` over 4 x 256 rows with its state and 8 decode steps,
+     outputs and states within 1e-2 of the plain range, launches exact.
+   ``--only rwkv6,seamless,jamba,jamba_mamba`` runs the build and these
+   alone.
 
 Every traced tick and chunk reports the unembedding's and the gemv's
 device time and launches.  The lines before the last carry the kernel
@@ -354,6 +393,30 @@ WIDE_CHECKS = (("bf16", "bf16", (), True),)
 MOE_LAYERS = {"phi3.5-moe-42b-a6.6b": 8, "llama4-scout-17b-a16e": 4}
 PHI_MOE_REQUESTS, PHI_MOE_NEW_TOKENS = 6, 32
 SCOUT_REQUESTS, SCOUT_NEW_TOKENS = 4, 32
+# the recurrent, hybrid and encoder-decoder families (one-shot only):
+# RWKV-6-7B at full width and depth, 4 prompts of 512 tokens, 32 new;
+# SeamlessM4T-medium at full width and depth, 4 x (256 seeded frames of
+# src_embeds + 128 prompt tokens), 32 new; Jamba reduced, 4 x 256, 32 new;
+# one Mamba mixer at Jamba's full width: mamba_apply over 4 x 256 rows,
+# then MAMBA_STEPS decode steps from its state
+RWKV_BATCH, RWKV_PROMPT, RWKV_TOKENS = 4, 512, 32
+SEAMLESS_BATCH, SEAMLESS_FRAMES, SEAMLESS_PROMPT, SEAMLESS_TOKENS = \
+    4, 256, 128, 32
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_TOKENS = 4, 256, 32
+MAMBA_BATCH, MAMBA_ROWS, MAMBA_STEPS = 4, 256, 8
+MAMBA_TOL = 1e-2            # max|diff| over the plain range, one layer
+# the kernels of a one-shot forward, each launch held to its plain version
+# on the live state at the kernel phase's tolerances (of the largest
+# output): the linears two bf16 ulps (both round an f32 sum to bf16 once;
+# the dense kernel's bf16 output is Mamba's w_bcdt, its f32 head lands far
+# inside), the attention 1e-3
+HELD_TOL = {"sparse_gemv": 2.0 ** -7, "_sparse_matmul_kernel": 2.0 ** -7,
+            "_dense_kernel": 2.0 ** -7, "sparse_decode_attention_fused": 1e-3}
+# the dense kernel at the K that stages x in panels: RWKV-6's w_cv under
+# --dense (also Llama-3-8B's w_down) and Jamba's Mamba w_bcdt
+WIDE_K = {"rwkv6-7b": (14336, 4096), "jamba-1.5-large-398b": (16384, 544)}
+WIDE_K_M = (1, 4, 16, 64, 300)
+NEW_HEAD_M = (1, 4)
 MOE_HEAD_M = (1, SLOTS, SLOTS * (SPEC_K + 1))
 # the sparse linears (the attention; Scout's shared expert too) through the
 # gemv at the decode tick and below, and through the sparse matmul at the
@@ -572,12 +635,13 @@ def _layer_linears(cfg):
     return out
 
 
-def linear_kernels(torch, cfg, timer, gen, detail, plan=None):
+def linear_kernels(torch, cfg, timer, gen, detail, plan=None, linears=None):
     """Sparse gemv and matmul (bf16 values; bf16 or, for an engine served
     at f32, f32 activations) and the int8 / int4 kernels at every (K, N) of
-    the layer; per-layer sums at the serving row counts.  ``plan`` maps a
-    kernel to its (row counts, the row count of its summary, the row counts
-    also traced); by default every kernel at Qwen3-0.6B's serving rows."""
+    the layer (or of ``linears``, (name, K, N) triples); per-layer sums at
+    the serving row counts.  ``plan`` maps a kernel to its (row counts, the
+    row count of its summary, the row counts also traced); by default
+    every kernel at Qwen3-0.6B's serving rows."""
     from repro_torch.core.quant import quantize_act_int8
     from repro_torch.core.sparse_format import unpack
     from repro_torch.kernels.sparse_gemv import sparse_gemv, \
@@ -589,7 +653,7 @@ def linear_kernels(torch, cfg, timer, gen, detail, plan=None):
     from repro_torch.kernels.sparse_matmul_int8 import (
         sparse_matmul_int8, sparse_matmul_int8_plain)
 
-    linears = _layer_linears(cfg)
+    linears = linears or _layer_linears(cfg)
     shapes = sorted({(k, n) for _, k, n in linears})
 
     def sparse_costs(x_rows, kn, sw, x_bytes, out_bytes):
@@ -1352,14 +1416,14 @@ def kernel_phase(torch, cfg):
 
 
 @contextlib.contextmanager
-def plain_kernels(keep=(), held=None):
+def plain_kernels(keep=(), held=None, tol=None):
     """Route the ops layer through the plain versions, for the logits
     comparison only (the package itself has no such switch).  It wraps only
     ``logits_check``'s eager forwards: no graph is captured under it.  Kernels named
     in ``keep`` stay, each launch then also running its plain version on the
     same inputs: the largest error and output go into ``held``, and an error
-    above 1e-3 of the largest output (the kernel phase's attention
-    tolerance) fails the run."""
+    above ``tol[name]`` (default 1e-3: the kernel phase's attention
+    tolerance) of the largest output fails the run."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.dense_matmul import dense_matmul_plain
     from repro_torch.kernels.sparse_attention import (
@@ -1383,13 +1447,13 @@ def plain_kernels(keep=(), held=None):
     saved = {k: getattr(ops, k) for k in swap}
     for name in keep:
         def held_launch(*a, _kernel=saved[name], _plain=swap[name],
-                        _name=name, **kw):
+                        _name=name, _tol=(tol or {}).get(name, 1e-3), **kw):
             out, ref = _kernel(*a, **kw), _plain(*a, **kw)
             err = (out.float() - ref.float()).abs().max().item()
             top = ref.float().abs().max().item()
-            if not (err <= 1e-3 * top):
+            if not (err <= _tol * top):
                 fail(f"{_name} on the live state: max abs err {err:.3e} > "
-                     f"1e-3 of its largest output {top:.3e}")
+                     f"{_tol:.1e} of its largest output {top:.3e}")
             held["launches"] = held.get("launches", 0) + 1
             held["max_abs_err"] = max(held.get("max_abs_err", 0.0), err)
             held["max_rel_err"] = max(held.get("max_rel_err", 0.0),
@@ -2102,8 +2166,8 @@ def _model(torch, cfg, mode):
     params = convert_concrete(params, lm.model_specs(cfg), cfg, mode=mode,
                               device="cuda")
     torch.cuda.synchronize()
-    say(f"serve: {cfg.name} full width ({cfg.n_layers} layers), {mode} "
-        f"weights initialised and packed on the card in "
+    say(f"serve: {cfg.name} (d {cfg.d_model}, {cfg.n_layers} layers), "
+        f"{mode} weights initialised and packed on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     return params
 
@@ -4274,36 +4338,65 @@ def _dense_weights(torch, cfg, batch):
     return {"launches": counts, "logits_rel_range": max(errs)}
 
 
-def _oneshot_against_plain(torch, label, eng, params, cfg, batch, sp, got):
+def _oneshot_against_plain(torch, label, eng, params, cfg, batch, sp, got,
+                           dtype="bf16", held=None, top1=None, gated=True):
     """The one-shot engine ``eng`` against the plain versions: the first
     ONESHOT_LOGIT_TICKS decode ticks, teacher-forced from one prefill, on
     copies of the same cache (the prefill's logits too), within
-    ``ONESHOT_TOL["bf16"]`` of the plain range; and its greedy tokens
+    ``ONESHOT_TOL[dtype]`` of the plain range; and its greedy tokens
     ``got`` equal to an all-plain engine's but where that engine's top-1
-    margin is a bf16 near-tie (below ``TOP1_CLEAR``, the logits gates'
-    rounding-noise bar).  Returns the logit errors and the identity
-    result."""
+    margin is a near-tie (below ``TOP1_CLEAR`` of its largest |logit| in
+    bf16, the logits gates' rounding-noise bar; ``TIE_MARGIN`` in f32).
+    With ``held`` (a dict, filled in), every kernel launch of the kernel
+    forwards is also held to its plain version on the same live inputs
+    (``HELD_TOL``).  With ``top1`` (a dict, filled in), the rows whose plain
+    top-1 margin clears that near-tie bar are counted with the kernels'
+    top-1 agreement on them.  ``gated=False`` reports the logits and skips
+    the all-plain engine (identity ``None``).  Returns the logit errors
+    and the identity result."""
     import copy
     from repro_torch.models import lm
     from repro_torch.serving import Engine
-    cache_k, logits = eng.prefill(batch)
+    tol = ONESHOT_TOL[dtype]
+    tie = TOP1_CLEAR if dtype == "bf16" else TIE_MARGIN
+    pairs = []
+
+    def kernels_on():
+        if held is None:
+            return contextlib.nullcontext()
+        return plain_kernels(keep=tuple(HELD_TOL), held=held, tol=HELD_TOL)
+    with kernels_on():
+        cache_k, logits = eng.prefill(batch)
     cache_p = copy.deepcopy(cache_k)
     with plain_kernels():
         _, logits_p = eng.prefill(batch)
-    errs = [_range_err(logits, logits_p)]
+    pairs.append((logits.float(), logits_p.float()))
     tok = logits_p.argmax(-1)
     for _ in range(ONESHOT_LOGIT_TICKS):
-        lk, cache_k = lm.forward_decode(eng.params, cache_k, tok[:, None],
-                                        cfg)
+        with kernels_on():
+            lk, cache_k = lm.forward_decode(eng.params, cache_k,
+                                            tok[:, None], cfg)
         with plain_kernels():
             lp, cache_p = lm.forward_decode(eng.params, cache_p,
                                             tok[:, None], cfg)
-        errs.append(_range_err(lk, lp))
+        pairs.append((lk.float(), lp.float()))
         tok = lp.argmax(-1)
     del cache_k, cache_p
-    if not max(errs) <= ONESHOT_TOL["bf16"]:
+    errs = [_range_err(lk, lp) for lk, lp in pairs]
+    if gated and not max(errs) <= tol:
         fail(f"{label}: decode logits through the kernels differ from the "
-             f"plain versions by {max(errs):.3e} of the range")
+             f"plain versions by {max(errs):.3e} of the range (tolerance "
+             f"{tol})")
+    if top1 is not None:
+        top1.update(clear=0, agree=0, tie=tie)
+        for lk, lp in pairs:
+            top2 = lp.topk(2, -1).values
+            clear = (top2[:, 0] - top2[:, 1]) >= tie * lp.abs().amax(-1)
+            same = lk.argmax(-1) == lp.argmax(-1)
+            top1["clear"] += int(clear.sum())
+            top1["agree"] += int((clear & same).sum())
+    if not gated:
+        return errs, None
     # greedy tokens against the all-plain engine, near-ties excused
     margins = {}
 
@@ -4330,20 +4423,19 @@ def _oneshot_against_plain(torch, label, eng, params, cfg, batch, sp, got):
     with plain_kernels(), patched(lm, "forward_decode", decode_noted):
         ref, _ = plain_eng.generate(batch, sp)
     ident = gate_identity(label, got.tolist(), ref.cpu().tolist(),
-                          list(range(got.shape[0])), margins,
-                          tie=TOP1_CLEAR)
+                          list(range(got.shape[0])), margins, tie=tie)
     del plain_eng
     return errs, ident
 
 
-def _oneshot_generate(torch, label, eng, cfg, batch, sp):
+def _oneshot_generate(torch, label, eng, cfg, batch, sp, want=None):
     """One eager ``generate`` through the one-shot engine, every counter
     zeroed before and read after, each decode step and the prefill timed
-    (a sync after each).  Gates the launches exactly (the prefill's
-    linears once at M = B * S, the decode's once a step, the attention
-    once a layer a step, the unembedding once a step) and the tokens'
-    shape and range.  Returns the host tokens, the cache, the counts, the
-    seconds and the median step ms."""
+    (a sync after each).  Gates the launches exactly (``want``, by
+    default: the prefill's linears once at M = B * S, the decode's once a
+    step, the attention once a layer a step, the unembedding once a step)
+    and the tokens' shape and range.  Returns the host tokens, the cache,
+    the counts, the seconds and the median step ms."""
     from repro_torch import kernels
     from repro_torch.models import lm
     steps = {"decode": [], "prefill": []}
@@ -4357,14 +4449,13 @@ def _oneshot_generate(torch, label, eng, cfg, batch, sp):
         dt = time.perf_counter() - t0
         counts = kernels.launch_counts()
     n = sp.max_new_tokens
-    linears = len(_layer_linears(cfg)) * cfg.n_layers
-    want = {"sparse_matmul": linears, "sparse_gemv": linears * (n - 1),
-            "sparse_decode_attention_fused": cfg.n_layers * (n - 1),
-            "dense_matmul": n}
-    check_launches(label, counts, tuple(want),
-                   ("sparse_decode_attention_fused_paged",
-                    "sparse_matmul_int8", "sparse_matmul_int4",
-                    "sparse_decode_attention_partial", "sparse_matmul_f32"))
+    if want is None:
+        linears = len(_layer_linears(cfg)) * cfg.n_layers
+        want = {"sparse_matmul": linears, "sparse_gemv": linears * (n - 1),
+                "sparse_decode_attention_fused": cfg.n_layers * (n - 1),
+                "dense_matmul": n}
+    check_launches(label, counts, tuple(k for k, v in want.items() if v),
+                   tuple(k for k in counts if not want.get(k)))
     if any(counts[k] != c for k, c in want.items()):
         fail(f"{label}: launches {counts}; {want} expected (the prefill's "
              "linears once at M = B * S, the decode's once a step, the "
@@ -4462,18 +4553,65 @@ def _wide_config(name):
     return cfg
 
 
+def dense_rows(torch, timer, detail, label, w, xs, m_list, info):
+    """``ops.dense_matmul(x, w)`` for the first M rows of ``xs`` at every M
+    of ``m_list`` (``w [K, N]`` as the model hands it over: a tied table's
+    ``tok.T`` or a column-major dense weight): held to the plain version
+    (1e-4 of the range: the same f32 products summed in another order),
+    timed (CUDA events, L2 flushed) and traced beside its bound, the plain
+    version and ``torch.matmul``, each call's rows bit-equal to the first
+    rows of the largest call.  ``info`` goes into every row; returns the
+    rows by M."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dense_matmul import (dense_matmul_plain,
+                                                  dense_plan, launch_rows)
+    k, n = w.shape
+    size = w.element_size()
+    step = launch_rows(k, size)
+    outs, rows = {}, {}
+    for m in m_list:
+        x = xs[:m]
+        got = ops.dense_matmul(x, w, torch.float32)
+        ref = dense_matmul_plain(x, w.t(), torch.float32)
+        torch.cuda.synchronize()
+        outs[m] = got.clone()
+        tol = 1e-4 * ref.abs().max().item()
+        err, rel = _check(f"{label} M={m}", got, ref, tol, [])
+        t = timer(lambda: ops.dense_matmul(x, w, torch.float32))
+        t_plain = timer(lambda: dense_matmul_plain(x, w.t(), torch.float32))
+        t_lib = timer(lambda: torch.matmul(x, w))
+        dev = device_ms_per_call(
+            torch, lambda: ops.dense_matmul(x, w, torch.float32))
+        n_bytes = (w.numel() + x.numel()) * size + m * n * 4
+        bnd, bby = bound_ms(n_bytes, 2.0 * m * w.numel(),
+                            BF16_OPS_PER_S if size == 2 else F32_OPS_PER_S)
+        rows[m] = {"kernel": "dense_matmul", **info, "M": m, "K": k, "N": n,
+                   "launches": -(-m // step),
+                   "xstream": dense_plan(min(m, step), k, n, size).xstream,
+                   "max_abs_err": err, "tol": tol, "ms": t,
+                   "device_ms": dev, "plain_ms": t_plain,
+                   "library_ms": t_lib, "bound_ms": bnd, "bound_by": bby}
+        detail.append(rows[m])
+        dev_txt = (f"traced device {dev * 1e3:.1f} us"
+                   if isinstance(dev, float) else dev)
+        say(f"{label} M={m} ({rows[m]['launches']} launches"
+            f"{', x streamed in K panels' if rows[m]['xstream'] else ''}): "
+            f"err {err:.2e} (rel {rel:.1e}, tol {tol:.2e}) kernel "
+            f"{t * 1e3:.1f} us, {dev_txt}, plain {t_plain * 1e3:.1f} us, "
+            f"torch.matmul {t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us "
+            f"({bby})")
+    _gate_rows(torch, label, outs)
+    say(f"{label}: every row of the calls of M={tuple(m_list)} is "
+        f"bit-equal to the same row of the {max(m_list)}-row call")
+    return rows
+
+
 def head_kernel(torch, cfg, timer, gen, detail, m_list,
                 dtype=None):
-    """The LM head of ``cfg`` through ``ops.dense_matmul`` as the model
-    calls it: a tied table's ``tok.T``, or an untied ``lm_head [K, N]``
-    laid out column-major by the engine's ``params_to`` (once, as an
-    engine stores it); bf16 (or ``dtype``) weights and x.  Held to the
-    plain version (1e-4 of the range), timed (CUDA events, L2 flushed) and
-    traced beside its bound, the plain version and ``torch.matmul``; every
-    call's rows bit-equal to the first rows of the largest call.  Returns
-    the rows by M."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.dense_matmul import dense_matmul_plain
+    """The LM head of ``cfg`` through ``dense_rows`` as the model calls it:
+    a tied table's ``tok.T``, or an untied ``lm_head [K, N]`` laid out
+    column-major by the engine's ``params_to`` (once, as an engine stores
+    it); bf16 (or ``dtype``) weights and x.  Returns the rows by M."""
     from repro_torch.serving.engine import params_to
     dtype = dtype or torch.bfloat16
     dname = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -4491,42 +4629,9 @@ def head_kernel(torch, cfg, timer, gen, detail, m_list,
             fail(f"{cfg.name}: params_to left the untied head row-major")
     xs = torch.randn((max(m_list), d), generator=gen,
                      device="cuda").to(dtype)
-    outs, rows = {}, {}
-    for m in m_list:
-        x = xs[:m]
-        got = ops.dense_matmul(x, w, torch.float32)
-        ref = dense_matmul_plain(x, w.t(), torch.float32)
-        torch.cuda.synchronize()
-        outs[m] = got.clone()
-        # same f32 products, summed in another order
-        tol = 1e-4 * ref.abs().max().item()
-        err, rel = _check(f"{cfg.name} {kind} {dname} M={m}", got, ref, tol,
-                          [])
-        t = timer(lambda: ops.dense_matmul(x, w, torch.float32))
-        t_plain = timer(lambda: dense_matmul_plain(x, w.t(), torch.float32))
-        t_lib = timer(lambda: torch.matmul(x, w))
-        dev = device_ms_per_call(
-            torch, lambda: ops.dense_matmul(x, w, torch.float32))
-        size = w.element_size()
-        n_bytes = (w.numel() + x.numel()) * size + m * v * 4
-        bnd, bby = bound_ms(n_bytes, 2.0 * m * w.numel(),
-                            BF16_OPS_PER_S if size == 2 else F32_OPS_PER_S)
-        rows[m] = {"kernel": "dense_matmul", "config": cfg.name,
-                   "head": kind, "dtype": dname, "M": m, "K": d, "N": v,
-                   "max_abs_err": err, "tol": tol, "ms": t,
-                   "device_ms": dev, "plain_ms": t_plain,
-                   "library_ms": t_lib, "bound_ms": bnd, "bound_by": bby}
-        detail.append(rows[m])
-        dev_txt = (f"traced device {dev * 1e3:.1f} us"
-                   if isinstance(dev, float) else dev)
-        say(f"{cfg.name} {kind} [{d}, {v}] {dname} M={m}: err {err:.2e} "
-            f"(rel {rel:.1e}, tol {tol:.2e}) kernel {t * 1e3:.1f} us, "
-            f"{dev_txt}, plain {t_plain * 1e3:.1f} us, torch.matmul "
-            f"{t_lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({bby})")
-    _gate_rows(torch, f"{cfg.name} head {dname}", outs)
-    say(f"{cfg.name} head {dname}: every row of the calls of "
-        f"M={tuple(m_list)} is bit-equal to the same row of the "
-        f"{max(m_list)}-row call")
+    rows = dense_rows(torch, timer, detail,
+                      f"{cfg.name} {kind} [{d}, {v}] {dname}", w, xs, m_list,
+                      {"config": cfg.name, "head": kind, "dtype": dname})
     del w, xs
     return rows
 
@@ -5009,14 +5114,414 @@ def vlm_phase(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the recurrent, hybrid and encoder-decoder families (the fifteenth slice)
+# ---------------------------------------------------------------------------
+
+def _oneshot_launches(cfg, rows, n):
+    """Kernel launches of one ``Engine.generate`` of ``n`` new tokens after
+    a prefill of ``rows`` (= B * S) rows, counted from the port's forward:
+    every sparse linear once at the prefill (the sparse matmul; at f32
+    activations its f32 launcher) and once a decode step (the gemv); an
+    attention layer's kernel once a decode step;
+    a Mamba layer's dense ``w_bcdt`` once per ``launch_rows`` prefill rows
+    and once a step; the head once a step and once at the prefill (its
+    last row).  An MoE's expert stacks and router are torch products, the
+    recurrences plain torch.  Where the port departs from the reference's
+    calls: an encoder-decoder's cross K/V are projected once, by the
+    prefill's cross attention (the reference projects them again for the
+    cache), and its decode runs the cross attention's ``wq`` and ``wo``
+    only (the reference's ``cross_attn_decode`` does the same)."""
+    from repro_torch.kernels.dense_matmul import launch_rows
+    from repro_torch.models import lm
+    kinds = lm._kinds(cfg)
+    periods = cfg.n_layers // len(kinds)
+    cross = cfg.family == "encdec"
+    f32 = cfg.compute_dtype == "float32"
+    matmul = "sparse_matmul_f32" if f32 else "sparse_matmul"
+    want = dict.fromkeys((matmul, "sparse_gemv",
+                          "sparse_decode_attention_fused"), 0)
+    want["dense_matmul"] = n
+    for mixer, ffn in kinds:
+        if mixer == "rwkv":
+            pre, dec = 8, 8
+        else:
+            pre = dec = {"attn": 4, "mamba": 2}[mixer] + \
+                (3 if ffn == "mlp" else 0)
+            pre, dec = pre + 4 * cross, dec + 2 * cross
+        want[matmul] += periods * pre
+        want["sparse_gemv"] += periods * dec * (n - 1)
+        if mixer == "attn":
+            want["sparse_decode_attention_fused"] += periods * (n - 1)
+        if mixer == "mamba":
+            want["dense_matmul"] += periods * (
+                -(-rows // launch_rows(cfg.d_inner, 4 if f32 else 2)) + n - 1)
+    if cross:           # the encoder: attention and MLP, prefill only
+        want[matmul] += cfg.enc_layers * 7
+    return want
+
+
+def dense_wide_k(torch, timer, gen, detail, k, n, m_list=WIDE_K_M):
+    """The dense kernel at an inner dimension whose x does not fit shared
+    memory whole (x streamed in 64-k panels), through ``dense_rows``: a
+    random bf16 ``[k, n]`` weight laid out column-major, as the engine's
+    ``params_to`` stores a dense linear."""
+    w = (torch.randn((n, k), generator=gen, device="cuda")
+         / k ** 0.5).to(torch.bfloat16).t()          # [k, n], column-major
+    xs = torch.randn((max(m_list), k), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    rows = dense_rows(torch, timer, detail, f"dense_matmul [{k}, {n}] bf16",
+                      w, xs, m_list, {"dtype": "bf16"})
+    del w, xs
+    return rows
+
+
+def _oneshot_profile(torch, eng, cfg, batch):
+    """One decode step of the one-shot engine traced (``_profiled``): wall
+    time, device busy time, idle share and the top kernels, on the cache of
+    a fresh prefill (advanced in place by each traced step)."""
+    from repro_torch.models import lm
+    cache, logits = eng.prefill(batch)
+    tok = logits.argmax(-1)[:, None]
+
+    def step():
+        lm.forward_decode(eng.params, cache, tok, cfg)
+        torch.cuda.synchronize()
+    res = _profiled(torch, step, 4, {})
+    del cache
+    return res
+
+
+def _profile_line(label, prof):
+    if not isinstance(prof.get("device_ms"), float):
+        return f"{label}: traced decode step: {prof.get('device')}"
+    top = "; ".join(f"{r['kernel'][:48]} {r['ms_per_tick']:.2f} ms x "
+                    f"{r['per_tick']}" for r in prof["top"][:4])
+    return (f"{label}: traced decode step {prof['wall_ms']:.2f} ms wall, "
+            f"device busy {prof['device_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.2f}; top: {top}")
+
+
+def new_family_phase(torch, name, cfg, batch, sp, gate_dtype="bf16"):
+    """``cfg`` (bf16 sparse weights from seed 0, packed on the card)
+    through the one-shot ``Engine`` on ``batch``: the launches exactly
+    (``_oneshot_launches``); every kernel launch of the logits check's
+    kernel forwards held to its plain version on the live state
+    (``HELD_TOL``); and, with ``gate_dtype`` "bf16", the prefill's and the
+    first ONESHOT_LOGIT_TICKS decode steps' logits within 5e-2 of the plain
+    range, top-1 agreement of at least TOP1_MIN over the rows whose plain
+    margin clears ``TOP1_CLEAR`` (at least one such row) and greedy tokens
+    equal to the all-plain engine's but at bf16 near-ties
+    (``_oneshot_against_plain``).  With "f32" those three gates move to the
+    same traffic served again at f32 activations (the same sparse weights,
+    the f32 gemv, matmul and head kernels), at the f32 bars (1e-3 of the
+    range, ``TIE_MARGIN``), its launches exact too, and the bf16 logits are
+    reported: RWKV-6-7B's random weights make its 32 layers chaotic in
+    bf16, two correct bf16 paths ending about 5e-2 of the range apart.
+    Reported: tok/s, the median decode and prefill step, the weights' GB,
+    the peak memory and one traced decode step."""
+    from repro_torch.serving import Engine
+    torch.cuda.reset_peak_memory_stats()
+    params = _model(torch, cfg, "bf16")
+    weights_gb = _tree_bytes(params) / 1e9
+    eng = Engine(params, cfg, device="cuda")
+    rows = len(batch["tokens"]) * len(batch["tokens"][0])
+    n = sp.max_new_tokens
+    want = _oneshot_launches(cfg, rows, n)
+    got, cache, counts, dt, step_ms = _oneshot_generate(
+        torch, name, eng, cfg, batch, sp, want=want)
+    if int(cache["pos"]) != len(batch["tokens"][0]) + n - 1:
+        fail(f"{name}: the cache is at position {int(cache['pos'])}")
+    del cache
+    held, top1 = {}, {}
+    bf16 = gate_dtype == "bf16"
+    errs, ident = _oneshot_against_plain(
+        torch, name, eng, params, cfg, batch, sp, got, held=held,
+        top1=top1 if bf16 else None, gated=bf16)
+    prof = _oneshot_profile(torch, eng, cfg, batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    b = len(batch["tokens"])
+    res = {"batch": b, "prompt": len(batch["tokens"][0]), "tokens": n,
+           "seconds": dt, "tok_s": b * n / dt, "median_step_ms": step_ms,
+           "launches": counts, "want": want,
+           "logits_rel_range": max(errs), "logits_rel_ticks": errs,
+           "held": held, "gated_at": gate_dtype, "weights_gb": weights_gb,
+           "peak_gib": peak, "decode_profile": prof}
+    say(f"{name}: {b} x {res['prompt']} tokens, {n} new in {dt:.2f} s "
+        f"({res['tok_s']:.1f} tok/s, eager, a sync after each step for its "
+        f"time); median decode step {step_ms['decode']:.2f} ms, prefill "
+        f"{step_ms['prefill']:.2f} ms; launches {counts} (exact); logits "
+        f"kernels vs plain over the prefill and {ONESHOT_LOGIT_TICKS} ticks "
+        f"{max(errs):.2e} of the range ("
+        + (f"tol {ONESHOT_TOL['bf16']}" if bf16 else "reported; gated at "
+           "f32 below") + f"); {held['launches']} kernel launches of that "
+        f"check held to their plain versions on the live state, largest "
+        f"error {held['max_rel_err']:.2e} of the output; weights "
+        f"{weights_gb:.2f} GB, peak {peak:.2f} GiB")
+    say(_profile_line(name, prof))
+    del eng
+    if not bf16:
+        cfg32, params32 = _widened(torch, cfg, params)
+        eng = Engine(params32, cfg32, device="cuda")
+        label = f"{name} f32"
+        want32 = _oneshot_launches(cfg32, rows, n)
+        got, cache, counts32, dt32, step32 = _oneshot_generate(
+            torch, label, eng, cfg32, batch, sp, want=want32)
+        del cache
+        errs, ident = _oneshot_against_plain(
+            torch, label, eng, params32, cfg32, batch, sp, got, dtype="f32",
+            top1=top1)
+        res["f32"] = {"seconds": dt32, "tok_s": b * n / dt32,
+                      "median_step_ms": step32, "launches": counts32,
+                      "logits_rel_range": max(errs),
+                      "logits_rel_ticks": errs}
+        say(f"{label}: the same traffic at f32 activations in {dt32:.2f} s "
+            f"({b * n / dt32:.1f} tok/s); launches {counts32} (exact); "
+            f"logits kernels vs plain {max(errs):.2e} of the range (tol "
+            f"{ONESHOT_TOL['f32']})")
+        del eng, params32
+    share = top1["agree"] / max(top1["clear"], 1)
+    if not top1["clear"] or share < TOP1_MIN:
+        fail(f"{name}: top-1 agreement {share:.3f} over {top1['clear']} "
+             f"rows of a clear margin (at least one and {TOP1_MIN} "
+             "expected)")
+    res.update(top1=top1, identity=ident)
+    say(f"{name}: gated at {gate_dtype}: top-1 agreement {share:.3f} over "
+        f"the {top1['clear']} rows whose plain margin is {top1['tie']} of "
+        f"the largest |logit| or more; {ident['identical']} of "
+        f"{ident['requests']} requests token-identical to the all-plain "
+        "engine")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def rwkv_phase(torch):
+    """RWKV-6-7B at full width and depth (32 layers, d 4096, 64 heads of
+    64, d_ff 14336, untied 65536-row head): its kernel rows first (the
+    gemv at its eight linears at M = 1 and 4, the sparse matmul at the
+    prefill's M = 2048, the head at M = 1 and 4, the dense kernel at
+    ``w_cv``'s K = 14336, x streamed in K panels), then the one-shot
+    engine on RWKV_BATCH x RWKV_PROMPT tokens, RWKV_TOKENS new: per decode
+    step 256 gemv launches (8 a layer) and one head launch, no attention;
+    the prefill's 256 sparse matmuls at M = 2048 and its 16 K recurrence
+    steps (plain torch, as the reference's ``lax.scan``).  Its logits and
+    token gates run on the same traffic served at f32 activations
+    (``new_family_phase``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.serving import SamplingParams
+    cfg = get_config("rwkv6-7b")
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    detail = []
+    m = RWKV_BATCH * RWKV_PROMPT
+    kern = {"linears": linear_kernels(
+                torch, cfg, timer, gen, detail,
+                plan={"sparse_gemv": ((1, RWKV_BATCH), RWKV_BATCH,
+                                      (RWKV_BATCH,)),
+                      "sparse_matmul": ((m,), m, ())}),
+            "head": head_kernel(torch, cfg, timer, gen, detail, NEW_HEAD_M),
+            "dense_wide_k": dense_wide_k(torch, timer, gen, detail,
+                                         *WIDE_K["rwkv6-7b"])}
+    toks = host_batch(DataConfig(vocab=cfg.vocab, seq_len=RWKV_PROMPT,
+                                 global_batch=RWKV_BATCH), 0)["tokens"]
+    res = new_family_phase(torch, "rwkv6", cfg, {"tokens": toks},
+                           SamplingParams(max_new_tokens=RWKV_TOKENS),
+                           gate_dtype="f32")
+    if res["launches"]["sparse_gemv"] != 8 * cfg.n_layers * (RWKV_TOKENS - 1):
+        fail("rwkv6: 8 gemv launches a layer and decode step expected")
+    res["kernels"] = kern
+    return res, detail
+
+
+def seamless_phase(torch):
+    """SeamlessM4T-medium at full width and depth (12 encoder and 12
+    decoder layers, d 1024, 16 heads of 64, G = 1, untied 256206-row head,
+    the first N not a multiple of 4): its head rows at M = 1 and 4, then
+    the one-shot engine on SEAMLESS_BATCH x (SEAMLESS_FRAMES seeded
+    ``src_embeds`` frames + SEAMLESS_PROMPT tokens), SEAMLESS_TOKENS new
+    (``kv_tail`` 128 is a multiple of bs = 128, so a refreeze is legal):
+    per decode step 12 attention launches (the self-attention only: the
+    cross attention is plain torch over the encoder's dense K/V, as in the
+    reference) and 9 gemv launches a layer (``wq``, ``wk``, ``wv``, ``wo``,
+    the cross attention's ``wq`` and ``wo``, the MLP)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.serving import SamplingParams
+    cfg = get_config("seamless-m4t-medium")
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    detail = []
+    kern = {"head": head_kernel(torch, cfg, timer, gen, detail, NEW_HEAD_M)}
+    toks = host_batch(DataConfig(vocab=cfg.vocab, seq_len=SEAMLESS_PROMPT,
+                                 global_batch=SEAMLESS_BATCH), 0)["tokens"]
+    src = torch.randn((SEAMLESS_BATCH, SEAMLESS_FRAMES, cfg.d_model),
+                      generator=gen, device="cuda")
+    res = new_family_phase(torch, "seamless", cfg,
+                           {"tokens": toks, "src_embeds": src},
+                           SamplingParams(max_new_tokens=SEAMLESS_TOKENS))
+    if res["launches"]["sparse_decode_attention_fused"] != \
+            cfg.n_layers * (SEAMLESS_TOKENS - 1):
+        fail("seamless: one attention launch a layer and decode step "
+             "expected")
+    res["kernels"] = kern
+    return res, detail
+
+
+def jamba_phase(torch):
+    """Jamba-1.5-Large ``reduced()`` through the one-shot engine (at full
+    width one period of 8 layers holds 77.3 GB of dense bf16 experts, more
+    than a card): the hybrid interleave on the card, a Mamba and an
+    attention layer a period, MoE every other layer, on JAMBA_BATCH x
+    JAMBA_PROMPT tokens, JAMBA_TOKENS new, with the same gates."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.models import lm
+    from repro_torch.serving import SamplingParams
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    if {k[0] for k in lm._kinds(cfg)} != {"mamba", "attn"}:
+        fail("jamba: the reduced period holds no Mamba and attention pair")
+    toks = host_batch(DataConfig(vocab=cfg.vocab, seq_len=JAMBA_PROMPT,
+                                 global_batch=JAMBA_BATCH), 0)["tokens"]
+    return new_family_phase(torch, "jamba", cfg, {"tokens": toks},
+                            SamplingParams(max_new_tokens=JAMBA_TOKENS))
+
+
+def jamba_mamba_phase(torch):
+    """One Mamba mixer at Jamba's full width (d 8192, d_inner 16384,
+    d_state 16, d_conv 4, dt rank 512): packed as the model packs it
+    (sparse ``w_in [8192, 32768]`` and ``w_out [16384, 8192]``, dense
+    ``w_bcdt [16384, 544]`` laid out column-major by ``params_to``).  Its
+    kernel rows first (the gemv at ``w_in`` and ``w_out`` at M = 1 and 4,
+    the sparse matmul at the prefill's M = 1024, the dense kernel at
+    ``w_bcdt``'s K = 16384, x streamed in K panels), then ``mamba_apply``
+    over MAMBA_BATCH x MAMBA_ROWS rows with ``return_state`` and
+    MAMBA_STEPS ``mamba_decode`` steps from that state, held (outputs and
+    states within MAMBA_TOL of the plain range) against the same calls
+    through the plain versions; launches exact (the prefill: 2 sparse
+    matmuls and 1024 / 64 = 16 dense launches; a step: 2 gemv and 1 dense
+    launch).  Reported: the layer's GB, the prefill's and a step's time, a
+    traced step."""
+    import copy
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import convert_concrete
+    from repro_torch.models import lm, ssm
+    from repro_torch.models import module as mod
+    from repro_torch.serving.engine import params_to
+    cfg = get_config("jamba-1.5-large-398b")
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    detail = []
+    di, d = cfg.d_inner, cfg.d_model
+    m = MAMBA_BATCH * MAMBA_ROWS
+    kern = {"linears": linear_kernels(
+                torch, cfg, timer, gen, detail,
+                plan={"sparse_gemv": ((1, MAMBA_BATCH), MAMBA_BATCH,
+                                      (MAMBA_BATCH,)),
+                      "sparse_matmul": ((m,), m, ())},
+                linears=[("w_in", d, 2 * di), ("w_out", di, d)]),
+            "dense_wide_k": dense_wide_k(
+                torch, timer, gen, detail,
+                *WIDE_K["jamba-1.5-large-398b"])}
+    specs = lm._stack_specs(ssm.mamba_specs(cfg), 1)
+    t0 = time.perf_counter()
+    p = params_to(convert_concrete(mod.initialize(specs, 0,
+                                                  torch.device("cuda")),
+                                   specs, cfg, device="cuda"),
+                  torch.device("cuda"))
+    p = lm._layer(p, 0)
+    torch.cuda.synchronize()
+    layer_gb = _tree_bytes(p) / 1e9
+    if p["w_bcdt"].stride(0) != 1 or not hasattr(p["w_in"], "bitmap"):
+        fail("jamba_mamba: w_bcdt not column-major or w_in not packed")
+    x = torch.randn((MAMBA_BATCH, MAMBA_ROWS, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    xt = torch.randn((MAMBA_STEPS, MAMBA_BATCH, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+
+    def run():
+        out, st = ssm.mamba_apply(p, x, cfg, return_state=True)
+        outs, states = [out], [copy.deepcopy(st)]
+        for i in range(MAMBA_STEPS):
+            o, st = ssm.mamba_decode(p, xt[i], st, cfg)
+            outs.append(o)
+            states.append(copy.deepcopy(st))
+        return outs, states
+    kernels.reset_launch_counts()
+    outs, states = run()
+    counts = kernels.launch_counts()
+    with plain_kernels():
+        outs_p, states_p = run()
+    want = {"sparse_matmul": 2, "sparse_gemv": 2 * MAMBA_STEPS,
+            "dense_matmul": m // 64 + MAMBA_STEPS}
+    check_launches("jamba_mamba", counts, tuple(want),
+                   tuple(k for k in counts if k not in want))
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"jamba_mamba: launches {counts}; {want} expected")
+    errs = [_range_err(a, b) for a, b in zip(outs, outs_p)]
+    errs += [_range_err(a[k], b[k]) for a, b in zip(states, states_p)
+             for k in a]
+    if not max(errs) <= MAMBA_TOL:
+        fail(f"jamba_mamba: outputs or states through the kernels differ "
+             f"from the plain versions by {max(errs):.3e} of the range")
+    if not all(torch.isfinite(o).all() for o in outs):
+        fail("jamba_mamba: a non-finite output")
+    steps = {"prefill": [], "decode": []}
+    st0 = states[0]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ssm.mamba_apply(p, x, cfg, return_state=True)
+        torch.cuda.synchronize()
+        steps["prefill"].append(time.perf_counter() - t1)
+    st = copy.deepcopy(st0)
+
+    def step():
+        nonlocal st
+        _, st = ssm.mamba_decode(p, xt[0], st, cfg)
+        torch.cuda.synchronize()
+    for _ in range(8):
+        t1 = time.perf_counter()
+        step()
+        steps["decode"].append(time.perf_counter() - t1)
+    step_ms = {k: statistics.median(v) * 1e3 for k, v in steps.items()}
+    prof = _profiled(torch, step, 4, {})
+    res = {"layer_gb": layer_gb, "launches": counts, "rel_err": max(errs),
+           "median_ms": step_ms, "decode_profile": prof, "kernels": kern,
+           "init_s": time.perf_counter() - t0}
+    say(f"jamba_mamba: one Mamba mixer at d {d}, d_inner {di}: "
+        f"{layer_gb:.3f} GB; mamba_apply over {MAMBA_BATCH} x {MAMBA_ROWS} "
+        f"rows {step_ms['prefill']:.2f} ms, a decode step "
+        f"{step_ms['decode']:.3f} ms; launches {counts} (exact); outputs "
+        f"and states of the prefill and {MAMBA_STEPS} steps "
+        f"{max(errs):.2e} of the plain range (tol {MAMBA_TOL})")
+    say(_profile_line("jamba_mamba", prof))
+    del p, x, xt, outs, outs_p, states, states_p
+    torch.cuda.empty_cache()
+    return res, detail
+
+
+NEW_FAMILY_PHASES = (("rwkv6", rwkv_phase), ("seamless", seamless_phase),
+                     ("jamba", lambda torch: (jamba_phase(torch), [])),
+                     ("jamba_mamba", jamba_mamba_phase))
+
+
 WIDE_PHASES = ("wide_kernels", "llama3_8b", "phi3_mini", "internvl2",
-               "phi35_moe", "scout")
+               "phi35_moe", "scout", "rwkv6", "seamless", "jamba",
+               "jamba_mamba")
 
 
 def wide_phases(torch, only=WIDE_PHASES):
-    """The thirteenth and fourteenth slices' phases: the kernel rows at the
+    """The thirteenth to fifteenth slices' phases: the kernel rows at the
     new shapes, then Llama-3-8B, Phi-3-mini and InternVL2-1B served, then
-    the MoE family (Phi-3.5-MoE, Llama-4-Scout) with its kernel rows."""
+    the MoE family (Phi-3.5-MoE, Llama-4-Scout) with its kernel rows, then
+    RWKV-6-7B, SeamlessM4T-medium, Jamba reduced and Jamba's Mamba mixer
+    at full width (each with its kernel rows)."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -5047,6 +5552,14 @@ def wide_phases(torch, only=WIDE_PHASES):
         if phase in only:
             t0 = time.perf_counter()
             res[phase], rows = moe_phase(torch, *args)
+            detail += rows
+            gc.collect()
+            torch.cuda.empty_cache()
+            say(f"{phase}: passed ({time.perf_counter() - t0:.1f} s)")
+    for phase, fn in NEW_FAMILY_PHASES:
+        if phase in only:
+            t0 = time.perf_counter()
+            res[phase], rows = fn(torch)
             detail += rows
             gc.collect()
             torch.cuda.empty_cache()
@@ -5098,7 +5611,8 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="build, then run these of the phases one_shot, "
                          "snapshot, checkify, wide_kernels, llama3_8b, "
-                         "phi3_mini, internvl2, phi35_moe and scout alone "
+                         "phi3_mini, internvl2, phi35_moe, scout, rwkv6, "
+                         "seamless, jamba and jamba_mamba alone "
                          "(comma-separated; "
                          "checkify without the paged int8 run to compare "
                          "with) and print no result line")

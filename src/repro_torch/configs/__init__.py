@@ -1,11 +1,10 @@
 """Architecture and shape configuration (twin of ``repro.configs``).
 
 Each registered architecture has a ``<id>.py`` here exporting ``CONFIG``.
-``pdtype`` / ``cdtype`` return torch dtypes.  The dense family, the VLM
-(a dense backbone behind a stub frontend) and the MoE family
-(Phi-3.5-MoE, Llama-4-Scout) are registered; an id of a family the port
-does not serve yet (SSM, hybrid, encoder-decoder) raises a ``KeyError``
-that names its family.
+``pdtype`` / ``cdtype`` return torch dtypes.  Every id of the reference
+is registered: the dense family, the VLM (a dense backbone behind a stub
+frontend), the MoE family (Phi-3.5-MoE, Llama-4-Scout), RWKV-6 (ssm),
+Jamba (hybrid: Mamba and attention) and SeamlessM4T (encoder-decoder).
 """
 from __future__ import annotations
 
@@ -164,22 +163,15 @@ _MODULES = {
     "llama3-8b": "llama3_8b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
-}
-# the reference's other ids, by family: not served by the port yet
-_NOT_PORTED = {
-    "seamless-m4t-medium": "encdec",
-    "rwkv6-7b": "ssm",
-    "jamba-1.5-large-398b": "hybrid",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "rwkv6-7b": "rwkv6_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in _NOT_PORTED:
-        raise KeyError(f"architecture {name!r} ({_NOT_PORTED[name]} family) "
-                       f"is not ported to repro_torch yet (ported: "
-                       f"{sorted(_MODULES)})")
     if name not in _MODULES:
-        raise KeyError(f"unknown architecture {name!r} (ported: "
+        raise KeyError(f"unknown architecture {name!r} (registered: "
                        f"{sorted(_MODULES)})")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG

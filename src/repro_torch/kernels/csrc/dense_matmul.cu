@@ -13,19 +13,23 @@
 // b, b + grid, ... and streams them, K in stages, through a ring of
 // NSTAGE shared-memory buffers filled by 16-byte cp.async copies
 // (NSTAGE - 1 stages in flight), read in place through tok's [N, K] row
-// layout (no tok.T copy exists anywhere).  A bf16 launch of 16 rows whose
-// x does not fit beside the 5-stage ring (K in (4672, 5184]:
-// Llama-4-Scout's 5120) takes a ring of 4 stages (the NS template
-// argument); the K order, and so the result, is the same.
+// layout (no tok.T copy exists anywhere).  Where not even 16 bf16 rows of
+// x fit beside the ring (K > 4672: Llama-4-Scout's head at 5120,
+// Llama-3-8B's w_down at 14336, Jamba's Mamba w_bcdt at 16384) x streams
+// with the table, in K panels of one stage (the XS template argument), up
+// to 64 rows a launch.  The K order, the MMAs and their operands, and so
+// the result, are the same in both.
 //   * bf16: x is staged once per block as the mma.sync A operand, M padded
 //     to 16-row m-tiles (MT = 1..4, a template argument), rows padded by 64
-//     bytes against bank conflicts.  Each warp owns 16 table rows (two n8
-//     tiles) of a tile and runs mma.sync m16n8k16 with f32 accumulators:
-//     a table row's [N, K] layout is the column-major B operand as it
-//     stands.  A lane's 16-byte read of 8 consecutive k (table and x
-//     alike) feeds two MMAs, k permuted within each 32-k step the same way
-//     for A and B; the stage's 16-byte chunks are XOR-swizzled by row
-//     parity so those reads are conflict-free.
+//     bytes against bank conflicts; or, streamed, each stage carries x's
+//     64-k panel beside the table's (rows padded the same way) and the
+//     accumulators carry across the panels in registers.  Each warp owns
+//     16 table rows (two n8 tiles) of a tile and runs mma.sync m16n8k16
+//     with f32 accumulators: a table row's [N, K] layout is the
+//     column-major B operand as it stands.  A lane's 16-byte read of 8
+//     consecutive k (table and x alike) feeds two MMAs, k permuted within
+//     each 32-k step the same way for A and B; the stage's 16-byte chunks
+//     are XOR-swizzled by row parity so those reads are conflict-free.
 //   * f32: f32 FMAs, not TF32.  A stage holds 32 k of the tile's rows
 //     (padded by 16 bytes) and of x's MB rows (MB the bucket of M); thread
 //     (n, h) sums table row n against half of x's rows or, from 8 rows up,
@@ -41,7 +45,7 @@ namespace {
 
 constexpr int NT = 256;                // threads per block, 8 warps
 constexpr int BN = 128;                // table rows (output columns) a tile
-constexpr int NSTAGE = 5;              // ring buffers (f32; bf16 default)
+constexpr int NSTAGE = 5;              // ring buffers
 constexpr int MAXM = 64;               // rows of x a launch takes
 constexpr int KC16 = 64;               // bf16: K of a stage (128 bytes)
 constexpr int KC32 = 32;               // f32: K of a stage (128 bytes)
@@ -53,15 +57,22 @@ __host__ __device__ constexpr size_t align16(size_t n) {
 
 // Shared memory: bf16, x as [rows][ldx] (rows = 16 * MT; ldx the padded K,
 // 32 elements past a multiple of 64) then the ring, a stage being BN rows
-// of 128 bytes; f32, the ring alone, a stage being BN rows of LDW32 f32 and
+// of 128 bytes; bf16 streamed, the ring alone, a stage being BN rows of 128
+// bytes and then x's rows of one 64-k panel (ldx = 64 + 32, the same
+// padding); f32, the ring alone, a stage being BN rows of LDW32 f32 and
 // then x's rows (rows = MB) of KC32 f32.  kernels/dense_matmul.py:
 // dense_plan computes the same byte count; the launcher refuses any other.
+constexpr int LDXS = KC16 + 32;        // bf16 streamed: a staged x row
 struct Layout {
   int ldx;
   size_t off_ring, stage, bytes;
-  __host__ __device__ Layout(int w_bytes, int rows, int K,
-                             int nstage = NSTAGE) {
-    if (w_bytes == 2) {
+  __host__ __device__ Layout(int w_bytes, int rows, int K, bool xs = false) {
+    if (w_bytes == 2 && xs) {
+      ldx = LDXS;
+      off_ring = 0;
+      stage = static_cast<size_t>(BN) * KC16 * 2 +
+              align16(static_cast<size_t>(rows) * LDXS * 2);
+    } else if (w_bytes == 2) {
       ldx = (K + KC16 - 1) / KC16 * KC16 + 32;
       off_ring = align16(static_cast<size_t>(rows) * ldx * 2);
       stage = static_cast<size_t>(BN) * KC16 * 2;
@@ -71,7 +82,7 @@ struct Layout {
       stage = static_cast<size_t>(BN) * LDW32 * 4 +
               static_cast<size_t>(rows) * KC32 * 4;
     }
-    bytes = off_ring + nstage * stage;
+    bytes = off_ring + NSTAGE * stage;
   }
 };
 
@@ -107,21 +118,23 @@ struct Walk {
   __device__ int tile(int s) const { return blockIdx.x + s / nkc * gridDim.x; }
 };
 
-template <int MT, int NS>
+template <int MT, bool XS>
 __global__ void __launch_bounds__(NT, 1)
 unembed_bf16(const Args<__nv_bfloat16> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int STAGE = BN * KC16 * 2;
-  const Layout L(2, 16 * MT, a.K);
+  constexpr int WSTAGE = BN * KC16 * 2;
+  const Layout L(2, 16 * MT, a.K, XS);
+  const int STAGE = static_cast<int>(L.stage);
   __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem);
   unsigned char* ring = smem + L.off_ring;
   const Walk wk(a.K, a.N, KC16);
   const int t = threadIdx.x;
 
-  // stage s: tile rows x 64 k, chunk c of row r at (r, c ^ 4 (r & 1))
+  // stage s: tile rows x 64 k, chunk c of row r at (r, c ^ 4 (r & 1));
+  // streamed, then x's rows of the same 64 k, zeros past M and K
   auto load = [&](int s) {
     const int n0 = wk.tile(s) * BN, k0 = s % wk.nkc * KC16;
-    unsigned char* buf = ring + s % NS * STAGE;
+    unsigned char* buf = ring + s % NSTAGE * STAGE;
     for (int i = t; i < BN * 8; i += NT) {
       const int r = i >> 3, c = i & 7;
       const int n = n0 + r, k = k0 + c * 8;
@@ -129,16 +142,25 @@ unembed_bf16(const Args<__nv_bfloat16> a) {
       cp_async16(buf + (r * 8 + (c ^ ((r & 1) << 2))) * 16,
                  ok ? a.w + n * a.ldw + k : a.w, ok);
     }
+    if (XS) {
+      __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(buf + WSTAGE);
+      for (int i = t; i < 16 * MT * 8; i += NT) {
+        const int r = i >> 3, k = k0 + (i & 7) * 8;
+        const bool ok = r < a.M && k < a.K;
+        cp_async16(xb + r * LDXS + (i & 7) * 8,
+                   ok ? a.x + static_cast<size_t>(r) * a.K + k : a.x, ok);
+      }
+    }
   };
-  // x once, zeros past M and K (up to the last stage's K)
-  const int xch = wk.nkc * (KC16 / 8);
+  // whole: x once, zeros past M and K (up to the last stage's K)
+  const int xch = XS ? 0 : wk.nkc * (KC16 / 8);
   for (int i = t; i < 16 * MT * xch; i += NT) {
     const int r = i / xch, k = i % xch * 8;
     const bool ok = r < a.M && k < a.K;
     cp_async16(s_x + r * L.ldx + k,
                ok ? a.x + static_cast<size_t>(r) * a.K + k : a.x, ok);
   }
-  for (int s = 0; s < NS - 1; ++s) {
+  for (int s = 0; s < NSTAGE - 1; ++s) {
     if (s < wk.total) load(s);
     cp_async_commit();
   }
@@ -146,9 +168,9 @@ unembed_bf16(const Args<__nv_bfloat16> a) {
   const int warp = t >> 5, lane = t & 31, g = lane >> 2, tq = lane & 3;
   float acc[MT][2][4];
   for (int s = 0; s < wk.total; ++s) {
-    cp_async_wait<NS - 2>();
+    cp_async_wait<NSTAGE - 2>();
     __syncthreads();                   // stage s landed; s - 1's buffer free
-    if (s + NS - 1 < wk.total) load(s + NS - 1);
+    if (s + NSTAGE - 1 < wk.total) load(s + NSTAGE - 1);
     cp_async_commit();
     const int kc = s % wk.nkc;
     if (kc == 0) {
@@ -159,7 +181,7 @@ unembed_bf16(const Args<__nv_bfloat16> a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
     }
-    const unsigned char* buf = ring + s % NS * STAGE;
+    const unsigned char* buf = ring + s % NSTAGE * STAGE;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       // this 32-k step: lane (g, tq) holds k = 8 tq .. 8 tq + 7 of its
@@ -172,13 +194,16 @@ unembed_bf16(const Args<__nv_bfloat16> a) {
         b[j] = *reinterpret_cast<const uint4*>(
             buf + (r * 8 + ((4 * h + tq) ^ ((r & 1) << 2))) * 16);
       }
-      const int kx = kc * KC16 + h * 32 + 8 * tq;
+      // x: the block's copy at k, or (streamed) this stage's panel
+      const __nv_bfloat16* xs =
+          XS ? reinterpret_cast<const __nv_bfloat16*>(buf + WSTAGE) : s_x;
+      const int kx = (XS ? 0 : kc * KC16) + h * 32 + 8 * tq;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const uint4 u = *reinterpret_cast<const uint4*>(
-            s_x + (mt * 16 + g) * L.ldx + kx);
+            xs + (mt * 16 + g) * L.ldx + kx);
         const uint4 v = *reinterpret_cast<const uint4*>(
-            s_x + (mt * 16 + g + 8) * L.ldx + kx);
+            xs + (mt * 16 + g + 8) * L.ldx + kx);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           mma_bf16(acc[mt][j], u.x, v.x, u.y, v.y, b[j].x, b[j].y);
@@ -317,16 +342,23 @@ cudaError_t launch(Kern kern, const A& a, size_t smem, cudaStream_t stream) {
 cudaError_t run_bf16(const Args<__nv_bfloat16>& a, long smem,
                      cudaStream_t s) {
   const int mt = (a.M + 15) / 16;
-  const Layout L(2, 16 * mt, a.K);
-  if (static_cast<size_t>(smem) == L.bytes) switch (mt) {
-      case 1: return launch(unembed_bf16<1, NSTAGE>, a, L.bytes, s);
-      case 2: return launch(unembed_bf16<2, NSTAGE>, a, L.bytes, s);
-      case 3: return launch(unembed_bf16<3, NSTAGE>, a, L.bytes, s);
-      default: return launch(unembed_bf16<4, NSTAGE>, a, L.bytes, s);
+  const size_t bytes = static_cast<size_t>(smem);
+  // x whole
+  if (bytes == Layout(2, 16 * mt, a.K).bytes) switch (mt) {
+      case 1: return launch(unembed_bf16<1, false>, a, bytes, s);
+      case 2: return launch(unembed_bf16<2, false>, a, bytes, s);
+      case 3: return launch(unembed_bf16<3, false>, a, bytes, s);
+      default: return launch(unembed_bf16<4, false>, a, bytes, s);
     }
-  // the 4-stage ring, 16 rows only (kernels/dense_matmul.py:dense_plan)
-  if (mt == 1 && static_cast<size_t>(smem) == Layout(2, 16, a.K, 4).bytes)
-    return launch(unembed_bf16<1, 4>, a, smem, s);
+  // x streamed in K panels (kernels/dense_matmul.py:dense_plan takes it
+  // only where x whole does not fit, so the byte counts never name two
+  // layouts)
+  if (bytes == Layout(2, 16 * mt, a.K, true).bytes) switch (mt) {
+      case 1: return launch(unembed_bf16<1, true>, a, bytes, s);
+      case 2: return launch(unembed_bf16<2, true>, a, bytes, s);
+      case 3: return launch(unembed_bf16<3, true>, a, bytes, s);
+      default: return launch(unembed_bf16<4, true>, a, bytes, s);
+    }
   return cudaErrorInvalidValue;
 }
 

@@ -12,13 +12,17 @@ Design (``csrc/dense_matmul.cu``): one persistent block per SM streams its
 row layout (no ``tok.T`` copy exists anywhere), so the table is read once
 per call at every M up to 64 (fewer rows a pass where a wide K's x
 would not fit shared memory: :func:`launch_rows`; where not even 16 rows
-fit beside the 5-stage ring, as at Llama-4-Scout's K = 5120, the ring is
-shallower: :func:`dense_plan`).  bf16 runs ``mma.sync`` m16n8k16 with x
-staged once per block as the A operand (M padded to 16-row m-tiles) and
-the table rows as the column-major B operand as they stand; f32 runs f32
-FMAs in K order (no TF32).  A row's result does not depend on M
-(:func:`dense_plan` sizes only x's staging).  Output is f32; more than 64
-rows take one launch per 64 (per :func:`launch_rows`).
+fit beside the ring, past K = 4672, as at Llama-4-Scout's head (5120),
+Llama-3-8B's ``w_down`` (14336) or Jamba's Mamba ``w_bcdt`` (16384), x
+streams with the table in 64-k panels, 64 rows a launch:
+:func:`dense_plan`).  bf16 runs ``mma.sync``
+m16n8k16 with x staged once per block (or a panel per stage) as the A
+operand (M padded to 16-row m-tiles) and the table rows as the
+column-major B operand as they stand; f32 runs f32 FMAs in K order (no
+TF32).  A row's result does not depend on M (:func:`dense_plan` sizes
+only x's staging, and the MMAs run in the same K order in every layout).
+Output is f32; more than 64 rows take one launch per 64 (per
+:func:`launch_rows`).
 
 CPU tensors take the plain version; CUDA operands the kernel does not take
 (dtype, K or a row stride not a multiple of 8, a pointer not 16-byte
@@ -42,7 +46,7 @@ MAX_ROWS = 64               # rows of x one launch (one pass) takes
 SMEM_LIMIT = 232448         # bytes of shared memory a Hopper block may use
 TILE = 128                  # table rows a block streams at a time
 STAGES = 5                  # ring depth of the stream
-MIN_STAGES = 4              # the shallower ring a 16-row bf16 launch takes
+XS_LDX = 64 + 32            # bf16 streamed: a staged x row of one panel
 F32_BUCKETS = (1, 2, 4, 8, 16, 32, 48, 64)
 
 
@@ -52,7 +56,7 @@ class DensePlan(NamedTuple):
     tiles: int              # TILE-row tiles of the table
     rows: int
     smem: int               # dynamic shared memory of a block, bytes
-    stages: int = STAGES    # ring depth
+    xstream: bool = False   # bf16: x streamed in K panels, not staged whole
 
 
 def _align16(n: int) -> int:
@@ -60,26 +64,27 @@ def _align16(n: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def dense_plan(m: int, k: int, n: int, w_bytes: int = 2,
-               stages: int = 0) -> DensePlan:
+def dense_plan(m: int, k: int, n: int, w_bytes: int = 2) -> DensePlan:
     """The launch of ``x [m <= 64, k] @ w [n, k].T`` for weights of
     ``w_bytes`` (2: bf16, 4: f32).  The byte count mirrors ``Layout`` in
-    ``csrc/dense_matmul.cu``, whose launcher refuses any other.  bf16 with
-    ``stages=0``: the STAGES ring, or, for a 16-row launch whose x does not
-    fit beside it, the MIN_STAGES one (see :func:`launch_rows`); the K
-    order, and so a row's bits, do not depend on the depth."""
+    ``csrc/dense_matmul.cu``, whose launcher refuses any other.  bf16: x
+    staged whole beside the ring where it fits, else x streamed in 64-k
+    panels with the ring (``xstream``), which fits at any K (see
+    :func:`launch_rows`).  The K order, and so a row's bits, do not depend
+    on the layout."""
     if not 1 <= m <= MAX_ROWS:
         raise ValueError(f"one launch takes 1..{MAX_ROWS} rows, got {m}")
     if w_bytes == 2:
-        # x once, rows padded to m-tiles and K to 64 + 32; a stage is 64 k
         rows = -(-m // 16) * 16
+        # x whole: rows padded to K past a multiple of 64 plus 32, then the
+        # ring of 64-k stages
         ldx = -(-k // 64) * 64 + 32
-        x_bytes = _align16(rows * ldx * 2)
-        if not stages:
-            stages = (MIN_STAGES if rows == 16 and x_bytes + STAGES * TILE
-                      * 64 * 2 > SMEM_LIMIT else STAGES)
-        return DensePlan(-(-n // TILE), rows,
-                         x_bytes + stages * TILE * 64 * 2, stages)
+        smem = _align16(rows * ldx * 2) + STAGES * TILE * 64 * 2
+        if smem <= SMEM_LIMIT:
+            return DensePlan(-(-n // TILE), rows, smem)
+        # streamed: a stage is the table's 64 k and x's rows of the same k
+        smem = STAGES * (TILE * 64 * 2 + _align16(rows * XS_LDX * 2))
+        return DensePlan(-(-n // TILE), rows, smem, True)
     elif w_bytes == 4:
         # a stage is 32 k of the tile's rows (padded by 4) and of x's rows
         rows = next(b for b in F32_BUCKETS if b >= m)
@@ -94,19 +99,17 @@ def dense_plan(m: int, k: int, n: int, w_bytes: int = 2,
 def launch_rows(k: int, w_bytes: int = 2) -> int:
     """Rows of x one launch takes at inner dimension ``k``: ``MAX_ROWS``,
     or, where bf16 x staged whole for 64 rows would overflow a block's
-    shared memory (K past 1120: a dense model's wider linears, ``wo`` and
+    shared memory (K past 1088: a dense model's wider linears, ``wo`` and
     ``w_down``), the most 16-row m-tiles that fit; each launch is one pass
     over the weight.  A row's result is the same bits at any of these
-    counts.  Rows are counted at the full ring; 16 rows take a shallower
-    one where the full ring does not fit beside them.  Raises where not
-    even 16 rows fit beside a MIN_STAGES ring."""
+    counts.  Where not even 16 rows fit (K past 4672), x streams in K
+    panels and a launch takes ``MAX_ROWS`` again.  Never raises for a K
+    that is a multiple of 8."""
+    if w_bytes != 2 or dense_plan(16, k, TILE, w_bytes).xstream:
+        return MAX_ROWS
     rows = MAX_ROWS
-    while rows > 16 and dense_plan(rows, k, TILE, w_bytes,
-                                   STAGES).smem > SMEM_LIMIT:
+    while rows > 16 and dense_plan(rows, k, TILE, w_bytes).xstream:
         rows -= 16
-    if dense_plan(rows, k, TILE, w_bytes).smem > SMEM_LIMIT:
-        raise ValueError(f"dense_matmul kernel: x rows of K={k} do not "
-                         f"fit a block's shared memory")
     return rows
 
 

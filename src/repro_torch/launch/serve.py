@@ -7,16 +7,23 @@ the sharded part of the port).
 * ``--one-shot`` runs the legacy static-batch ``Engine`` instead: the
   first ``--batch`` prompts prefilled whole, frozen into the sparse KV
   cache and decoded lockstep (eagerly: each refreeze grows the prefix).
-  A config with a frontend (``internvl2-1b``) has no pooled path and falls
-  back to it, as in the reference, with zero frontend embeddings before
-  each prompt.
+  A config with a frontend (``internvl2-1b``), cross attention
+  (``seamless-m4t-medium``) or recurrent mixers (``rwkv6-7b``,
+  ``jamba-1.5-large-398b``) has no pooled path and falls back to it, as
+  in the reference: with zero frontend embeddings before each prompt, and
+  for the encoder-decoder the reference's stub input, ``src_embeds`` of
+  zeros ``[batch, prompt_len, d_model]``.
 
 ``--arch`` takes every registered id: the dense family (``llama3-8b``, the
 paper's model, ``llama3.2-3b``, ``phi3-mini-3.8b``, ``deepseek-67b``,
 ``qwen3-0.6b``), the MoE family (``phi3.5-moe-42b-a6.6b``,
 ``llama4-scout-17b-a16e``: the attention and Scout's shared expert are
 sparse-converted, the expert stacks and the router stay dense, as in the
-reference) and the VLM ``internvl2-1b``.
+reference), the VLM ``internvl2-1b``, RWKV-6 (``rwkv6-7b``: its eight
+linears a layer sparse), Jamba (``jamba-1.5-large-398b``: Mamba's
+``w_in`` / ``w_out`` sparse, its ``w_bcdt`` dense) and SeamlessM4T
+(``seamless-m4t-medium``: the encoder's, the decoder's and the cross
+attention's linears sparse).
 
 ``--dense`` is the baseline: dense weights and, one-shot, the dense KV
 cache; in stream mode it sets the KV sparsity to 0 (the pooled compression
@@ -84,6 +91,10 @@ the pooled sparse-KV cache.
       --prefill-chunk 256
   python -m repro_torch.launch.serve --arch internvl2-1b --reduced \\
       --device cpu --batch 2 --prompt-len 16 --steps 4
+  python -m repro_torch.launch.serve --arch rwkv6-7b --reduced \\
+      --device cpu --batch 2 --prompt-len 16 --steps 4
+  python -m repro_torch.launch.serve --arch rwkv6-7b --device cuda \\
+      --batch 4 --prompt-len 512 --steps 32
 """
 from __future__ import annotations
 
@@ -252,6 +263,11 @@ def main(argv=None) -> int:
             one_shot = True
     if one_shot:
         batch = {"tokens": prompts[:args.batch]}
+        if cfg.family == "encdec":
+            # the stub speech frontend: zero frames, as many as the prompt
+            batch["src_embeds"] = torch.zeros(
+                (args.batch, args.prompt_len, cfg.d_model),
+                dtype=torch.float32, device=dev)
         if cfg.frontend:
             # the stub frontend: zero embeddings before the prompt
             batch["frontend_embeds"] = torch.zeros(

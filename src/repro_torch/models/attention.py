@@ -1,8 +1,10 @@
-"""GQA attention (twin of ``repro.models.attention``, dense family): the
-full-sequence prefill, the one-token decode over the legacy dense or
-sparse KV cache, and the panel and chunk attention of the pooled serving
-cache.  Sequences longer than ``cfg.full_attn_max`` need the blocked
-attention, which is not ported yet."""
+"""GQA attention (twin of ``repro.models.attention``): the full-sequence
+prefill (self-attention, or an encoder-decoder's cross attention over the
+encoder's memory), the one-token decode over the legacy dense or sparse KV
+cache and its cross attention over the encoder's dense K/V, and the panel
+and chunk attention of the pooled serving cache.  Sequences longer than
+``cfg.full_attn_max`` need the blocked attention, which is not ported
+yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -45,7 +47,9 @@ def init_dense_cache(batch, hkv, s_max, d, dtype=torch.bfloat16,
                                               device=device))
 
 
-def attn_specs(cfg) -> Dict[str, ParamSpec]:
+def attn_specs(cfg, cross: bool = False) -> Dict[str, ParamSpec]:
+    """Self- or (``cross``) cross-attention weights: the same leaves, as in
+    the reference."""
     hq, hkv, hd, d = cfg.padded_heads, cfg.n_kv, cfg.hd, cfg.d_model
     dt = cfg.pdtype
     specs = {
@@ -90,24 +94,34 @@ def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def attn_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor,
-               causal: bool = True, return_kv: bool = False):
-    """Self-attention over ``x [B, S, d]`` at ``positions [S]``; with
-    ``return_kv`` also the post-RoPE ``(k, v)`` ``[B, Hkv, S, hd]`` for the
-    cache.  Up to ``cfg.full_attn_max`` tokens run as one unblocked
-    attention, as in the reference; longer sequences need the blocked
-    attention, which is not ported."""
+               memory: Optional[torch.Tensor] = None,
+               causal: Optional[bool] = None, return_kv: bool = False):
+    """Attention of ``x [B, S, d]`` at ``positions [S]``: self-attention,
+    or, given ``memory [B, Sm, d]`` (an encoder-decoder's encoder output),
+    cross attention whose K/V are projected from the memory.  As in the
+    reference, RoPE applies to neither side under ``memory``, and
+    ``causal=None`` means causal exactly when there is no memory.  With
+    ``return_kv`` also the (post-RoPE) ``(k, v)`` ``[B, Hkv, Sm, hd]`` for
+    the cache.  Up to ``cfg.full_attn_max`` tokens on both sides run as
+    one unblocked attention, as in the reference; longer sequences need
+    the blocked attention, which is not ported."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
     q = _project_q(p, x, cfg)                                # [B,S,Hq,hd]
-    k, v = _project_kv(p, x, cfg)                            # [B,S,Hkv,hd]
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin).transpose(1, 2)              # [B,Hq,S,hd]
-    k = apply_rope(k, cos, sin).transpose(1, 2)              # [B,Hkv,S,hd]
-    v = v.transpose(1, 2)
-    if s > getattr(cfg, "full_attn_max", 4096):
+    k, v = _project_kv(p, x if memory is None else memory,
+                       cfg)                                  # [B,Sm,Hkv,hd]
+    if causal is None:
+        causal = memory is None
+    if memory is None:
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    thr = getattr(cfg, "full_attn_max", 4096)
+    if s > thr or k.shape[2] > thr:
         raise NotImplementedError(
-            f"a {s}-token sequence needs the blocked attention, which is "
-            "not ported yet")
+            f"a {max(s, k.shape[2])}-token sequence needs the blocked "
+            "attention, which is not ported yet")
     g = hq // hkv
     o = full_attention(q, _repeat_kv(k, g), _repeat_kv(v, g),
                        1.0 / hd ** 0.5, causal=causal)
@@ -156,6 +170,20 @@ def attn_decode(p, x_t: torch.Tensor, cache: Any, cfg,
                            kv_valid=valid.expand(b, -1))[:, :, 0]
     out = ops.linear(o.reshape(b, hq * hd).to(x_t.dtype), p["wo"])
     return out, cache
+
+
+def cross_attn_decode(p, x_t: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, cfg) -> torch.Tensor:
+    """Decode-time cross attention of ``x_t [B, d]`` against the encoder's
+    precomputed dense K/V ``[B, Hkv, Sm, hd]``: no mask, no RoPE, no cache
+    update; plain PyTorch, as the reference's is plain ``jnp``."""
+    b, _ = x_t.shape
+    hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
+    q = _project_q(p, x_t, cfg)
+    g = hq // hkv
+    o = full_attention(q[:, :, None, :], _repeat_kv(k, g), _repeat_kv(v, g),
+                       1.0 / hd ** 0.5, causal=False)[:, :, 0, :]
+    return ops.linear(o.reshape(b, hq * hd).to(x_t.dtype), p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,24 @@
-"""The decoder-only LM, dense and MoE families and the VLM (twin of
-``repro.models.lm``): the full prefill (after a VLM's stub frontend
-embeddings) and the one-token decode over the legacy per-batch cache of
+"""The model builder of every family (twin of ``repro.models.lm``): the
+full prefill and the one-token decode over the legacy per-batch cache of
 the one-shot engine, and the panel forward and the prefill chunk over the
-pooled serving cache, which a frontend config does not take.  An MoE
-layer's FFN is :func:`repro_torch.models.moe.moe_apply`, on the same rows
-as the reference gives it.
+pooled serving cache.
+
+Families, as in the reference:
+
+* dense / moe / vlm: a decoder-only LM (a VLM's stub frontend embeddings
+  before the prompt); an MoE layer's FFN is
+  :func:`repro_torch.models.moe.moe_apply`, on the same rows as the
+  reference gives it;
+* ssm: RWKV-6, a time-mix and a channel-mix a layer
+  (:mod:`repro_torch.models.ssm`);
+* hybrid: Jamba, Mamba and attention mixers interleaved over a period of
+  ``period_len`` layers, MoE every other layer;
+* encdec: an encoder over ``src_embeds`` and a causal decoder with cross
+  attention over the encoder's output.
+
+Only attention stacks without cross attention or a frontend take the
+pooled path (:func:`_attn_kinds`); the others serve through the one-shot
+engine, as in the reference.
 
 A Python loop over the layer-stacked params replaces the reference's
 ``lax.scan``; each layer works on views of the pool storage, which the
@@ -28,11 +42,15 @@ from repro_torch.core.sparse_kv import (NAN_CHECK, device_ids, distinct_ids,
 from . import module as mod
 from repro_torch.core.sparse_kv import SparseKVCache, abstract_cache
 from .attention import (DenseKVCache, attn_apply, attn_decode, attn_specs,
-                        pooled_attn_panel, pooled_attn_prefill_chunk)
+                        cross_attn_decode, pooled_attn_panel,
+                        pooled_attn_prefill_chunk)
 from .layers import (embed_apply, embed_specs, mlp_apply, mlp_specs,
                      norm_spec, rms_norm, unembed_apply)
 from .module import ParamSpec
 from .moe import moe_apply, moe_specs
+from .ssm import (mamba_apply, mamba_decode, mamba_init_state, mamba_specs,
+                  rwkv_channel_mix, rwkv_channel_mix_decode, rwkv_init_state,
+                  rwkv_specs, rwkv_time_mix, rwkv_time_mix_decode)
 
 
 def period_len(cfg) -> int:
@@ -53,25 +71,23 @@ def layer_kind(cfg, i: int) -> Tuple[str, str]:
 
 
 def _kinds(cfg) -> List[Tuple[str, str]]:
-    """The layer kinds of a period: attention + MLP or MoE stacks at any
-    width, the dense and MoE families and the VLM (a dense backbone behind
-    a stub frontend); the other families (recurrent, hybrid,
-    encoder-decoder) are not ported yet."""
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe and vlm "
-            "only)")
+    """The layer kinds of a period, every family: ``("attn", "mlp" |
+    "moe")``, ``("mamba", "mlp" | "moe")`` or ``("rwkv", "cmix")``."""
     return [layer_kind(cfg, j) for j in range(period_len(cfg))]
 
 
 def _attn_kinds(cfg) -> List[Tuple[str, str]]:
-    """The pooled serving path's kinds: as :func:`_kinds`, but a frontend
-    config takes the one-shot path only, as in the reference (its
-    ``ValueError`` is what the launcher's one-shot fallback catches)."""
-    kinds = _kinds(cfg)
-    if cfg.frontend:
+    """The pooled serving path's kinds: attention stacks only, with no
+    cross attention and no frontend, as in the reference (its
+    ``ValueError`` is what the launcher's one-shot fallback and the pool's
+    refusal rest on)."""
+    if cfg.family == "encdec" or cfg.frontend:
         raise ValueError(
             "pooled serving has no cross-attention / frontend-embedding path")
+    kinds = _kinds(cfg)
+    if not all(k[0] == "attn" for k in kinds):
+        raise ValueError(
+            "pooled serving supports attention stacks (dense/moe families)")
     return kinds
 
 
@@ -83,17 +99,38 @@ def _stack_specs(tree: Any, n: int) -> Any:
                                init=s.init, scale=s.scale), tree)
 
 
+def _block_specs(cfg, kind: Tuple[str, str], cross: bool = False
+                 ) -> Dict[str, Any]:
+    mixer, ffn = kind
+    if mixer == "rwkv":
+        return {"ln1": norm_spec(cfg), "tmix": rwkv_specs(cfg),
+                "ln2": norm_spec(cfg)}
+    s: Dict[str, Any] = {"ln1": norm_spec(cfg)}
+    s["mixer"] = attn_specs(cfg) if mixer == "attn" else mamba_specs(cfg)
+    if cross:
+        s["ln_cross"] = norm_spec(cfg)
+        s["cross"] = attn_specs(cfg, cross=True)
+    s["ln2"] = norm_spec(cfg)
+    s["ffn"] = moe_specs(cfg) if ffn == "moe" else mlp_specs(cfg)
+    return s
+
+
 def model_specs(cfg) -> Dict[str, Any]:
     kinds = _kinds(cfg)
-    n_periods = cfg.n_layers // len(kinds)
-    period = {f"l{j}": {"ln1": norm_spec(cfg), "mixer": attn_specs(cfg),
-                        "ln2": norm_spec(cfg),
-                        "ffn": (moe_specs(cfg) if kinds[j][1] == "moe"
-                                else mlp_specs(cfg))}
+    if cfg.n_layers % len(kinds):
+        raise ValueError(f"n_layers {cfg.n_layers} not a multiple of "
+                         f"period {len(kinds)}")
+    cross = cfg.family == "encdec"
+    period = {f"l{j}": _block_specs(cfg, kinds[j], cross=cross)
               for j in range(len(kinds))}
-    return {"embed": embed_specs(cfg),
-            "blocks": _stack_specs(period, n_periods),
-            "final_norm": norm_spec(cfg)}
+    specs = {"embed": embed_specs(cfg),
+             "blocks": _stack_specs(period, cfg.n_layers // len(kinds)),
+             "final_norm": norm_spec(cfg)}
+    if cross:
+        specs["encoder"] = _stack_specs(
+            {"l0": _block_specs(cfg, ("attn", "mlp"))}, cfg.enc_layers)
+        specs["enc_norm"] = norm_spec(cfg)
+    return specs
 
 
 def init_params(cfg, seed: int = 0,
@@ -125,44 +162,97 @@ def _ffn(p, kind, h2: torch.Tensor, cfg, length=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# prefill: the full forward, collecting every layer's K/V (one-shot engine)
+# prefill: the full forward, collecting every layer's K/V or state
+# (one-shot engine)
 # ---------------------------------------------------------------------------
 
-def _sublayer_prefill(x, p, kind, cfg, positions):
-    h, (k, v) = attn_apply(p["mixer"], rms_norm(x, p["ln1"]), cfg,
-                           positions, return_kv=True)
+def _sublayer_prefill(x, p, kind, cfg, positions, memory=None):
+    """One layer of the full forward; returns ``x`` and what the decode
+    needs of it: ``{"k", "v"}`` for attention, ``{"state": ...}`` for a
+    recurrent mixer (the states hold the normed f32 inputs' last rows), and
+    ``{"cross": (k, v)}`` beside them for a decoder layer with a memory:
+    the cross attention's K/V ``[B, Hkv, Sm, hd]``, projected once (the
+    reference projects them a second time for the cache, to the same
+    values)."""
+    mixer, _ = kind
+    if mixer == "rwkv":
+        xin1 = rms_norm(x, p["ln1"])
+        h, st = rwkv_time_mix(p["tmix"], xin1, cfg, return_state=True)
+        x = x + h
+        xin2 = rms_norm(x, p["ln2"])
+        h = rwkv_channel_mix(p["tmix"], xin2, cfg)
+        return x + h, {"state": {**st, "cm_x": xin2.float()[:, -1]}}
+    h = rms_norm(x, p["ln1"])
+    if mixer == "attn":
+        h, (k, v) = attn_apply(p["mixer"], h, cfg, positions, return_kv=True)
+        got = {"k": k, "v": v}
+    else:
+        h, st = mamba_apply(p["mixer"], h, cfg, return_state=True)
+        got = {"state": st}
     x = x + h
-    return x + _ffn(p, kind, rms_norm(x, p["ln2"]), cfg), {"k": k, "v": v}
+    if "cross" in p and memory is not None:
+        h, got["cross"] = attn_apply(p["cross"], rms_norm(x, p["ln_cross"]),
+                                     cfg, positions, memory=memory,
+                                     return_kv=True)
+        x = x + h
+    return x + _ffn(p, kind, rms_norm(x, p["ln2"]), cfg), got
+
+
+def _encode(params, src: torch.Tensor, cfg) -> torch.Tensor:
+    """The encoder over ``src [B, Sm, d]``, then ``enc_norm``.  Its
+    attention masks causally, as the reference's does: the reference's
+    encoder stack takes its mask from ``memory``, of which it has none."""
+    positions = torch.arange(src.shape[1], device=src.device)
+    for i in range(cfg.enc_layers):
+        src, _ = _sublayer_prefill(src, _layer(params["encoder"], i)["l0"],
+                                   ("attn", "mlp"), cfg, positions)
+    return rms_norm(src, params["enc_norm"])
+
+
+def _stack(leaves: List[Any]) -> Any:
+    """Per-period dicts of tensors -> one dict of ``[P, ...]`` stacks."""
+    if isinstance(leaves[0], dict):
+        return {k: _stack([d[k] for d in leaves]) for k in leaves[0]}
+    return torch.stack(leaves)
 
 
 def forward_prefill(params, batch: Dict[str, torch.Tensor], cfg
                     ) -> Tuple[torch.Tensor, Dict]:
     """The full forward over ``batch["tokens"] [B, S]``; returns ``(final
-    hidden [B, S, d], collected)``, ``collected["layers"][f"l{j}"]``
-    holding the post-RoPE ``k`` / ``v`` ``[P, B, Hkv, S, hd]`` stacked over
-    periods and ``collected["len"] = S``.  A frontend config's
+    hidden [B, S, d], collected)``, stacked over periods:
+    ``collected["layers"][f"l{j}"]`` holds the post-RoPE ``k`` / ``v``
+    ``[P, B, Hkv, S, hd]`` of an attention layer or the ``state`` of a
+    recurrent one; ``collected["cross"]["l0"]`` an encoder-decoder's
+    cross K/V ``[P, B, Hkv, Sm, hd]`` of the encoder's output over
+    ``batch["src_embeds"] [B, Sm, d]`` (empty for the other families);
+    ``collected["len"] = S``.  A frontend config's
     ``batch["frontend_embeds"] [B, F, d]`` are prepended to the token
     embeddings, so ``S`` and the positions count them."""
     kinds = _kinds(cfg)
-    tokens = batch["tokens"]
-    x = embed_apply(params["embed"], tokens, cfg)
+    memory = None
+    if cfg.family == "encdec":
+        memory = _encode(params, batch["src_embeds"].to(cfg.cdtype), cfg)
+    x = embed_apply(params["embed"], batch["tokens"], cfg)
     if cfg.frontend and "frontend_embeds" in batch:
         x = torch.cat([batch["frontend_embeds"].to(x.device, x.dtype), x],
                       dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
-    n_periods = cfg.n_layers // len(kinds)
-    got = {f"l{j}": {"k": [], "v": []} for j in range(len(kinds))}
-    for i in range(n_periods):
+    got = {f"l{j}": [] for j in range(len(kinds))}
+    for i in range(cfg.n_layers // len(kinds)):
         pp = _layer(params["blocks"], i)
         for j in range(len(kinds)):
-            x, kv = _sublayer_prefill(x, pp[f"l{j}"], kinds[j], cfg,
-                                      positions)
-            for key in ("k", "v"):
-                got[f"l{j}"][key].append(kv[key])
+            x, col = _sublayer_prefill(x, pp[f"l{j}"], kinds[j], cfg,
+                                       positions, memory)
+            got[f"l{j}"].append(col)
     hidden = rms_norm(x, params["final_norm"])
-    layers = {name: {key: torch.stack(vals) for key, vals in d.items()}
-              for name, d in got.items()}
-    return hidden, {"layers": layers, "len": x.shape[1]}
+    layers, cross = {}, {}
+    for name, cols in got.items():
+        pairs = [c.pop("cross") for c in cols if "cross" in c]
+        if pairs:
+            cross[name] = {"k": torch.stack([k for k, _ in pairs]),
+                           "v": torch.stack([v for _, v in pairs])}
+        layers[name] = _stack(cols)
+    return hidden, {"layers": layers, "cross": cross, "len": x.shape[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -176,61 +266,111 @@ def _cache_map(c, fn):
                                          w.shape, w.block, w.packed4)
         return SparseKVCache(sw(c.k_sp), sw(c.v_sp), fn(c.k_tail),
                              fn(c.v_tail), fn(c.tail_len))
-    return DenseKVCache(fn(c.k), fn(c.v), fn(c.length))
+    if isinstance(c, DenseKVCache):
+        return DenseKVCache(fn(c.k), fn(c.v), fn(c.length))
+    return {k: fn(v) for k, v in c.items()}
 
 
 def init_cache(cfg, batch: int, prefix: int, mode: str = "sparse",
                abstract: bool = False,
                device: Optional[torch.device] = None) -> Dict[str, Any]:
-    """The one-shot cache, every leaf stacked over periods.  ``"sparse"``:
-    the compressed frozen prefix (at the balanced capacity the KV
-    sparsities imply) and the dense tail; ``"dense"``: a preallocated cache
-    of ``prefix + kv_tail`` tokens.  ``abstract=True`` gives meta tensors
-    (nothing allocated), otherwise zeros on ``device`` (the CUDA device
-    unless the caller asks for the CPU)."""
+    """The one-shot cache, every leaf stacked over periods.  An attention
+    layer's ``"kv"``: with ``"sparse"`` the compressed frozen prefix (at
+    the balanced capacity the KV sparsities imply) and the dense tail; with
+    ``"dense"`` a preallocated cache of ``prefix + kv_tail`` tokens.  A
+    recurrent layer's ``"state"`` (Mamba's conv window and SSM state,
+    RWKV's WKV state and token-shift rows, all f32).  An encoder-decoder's
+    ``"cross"`` K/V ``[P, B, Hkv, prefix, hd]``.  ``abstract=True`` gives
+    meta tensors (nothing allocated), otherwise zeros on ``device`` (the
+    CUDA device unless the caller asks for the CPU)."""
     kinds = _kinds(cfg)
     n_periods = cfg.n_layers // len(kinds)
     hkv, hd, dt = cfg.n_kv, cfg.hd, cfg.cdtype
-    if mode == "sparse":
-        one = abstract_cache(batch, hkv, prefix, hd, 1.0 - cfg.kv_k_sparsity,
-                             1.0 - cfg.kv_v_sparsity,
-                             tail_size=cfg.kv_tail, dtype=dt)
-    else:
-        meta = lambda shape, d: torch.empty(shape, dtype=d, device="meta")
+    meta = lambda shape, d: torch.empty(shape, dtype=d, device="meta")
+
+    def attn_cache():
+        if mode == "sparse":
+            return abstract_cache(batch, hkv, prefix, hd,
+                                  1.0 - cfg.kv_k_sparsity,
+                                  1.0 - cfg.kv_v_sparsity,
+                                  tail_size=cfg.kv_tail, dtype=dt)
         kv = meta((batch, hkv, prefix + cfg.kv_tail, hd), dt)
-        one = DenseKVCache(kv, kv, meta((), torch.int32))
+        return DenseKVCache(kv, kv, meta((), torch.int32))
+
+    def leaf(kind):
+        if kind[0] == "attn":
+            return {"kv": attn_cache()}
+        init = mamba_init_state if kind[0] == "mamba" else rwkv_init_state
+        return {"state": init(cfg, batch, device="meta")}
+
     dev = torch.device("meta") if abstract else resolve_device(device)
     stack = lambda t: torch.zeros((n_periods,) + tuple(t.shape),
                                   dtype=t.dtype, device=dev)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "layers": {f"l{j}": {"kv": _cache_map(one, stack)}
-                       for j in range(len(kinds))}}
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+             "layers": {f"l{j}": {k: _cache_map(v, stack)
+                                  for k, v in leaf(kinds[j]).items()}
+                        for j in range(len(kinds))}}
+    if cfg.family == "encdec":
+        kv = meta((batch, hkv, prefix, hd), dt)
+        cache["cross"] = {"k": stack(kv), "v": stack(kv)}
+    return cache
 
 
-def _sublayer_decode(x_t, p, kind, cache_j, cfg, position):
-    h, cache_j = attn_decode(p["mixer"], rms_norm(x_t, p["ln1"]), cache_j,
-                             cfg, position)
+def _write_state_(views: Dict[str, torch.Tensor],
+                  new: Dict[str, torch.Tensor]) -> None:
+    """Copy a step's new state into the cache's views of it, in place."""
+    for k, t in new.items():
+        if t is not views[k]:
+            views[k].copy_(t)
+
+
+def _sublayer_decode(x_t, p, kind, cache_j, cfg, position, cross_kv=None):
+    """One layer of the decode step on ``x_t [B, d]``; ``cache_j`` holds
+    this layer's views of the cache (an attention layer's ``"kv"``, a
+    recurrent layer's ``"state"``), written in place."""
+    mixer, _ = kind
+    if mixer == "rwkv":
+        h, st = rwkv_time_mix_decode(p["tmix"], rms_norm(x_t, p["ln1"]),
+                                     cache_j["state"], cfg)
+        x_t = x_t + h
+        h, st = rwkv_channel_mix_decode(p["tmix"], rms_norm(x_t, p["ln2"]),
+                                        st, cfg)
+        _write_state_(cache_j["state"], st)
+        return x_t + h
+    h = rms_norm(x_t, p["ln1"])
+    if mixer == "attn":
+        h, _ = attn_decode(p["mixer"], h, cache_j["kv"], cfg, position)
+    else:
+        h, st = mamba_decode(p["mixer"], h, cache_j["state"], cfg)
+        _write_state_(cache_j["state"], st)
     x_t = x_t + h
+    if "cross" in p and cross_kv is not None:
+        x_t = x_t + cross_attn_decode(p["cross"], rms_norm(x_t, p["ln_cross"]),
+                                      cross_kv[0], cross_kv[1], cfg)
     # an MoE sees the B tokens as [B, 1, d], as in the reference
     h2 = _ffn(p, kind, rms_norm(x_t, p["ln2"])[:, None, :], cfg)[:, 0]
-    return x_t + h2, cache_j
+    return x_t + h2
 
 
 def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
                    cfg) -> Tuple[torch.Tensor, Dict]:
     """``tokens [B, 1]`` -> ``(logits [B, V] f32, cache)``: one decode step
-    over the legacy cache, whose tails (or dense rows) and lengths are
-    written **in place**, ``cache["pos"]`` advanced by one."""
+    over the legacy cache, whose tails (or dense rows), lengths and
+    recurrent states are written **in place**, ``cache["pos"]`` advanced by
+    one.  An encoder-decoder's layers attend to ``cache["cross"]``."""
     kinds = _kinds(cfg)
     x_t = embed_apply(params["embed"], tokens[:, 0], cfg)
     position = cache["pos"]
-    n_periods = cfg.n_layers // len(kinds)
-    for i in range(n_periods):
+    cross = cache.get("cross")
+    for i in range(cfg.n_layers // len(kinds)):
         pp = _layer(params["blocks"], i)
+        ck = None if cross is None else (cross["k"][i], cross["v"][i])
         for j in range(len(kinds)):
-            kv = cache["layers"][f"l{j}"]["kv"].layer(i)
-            x_t, _ = _sublayer_decode(x_t, pp[f"l{j}"], kinds[j], kv, cfg,
-                                      position)
+            leaf = cache["layers"][f"l{j}"]
+            cache_j = ({"kv": leaf["kv"].layer(i)} if "kv" in leaf else
+                       {"state": {k: a[i] for k, a in leaf["state"].items()}})
+            x_t = _sublayer_decode(x_t, pp[f"l{j}"], kinds[j], cache_j, cfg,
+                                   position, ck)
     x_t = rms_norm(x_t, params["final_norm"])
     logits = unembed_apply(params["embed"], x_t, cfg)
     cache["pos"] += 1

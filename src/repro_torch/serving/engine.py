@@ -124,6 +124,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels, resolve_device
+from repro_torch.core.convert import LINEAR_KEYS
 from repro_torch.core.sparse_format import repack_capacity
 from repro_torch.core.sparse_kv import SparseKVCache, freeze_prefix, refreeze
 from repro_torch.models import lm
@@ -138,18 +139,27 @@ from .scheduler import PrefixTrie, Scheduler, block_hashes
 from .spec import AdaptiveDraft, SpecConfig
 
 
+# the dense leaves ``ops.linear`` reads: the linear weights
+# ``convert_concrete`` would pack, and Mamba's ``w_bcdt``, which its
+# exclusions leave dense ("dt"); the other f32 leaves of a recurrent layer
+# (``conv_w``, ``dt_w``, ``a_log``, ``decay_*``, ``bonus_u``) and the
+# router are read by plain torch ops and keep their layout
+DENSE_LINEAR_KEYS = frozenset(LINEAR_KEYS) | {"w_bcdt"}
+
+
 def params_to(tree: Any, device: torch.device, key: str = "") -> Any:
     """Move a params tree (tensors and sparse weights) to ``device``.  On
-    CUDA a dense layer-stacked linear weight ``[L, K, N]`` and the untied
-    LM head ``lm_head [K, N]`` are also stored column-major (the same
-    values, laid out once here), so that the dense kernel reads each as
-    ``[N, K]`` rows in place, as it reads the tied embedding; a leaf
-    already so laid out is left as it is."""
+    CUDA a dense layer-stacked linear weight ``[L, K, N]`` (a leaf named in
+    ``DENSE_LINEAR_KEYS``) and the untied LM head ``lm_head [K, N]`` are
+    also stored column-major (the same values, laid out once here), so
+    that the dense kernel reads each as ``[N, K]`` rows in place, as it
+    reads the tied embedding; a leaf already so laid out is left as it
+    is."""
     if isinstance(tree, dict):
         return {k: params_to(v, device, k) for k, v in tree.items()}
     out = tree.to(device)
-    if torch.is_tensor(out) and out.is_cuda and (
-            out.dim() == 3 or (out.dim() == 2 and key == "lm_head")) \
+    if torch.is_tensor(out) and out.is_cuda and key in DENSE_LINEAR_KEYS \
+            and out.dim() == (2 if key == "lm_head" else 3) \
             and out.stride(-2) != 1:
         out = out.transpose(-1, -2).contiguous().transpose(-1, -2)
     return out
@@ -163,7 +173,10 @@ class Engine:
     the continuous engine.  Runs on the CUDA device unless
     ``device="cpu"``, through the same kernels: the gemv (decode linears,
     ``M = B``), the sparse matmul (the prefill's linears at ``M = B * S``),
-    the fused attention over the sparse cache, and the unembedding.
+    the fused attention over the sparse cache, and the unembedding.  Every
+    family serves here: a recurrent layer (RWKV-6, Jamba's Mamba) keeps
+    its state in the cache, written in place by each decode step, and an
+    encoder-decoder the encoder's cross K/V (``batch["src_embeds"]``).
 
     It runs **eagerly**: every refreeze grows the prefix (a new shape), so
     the reference retraces its jitted decode at each one, and a CUDA graph
@@ -183,19 +196,25 @@ class Engine:
     def prefill(self, batch: Dict[str, Any]):
         """Prefill ``batch["tokens"] [B, S]`` (host or device), after a
         frontend config's ``batch["frontend_embeds"] [B, F, d]`` when the
-        batch holds them; returns ``(cache, logits [B, V] f32 of the last
-        prompt token)``."""
+        batch holds them, and over an encoder-decoder's
+        ``batch["src_embeds"] [B, Sm, d]``; returns ``(cache, logits [B, V]
+        f32 of the last prompt token)``.  Attention layers get their KV
+        cache, recurrent layers their ``{"state": ...}`` (updated in place
+        by each decode step), an encoder-decoder the encoder's cross K/V."""
         cfg = self.cfg
         feed = {"tokens": self._on_device(batch["tokens"]).long()}
-        if "frontend_embeds" in batch:
-            feed["frontend_embeds"] = self._on_device(
-                batch["frontend_embeds"])
+        for key in ("frontend_embeds", "src_embeds"):
+            if key in batch:
+                feed[key] = self._on_device(batch[key])
         hidden, collected = lm.forward_prefill(self.params, feed, cfg)
-        layers = {name: {"kv": self._build_kv(got["k"], got["v"])}
+        layers = {name: ({"kv": self._build_kv(got["k"], got["v"])}
+                         if "k" in got else {"state": got["state"]})
                   for name, got in collected["layers"].items()}
         cache = {"pos": torch.tensor(collected["len"], dtype=torch.int32,
                                      device=self.device),
                  "layers": layers}
+        if cfg.family == "encdec":
+            cache["cross"] = dict(collected["cross"]["l0"])
         self._tail = 0
         logits = lm.logits_fn(self.params, hidden[:, -1:], cfg)
         return cache, logits[:, 0]
@@ -245,7 +264,8 @@ class Engine:
                 "the one-shot Engine decodes fixed-length lockstep batches "
                 "and cannot honor eos_id/stop_ids; submit to "
                 "ContinuousEngine for per-request stop handling")
-        if self.kv_mode == "dense" and \
+        has_kv = any(k[0] == "attn" for k in lm._kinds(self.cfg))
+        if self.kv_mode == "dense" and has_kv and \
                 params.max_new_tokens - 1 > self.cfg.kv_tail:
             raise ValueError(
                 f"the dense cache holds the prompt + kv_tail "
@@ -281,6 +301,8 @@ class Engine:
         changed = False
         layers = dict(cache["layers"])
         for name, leaf in layers.items():
+            if "kv" not in leaf:
+                continue
             kv = leaf["kv"]
             if self._tail < kv.k_tail.shape[3]:
                 continue

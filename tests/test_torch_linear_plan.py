@@ -228,7 +228,9 @@ def test_dense_linears_take_the_rows_that_fit(monkeypatch, dtype):
     """Dense weights (``--dense``) run every linear through this kernel: at
     Qwen3-0.6B's K = 1024, 2048 and 3072 a bf16 launch takes 64, 32 and 16
     rows (x staged whole must fit shared memory), f32 64; a 100-row call
-    at K = 3072 is launches of 16 rows, each plan within 227 KB."""
+    at K = 3072 is launches of 16 rows, each plan within 227 KB.  At
+    K = 8192 x whole does not fit beside the ring even at 16 rows, so it
+    streams in K panels, 64 rows a launch."""
     dt = WEIGHT_DTYPES[dtype]
     want = {1024: 64, 2048: 32, 3072: 16} if dtype == "bf16" else \
         dict.fromkeys((1024, 2048, 3072), 64)
@@ -243,34 +245,70 @@ def test_dense_linears_take_the_rows_that_fit(monkeypatch, dtype):
     step = want[3072]
     assert [s[2][1] for s in seen] == [min(step, 100 - r)
                                        for r in range(0, 100, step)]
-    with pytest.raises(ValueError, match="do not fit"):
-        dm.launch_rows(8192, 2)
+    assert dm.launch_rows(8192, 2) == 64
+    assert dm.dense_plan(64, 8192, 1024).xstream
 
 
 def test_wide_k_head_takes_a_shallower_ring(monkeypatch):
     """Llama-4-Scout's head ``[5120, 202048]``: 16 bf16 rows of x staged
-    whole do not fit beside the 5-stage ring, so a launch of 16 rows takes
-    a 4-stage ring (the plan's bytes handed to the C launcher); every K
-    of the other configs keeps the full ring at its row count, and f32
-    (whose x is staged per stage) keeps it at 64 rows."""
-    assert dm.launch_rows(5120, 2) == 16
-    plan = dm.dense_plan(16, 5120, 202048)
-    assert plan.stages == 4 and plan.tiles == 1579
-    assert plan.smem == 16 * (5120 + 32) * 2 + 4 * dm.TILE * 64 * 2 \
+    whole do not fit beside the ring, so x streams in K panels, 64 rows a
+    launch (the plan's bytes handed to the C launcher; no shallower ring
+    is kept); every K of the other configs keeps x whole at its row count,
+    and f32 (whose x is staged per stage) takes 64 rows."""
+    assert dm.launch_rows(5120, 2) == 64
+    plan = dm.dense_plan(20, 5120, 202048)
+    assert plan.xstream and plan.tiles == 1579 and plan.rows == 32
+    assert plan.smem == dm.STAGES * (dm.TILE * 64 * 2 + 32 * 96 * 2) \
         <= SMEM_LIMIT
-    assert dm.dense_plan(16, 5120, 202048, 2, dm.STAGES).smem > SMEM_LIMIT
+    assert 16 * (5120 + 32) * 2 + dm.STAGES * dm.TILE * 64 * 2 > SMEM_LIMIT
     for k, rows in ((896, 64), (1024, 64), (2048, 32), (3072, 16),
                     (4096, 16)):
         assert dm.launch_rows(k, 2) == rows
-        assert dm.dense_plan(rows, k, 1024).stages == dm.STAGES
+        assert not dm.dense_plan(rows, k, 1024).xstream
     assert dm.launch_rows(5120, 4) == 64
-    assert dm.dense_plan(64, 5120, 202048, 4).stages == dm.STAGES
+    assert not dm.dense_plan(64, 5120, 202048, 4).xstream
     seen = _record(monkeypatch, dm.dense_matmul)
     x = torch.empty((20, 5120), dtype=torch.bfloat16, device="meta")
     w = torch.empty((202048, 5120), dtype=torch.bfloat16, device="meta")
     dm.dense_matmul(x, w, torch.float32)
-    assert [s[2][1] for s in seen] == [16, 4]
+    assert [s[2][1] for s in seen] == [20]
     assert {s[2][-1] for s in seen} == {plan.smem}
+
+
+def test_every_k_takes_a_plan_that_fits():
+    """``launch_rows`` and ``dense_plan`` raise for no K that is a multiple
+    of 8 (up to 32768): every bf16 and f32 launch of 1 to ``launch_rows``
+    rows fits a block's shared memory; x is staged whole up to K = 4672
+    and streamed in K panels past it, where a launch takes 64 rows."""
+    for k in range(8, 32768 + 1, 8):
+        for w_bytes in (2, 4):
+            rows = dm.launch_rows(k, w_bytes)
+            assert rows % 16 == 0 and 16 <= rows <= dm.MAX_ROWS
+            for m in {1, 16, rows}:
+                plan = dm.dense_plan(m, k, 544, w_bytes)
+                assert plan.smem <= SMEM_LIMIT and plan.rows >= m
+                assert plan.xstream == (w_bytes == 2 and k > 4672)
+        assert (dm.launch_rows(k, 2) == 64) == (k <= 1088 or k > 4672)
+
+
+@pytest.mark.parametrize("k,n", [(14336, 4096), (16384, 544)],
+                         ids=["llama3-8b-w_down", "jamba-mamba-w_bcdt"])
+def test_wide_k_streams_x_in_panels(monkeypatch, k, n):
+    """Llama-3-8B's ``w_down`` (K = 14336) and Jamba's Mamba ``w_bcdt``
+    (K = 16384, N = 544: 5 tiles, the last a quarter full) with dense
+    weights: a 100-row call is launches of 64 and 36 rows, each handed the
+    streamed layout's bytes: five stages of the table's 64 k and x's rows
+    of the same k (padded to 96)."""
+    seen = _record(monkeypatch, dm.dense_matmul)
+    x = torch.empty((100, k), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((n, k), dtype=torch.bfloat16, device="meta")
+    out = dm.dense_matmul(x, w, torch.float32)
+    assert out.shape == (100, n) and dm.dense_matmul.launches == 2
+    assert [s[2][1] for s in seen] == [64, 36]
+    want = [dm.STAGES * (dm.TILE * 64 * 2 + rows * 96 * 2)
+            for rows in (64, 48)]
+    assert [s[2][-1] for s in seen] == want
+    assert dm.dense_plan(36, k, n) == (-(-n // dm.TILE), 48, want[1], True)
 
 
 def test_unembed_refuses_what_16_byte_copies_cannot_take(monkeypatch):

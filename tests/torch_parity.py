@@ -1,5 +1,6 @@
 """Shared helpers for the port's parity tests (``test_torch_*.py``): build
-matching reference/port configs and carry reference arrays into the port
+matching reference/port configs, draw the reference's parameters once per
+process (:func:`reference_model`) and carry reference arrays into the port
 through :mod:`repro_torch.bridge`."""
 import dataclasses
 
@@ -44,6 +45,39 @@ def sparse_params(jcfg, tcfg, seed=0):
         jlm.init_params(jcfg, key), jlm.model_specs(jcfg), jcfg,
         NULL_CTX))(jax.random.PRNGKey(seed))
     return jparams, bridge.params_from_numpy(to_numpy(jparams), tcfg, "cpu")
+
+
+_DRAWS = {}
+# fields of a config that its parameters do not depend on
+SERVING_FIELDS = {"kv_tail"}
+
+
+def reference_model(name, dtype="float32", seed=3, **serving):
+    """(reference cfg, port cfg, reference params, port params) of ``name``
+    reduced, at ``dtype`` (compute and parameters), with the serving fields
+    ``serving`` replaced: the reference's dense draw (one jitted
+    ``init_params`` at f32; another dtype casts that draw to the dtypes its
+    own ``init_params`` gives each leaf) bridged.  Drawn once per process
+    for each name, dtype and seed, so the tests and test modules of one
+    process share it; a test must not write into it."""
+    assert set(serving) <= SERVING_FIELDS, serving
+    kw = dict(compute_dtype=dtype, param_dtype=dtype, **serving)
+    jcfg = dataclasses.replace(jax_config(name).reduced(), **kw)
+    tcfg = dataclasses.replace(torch_config(name).reduced(), **kw)
+    key = (name, dtype, seed)
+    if key not in _DRAWS:
+        if dtype == "float32":
+            jp = jax.jit(lambda k: jlm.init_params(jcfg, k))(
+                jax.random.PRNGKey(seed))
+        else:
+            jp32 = reference_model(name, "float32", seed)[2]
+            like = jax.eval_shape(lambda k: jlm.init_params(jcfg, k),
+                                  jax.random.PRNGKey(seed))
+            jp = jax.tree_util.tree_map(lambda a, s: a.astype(s.dtype),
+                                        jp32, like)
+        _DRAWS[key] = (jp, bridge.params_from_numpy(to_numpy(jp), tcfg,
+                                                    "cpu"))
+    return (jcfg, tcfg, *_DRAWS[key])
 
 
 def rand(shape, seed, dtype=np.float32):

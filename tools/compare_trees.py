@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Flat bf16, spec k=4 and paged int8 serving of two checkouts on one card,
 and the cost of RMSNorm's f64 sum of squares; or, with ``--attention`` or
-``--linears``, the two checkouts' kernels alone at the same shapes.
+``--linears`` or ``--dense``, the two checkouts' kernels alone at the same
+shapes.
 
     python3 tools/compare_trees.py PARENT_DIR [CHANGE_DIR] [--out PATH]
     python3 tools/compare_trees.py PARENT_DIR --attention [--out PATH]
     python3 tools/compare_trees.py PARENT_DIR --linears [--out PATH]
+    python3 tools/compare_trees.py PARENT_DIR --dense K,N [--out PATH]
 
 1. **trees**: for each checkout, in the order parent, change, change,
    parent, a subprocess in that checkout imports its own ``chip_smoke.py``
@@ -47,6 +49,15 @@ tied unembedding (151936 x 1024 bf16) at M = 4 and 20, on the same seeded
 inputs: the CUDA-event time (L2 flushed) and the traced device time per
 call (a layer's sum for the gemv) and the largest error against the plain
 version, in step 1's order; step 2 is skipped.
+
+With ``--dense K,N`` each run instead builds its checkout's
+``dense_matmul.cu`` alone and times its bf16 dense product against a
+seeded random ``[N, K]`` bf16 table (rows, as the engine lays out an
+untied head) at M = 1, 4, 20 and 64, on the same seeded inputs: the
+CUDA-event time (L2 flushed), the traced device time per call, the
+largest error against the plain version and the f64 sum of the f32
+output (equal sums across checkouts: the same bits, barring a
+coincidence), in step 1's order; step 2 is skipped.
 
 It needs one CUDA card and exits non-zero without one.  The parent's
 checkout lives in a git-ignored directory of this repository, made with
@@ -283,6 +294,36 @@ print("RESULT " + json.dumps(out), flush=True)
 """
 
 
+DENSE_CHILD = r"""
+import json, sys
+sys.path.insert(0, "."); sys.path.insert(0, "src")
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import build
+from repro_torch.kernels.dense_matmul import dense_matmul, dense_matmul_plain
+cs.card_phase(torch, build)
+build.build_all(["dense_matmul.cu"])
+K, N = @SHAPE@
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)
+timer = cs.Timer(torch)
+w = (torch.randn((N, K), generator=gen, device="cuda")
+     / K ** 0.5).to(torch.bfloat16)
+xs = torch.randn((64, K), generator=gen, device="cuda").to(torch.bfloat16)
+out = {}
+for m in (1, 4, 20, 64):
+    x = xs[:m]
+    y = dense_matmul(x, w, torch.float32)
+    err = (y - dense_matmul_plain(x, w, torch.float32)).abs().max().item()
+    out[f"[{K}, {N}] M={m}"] = {
+        "ms": timer(lambda: dense_matmul(x, w, torch.float32)),
+        "device_ms": cs.device_ms_per_call(
+            torch, lambda: dense_matmul(x, w, torch.float32)),
+        "max_abs_err": err, "sum": y.double().sum().item()}
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
 def run_tree(label: str, tree: Path, timeout: float, child: str) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", child], cwd=tree,
@@ -365,6 +406,9 @@ def main() -> int:
     ap.add_argument("--linears", action="store_true",
                     help="time the two checkouts' sparse gemv and dense "
                          "unembedding instead of serving")
+    ap.add_argument("--dense", default=None, metavar="K,N",
+                    help="time the two checkouts' bf16 dense product "
+                         "against a [N, K] table instead of serving")
     args = ap.parse_args()
     sys.path.insert(0, str(HERE / "src"))
     import torch
@@ -378,10 +422,13 @@ def main() -> int:
     print(f"[compare] card: {card}", flush=True)
     trees = {"parent": args.parent.resolve(), "change": args.change.resolve()}
     child = (ATTENTION_CHILD if args.attention else
-             LINEARS_CHILD if args.linears else CHILD)
+             LINEARS_CHILD if args.linears else
+             DENSE_CHILD.replace("@SHAPE@", ", ".join(
+                 str(int(v)) for v in args.dense.split(",")))
+             if args.dense else CHILD)
     runs = [(label, run_tree(label, trees[label], args.timeout, child))
             for label in ("parent", "change", "change", "parent")]
-    if args.attention or args.linears:
+    if args.attention or args.linears or args.dense:
         for key in runs[0][1]:
             print(f"[compare] {'attention ' if args.attention else ''}"
                   f"{key}: " + "; ".join(
