@@ -222,7 +222,33 @@ Phases, each of which exits non-zero on failure:
      ``mamba_apply`` over 4 x 256 rows with its state and 8 decode steps,
      outputs and states within 1e-2 of the plain range, launches exact.
    ``--only rwkv6,seamless,jamba,jamba_mamba`` runs the build and these
-   alone.
+   alone.  ``seamless`` also holds its kernel rows first: the gemv at the
+   9 linears a decoder layer runs a decode step (M = 4) and the attention
+   at D = 64, G = 1 (QG = 1), each beside its bound, plain version and
+   library call.
+6. **train** (the sixteenth slice): full-width, full-depth Qwen3-0.6B
+   trains 8 steps of 8 x 1024 tokens through ``launch.train.train_loop``
+   (bf16 params, f32 master and moments, remat): the loss falls, every
+   leaf's gradient is finite, every param keeps its layout (the dense
+   linears column-major), and the dense kernel launches exactly the count
+   worked out from ``launch_rows`` each step (the forward and the remat
+   replay of every linear, and the tied head), no other kernel; the
+   median step, tok/s, peak memory and a traced step of 1 x 1024 tokens
+   (idle share, the dense kernel's and the backward ``torch.matmul``
+   products' shares).
+   Then the dense kernel at the step's M = 8192 ([1024 -> 2048 / 1024 /
+   3072], [2048 -> 1024], [3072 -> 1024], the tied head) beside its bound,
+   plain version and ``torch.matmul``; the gradients of one step through
+   the kernels against the plain versions (full width and depth, 2 x 256
+   tokens: f32 loss within 1e-5 and every leaf within 1e-3 of its range,
+   bf16 loss within 1e-2); ``microbatch=4`` against the batch of 8 x 256;
+   restart (4 steps straight against 2, a checkpoint, a restore and 2
+   more, at 4 layers); one step of 1 x 8192 tokens in each blocked
+   attention schedule (losses and the table's gradient norms agree,
+   launches exact, timed); a one-shot prefill of one 8192-token prompt on
+   packed bf16 weights against the plain versions (5e-2 of the range);
+   one step of every other family's reduced config at f32 against the
+   plain versions.  ``--only train`` runs the build and this phase alone.
 
 Every traced tick and chunk reports the unembedding's and the gemv's
 device time and launches.  The lines before the last carry the kernel
@@ -425,6 +451,30 @@ MOE_LINEARS = {"sparse_gemv": ((1, SLOTS), SLOTS, (SLOTS,)),
                "sparse_matmul": ((SLOTS * (SPEC_K + 1), PREFILL_CHUNK),
                                  PREFILL_CHUNK, (PREFILL_CHUNK,))}
 MOE_ROWS = (SLOTS, PREFILL_CHUNK)
+# the training slice: full-width Qwen3-0.6B trained TRAIN_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ tokens (the dense kernel at M = 8192); its
+# gradients held against the plain versions at TRAIN_CHECK_BATCH x
+# TRAIN_CHECK_SEQ (full width and depth), microbatches of TRAIN_MICRO;
+# restart at TRAIN_RESTART_LAYERS layers of full width (a checkpoint of
+# the whole model and its f32 state would take 8.4 GB); one step and one
+# one-shot prefill of TRAIN_LONG tokens (past full_attn_max: the blocked
+# attention); one step of each other family's reduced config
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 8, 1024, 8, 4
+# the traced step: 1 x 1024 tokens (on an H100 80GB HBM3 at 700 W, reading
+# the trace of a whole 8 x 1024 step, 160 K kernel records, took 84.7 s of
+# a 181 s phase, and of a 2 x 1024 step 35 s); the microbatch check at
+# TRAIN_BATCH x TRAIN_MICRO_SEQ
+TRAIN_TRACE_BATCH, TRAIN_MICRO_SEQ = 1, 256
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 256
+TRAIN_RESTART_LAYERS, TRAIN_RESTART_BATCH, TRAIN_RESTART_SEQ = 4, 2, 256
+TRAIN_LONG = 8192
+# f32: the kernels and cuBLAS sum f32 products in other orders; bf16: the
+# loss of two correct bf16 paths; the blocked schedules at 8192 tokens
+# differ only by pairs whose whole block is masked
+TRAIN_TOL = {"loss_f32": 1e-5, "grad_f32": 1e-3, "loss_bf16": 1e-2,
+             "long_loss": 1e-5, "long_head": 1e-3}
+TRAIN_FAMILIES = ("phi3.5-moe-42b-a6.6b", "rwkv6-7b", "jamba-1.5-large-398b",
+                  "seamless-m4t-medium", "internvl2-1b")
 # kernels a traced tick reports by name: (substring of the trace's kernel
 # name); the flat decode tick must hold one gemv launch per linear and no
 # sum_partials
@@ -618,11 +668,11 @@ def _check(name, got, ref, tol, errs):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def _layer_linears(cfg):
+def _layer_linears(cfg, skip=()):
     """The sparse linears of one layer as (name, K, N), from the specs:
     the leaves ``convert_concrete`` packs (a dense layer's seven; an MoE's
     attention and Scout's shared expert, not its router or expert
-    stacks)."""
+    stacks), but those whose paths (``cross/wk``) ``skip`` names."""
     from repro_torch.core.convert import _is_sparsifiable
     from repro_torch.models import lm
     from repro_torch.models import module as mod
@@ -630,7 +680,7 @@ def _layer_linears(cfg):
     mod.map_with_path(
         lambda p, s: out.append((p.rsplit("/", 1)[-1], s.shape[-2],
                                  s.shape[-1]))
-        if _is_sparsifiable(p, s) else None,
+        if _is_sparsifiable(p, s) and p not in skip else None,
         lm.model_specs(cfg)["blocks"]["l0"])
     return out
 
@@ -5339,14 +5389,18 @@ def rwkv_phase(torch):
 def seamless_phase(torch):
     """SeamlessM4T-medium at full width and depth (12 encoder and 12
     decoder layers, d 1024, 16 heads of 64, G = 1, untied 256206-row head,
-    the first N not a multiple of 4): its head rows at M = 1 and 4, then
-    the one-shot engine on SEAMLESS_BATCH x (SEAMLESS_FRAMES seeded
-    ``src_embeds`` frames + SEAMLESS_PROMPT tokens), SEAMLESS_TOKENS new
+    the first N not a multiple of 4): its kernel rows first (the gemv at
+    the 9 linears a decoder layer runs a decode step, M = SEAMLESS_BATCH;
+    the flat and paged attention at D = 64, G = 1, QG = 1; the head at
+    M = 1 and 4), then the one-shot engine on SEAMLESS_BATCH x
+    (SEAMLESS_FRAMES seeded ``src_embeds`` frames + SEAMLESS_PROMPT
+    tokens), SEAMLESS_TOKENS new
     (``kv_tail`` 128 is a multiple of bs = 128, so a refreeze is legal):
     per decode step 12 attention launches (the self-attention only: the
     cross attention is plain torch over the encoder's dense K/V, as in the
     reference) and 9 gemv launches a layer (``wq``, ``wk``, ``wv``, ``wo``,
     the cross attention's ``wq`` and ``wo``, the MLP)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, host_batch
     from repro_torch.serving import SamplingParams
@@ -5355,7 +5409,22 @@ def seamless_phase(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(16)
     detail = []
-    kern = {"head": head_kernel(torch, cfg, timer, gen, detail, NEW_HEAD_M)}
+    one = {"flat": (1,), "paged": (1,)}
+    kern = {"linears": linear_kernels(
+                torch, cfg, timer, gen, detail,
+                plan={"sparse_gemv": ((SEAMLESS_BATCH,), SEAMLESS_BATCH,
+                                      (SEAMLESS_BATCH,))},
+                # a decode step's: the cross K/V are projected once, at
+                # the prefill
+                linears=_layer_linears(cfg, skip=("cross/wk",
+                                                  "cross/wv"))),
+            # the attention's shapes are a decoder layer's self-attention
+            # (the pool sizing refuses an encoder-decoder config)
+            "attention": attention_kernels(
+                torch, dataclasses.replace(cfg, family="dense",
+                                           enc_layers=0),
+                timer, gen, detail, one, one, long=False),
+            "head": head_kernel(torch, cfg, timer, gen, detail, NEW_HEAD_M)}
     toks = host_batch(DataConfig(vocab=cfg.vocab, seq_len=SEAMLESS_PROMPT,
                                  global_batch=SEAMLESS_BATCH), 0)["tokens"]
     src = torch.randn((SEAMLESS_BATCH, SEAMLESS_FRAMES, cfg.d_model),
@@ -5567,6 +5636,552 @@ def wide_phases(torch, only=WIDE_PHASES):
     return res, detail
 
 
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+def _train_batch(torch, cfg, b, s, gen=None):
+    """The data pipeline's first batch on the card, with seeded
+    ``src_embeds`` / ``frontend_embeds`` where ``cfg`` takes them."""
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in host_batch(
+        DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b), 0).items()}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.randn((b, s, cfg.d_model), generator=gen,
+                                          device="cuda")
+    if cfg.frontend:
+        batch["frontend_embeds"] = torch.randn(
+            (b, cfg.frontend_tokens, cfg.d_model), generator=gen,
+            device="cuda")
+    return batch
+
+
+def train_launches(cfg, b, s):
+    """Dense kernel launches of one train step of ``b x s`` tokens of a
+    dense model (``cfg.remat``): each layer's linears once per
+    ``launch_rows(K)`` rows in the forward and again in the backward's
+    replay, and the tied head once per ``launch_rows(d)`` rows of each
+    loss chunk (1024 positions, or the whole sequence), with no replay
+    (the loss keeps its logits, as the reference's scan does)."""
+    from repro_torch.kernels.dense_matmul import launch_rows
+    w = 4 if cfg.param_dtype == "float32" else 2
+    rows = b * s
+    layer = sum(-(-rows // launch_rows(k, w)) for _, k, _ in
+                _layer_linears(cfg))
+    chunk = 1024 if s % 1024 == 0 else s
+    head = (s // chunk) * -(-(b * chunk) // launch_rows(cfg.d_model, w))
+    return (2 if cfg.remat else 1) * cfg.n_layers * layer + head
+
+
+@contextlib.contextmanager
+def train_watch(torch, steps, grads=None):
+    """Wrap ``launch.train.make_train_step``'s step for this script's run:
+    per step its wall time (between two syncs), the dense kernel's
+    launches (read before and after; the counters are not reset), whether
+    every new param kept its old strides, whether every leaf's gradient
+    was finite (each checked on the card, read once a step), the loss and
+    the grad norm; ``grads`` collects each step's tied-table gradient
+    norm."""
+    from repro_torch import kernels
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.train import step as step_mod
+    make, vg = train_mod.make_train_step, step_mod.value_and_grad
+    finite = []
+
+    def checked(*a, **k):
+        loss, g = vg(*a, **k)
+        finite.append(torch.stack([torch.isfinite(t).all()
+                                   for t in tree_leaves(g)]).all())
+        if grads is not None:
+            grads.append(g["embed"]["tok"].float().norm())
+        return loss, g
+
+    def watched_make(*a, **k):
+        fn = make(*a, **k)
+
+        def step(params, opt, batch):
+            strides = tree_map(lambda t: t.stride(), params)
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            out = fn(params, opt, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = kernels.launch_counts()
+            steps.append({
+                "s": dt, "dense": after["dense_matmul"]
+                - before["dense_matmul"],
+                "other": sum(after[n] - before[n] for n in after
+                             if n != "dense_matmul"),
+                "layout_kept": tree_map(lambda t: t.stride(), out[0])
+                == strides,
+                "finite": bool(finite[-1]), "loss": float(out[2]["loss"]),
+                "grad_norm": float(out[2]["grad_norm"])})
+            return out
+        return step
+    with patched(train_mod, "make_train_step", watched_make), \
+            patched(step_mod, "value_and_grad", checked):
+        yield
+
+
+def train_profile(torch, fn, step_s, n=1):
+    """One train step (``fn``, ending in a sync) traced by
+    ``torch.profiler`` after one untraced call: wall time, device busy
+    time, the dense kernel's device time and launches (its kernels are
+    named ``unembed_*``), and the device time of the backward's
+    ``torch.matmul`` products (each wrapped in a ``record_function`` range
+    for this run only), all per step.  The profiler stretches the traced
+    step's wall time several times over, so the idle share is taken
+    against the untraced median step ``step_s`` (and reported against the
+    traced wall too)."""
+    from repro_torch.kernels import dense_matmul as dm
+    res = {}
+    fn()
+    product = dm._product
+
+    def ranged(*a, **k):
+        with torch.profiler.record_function("dense_backward_matmul"):
+            return product(*a, **k)
+    t0 = time.perf_counter()
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with patched(dm, "_product", ranged), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        res["wall_ms"] = (time.perf_counter() - t0) / n * 1e3
+        events = prof.key_averages()
+        kern = [(e.key, e.self_device_time_total / n / 1e3, e.count / n)
+                for e in events if "CUDA" in str(e.device_type)
+                and e.self_device_time_total > 0]
+        bwd = [e.device_time_total / n / 1e3 for e in events
+               if e.key == "dense_backward_matmul"]
+    except Exception as e:
+        res["device"] = f"not measured: {type(e).__name__}: {e}"
+        return res
+    if not kern:
+        res["device"] = "not measured: the trace holds no device time"
+        return res
+    busy = sum(t for _, t, _ in kern)
+    dense = [(t, c) for k, t, c in kern if "unembed_" in k]
+    kern.sort(key=lambda r: -r[1])
+    res.update(
+        device_ms=busy, idle_share=max(0.0, 1 - busy / (step_s * 1e3)),
+        idle_share_traced=max(0.0, 1 - busy / res["wall_ms"]),
+        dense_ms=sum(t for t, _ in dense),
+        dense_traced_launches=sum(c for _, c in dense),
+        backward_matmul_ms=(bwd[0] if bwd and bwd[0] > 0 else
+                            "not measured: no device time under the range"),
+        top=[{"kernel": k[:80], "ms": t, "count": c}
+             for k, t, c in kern[:8]])
+    res["dense_share"] = res["dense_ms"] / busy
+    if isinstance(res["backward_matmul_ms"], float):
+        res["backward_matmul_share"] = res["backward_matmul_ms"] / busy
+    return res
+
+
+def _grads_against_plain(torch, label, params, batch, cfg, loss_tol,
+                         grad_tol=None, attn_impl=None):
+    """One step's loss and gradients (``train.step.value_and_grad``)
+    through the kernels and again with every kernel on its plain version
+    (``plain_kernels``), the same params and batch: the loss within
+    ``loss_tol`` relative and, with ``grad_tol``, every leaf's gradient
+    within ``grad_tol`` of its largest plain magnitude.  The kernel run
+    must launch the dense kernel.  Returns the errors and launches."""
+    from repro_torch import kernels
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.train.step import value_and_grad
+    kernels.reset_launch_counts()
+    loss_k, g_k = value_and_grad(params, batch, cfg, attn_impl)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    if launched["dense_matmul"] == 0:
+        fail(f"{label}: the step launched no dense kernel")
+    with plain_kernels():
+        loss_p, g_p = value_and_grad(params, batch, cfg, attn_impl)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not rel <= loss_tol:
+        fail(f"{label}: loss through the kernels {float(loss_k):.6f} against "
+             f"the plain versions' {float(loss_p):.6f} ({rel:.2e} > "
+             f"{loss_tol:.0e} relative)")
+    worst = 0.0
+    if grad_tol is not None:
+        for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)):
+            top = b.float().abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
+            worst = max(worst, err / max(top, 1e-30))
+        if not worst <= grad_tol:
+            fail(f"{label}: a leaf's gradient is {worst:.2e} of its largest "
+                 f"plain magnitude from the plain versions' (> {grad_tol})")
+    return {"loss": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel": rel, "grad_rel": worst,
+            "launches": launched["dense_matmul"]}
+
+
+def train_kernel_rows(torch, cfg, timer, gen, detail):
+    """The dense kernel at the training shapes of ``cfg`` (one train step
+    of TRAIN_BATCH x TRAIN_SEQ rows): each distinct (K, N) of a layer's
+    linears, a random bf16 weight laid out column-major as ``params_to``
+    stores it, and the tied head, through ``dense_rows`` (held to the
+    plain version, timed beside its bound, the plain version and
+    ``torch.matmul``); each row with its launches a step.  Returns the
+    rows and the layer's sum."""
+    from repro_torch.kernels.dense_matmul import launch_rows
+    m = TRAIN_BATCH * TRAIN_SEQ
+    lin = _layer_linears(cfg)
+    out, layer = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                      "bound_ms": 0.0, "max_abs_err": 0.0}
+    replay = 2 if cfg.remat else 1
+    for k, n in sorted({(k, n) for _, k, n in lin}):
+        count = sum(1 for _, kk, nn in lin if (kk, nn) == (k, n))
+        w = (torch.randn((n, k), generator=gen, device="cuda")
+             / k ** 0.5).to(torch.bfloat16).t()
+        xs = torch.randn((m, k), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        row = dense_rows(torch, timer, detail,
+                         f"train dense_matmul [{k}, {n}] x {count} a layer",
+                         w, xs, (m,), {"config": cfg.name, "train": True})[m]
+        row["per_layer"] = count
+        row["launches_per_step"] = replay * cfg.n_layers * count * \
+            -(-m // launch_rows(k))
+        out[f"{k}x{n}"] = row
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            layer[key] += count * row[key]
+        layer["max_abs_err"] = max(layer["max_abs_err"], row["max_abs_err"])
+        del w, xs
+    head = head_kernel(torch, cfg, timer, gen, detail, (m,))[m]
+    head["launches_per_step"] = -(-m // launch_rows(cfg.d_model))
+    out["head"] = head
+    layer["bound_by"] = "bytes" if all(
+        r["bound_by"] == "bytes" for r in out.values()) else "operations"
+    say(f"train: a layer's seven linears at M={m}: kernel "
+        f"{layer['ms'] * 1e3:.1f} us, plain {layer['plain_ms'] * 1e3:.1f} "
+        f"us, torch.matmul {layer['library_ms'] * 1e3:.1f} us, bound "
+        f"{layer['bound_ms'] * 1e3:.1f} us; the head "
+        f"{head['ms'] * 1e3:.1f} us ({head['launches_per_step']} launches a "
+        f"step), torch.matmul {head['library_ms'] * 1e3:.1f} us, bound "
+        f"{head['bound_ms'] * 1e3:.1f} us")
+    return out, layer
+
+
+def train_phase(torch):
+    """The training stack on the card (the sixteenth slice):
+
+    * full-width, full-depth Qwen3-0.6B (bf16 params, f32 master) trains
+      TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens through
+      ``launch.train.train_loop`` (params drawn from seed 28, its key; one
+      step of lr warm-up): the last loss below the first, every leaf's
+      gradient finite, every param's layout kept, the dense kernel's
+      launches a step exactly ``train_launches`` and no other kernel;
+      the median step, tok/s, peak memory and a traced step of
+      TRAIN_TRACE_BATCH x TRAIN_SEQ tokens (busy, idle share, the dense
+      kernel's share and launches, the backward ``torch.matmul``
+      products' share);
+    * the dense kernel at the training shapes (``train_kernel_rows``);
+    * gradients through the kernels against the plain versions on the
+      card (params from seed 0, TRAIN_CHECK_BATCH x TRAIN_CHECK_SEQ, full
+      width and depth): at f32 the loss within 1e-5 relative and every
+      leaf within 1e-3 of its largest magnitude; at bf16 the loss within
+      1e-2;
+    * ``microbatch=TRAIN_MICRO`` against the full batch of TRAIN_BATCH x
+      TRAIN_MICRO_SEQ tokens at the same params (loss within 1e-4, the
+      master copy within rtol 2e-2, atol 5e-5);
+    * restart: 4 steps straight against 2, a checkpoint, a restore and 2
+      more (losses within rtol 1e-4, atol 1e-5), at TRAIN_RESTART_LAYERS
+      layers (full width);
+    * past 4096 tokens: one step of 1 x TRAIN_LONG tokens in each blocked
+      schedule (losses within 1e-5 relative, the tied table's gradient
+      norms within 1e-3, launches exact), timed; a one-shot ``Engine``
+      prefill of one TRAIN_LONG-token prompt on packed bf16 weights
+      against the same prefill on the plain versions (5e-2 of the range);
+    * one step of every other family's reduced config at f32, kernels
+      against plain versions (loss 1e-5, every leaf 1e-3)."""
+    import dataclasses
+    import gc
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.serving import Engine
+    from repro_torch.serving.engine import params_to
+    from repro_torch.train import make_train_step
+    cuda = torch.device("cuda")
+    cfg = get_config("qwen3-0.6b")
+    # a call at M = 8192 takes milliseconds: fewer repetitions do
+    timer = Timer(torch, reps=5, warmup=1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    detail, res = [], {}
+    t_phase = time.perf_counter()
+
+    # -- the main path: train_loop, TRAIN_STEPS steps ----------------------
+    want = train_launches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    steps = []
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    optc = OptConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with train_watch(torch, steps):
+        params, opt, losses = train_mod.train_loop(cfg, TRAIN_STEPS, dc,
+                                                   optc=optc, device="cuda")
+    total = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(steps) != TRAIN_STEPS:
+        fail(f"train: {len(steps)} steps watched, {TRAIN_STEPS} run")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall ({losses})")
+    for i, s in enumerate(steps):
+        if not s["finite"]:
+            fail(f"train: step {i} has a gradient that is not finite")
+        if not s["layout_kept"]:
+            fail(f"train: step {i} changed a param's layout")
+        if s["dense"] != want or s["other"]:
+            fail(f"train: step {i} launched the dense kernel {s['dense']} "
+                 f"times ({want} worked out from launch_rows) and "
+                 f"{s['other']} other kernels")
+    if launched["dense_matmul"] != TRAIN_STEPS * want or \
+            sum(launched.values()) != launched["dense_matmul"]:
+        fail(f"train: the run's launches {launched}, "
+             f"{TRAIN_STEPS * want} dense expected")
+    wq = params["blocks"]["l0"]["mixer"]["wq"]
+    if wq.stride(-2) != 1 or opt["step"].item() != TRAIN_STEPS:
+        fail("train: the trained linears are not column-major")
+    step_s = statistics.median(s["s"] for s in steps[1:])
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    res["train"] = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+                    "seq": TRAIN_SEQ, "losses": losses, "seconds": total,
+                    "step_s": [s["s"] for s in steps],
+                    "median_step_s": step_s, "tok_s": rows / step_s,
+                    "peak_gib": peak, "launches": launched,
+                    "launches_per_step": want,
+                    "grad_norms": [s["grad_norm"] for s in steps]}
+    say(f"train: qwen3-0.6b full width and depth, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {total:.1f} s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; median step "
+        f"{step_s * 1e3:.1f} ms ({rows / step_s:.0f} tok/s; first step "
+        f"{steps[0]['s'] * 1e3:.1f} ms); peak allocated {peak:.2f} GiB; "
+        f"dense kernel {want} launches a step (exact, every step; "
+        f"{launched['dense_matmul']} in the run), every gradient finite, "
+        f"every layout kept")
+
+    # -- a traced step ----------------------------------------------------
+    batch = _train_batch(torch, cfg, TRAIN_TRACE_BATCH, TRAIN_SEQ)
+    step_fn = make_train_step(cfg, optc)
+
+    def one_step():
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_step()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    prof = train_profile(torch, one_step, statistics.median(times))
+    prof.update(seconds=time.perf_counter() - t0, batch=TRAIN_TRACE_BATCH,
+                untraced_step_s=times,
+                launches=train_launches(cfg, TRAIN_TRACE_BATCH, TRAIN_SEQ))
+    res["train"]["profile"] = prof
+    if isinstance(prof.get("device_ms"), float):
+        bwd = prof.get("backward_matmul_share")
+        say(f"train: traced step of {TRAIN_TRACE_BATCH} x {TRAIN_SEQ} tokens "
+            f"(untraced median {statistics.median(times) * 1e3:.1f} ms): "
+            f"{prof['wall_ms']:.1f} ms wall under the profiler "
+            f"({prof['seconds']:.1f} s with the trace's reading), device "
+            f"busy {prof['device_ms']:.1f} ms: idle share "
+            f"{prof['idle_share']:.3f} of the untraced median step "
+            f"({prof['idle_share_traced']:.3f} of the traced wall); dense "
+            f"kernel ({prof['launches']} launches a step) "
+            f"{prof['dense_ms']:.1f} ms ({prof['dense_share']:.3f} of busy, "
+            f"{prof['dense_traced_launches']:.0f} launches traced); backward "
+            "torch.matmul "
+            + (f"{prof['backward_matmul_ms']:.1f} ms ({bwd:.3f} of busy)"
+               if bwd is not None else str(prof["backward_matmul_ms"])))
+    else:
+        say(f"train: traced step: {prof.get('device')}")
+    del params, opt, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the kernel at the training shapes ---------------------------------
+    res["kernel_rows"], res["kernel_layer"] = train_kernel_rows(
+        torch, cfg, timer, gen, detail)
+
+    # -- gradients against the plain versions -------------------------------
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    check = _train_batch(torch, cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ)
+    p32 = params_to(lm.init_params(cfg32, seed=0, device=cuda), cuda)
+    res["grads_f32"] = _grads_against_plain(
+        torch, "train f32", p32, check, cfg32, TRAIN_TOL["loss_f32"],
+        TRAIN_TOL["grad_f32"])
+    del p32
+    p16 = params_to(lm.init_params(cfg, seed=0, device=cuda), cuda)
+    res["grads_bf16"] = _grads_against_plain(
+        torch, "train bf16", p16, check, cfg, TRAIN_TOL["loss_bf16"])
+    g32, g16 = res["grads_f32"], res["grads_bf16"]
+    say(f"train: gradients through the kernels against the plain versions "
+        f"({TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ} tokens, full width and "
+        f"depth): f32 loss {g32['loss_rel']:.2e} relative (tol "
+        f"{TRAIN_TOL['loss_f32']:.0e}), worst leaf {g32['grad_rel']:.2e} of "
+        f"its range (tol {TRAIN_TOL['grad_f32']:.0e}), {g32['launches']} "
+        f"dense launches; bf16 loss {g16['loss_rel']:.2e} (tol "
+        f"{TRAIN_TOL['loss_bf16']:.0e})")
+
+    # -- microbatches against the full batch --------------------------------
+    big = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_MICRO_SEQ)
+    optm = OptConfig(peak_lr=1e-3)
+    opt0 = init_opt_state(p16)
+    _, o1, m1 = make_train_step(cfg, optm)(p16, opt0, big)
+    _, o2, m2 = make_train_step(cfg, optm, microbatch=TRAIN_MICRO)(
+        p16, opt0, big)
+    dl = abs(float(m1["loss"]) - float(m2["loss"]))
+    worst = 0.0
+    for a, b in zip(tree_leaves(o1["master"]), tree_leaves(o2["master"])):
+        excess = ((a - b).abs() - (5e-5 + 2e-2 * b.abs())).max().item()
+        worst = max(worst, excess)
+    if not (dl < 1e-4 and worst <= 0):
+        fail(f"train: microbatch {TRAIN_MICRO} against the full batch: loss "
+             f"{dl:.2e} apart (tol 1e-4), master past rtol 2e-2 / atol "
+             f"5e-5 by {worst:.2e}")
+    res["microbatch"] = {"loss_diff": dl, "loss": float(m1["loss"])}
+    say(f"train: microbatch {TRAIN_MICRO} of the batch of {TRAIN_BATCH} x "
+        f"{TRAIN_MICRO_SEQ}: "
+        f"loss {dl:.2e} from the full batch's (tol 1e-4), every master "
+        "leaf within rtol 2e-2, atol 5e-5")
+    del o1, o2, opt0, big
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- restart against an unbroken run -----------------------------------
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_RESTART_LAYERS)
+    dc4 = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_RESTART_SEQ,
+                     global_batch=TRAIN_RESTART_BATCH)
+    opt4 = OptConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=4)
+
+    def run(steps, **kw):
+        return train_mod.train_loop(cfg4, steps, dc4, optc=opt4,
+                                    device="cuda", **kw)
+    _, _, straight = run(4)
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d)
+        t0 = time.perf_counter()
+        run(2, ckpt=ck, ckpt_every=2)
+        p_r, _, resumed = run(4, ckpt=ck)
+        t_restart = time.perf_counter() - t0
+    if not all(abs(a - b) <= 1e-5 + 1e-4 * abs(b)
+               for a, b in zip(resumed, straight[2:])) or len(resumed) != 2:
+        fail(f"train: restart {resumed} against the unbroken run's "
+             f"{straight[2:]} (rtol 1e-4, atol 1e-5)")
+    if p_r["blocks"]["l0"]["ffn"]["w_down"].stride(-2) != 1:
+        fail("train: the restored linears are not column-major")
+    res["restart"] = {"straight": straight, "resumed": resumed,
+                      "seconds": t_restart}
+    say(f"train: restart at {TRAIN_RESTART_LAYERS} layers: losses "
+        f"{resumed} after a checkpoint and a restore, {straight[2:]} "
+        f"unbroken (rtol 1e-4, atol 1e-5); save, restore and 4 steps "
+        f"{t_restart:.1f} s")
+    del p_r
+    gc.collect()
+
+    # -- past 4096 tokens ---------------------------------------------------
+    long = _train_batch(torch, cfg, 1, TRAIN_LONG)
+    want_long = train_launches(cfg, 1, TRAIN_LONG)
+    res["long"] = {}
+    opt16 = init_opt_state(p16)
+    for impl in ("masked", "triangular"):
+        watched, heads = [], []
+        with train_watch(torch, watched, heads):
+            train_mod.make_train_step(cfg, optm, attn_impl=impl)(
+                p16, opt16, long)
+        w = watched[0]
+        if not w["finite"] or w["dense"] != want_long or w["other"]:
+            fail(f"train: the {TRAIN_LONG}-token {impl} step: finite "
+                 f"{w['finite']}, {w['dense']} dense launches "
+                 f"({want_long} expected), {w['other']} others")
+        res["long"][impl] = {"s": w["s"], "loss": w["loss"],
+                             "head_grad_norm": float(heads[0])}
+    m_, t_ = res["long"]["masked"], res["long"]["triangular"]
+    dl = abs(m_["loss"] - t_["loss"]) / abs(m_["loss"])
+    dh = abs(m_["head_grad_norm"] - t_["head_grad_norm"]) / \
+        m_["head_grad_norm"]
+    if not (dl <= TRAIN_TOL["long_loss"] and dh <= TRAIN_TOL["long_head"]):
+        fail(f"train: the blocked schedules at {TRAIN_LONG} tokens: losses "
+             f"{dl:.2e} apart, head-gradient norms {dh:.2e}")
+    say(f"train: one step of 1 x {TRAIN_LONG} tokens (blocked attention): "
+        f"masked {m_['s'] * 1e3:.0f} ms, triangular {t_['s'] * 1e3:.0f} ms; "
+        f"losses {dl:.2e} apart (tol {TRAIN_TOL['long_loss']:.0e}), the "
+        f"tied table's gradient norms {dh:.2e} (tol "
+        f"{TRAIN_TOL['long_head']:.0e}); {want_long} dense launches each")
+    del p16, opt16, long
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed = _model(torch, cfg, "bf16")
+    eng = Engine(packed, cfg, device="cuda")
+    toks = _train_batch(torch, cfg, 1, TRAIN_LONG)["tokens"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cache, logits = eng.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre_launch = kernels.launch_counts()
+    if int(cache["pos"]) != TRAIN_LONG or \
+            pre_launch["sparse_matmul"] != 7 * cfg.n_layers or \
+            pre_launch["dense_matmul"] != 1:
+        fail(f"train: the {TRAIN_LONG}-token prefill: position "
+             f"{int(cache['pos'])}, launches {pre_launch}")
+    del cache
+    with plain_kernels():
+        cache, plain = eng.prefill({"tokens": toks})
+    del cache
+    err = _range_err(logits, plain)
+    if not err <= ONESHOT_TOL["bf16"]:
+        fail(f"train: the {TRAIN_LONG}-token one-shot prefill's logits "
+             f"{err:.2e} of the plain range from the plain versions' (tol "
+             f"{ONESHOT_TOL['bf16']})")
+    res["long_prefill"] = {"seconds": t_pre, "logits_rel_range": err,
+                           "launches": pre_launch}
+    say(f"train: one-shot prefill of one {TRAIN_LONG}-token prompt (packed "
+        f"bf16, blocked attention) in {t_pre:.2f} s; logits {err:.2e} of "
+        f"the plain range (tol {ONESHOT_TOL['bf16']}); launches "
+        f"{ {k: v for k, v in pre_launch.items() if v} }")
+    del eng, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- every family --------------------------------------------------------
+    res["families"] = {}
+    for name in TRAIN_FAMILIES:
+        cf = dataclasses.replace(get_config(name).reduced(),
+                                 param_dtype="float32",
+                                 compute_dtype="float32")
+        pf = params_to(lm.init_params(cf, seed=0, device=cuda), cuda)
+        bf = _train_batch(torch, cf, TRAIN_CHECK_BATCH, 32, gen=gen)
+        r = _grads_against_plain(torch, f"train {name}", pf, bf, cf,
+                                 TRAIN_TOL["loss_f32"], TRAIN_TOL["grad_f32"])
+        res["families"][name] = r
+        say(f"train: {name} reduced at f32, one step: loss "
+            f"{r['loss_rel']:.2e} relative from the plain versions' (tol "
+            f"{TRAIN_TOL['loss_f32']:.0e}), worst leaf {r['grad_rel']:.2e} "
+            f"(tol {TRAIN_TOL['grad_f32']:.0e}), {r['launches']} dense "
+            "launches")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res, detail
+
+
 SOURCES = {
     "sparse_gemv": ("src/repro_torch/kernels/csrc/sparse_gemv.cu",
                     "src/repro/kernels/sparse_gemv.py:47"),
@@ -5612,7 +6227,7 @@ def main() -> int:
                     help="build, then run these of the phases one_shot, "
                          "snapshot, checkify, wide_kernels, llama3_8b, "
                          "phi3_mini, internvl2, phi35_moe, scout, rwkv6, "
-                         "seamless, jamba and jamba_mamba alone "
+                         "seamless, jamba, jamba_mamba and train alone "
                          "(comma-separated; "
                          "checkify without the paged int8 run to compare "
                          "with) and print no result line")
@@ -5645,7 +6260,8 @@ def main() -> int:
     if args.only:
         res = {}
         only = set(args.only.split(","))
-        unknown = only - {"one_shot", "snapshot", "checkify", *WIDE_PHASES}
+        unknown = only - {"one_shot", "snapshot", "checkify", "train",
+                          *WIDE_PHASES}
         if unknown:
             fail(f"--only: no phase {sorted(unknown)}")
         if "one_shot" in only:
@@ -5665,6 +6281,9 @@ def main() -> int:
             del params8
         if only & set(WIDE_PHASES):
             res["wide"], res["wide_detail"] = wide_phases(torch, only)
+        if "train" in only:
+            res["train"], res["train_detail"] = train_phase(torch)
+            say(f"train: passed ({res['train']['seconds']:.1f} s)")
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(res, indent=1, default=str))
@@ -5700,6 +6319,9 @@ def main() -> int:
     wide, wide_detail = wide_phases(torch)
     serve.update(wide)
     detail += wide_detail
+    serve["train"], train_detail = train_phase(torch)
+    detail += train_detail
+    say(f"train: passed ({serve['train']['seconds']:.1f} s)")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -5711,6 +6333,17 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+    # the dense kernel on the training path: launches of the train run, its
+    # numbers a layer's seven linears at the step's M = 8192
+    layer = serve["train"]["kernel_layer"]
+    kernels.append({
+        "name": "dense_matmul (train)", "route": "cuda",
+        "source": SOURCES["dense_matmul"][0],
+        "replaces": SOURCES["dense_matmul"][1],
+        "launches": serve["train"]["train"]["launches"]["dense_matmul"],
+        "max_abs_err": layer["max_abs_err"], "ms": layer["ms"],
+        "plain_ms": layer["plain_ms"], "bound_ms": layer["bound_ms"],
+        "bound_by": layer["bound_by"], "library_ms": layer["library_ms"]})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     if args.out:
         out = Path(args.out)

@@ -1,9 +1,10 @@
-"""PyTorch + CUDA port of the SparAMX serving path (the ``repro`` package is
-the JAX reference it is held against).
+"""PyTorch + CUDA port of the SparAMX serving and training paths (the
+``repro`` package is the JAX reference it is held against).
 
 Layout mirrors ``repro``: ``configs``, ``core`` (sparse format, pruning,
 conversion, sparse KV), ``kernels`` (hand-written Hopper kernels, each with
-its plain PyTorch version), ``models``, ``serving`` and ``launch``.
+its plain PyTorch version), ``models``, ``optim``, ``train``, ``serving``
+and ``launch``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; asking for CUDA on a machine without it raises.  There is

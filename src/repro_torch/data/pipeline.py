@@ -1,12 +1,13 @@
-"""Deterministic synthetic prompts (numpy only; a copy of the generator in
-``repro.data.pipeline``, so both packages draw the same tokens from the same
-seed).  Each example is a Zipf-distributed unigram mixture with repeated
-motifs.
+"""Deterministic synthetic token batches (numpy only; a copy of the
+generator in ``repro.data.pipeline``, so both packages draw the same tokens
+from the same seed).  Each example is a Zipf-distributed unigram mixture
+with repeated motifs.  ``sharded_batch`` waits for ROADMAP Queue 1 item 3
+(the mesh).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -49,3 +50,13 @@ def host_batch(dc: DataConfig, step: int) -> Dict[str, np.ndarray]:
     toks = _example_tokens(dc, step, idx)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
             "mask": np.ones((dc.global_batch, dc.seq_len), np.float32)}
+
+
+def iterate(dc: DataConfig, start_step: int = 0
+            ) -> Iterator[Dict[str, np.ndarray]]:
+    """The global batches of steps ``start_step``, ``start_step + 1``, ...
+    (a restart regenerates them: no loader state to save)."""
+    step = start_step
+    while True:
+        yield host_batch(dc, step)
+        step += 1

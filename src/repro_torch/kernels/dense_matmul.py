@@ -27,6 +27,15 @@ Output is f32; more than 64 rows take one launch per 64 (per
 CPU tensors take the plain version; CUDA operands the kernel does not take
 (dtype, K or a row stride not a multiple of 8, a pointer not 16-byte
 aligned) raise.
+
+Training (:class:`DenseMatmulGrad`) runs the same kernel as its forward,
+launch for launch, and computes the backward's two products with
+``torch.matmul``: ``dx = dy @ w_nk`` (the weight's rows as they stand) and
+``dw_nk = dy.T @ x`` (``[N, K]`` rows, which is the column-major layout of
+the ``[K, N]`` parameter).  That is the reference's own split: the JAX
+package defines no backward kernel (no ``custom_vjp`` anywhere), and XLA
+differentiates ``dense_matmul_pallas``'s caller by transposing its
+``jnp.dot`` outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -161,3 +170,33 @@ def dense_matmul(x: torch.Tensor, w_nk: torch.Tensor,
 
 
 dense_matmul.launches = 0
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """``a @ b`` in the wider of the two dtypes, cast to ``dtype``: bf16
+    operands take cuBLAS's bf16 product, which accumulates in f32; an f32
+    operand (the head's f32 logits' gradient) takes the f32 product."""
+    ct = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(ct), b.to(ct)).to(dtype)
+
+
+class DenseMatmulGrad(torch.autograd.Function):
+    """``kernel(x, w_nk, out_dtype)`` (the hand kernel, or whatever the ops
+    layer routes ``_dense_kernel`` to) under autograd: the forward is the
+    kernel's call as it stands; the backward takes ``torch.matmul`` (see
+    the module docstring), each gradient in its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w_nk, out_dtype, kernel):
+        ctx.save_for_backward(x, w_nk)
+        return kernel(x, w_nk, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_nk = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _product(dy, w_nk, x.dtype)                   # [M, K]
+        if ctx.needs_input_grad[1]:
+            dw = _product(dy.t(), x, w_nk.dtype)               # [N, K]
+        return dx, dw, None, None

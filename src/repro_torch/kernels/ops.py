@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quant import quantize_act_int8
 from repro_torch.core.sparse_format import BlockSparseWeight
+from .dense_matmul import DenseMatmulGrad
 from .dense_matmul import dense_matmul as _dense_kernel
 from .sparse_attention import (sparse_decode_attention_fused,
                                sparse_decode_attention_fused_paged,
@@ -42,9 +43,14 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor,
                  out_dtype=None) -> torch.Tensor:
     """``x [..., K] @ w [K, N]``.  The kernel reads the weight as rows
     ``[N, K]``, so ``w`` is typically a transposed view (``tok.T``) and no
-    copy is made."""
+    copy is made.  Under autograd (grad mode on and an operand that
+    requires grad: a train step) the same kernel runs inside
+    :class:`DenseMatmulGrad`; serving calls it directly, as before."""
     x2, lead = _flatten_leading(x)
-    out = _dense_kernel(x2, w.t(), out_dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        out = DenseMatmulGrad.apply(x2, w.t(), out_dtype, _dense_kernel)
+    else:
+        out = _dense_kernel(x2, w.t(), out_dtype)
     return out.reshape(*lead, w.shape[-1])
 
 

@@ -3,8 +3,7 @@ prefill (self-attention, or an encoder-decoder's cross attention over the
 encoder's memory), the one-token decode over the legacy dense or sparse KV
 cache and its cross attention over the encoder's dense K/V, and the panel
 and chunk attention of the pooled serving cache.  Sequences longer than
-``cfg.full_attn_max`` need the blocked attention, which is not ported
-yet."""
+``cfg.full_attn_max`` take the blocked attention, as in the reference."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +16,7 @@ from repro_torch.core.sparse_kv import (NAN_CHECK, SparseKVCache,
                                          append_tail_panel, append_token,
                                          flag_, pooled_view)
 from repro_torch.kernels import ops
-from .flash import full_attention
+from .flash import blocked_attention, full_attention
 from .layers import apply_rope, rms_norm, rope_angles
 from .module import ParamSpec
 
@@ -95,7 +94,8 @@ def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
 
 def attn_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor,
                memory: Optional[torch.Tensor] = None,
-               causal: Optional[bool] = None, return_kv: bool = False):
+               causal: Optional[bool] = None, attn_impl: str = "masked",
+               return_kv: bool = False):
     """Attention of ``x [B, S, d]`` at ``positions [S]``: self-attention,
     or, given ``memory [B, Sm, d]`` (an encoder-decoder's encoder output),
     cross attention whose K/V are projected from the memory.  As in the
@@ -103,8 +103,8 @@ def attn_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     ``causal=None`` means causal exactly when there is no memory.  With
     ``return_kv`` also the (post-RoPE) ``(k, v)`` ``[B, Hkv, Sm, hd]`` for
     the cache.  Up to ``cfg.full_attn_max`` tokens on both sides run as
-    one unblocked attention, as in the reference; longer sequences need
-    the blocked attention, which is not ported."""
+    one unblocked attention, longer sequences as the blocked attention in
+    the ``attn_impl`` schedule, as in the reference."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
     q = _project_q(p, x, cfg)                                # [B,S,Hq,hd]
@@ -118,13 +118,14 @@ def attn_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor,
         k = apply_rope(k, cos, sin)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     thr = getattr(cfg, "full_attn_max", 4096)
-    if s > thr or k.shape[2] > thr:
-        raise NotImplementedError(
-            f"a {max(s, k.shape[2])}-token sequence needs the blocked "
-            "attention, which is not ported yet")
     g = hq // hkv
-    o = full_attention(q, _repeat_kv(k, g), _repeat_kv(v, g),
-                       1.0 / hd ** 0.5, causal=causal)
+    sm = 1.0 / hd ** 0.5
+    if s <= thr and k.shape[2] <= thr:
+        o = full_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), sm,
+                           causal=causal)
+    else:
+        o = blocked_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), sm,
+                              causal=causal, impl=attn_impl)
     out = ops.linear(o.transpose(1, 2).reshape(b, s, hq * hd), p["wo"])
     if return_kv:
         return out, (k, v)

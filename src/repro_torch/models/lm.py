@@ -1,7 +1,7 @@
 """The model builder of every family (twin of ``repro.models.lm``): the
-full prefill and the one-token decode over the legacy per-batch cache of
-the one-shot engine, and the panel forward and the prefill chunk over the
-pooled serving cache.
+training forward, the full prefill and the one-token decode over the
+legacy per-batch cache of the one-shot engine, and the panel forward and
+the prefill chunk over the pooled serving cache.
 
 Families, as in the reference:
 
@@ -25,7 +25,10 @@ A Python loop over the layer-stacked params replaces the reference's
 forwards update **in place** (the pool is the largest state on the card,
 and the reference's functional copy of it per tick buys nothing here).
 The forwards return the same ``(logits, state)`` pair as the reference,
-``state`` being the caller's dict, mutated.
+``state`` being the caller's dict, mutated.  The training forward
+(:func:`forward_train`) writes into nothing autograd keeps: with
+``cfg.remat`` each period runs under ``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` of its scan body.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from math import gcd
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.sparse_format import BlockSparseWeight
@@ -133,6 +137,12 @@ def model_specs(cfg) -> Dict[str, Any]:
     return specs
 
 
+def abstract_params(cfg) -> Dict[str, Any]:
+    """The params tree as meta tensors: shapes and dtypes, nothing
+    allocated."""
+    return mod.abstract(model_specs(cfg))
+
+
 def init_params(cfg, seed: int = 0,
                 device: Optional[torch.device] = None) -> Dict[str, Any]:
     """Dense parameters drawn on ``device`` (the CUDA device unless the
@@ -149,6 +159,19 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _layers(tree: Any) -> List[Any]:
+    """Every layer of a layer-stacked tree: ``unbind`` for a tensor, so
+    that under autograd each stack's gradient is one ``stack`` of its
+    layers' (a select per layer would each add a zero-filled copy of the
+    whole stack)."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v) for k, v in tree.items()}
+        return [dict(zip(per, vals)) for vals in zip(*per.values())]
+    if isinstance(tree, BlockSparseWeight):
+        return [tree.layer(i) for i in range(tree.bitmap.shape[0])]
+    return list(tree.unbind(0))
+
+
 def logits_fn(params, hidden: torch.Tensor, cfg) -> torch.Tensor:
     return unembed_apply(params["embed"], hidden, cfg)
 
@@ -162,18 +185,21 @@ def _ffn(p, kind, h2: torch.Tensor, cfg, length=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# prefill: the full forward, collecting every layer's K/V or state
-# (one-shot engine)
+# the full-sequence forward: training, and the prefill collecting every
+# layer's K/V or state (one-shot engine)
 # ---------------------------------------------------------------------------
 
-def _sublayer_prefill(x, p, kind, cfg, positions, memory=None):
-    """One layer of the full forward; returns ``x`` and what the decode
-    needs of it: ``{"k", "v"}`` for attention, ``{"state": ...}`` for a
-    recurrent mixer (the states hold the normed f32 inputs' last rows), and
-    ``{"cross": (k, v)}`` beside them for a decoder layer with a memory:
-    the cross attention's K/V ``[B, Hkv, Sm, hd]``, projected once (the
-    reference projects them a second time for the cache, to the same
-    values)."""
+def _sublayer(x, p, kind, cfg, positions, memory=None, attn_impl="masked"):
+    """One layer of the full forward (the reference's ``_sublayer`` and
+    ``_sublayer_prefill``, whose values are the same); returns ``x`` and
+    what the decode needs of it: ``{"k", "v"}`` for attention,
+    ``{"state": ...}`` for a recurrent mixer (the states hold the normed
+    f32 inputs' last rows), and ``{"cross": (k, v)}`` beside them for a
+    decoder layer with a memory: the cross attention's K/V ``[B, Hkv, Sm,
+    hd]``, projected once (the reference projects them a second time for
+    the cache, to the same values).  Training drops the second part.
+    ``attn_impl`` is the blocked attention's schedule past
+    ``cfg.full_attn_max``."""
     mixer, _ = kind
     if mixer == "rwkv":
         xin1 = rms_norm(x, p["ln1"])
@@ -184,7 +210,8 @@ def _sublayer_prefill(x, p, kind, cfg, positions, memory=None):
         return x + h, {"state": {**st, "cm_x": xin2.float()[:, -1]}}
     h = rms_norm(x, p["ln1"])
     if mixer == "attn":
-        h, (k, v) = attn_apply(p["mixer"], h, cfg, positions, return_kv=True)
+        h, (k, v) = attn_apply(p["mixer"], h, cfg, positions,
+                               attn_impl=attn_impl, return_kv=True)
         got = {"k": k, "v": v}
     else:
         h, st = mamba_apply(p["mixer"], h, cfg, return_state=True)
@@ -198,15 +225,57 @@ def _sublayer_prefill(x, p, kind, cfg, positions, memory=None):
     return x + _ffn(p, kind, rms_norm(x, p["ln2"]), cfg), got
 
 
+def _stack_forward(blocks, x: torch.Tensor, cfg, positions: torch.Tensor,
+                   kinds, memory=None, attn_impl: str = "masked"
+                   ) -> torch.Tensor:
+    """``x`` through every period of the layer-stacked ``blocks``.  With
+    ``cfg.remat``, under autograd, each period is recomputed in the
+    backward (``torch.utils.checkpoint``), keeping only its input, as the
+    reference's ``jax.checkpoint`` of its scan body."""
+    for pp in _layers(blocks):
+        def body(xc, pp=pp):
+            for j, kind in enumerate(kinds):
+                xc, _ = _sublayer(xc, pp[f"l{j}"], kind, cfg, positions,
+                                  memory, attn_impl)
+            return xc
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(body, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(x)
+    return x
+
+
 def _encode(params, src: torch.Tensor, cfg) -> torch.Tensor:
     """The encoder over ``src [B, Sm, d]``, then ``enc_norm``.  Its
     attention masks causally, as the reference's does: the reference's
     encoder stack takes its mask from ``memory``, of which it has none."""
     positions = torch.arange(src.shape[1], device=src.device)
-    for i in range(cfg.enc_layers):
-        src, _ = _sublayer_prefill(src, _layer(params["encoder"], i)["l0"],
-                                   ("attn", "mlp"), cfg, positions)
+    src = _stack_forward(params["encoder"], src, cfg, positions,
+                         [("attn", "mlp")])
     return rms_norm(src, params["enc_norm"])
+
+
+def forward_train(params, batch: Dict[str, torch.Tensor], cfg,
+                  attn_impl: str = "masked") -> torch.Tensor:
+    """The training forward over ``batch["tokens"] [B, S]`` (after a
+    frontend config's ``batch["frontend_embeds"] [B, F, d]``; an
+    encoder-decoder's decoder cross-attending to the encoder over
+    ``batch["src_embeds"] [B, Sm, d]``, the reference's
+    ``_encdec_forward``): the final hidden states ``[B, S (+ F), d]``.
+    The loss computes the logits in chunks, so the ``[B, S, V]`` tensor
+    never exists."""
+    memory = None
+    if cfg.family == "encdec":
+        memory = _encode(params, batch["src_embeds"].to(cfg.cdtype), cfg)
+    x = embed_apply(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend and "frontend_embeds" in batch:
+        x = torch.cat([batch["frontend_embeds"].to(x.device, x.dtype), x],
+                      dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _stack_forward(params["blocks"], x, cfg, positions, _kinds(cfg),
+                       memory, attn_impl)
+    return rms_norm(x, params["final_norm"])
 
 
 def _stack(leaves: List[Any]) -> Any:
@@ -241,8 +310,8 @@ def forward_prefill(params, batch: Dict[str, torch.Tensor], cfg
     for i in range(cfg.n_layers // len(kinds)):
         pp = _layer(params["blocks"], i)
         for j in range(len(kinds)):
-            x, col = _sublayer_prefill(x, pp[f"l{j}"], kinds[j], cfg,
-                                       positions, memory)
+            x, col = _sublayer(x, pp[f"l{j}"], kinds[j], cfg, positions,
+                               memory)
             got[f"l{j}"].append(col)
     hidden = rms_norm(x, params["final_norm"])
     layers, cross = {}, {}

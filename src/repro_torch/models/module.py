@@ -77,3 +77,29 @@ def _init_leaf(path: str, spec: ParamSpec, seed: int,
 
 def initialize(tree: Any, seed: int, device: torch.device) -> Any:
     return map_with_path(lambda p, s: _init_leaf(p, s, seed, device), tree)
+
+
+def abstract(tree: Any) -> Any:
+    """Meta tensors of the specs' shapes and dtypes (nothing allocated)."""
+    return map_with_path(lambda p, s: torch.empty(s.shape, dtype=s.dtype,
+                                                  device="meta"), tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of nested dicts, in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_part(tree: Any, i: int) -> Any:
+    """Element ``i`` of every leaf of a tree whose leaves are tuples."""
+    return tree_map(lambda t: t[i], tree)

@@ -49,7 +49,7 @@ def sparse_params(jcfg, tcfg, seed=0):
 
 _DRAWS = {}
 # fields of a config that its parameters do not depend on
-SERVING_FIELDS = {"kv_tail"}
+SERVING_FIELDS = {"kv_tail", "full_attn_max"}
 
 
 def reference_model(name, dtype="float32", seed=3, **serving):
