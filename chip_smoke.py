@@ -62,7 +62,7 @@ Phases, each of which exits non-zero on failure:
    identical to the serial run's, and tok/s, TPOT and TTFT reported for
    both beside the last eager-tick figures (``EAGER_TICKS``):
 
-   * flat pool, bf16 sparse weights: six requests; the traced decode tick
+   * flat pool, bf16 sparse weights: four requests; the traced decode tick
      must run the gemv as one launch per linear (no ``sum_partials``);
    * speculative decoding, flat bf16, ``SpecConfig(k=4)``: four prompts of
      a repeated motif and two random ones, timed beside the same traffic
@@ -75,7 +75,7 @@ Phases, each of which exits non-zero on failure:
      near-tie; then flat f32 ``k=4`` and ``k=8`` (a verify panel of 18
      query rows) each against flat f32 without speculation under the same
      rule;
-   * paged shared-prefix pool, int8 sparse weights: eight requests sharing
+   * paged shared-prefix pool, int8 sparse weights: six requests sharing
      a 512-token prefix (prefix-cache hits and shared blocks required; one
      decode tick and one 256-token prefill chunk traced), then the same
      requests on the flat pool, whose greedy tokens must be identical;
@@ -113,16 +113,16 @@ Phases, each of which exits non-zero on failure:
      decode step and the decode graph's replay with and without the checks;
      a planted device double free raises at a following token read, naming
      its check;
-   * the one-shot ``Engine`` (``one_shot``), bf16: 4 prompts of 512 tokens,
-     160 new (a refreeze grows the prefix from 4 to 5 blocks), eager: the
-     gemv, fused attention, sparse matmul (the prefill at M = 2048) and
+   * the one-shot ``Engine`` (``one_shot``), bf16: 2 prompts of 512 tokens,
+     136 new (a refreeze grows the prefix from 4 to 5 blocks), eager: the
+     gemv, fused attention, sparse matmul (the prefill at M = 1024) and
      unembedding launched exactly once per linear, layer and step; the
      first 8 decode ticks' logits within 5e-2 of the plain range of the
      same ticks through the plain versions; greedy tokens equal to the
      all-plain engine's but at bf16 near-ties; at f32 with KV sparsity 0
      the sparse-KV and dense-KV engines within 1e-3 of the range; tok/s
      and the median decode and prefill step reported.  The kernel phase
-     also holds, times and row-gates the bf16 sparse matmul at M = 2048.
+     also holds, times and row-gates the bf16 sparse matmul at M = 1024.
      ``--only one_shot,snapshot,checkify`` runs the build and these
      phases alone.
 5. **the other dense configs and the VLM** at their published widths:
@@ -141,8 +141,8 @@ Phases, each of which exits non-zero on failure:
      at its ragged K = 896 (its decode batch and one-shot prefill rows);
    * ``llama3_8b``: Llama-3-8B at full width and depth (32 layers), bf16
      sparse weights from seed 0 on the card, the flat pool, every entry
-     captured when the engine is built, overlapped ticks: 6 requests of
-     200-1000 tokens, 64 new, one seeded, through 4 slots and 256-token
+     captured when the engine is built, overlapped ticks: 4 requests of
+     200-1000 tokens, 32 new, one seeded, through 4 slots and 256-token
      chunks.  Gates: decode logits within 5e-2 of the plain range and
      top-1 where the margin is clear; greedy tokens equal to an all-plain
      engine's (serial, eager) but at bf16 near-ties (below ``TOP1_CLEAR``,
@@ -194,12 +194,12 @@ Phases, each of which exits non-zero on failure:
    prefill step, the weights' GB, the peak memory and one traced decode
    step (device busy, idle share, top kernels):
    * ``rwkv6``: RWKV-6-7B at full width and depth (32 layers, d 4096, 64
-     heads of 64, d_ff 14336, untied 65536-row head), 4 prompts of 512
+     heads of 64, d_ff 14336, untied 65536-row head), 4 prompts of 256
      tokens, 32 new: 256 gemv launches a decode step (8 a layer) and one
      head launch, no attention; the prefill's 256 sparse matmuls at
-     M = 2048 and its recurrences (plain torch, a loop over time).  Its
+     M = 1024 and its recurrences (plain torch, a loop over time).  Its
      kernel rows first: the gemv at its linears at M = 1 and 4, the sparse
-     matmul at M = 2048, the head at M = 1 and 4, and the dense kernel at
+     matmul at M = 1024, the head at M = 1 and 4, and the dense kernel at
      ``w_cv``'s K = 14336 (x streamed in K panels) at M = 1, 4, 16, 64 and
      300, each row bit-equal across M.  Random weights make its 32 layers
      chaotic in bf16 (two correct bf16 paths end about 5e-2 of the range
@@ -227,7 +227,7 @@ Phases, each of which exits non-zero on failure:
    at D = 64, G = 1 (QG = 1), each beside its bound, plain version and
    library call.
 6. **train** (the sixteenth slice): full-width, full-depth Qwen3-0.6B
-   trains 8 steps of 8 x 1024 tokens through ``launch.train.train_loop``
+   trains 4 steps of 8 x 1024 tokens through ``launch.train.train_loop``
    (bf16 params, f32 master and moments, remat): the loss falls, every
    leaf's gradient is finite, every param keeps its layout (the dense
    linears column-major), and the dense kernel launches exactly the count
@@ -249,6 +249,29 @@ Phases, each of which exits non-zero on failure:
    packed bf16 weights against the plain versions (5e-2 of the range);
    one step of every other family's reduced config at f32 against the
    plain versions.  ``--only train`` runs the build and this phase alone.
+7. **mesh** (the seventeenth slice): full-width, full-depth Qwen3-0.6B
+   (bf16, 50 % sparse, KV 30 % / 50 %, 4 slots, chunk 256) served by one
+   spawn of 4 ``torch.distributed`` ranks that share the card (gloo: eager
+   entries, collectives staged through host memory) through
+   ``ContinuousEngine(mesh=...)`` on the (data, model) meshes (4, 1),
+   (2, 2) and (1, 4): the reference worker's two waves at full width (4
+   lockstep requests of 24 new tokens; 6 staggered ones of 115 + 3 i
+   tokens and 20 - 2 i new, as the worker's, five of them refreezing),
+   greedy tokens identical on every rank to the one-rank eager engine on
+   the same card; then at (2, 2) speculation with k = 3 (a draft
+   accepted) and paged int8 with 8 requests on a shared 512-token prefix,
+   identical likewise; then at (1, 4) the one-shot decode of a 4096-token
+   prompt context-parallel over the model axis (the split kernel's partial
+   mode on each rank's 8 of 32 blocks), its logits within 5e-2 (bf16) and
+   1e-3 (f32) of the range of the one-rank kernels' logits teacher-forced
+   with the ranks' tokens, top-1 equal where the margin is clear.  The
+   one-rank references run while the ranks do (the gates compare tokens
+   and logits, not times).  First, the flat, paged and partial attention over each model
+   shard's KV heads must equal those heads of the full launch bit for
+   bit.  Every rank's launches are counted per path (each path's kernels
+   at least once on every rank; ``mesh_launches`` in the kernel table);
+   tok/s, tick times and a tick's collective calls, bytes and seconds are
+   printed per mesh.  ``--only mesh`` runs the build and this phase alone.
 
 Every traced tick and chunk reports the unembedding's and the gemv's
 device time and launches.  The lines before the last carry the kernel
@@ -266,6 +289,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -278,13 +302,13 @@ INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 SLOTS = 4
 PREFILL_CHUNK = 256
-N_REQUESTS = 6
+N_REQUESTS = 4              # 6 until the mesh phase joined the script
 NEW_TOKENS = 160
 PROMPT_RANGE = (200, 600)
 # the paged phases: a shared system prefix plus each request's own suffix
 SHARED_PREFIX = 512
 SUFFIX_RANGE = (40, 200)
-PAGED_REQUESTS, PAGED_NEW_TOKENS = 8, 96
+PAGED_REQUESTS, PAGED_NEW_TOKENS = 6, 64   # 8, 96 before the mesh phase
 IDENTITY_TOKENS = 32
 INT4_REQUESTS, INT4_NEW_TOKENS = 4, 32
 LOGIT_TICKS = 25
@@ -300,7 +324,8 @@ TWO_PASS_TOL = 1e-5         # max|two-pass - fused| / max|fused logit|
 TIE_MARGIN = 1e-4
 # the spec phase: 4 prompts of a 24-token motif repeated 8 times (n-gram
 # hits) and 2 random ones (misses)
-SPEC_K, SPEC_TOKENS, SPEC_IDENTITY_TOKENS = 4, 128, 48
+# SPEC_TOKENS was 128 until the mesh phase joined the script
+SPEC_K, SPEC_TOKENS, SPEC_IDENTITY_TOKENS = 4, 64, 48
 SPEC_LOGIT_TICKS = 10       # verify ticks of the spec phase's logits check
 SPEC_F32_K = (SPEC_K, 8)    # the f32 spec phases' windows (8: 18 rows)
 MOTIF, MOTIF_REPEATS, N_MOTIF, N_RANDOM = 24, 8, 4, 2
@@ -331,7 +356,9 @@ CHECK_REPLAYS = 50          # decode graph replays per engine for the A/B time
 # and the refreeze grows the prefix from 4 to 5 blocks); logits held to the
 # plain versions over the first ONESHOT_LOGIT_TICKS decode ticks, and the
 # f32 sparse-KV and dense-KV engines over ONESHOT_F32_TICKS
-ONESHOT_BATCH, ONESHOT_PROMPT, ONESHOT_TOKENS = 4, 512, 160
+# 136 new tokens (160 before the mesh phase): 135 decode steps refreeze the
+# 128-token tail once
+ONESHOT_BATCH, ONESHOT_PROMPT, ONESHOT_TOKENS = 2, 512, 136   # was 4 x 160
 ONESHOT_M = ONESHOT_BATCH * ONESHOT_PROMPT
 ONESHOT_LOGIT_TICKS, ONESHOT_F32_TICKS = 8, 4
 ONESHOT_TOL = {"bf16": 5e-2, "f32": 1e-3}   # max|diff| over the plain range
@@ -399,12 +426,13 @@ WIDE_UNEMBED_M = (1, SLOTS, SLOTS * (SPEC_K + 1))
 WIDE_ATTN_Q = {"flat": (1, 2, SPEC_K + 1, 9, 17),
                "paged": (1, 2, SPEC_K + 1, 9, 17)}
 WIDE_ATTN_TIMED_Q = {"flat": (1, SPEC_K + 1), "paged": (1, SPEC_K + 1)}
-# Llama-3-8B served at full width and depth: 6 requests of 200-1000
-# tokens, 64 new, one seeded; Phi-3-mini at full width, PHI_LAYERS of its
-# 32 layers, 4 requests, 32 new; InternVL2-1B at full width and depth
+# Llama-3-8B served at full width and depth: 4 requests of 200-1000
+# tokens, 32 new, one seeded (6 and 64 until the mesh phase joined the
+# script); Phi-3-mini at full width, PHI_LAYERS of its 32 layers, 4
+# requests, 32 new; InternVL2-1B at full width and depth
 # through the one-shot engine: VLM_BATCH prompts of VLM_PROMPT tokens after
 # its 256 seeded frontend embeddings, VLM_TOKENS new
-LLAMA_REQUESTS, LLAMA_NEW_TOKENS, LLAMA_PROMPT_RANGE = 6, 64, (200, 1000)
+LLAMA_REQUESTS, LLAMA_NEW_TOKENS, LLAMA_PROMPT_RANGE = 4, 32, (200, 600)
 PHI_LAYERS, PHI_REQUESTS, PHI_NEW_TOKENS = 8, 4, 32
 PHI_PROMPT_RANGE = PROMPT_RANGE
 VLM_BATCH, VLM_PROMPT, VLM_TOKENS = 2, 128, 32
@@ -420,12 +448,12 @@ MOE_LAYERS = {"phi3.5-moe-42b-a6.6b": 8, "llama4-scout-17b-a16e": 4}
 PHI_MOE_REQUESTS, PHI_MOE_NEW_TOKENS = 6, 32
 SCOUT_REQUESTS, SCOUT_NEW_TOKENS = 4, 32
 # the recurrent, hybrid and encoder-decoder families (one-shot only):
-# RWKV-6-7B at full width and depth, 4 prompts of 512 tokens, 32 new;
+# RWKV-6-7B at full width and depth, 4 prompts of 256 tokens, 32 new;
 # SeamlessM4T-medium at full width and depth, 4 x (256 seeded frames of
 # src_embeds + 128 prompt tokens), 32 new; Jamba reduced, 4 x 256, 32 new;
 # one Mamba mixer at Jamba's full width: mamba_apply over 4 x 256 rows,
 # then MAMBA_STEPS decode steps from its state
-RWKV_BATCH, RWKV_PROMPT, RWKV_TOKENS = 4, 512, 32
+RWKV_BATCH, RWKV_PROMPT, RWKV_TOKENS = 4, 256, 32   # 512 until the mesh phase
 SEAMLESS_BATCH, SEAMLESS_FRAMES, SEAMLESS_PROMPT, SEAMLESS_TOKENS = \
     4, 256, 128, 32
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_TOKENS = 4, 256, 32
@@ -459,7 +487,7 @@ MOE_ROWS = (SLOTS, PREFILL_CHUNK)
 # the whole model and its f32 state would take 8.4 GB); one step and one
 # one-shot prefill of TRAIN_LONG tokens (past full_attn_max: the blocked
 # attention); one step of each other family's reduced config
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 8, 1024, 8, 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 8, 1024, 4, 4
 # the traced step: 1 x 1024 tokens (on an H100 80GB HBM3 at 700 W, reading
 # the trace of a whole 8 x 1024 step, 160 K kernel records, took 84.7 s of
 # a 181 s phase, and of a 2 x 1024 step 35 s); the microbatch check at
@@ -498,12 +526,12 @@ TRACE_CLASSES = (("gemv", ("sparse_gemv<",)),
 # following layers amplify that (measured: 5.6e-2 of the logit range over
 # 25 ticks, 5.2e-2 within single ticks).  So the gated int comparison runs
 # the attention kernel in both paths, holding each of its launches to its
-# plain version on the same inputs, and the all-plain comparison is
-# reported beside it.
+# plain version on the same inputs.  (The all-plain comparison, reported
+# beside it until the mesh phase joined the script, measured 3.9e-2 to
+# 4.4e-2 of the range on an H100 80GB HBM3 at 700 W; it is no longer run.)
 FLAT_CHECKS = (("bf16", "bf16", (), True), ("f32", "f32", (), True))
 INT_CHECKS = (("bf16, attention launches held one by one", "bf16",
-               ("sparse_decode_attention_fused_paged",), True),
-              ("bf16, all plain", "bf16", (), False))
+               ("sparse_decode_attention_fused_paged",), True),)
 # decode logits, kernels vs plain versions on one state: max |diff| over
 # max |plain|.  In bf16 a one-ulp rounding difference anywhere in 28 layers
 # moves the logits of a random-weight model by about 2 % of their range;
@@ -673,7 +701,7 @@ def _layer_linears(cfg, skip=()):
     the leaves ``convert_concrete`` packs (a dense layer's seven; an MoE's
     attention and Scout's shared expert, not its router or expert
     stacks), but those whose paths (``cross/wk``) ``skip`` names."""
-    from repro_torch.core.convert import _is_sparsifiable
+    from repro_torch.distributed.convert_plan import _is_sparsifiable
     from repro_torch.models import lm
     from repro_torch.models import module as mod
     out = []
@@ -4886,7 +4914,9 @@ def wide_serve_phase(torch, name, n_req, new_tokens, prompt_range):
     res["by_class_ms"] = {}
     for what, p in (("graph decode tick", prof),
                     ("graph prefill chunk", prof.get("prefill") or {})):
-        if "by_class_ms" in p:
+        # a trace that dropped the graph's kernel records has classes but
+        # no device time ("not measured" above)
+        if "by_class_ms" in p and "device_ms" in p:
             res["by_class_ms"][what] = p["by_class_ms"]
             say(f"{label}: {what}: device ms by class " + ", ".join(
                 f"{k} {v:.3f}" for k, v in sorted(
@@ -5350,11 +5380,11 @@ def rwkv_phase(torch):
     """RWKV-6-7B at full width and depth (32 layers, d 4096, 64 heads of
     64, d_ff 14336, untied 65536-row head): its kernel rows first (the
     gemv at its eight linears at M = 1 and 4, the sparse matmul at the
-    prefill's M = 2048, the head at M = 1 and 4, the dense kernel at
+    prefill's M = 1024, the head at M = 1 and 4, the dense kernel at
     ``w_cv``'s K = 14336, x streamed in K panels), then the one-shot
     engine on RWKV_BATCH x RWKV_PROMPT tokens, RWKV_TOKENS new: per decode
     step 256 gemv launches (8 a layer) and one head launch, no attention;
-    the prefill's 256 sparse matmuls at M = 2048 and its 16 K recurrence
+    the prefill's 256 sparse matmuls at M = 1024 and its 8 K recurrence
     steps (plain torch, as the reference's ``lax.scan``).  Its logits and
     token gates run on the same traffic served at f32 activations
     (``new_family_phase``)."""
@@ -6182,6 +6212,413 @@ def train_phase(torch):
     return res, detail
 
 
+# ---------------------------------------------------------------------------
+# the serving mesh (the seventeenth slice)
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4              # ranks of the one spawn, sharing the card (gloo)
+MESH_SHAPES = ((4, 1), (2, 2), (1, 4))      # (data, model)
+MESH_PROMPT = 200           # wave 1: SLOTS lockstep prompts of this length
+MESH_WAVE1_TOKENS = 24
+MESH_WAVE2 = 6              # wave 2: request i has 115 + 3 i prompt tokens
+MESH_MAX_TOKENS = 512       # and 20 - 2 i new ones (5 tails fill: refreezes)
+MESH_SPEC_K = 3
+MESH_PAGED_REQUESTS = 8     # on the shared 512-token prefix, int8 weights
+MESH_PAGED_TOKENS = 16
+MESH_PAGED_MAX_TOKENS = 1024
+MESH_CP_PROMPT = 4096       # the one-shot context-parallel decode
+MESH_CP_TICKS = 4
+MESH_RANK_THREADS = 1       # torch CPU threads a rank (the host's 8 cores)
+# kernels each driven mesh path must launch on every rank
+MESH_PATHS = {
+    "flat": ("sparse_gemv", "sparse_matmul", "sparse_decode_attention_fused",
+             "dense_matmul"),
+    "spec": ("sparse_matmul", "sparse_decode_attention_fused",
+             "dense_matmul"),
+    "paged_int8": ("sparse_matmul_int8", "sparse_decode_attention_fused_paged",
+                   "dense_matmul"),
+    "cp": ("sparse_decode_attention_partial", "sparse_gemv", "dense_matmul"),
+}
+
+
+def _mesh_label(shape):
+    return f"{shape[0]}x{shape[1]}"
+
+
+def mesh_prompts(cfg):
+    """The reference worker's two waves at full width: SLOTS lockstep
+    prompts, then MESH_WAVE2 staggered ones (admissions, evictions, ragged
+    prompts, tails that fill and refreeze)."""
+    import numpy as np
+    toks = np.random.default_rng(7).integers(0, cfg.vocab,
+                                             (SLOTS, MESH_PROMPT))
+    wave1 = [(row.tolist(), MESH_WAVE1_TOKENS) for row in toks]
+    wave2 = [(toks[i % SLOTS][:115 + 3 * i].tolist(), 20 - 2 * i)
+             for i in range(MESH_WAVE2)]
+    return [wave1, wave2]
+
+
+def mesh_drive(torch, eng, waves):
+    """Serve the waves (each submitted whole, then run to the end), every
+    tick timed with a sync after it; the kernel counters and the
+    collective statistics zeroed before and read after."""
+    from repro_torch import kernels
+    from repro_torch.distributed.sharding import STATS, reset_stats
+    from repro_torch.serving import SamplingParams
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    reset_stats()
+    ticks, out = [], []
+    t0 = time.perf_counter()
+    for wave in waves:
+        rids = [eng.submit(p, SamplingParams(max_new_tokens=n))
+                for p, n in wave]
+        while not eng.scheduler.done():
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter() - t)
+        eng.quiesce()
+        fin = eng.scheduler.finished
+        out.append([list(fin[r].output().token_ids) for r in rids])
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(t) for w in out for t in w)
+    n = max(len(ticks), 1)
+    return {"tokens": out, "seconds": dt, "tok_s": n_tok / dt,
+            "ticks": len(ticks), "refreezes": eng.replay_counts().get(
+                "refreeze", 0),
+            "tick_ms_p50": statistics.median(ticks) * 1e3,
+            "tick_ms_p90": sorted(ticks)[int(0.9 * (len(ticks) - 1))] * 1e3,
+            "launches": kernels.launch_counts(),
+            "collectives_per_tick": {"calls": STATS["calls"] / n,
+                                     "bytes": STATS["bytes"] / n,
+                                     "seconds": STATS["seconds"] / n,
+                                     "staged": STATS["staged"] / n}}
+
+
+def _mesh_engine(cfg, params, mesh=None, spec_k=0, paged=False):
+    from repro_torch.serving import ContinuousEngine, SpecConfig
+    return ContinuousEngine(
+        params, cfg, slots=SLOTS,
+        max_tokens=MESH_PAGED_MAX_TOKENS if paged else MESH_MAX_TOKENS,
+        prefill_chunk=PREFILL_CHUNK, device="cuda", paged=paged,
+        spec=SpecConfig(k=spec_k) if spec_k else None, mesh=mesh,
+        graphs=False)
+
+
+def mesh_cp_logits(torch, cfg, params, toks, forced=None, ctx=None):
+    """The one-shot engine on ``toks`` (one MESH_CP_PROMPT-token prompt),
+    then MESH_CP_TICKS decode steps fed ``forced`` (the mesh ranks' greedy
+    tokens) or, without it, its own greedy tokens: the f32 decode logits
+    and the tokens fed.  ``ctx`` with ``cfg.cp_decode`` decodes
+    context-parallel; the counters are zeroed before the decode."""
+    from repro_torch import kernels
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine
+    eng = Engine(params, cfg, device="cuda", ctx=ctx)
+    cache, logits = eng.prefill({"tokens": toks})
+    tok = logits.argmax(-1) if forced is None else forced[0]
+    fed, rows = [tok.cpu()], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for i in range(MESH_CP_TICKS):
+        logits, cache = lm.forward_decode(eng.params, cache, tok[:, None],
+                                          cfg, ctx)
+        rows.append(logits.float().cpu())
+        tok = logits.argmax(-1) if forced is None else forced[i + 1]
+        fed.append(tok.cpu())
+    torch.cuda.synchronize()
+    return torch.stack(rows), torch.stack(fed), kernels.launch_counts()
+
+
+def _quiet_model(torch, cfg, mode):
+    """``_model`` without its progress line (four ranks build it)."""
+    from repro_torch.core.convert import convert_concrete
+    from repro_torch.models import lm
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    return convert_concrete(params, lm.model_specs(cfg), cfg, mode=mode,
+                            device="cuda")
+
+
+def mesh_rank(rank, world, spec):
+    """One rank of the mesh phase (gloo, sharing the card): the same
+    traffic through ``ContinuousEngine(mesh=...)`` on every mesh of
+    MESH_SHAPES, speculation and paged int8 at (2, 2), and the
+    context-parallel one-shot decode at (1, 4).  Returns what it served,
+    its timings and its launches per path."""
+    import dataclasses
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(MESH_RANK_THREADS)
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardCtx, default_rules
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.cuda.current_device()
+    cfg = get_config("qwen3-0.6b")
+    params = _quiet_model(torch, cfg, "bf16")
+    waves = spec["waves"]
+    out = {"flat": {}}
+    meshes = {shape: make_mesh(shape, ("data", "model"), dev)
+              for shape in MESH_SHAPES}
+    for shape, mesh in meshes.items():
+        eng = _mesh_engine(cfg, params, mesh)
+        out["flat"][_mesh_label(shape)] = mesh_drive(torch, eng, waves)
+        del eng
+    eng = _mesh_engine(cfg, params, meshes[(2, 2)], spec_k=MESH_SPEC_K)
+    out["spec"] = mesh_drive(torch, eng, waves)
+    out["spec"]["accepted"] = int(eng.spec_hist[1:].sum())
+    del eng
+    cp = dataclasses.replace(cfg, cp_decode=True)
+    cp32, p32 = _widened(torch, cp, params)
+    ctx = ShardCtx(meshes[(1, 4)], default_rules(False, cp))
+    toks = torch.tensor(spec["cp_toks"], device="cuda")
+    out["cp"] = {}
+    for dtype, (c, p) in (("bf16", (cp, params)), ("f32", (cp32, p32))):
+        logits, fed, counts = mesh_cp_logits(torch, c, p, toks, ctx=ctx)
+        out["cp"][dtype] = {"logits": logits, "fed": fed,
+                            "launches": counts}
+    del params, p32
+    torch.cuda.empty_cache()
+    p8 = _quiet_model(torch, cfg, "int8")
+    eng = _mesh_engine(cfg, p8, meshes[(2, 2)], paged=True)
+    out["paged_int8"] = mesh_drive(torch, eng, spec["paged"])
+    out["paged_int8"]["trie"] = len(eng._trie)
+    return out
+
+
+def _mesh_head_gate(torch, cfg, gen):
+    """The local heads' launch equals those heads of the full launch, bit
+    for bit (flat, paged, the partial), for every model shard of the mesh
+    phase: a mesh rank attends over its KV heads alone."""
+    from repro_torch.kernels.sparse_attention import (
+        sparse_decode_attention_fused, sparse_decode_attention_fused_paged,
+        sparse_decode_attention_partial)
+    from repro_torch.serving import CachePool
+    hkv, hd, g = cfg.n_kv, cfg.hd, cfg.padded_heads // cfg.n_kv
+    bs, sm, sb, tp = 128, 1.0 / cfg.hd ** 0.5, 7, cfg.kv_tail
+    pool = CachePool.build(cfg, SLOTS, sb * bs, bs=bs, device="cuda")
+    (kbm, kvl, vbm, vvl), _ = _flat_cache(torch, cfg, gen, SLOTS, sb, bs,
+                                          pool)
+    arena = _paged_arena(torch, cfg, gen, SLOTS * sb, bs, pool)
+    table = torch.randperm(SLOTS * sb, generator=gen, device="cuda").reshape(
+        SLOTS, sb).to(torch.int32)
+    tails = [torch.randn((SLOTS, hkv, tp, hd), generator=gen,
+                         device="cuda").to(torch.bfloat16) for _ in range(2)]
+    nb = torch.tensor([0, 3, 7, 5], dtype=torch.int32, device="cuda")
+    tl = torch.tensor([1, 50, 0, 127], dtype=torch.int32, device="cuda")
+    q = torch.randn((SLOTS, hkv, g, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    h = lambda t, a, b: t[:, a:b].contiguous()
+    cases = {
+        "sparse_decode_attention_fused": lambda a, b: (
+            sparse_decode_attention_fused(
+                h(q, a, b), h(kbm, a, b), h(kvl, a, b), h(vbm, a, b),
+                h(vvl, a, b), h(tails[0], a, b), h(tails[1], a, b), bs, sm,
+                nb, tl, g),),
+        "sparse_decode_attention_fused_paged": lambda a, b: (
+            sparse_decode_attention_fused_paged(
+                h(q, a, b), *(x[:, a:b].contiguous() for x in arena), table,
+                h(tails[0], a, b), h(tails[1], a, b), bs, sm, nb, tl, g),),
+        "sparse_decode_attention_partial": lambda a, b:
+            sparse_decode_attention_partial(
+                h(q, a, b), h(kbm, a, b), h(kvl, a, b), h(vbm, a, b),
+                h(vvl, a, b), bs, sm, nb)}
+    shards = sorted({shape[1] for shape in MESH_SHAPES} - {1})
+    for name, fn in cases.items():
+        full = fn(0, hkv)
+        for n in shards:
+            w = hkv // n
+            for i in range(n):
+                part = fn(i * w, (i + 1) * w)
+                for f, p in zip(full, part):
+                    if not torch.equal(f[:, i * w:(i + 1) * w], p):
+                        fail(f"{name}: the launch over KV heads "
+                             f"[{i * w}, {(i + 1) * w}) differs from those "
+                             "heads of the full launch")
+    say(f"mesh: the flat, paged and partial attention over each model "
+        f"shard's KV heads ({', '.join(f'{hkv // n} of {hkv}' for n in shards)}"
+        f") are bit-equal to those heads of the full launch")
+    return {"model_shards": shards}
+
+
+def mesh_phase(torch):
+    """The serving mesh: full-width, full-depth Qwen3-0.6B (bf16, 50 %
+    sparse, KV 30 % / 50 %, SLOTS slots, chunk PREFILL_CHUNK) served by one
+    spawn of MESH_WORLD gloo ranks sharing the card, on the meshes
+    MESH_SHAPES, held token for token against the one-rank eager engine on
+    the same card; speculation (k = 3) and paged int8 on a shared 512-token
+    prefix at (2, 2); the context-parallel one-shot decode of a
+    MESH_CP_PROMPT-token prompt over the model axis at (1, 4) held to the
+    one-rank kernels' logits (bf16 and f32).  Every rank's launches are
+    counted per path."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    res = {"head_gate": _mesh_head_gate(torch, cfg, gen)}
+    waves = mesh_prompts(cfg)
+    paged = [[(p, MESH_PAGED_TOKENS)
+              for p in _shared_prompts(cfg, MESH_PAGED_REQUESTS)]]
+    cp_toks = torch.randint(0, cfg.vocab, (1, MESH_CP_PROMPT), generator=gen,
+                            device="cuda")
+    # the ranks run while this process serves the one-rank references (the
+    # gates compare tokens and logits, not times; the tok/s of both are
+    # taken with the card shared)
+    box = {}
+
+    def ranks():
+        t0 = time.perf_counter()
+        try:
+            box["recs"] = spawn(mesh_rank, MESH_WORLD, ({
+                "waves": waves, "paged": paged,
+                "cp_toks": cp_toks.cpu().tolist()},),
+                backend="gloo", device="cuda", timeout=900)
+        except BaseException as e:         # re-raised below
+            box["error"] = e
+        box["spawn_s"] = time.perf_counter() - t0
+    thread = threading.Thread(target=ranks, daemon=True)
+    thread.start()
+    params = _model(torch, cfg, "bf16")
+    one = {"flat": mesh_drive(torch, _mesh_engine(cfg, params), waves)}
+    eng = _mesh_engine(cfg, params, spec_k=MESH_SPEC_K)
+    one["spec"] = mesh_drive(torch, eng, waves)
+    one["spec"]["accepted"] = int(eng.spec_hist[1:].sum())
+    del eng
+    p8 = _model(torch, cfg, "int8")
+    one["paged_int8"] = mesh_drive(torch, _mesh_engine(cfg, p8, paged=True),
+                                   paged)
+    del p8
+    torch.cuda.empty_cache()
+    say(f"mesh: one-rank eager references served beside the ranks (flat "
+        f"{one['flat']['tok_s']:.1f} tok/s, spec k={MESH_SPEC_K} "
+        f"{one['spec']['tok_s']:.1f} tok/s, paged int8 "
+        f"{one['paged_int8']['tok_s']:.1f} tok/s)")
+    thread.join()
+    if "error" in box:
+        raise box["error"]
+    recs = box["recs"]
+    # the one-rank kernels' decode logits, teacher-forced with the tokens
+    # rank 0's context-parallel decode fed itself (every rank feeds the same)
+    cp = dataclasses.replace(cfg, cp_decode=True)
+    cp32, p32 = _widened(torch, cp, params)
+    one["cp"] = {}
+    for dtype, (c, p) in (("bf16", (cp, params)), ("f32", (cp32, p32))):
+        fed = recs[0]["cp"][dtype]["fed"]
+        if any(not torch.equal(r["cp"][dtype]["fed"], fed) for r in recs):
+            fail(f"mesh cp {dtype}: the ranks' context-parallel decodes fed "
+                 "different tokens")
+        logits, _, counts = mesh_cp_logits(torch, c, p, cp_toks,
+                                           fed.cuda())
+        one["cp"][dtype] = {"logits": logits, "launches": counts}
+    del params, p32
+    torch.cuda.empty_cache()
+    spawn_s = box["spawn_s"]
+    res["spawn_s"] = spawn_s
+    # gates: tokens, accepts, logits, launches
+    for path in ("flat", "spec", "paged_int8"):
+        want = one[path]["tokens"]
+        for rank, rec in enumerate(recs):
+            runs = rec[path].items() if path == "flat" else \
+                [(_mesh_label((2, 2)), rec[path])]
+            for label, run in runs:
+                if run["tokens"] != want:
+                    fail(f"mesh {path} {label}: rank {rank}'s greedy tokens "
+                         "differ from the one-rank eager engine's")
+    if one["spec"]["accepted"] <= 0 or any(
+            r["spec"]["accepted"] <= 0 for r in recs):
+        fail("mesh spec: no draft accepted")
+    if one["flat"]["refreezes"] <= 0 or any(
+            run["refreezes"] <= 0 for r in recs for run in r["flat"].values()):
+        fail("mesh flat: the waves refroze no tail")
+    cp_err = {}
+    for dtype, tol in ONESHOT_TOL.items():
+        ref = one["cp"][dtype]["logits"]
+        errs, top1 = [], 0
+        for rank, rec in enumerate(recs):
+            got = rec["cp"][dtype]["logits"]
+            for t in range(MESH_CP_TICKS):
+                errs.append(_range_err(got[t], ref[t]))
+                top2 = ref[t, 0].topk(2).values
+                clear = (top2[0] - top2[1]) / (ref[t].max() - ref[t].min())
+                if clear > TOP1_CLEAR:
+                    top1 += 1
+                    if got[t, 0].argmax() != ref[t, 0].argmax():
+                        fail(f"mesh cp {dtype}: rank {rank} tick {t}: top-1 "
+                             "differs where the one-rank margin is clear")
+        cp_err[dtype] = max(errs)
+        if not cp_err[dtype] <= tol:
+            fail(f"mesh cp {dtype}: context-parallel logits differ from the "
+                 f"one-rank kernels' by {cp_err[dtype]:.3e} of the range "
+                 f"(tol {tol})")
+        res[f"cp_top1_gated_{dtype}"] = top1
+    mesh_launches = []
+    for rank, rec in enumerate(recs):
+        total = {}
+        paths = {**{f"flat {k}": v for k, v in rec["flat"].items()},
+                 "spec": rec["spec"], "paged_int8": rec["paged_int8"],
+                 "cp": {"launches": rec["cp"]["bf16"]["launches"]}}
+        for label, run in paths.items():
+            for name in MESH_PATHS[label.split()[0]]:
+                if run["launches"][name] <= 0:
+                    fail(f"mesh {label}: rank {rank} never launched {name}")
+            for k, v in run["launches"].items():
+                total[k] = total.get(k, 0) + v
+        for k, v in rec["cp"]["f32"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+        mesh_launches.append(total)
+    res.update({"one_rank": {k: {kk: vv for kk, vv in v.items()
+                                 if kk not in ("tokens", "logits", "fed")}
+                             for k, v in one.items() if k != "cp"},
+                "cp_rel_range": cp_err, "launches": mesh_launches})
+    res["ranks"] = [{path: ({lab: {k: v for k, v in run.items()
+                                   if k != "tokens"}
+                             for lab, run in rec[path].items()}
+                            if path == "flat" else
+                            {k: v for k, v in rec[path].items()
+                             if k != "tokens"})
+                     for path in ("flat", "spec", "paged_int8")}
+                    for rec in recs]
+    for label in [_mesh_label(s) for s in MESH_SHAPES]:
+        r0 = recs[0]["flat"][label]
+        c = r0["collectives_per_tick"]
+        say(f"mesh {label}: tokens identical to one rank on all "
+            f"{MESH_WORLD} ranks; rank 0 {r0['tok_s']:.1f} tok/s over "
+            f"{r0['ticks']} ticks, {r0['refreezes']} refreezes (one rank "
+            f"eager {one['flat']['tok_s']:.1f}), "
+            f"tick p50 {r0['tick_ms_p50']:.1f} ms p90 {r0['tick_ms_p90']:.1f} "
+            f"ms; a tick's collectives {c['calls']:.1f} calls, "
+            f"{c['bytes'] / 1e3:.1f} kB, {c['seconds'] * 1e3:.2f} ms "
+            f"({c['staged']:.1f} staged through host memory)")
+    for path in ("spec", "paged_int8"):
+        r0 = recs[0][path]
+        c = r0["collectives_per_tick"]
+        say(f"mesh 2x2 {path}: tokens identical to one rank on all ranks"
+            + (f", {r0['accepted']} drafts accepted" if path == "spec"
+               else f", trie {r0['trie']} blocks")
+            + f"; rank 0 {r0['tok_s']:.1f} tok/s (one rank eager "
+            f"{one[path]['tok_s']:.1f}), tick p50 {r0['tick_ms_p50']:.1f} ms;"
+            f" a tick's collectives {c['calls']:.1f} calls, "
+            f"{c['bytes'] / 1e3:.1f} kB, {c['seconds'] * 1e3:.2f} ms")
+    say(f"mesh 1x4 cp: one-shot decode of a {MESH_CP_PROMPT}-token prompt "
+        f"over the model axis, {MESH_CP_TICKS} ticks: logits within "
+        f"{cp_err['bf16']:.2e} (bf16, tol {ONESHOT_TOL['bf16']}) and "
+        f"{cp_err['f32']:.2e} (f32, tol {ONESHOT_TOL['f32']}) of the range "
+        f"of the one-rank kernels'; top-1 gated at "
+        f"{res['cp_top1_gated_bf16']} + {res['cp_top1_gated_f32']} clear "
+        f"ticks")
+    res["seconds"] = time.perf_counter() - t_phase
+    for rank, total in enumerate(mesh_launches):
+        say(f"mesh: rank {rank} launched every kernel of each mesh path; "
+            f"its launches over the phase "
+            f"{ {k: v for k, v in total.items() if v} }")
+    say(f"mesh: passed (spawn of {MESH_WORLD} ranks {spawn_s:.1f} s, phase "
+        f"{res['seconds']:.1f} s)")
+    return res
+
+
 SOURCES = {
     "sparse_gemv": ("src/repro_torch/kernels/csrc/sparse_gemv.cu",
                     "src/repro/kernels/sparse_gemv.py:47"),
@@ -6227,7 +6664,7 @@ def main() -> int:
                     help="build, then run these of the phases one_shot, "
                          "snapshot, checkify, wide_kernels, llama3_8b, "
                          "phi3_mini, internvl2, phi35_moe, scout, rwkv6, "
-                         "seamless, jamba, jamba_mamba and train alone "
+                         "seamless, jamba, jamba_mamba, train and mesh alone "
                          "(comma-separated; "
                          "checkify without the paged int8 run to compare "
                          "with) and print no result line")
@@ -6261,7 +6698,7 @@ def main() -> int:
         res = {}
         only = set(args.only.split(","))
         unknown = only - {"one_shot", "snapshot", "checkify", "train",
-                          *WIDE_PHASES}
+                          "mesh", *WIDE_PHASES}
         if unknown:
             fail(f"--only: no phase {sorted(unknown)}")
         if "one_shot" in only:
@@ -6284,6 +6721,8 @@ def main() -> int:
         if "train" in only:
             res["train"], res["train_detail"] = train_phase(torch)
             say(f"train: passed ({res['train']['seconds']:.1f} s)")
+        if "mesh" in only:
+            res["mesh"] = mesh_phase(torch)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(res, indent=1, default=str))
@@ -6322,6 +6761,7 @@ def main() -> int:
     serve["train"], train_detail = train_phase(torch)
     detail += train_detail
     say(f"train: passed ({serve['train']['seconds']:.1f} s)")
+    serve["mesh"] = mesh_phase(torch)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -6332,7 +6772,9 @@ def main() -> int:
             "launches": serve[PATH_OF[name]]["launches"][name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "mesh_launches": [t.get(name, 0)
+                              for t in serve["mesh"]["launches"]]})
     # the dense kernel on the training path: launches of the train run, its
     # numbers a layer's seven linears at the step's M = 8192
     layer = serve["train"]["kernel_layer"]
@@ -6343,7 +6785,8 @@ def main() -> int:
         "launches": serve["train"]["train"]["launches"]["dense_matmul"],
         "max_abs_err": layer["max_abs_err"], "ms": layer["ms"],
         "plain_ms": layer["plain_ms"], "bound_ms": layer["bound_ms"],
-        "bound_by": layer["bound_by"], "library_ms": layer["library_ms"]})
+        "bound_by": layer["bound_by"], "library_ms": layer["library_ms"],
+        "mesh_launches": [0] * MESH_WORLD})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     if args.out:
         out = Path(args.out)

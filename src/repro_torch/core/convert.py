@@ -3,14 +3,13 @@
 Twin of two reference pieces: ``repro.core.convert`` (which leaves are
 linear weights: ``default_predicate`` / ``EXCLUDE_KEYS``;
 ``convert_to_sparse``, which prunes and packs every selected leaf of any
-params tree, and ``sparsity_report``) and the single-device path of
-``repro.distributed.convert_plan.convert_concrete`` (per-leaf block fitted
-by ``_fit_block`` / ``_plan_leaf``, capacity from ``balanced_capacity``,
-layer-stacked leaves packed per layer) in its three modes: ``"bf16"``
-values, ``"int8"`` values with a per-channel f32 scale, and ``"int4"``
-(the int8 path quantised to ``[-7, 7]`` and nibble-packed).  There is no
-mesh, so ``convert_concrete`` pads no block counts (``convert_to_sparse``
-takes the reference's ``pad_to_blocks``).
+params tree, and ``sparsity_report``) and the single-rank path of
+``repro.distributed.convert_plan.convert_concrete`` (the mesh-aware plan
+lives in ``repro_torch/distributed/convert_plan.py``; its ``NULL_CTX``
+case pads no block counts) in its three modes: ``"bf16"`` values,
+``"int8"`` values with a per-channel f32 scale, and ``"int4"`` (the int8
+path quantised to ``[-7, 7]`` and nibble-packed).  ``convert_to_sparse``
+takes the reference's ``pad_to_blocks``.
 """
 from __future__ import annotations
 
@@ -18,12 +17,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.models import module as mod
 from .pruning import make_mask
-from .quant import quantize_weight_int4, quantize_weight_int8
-from .sparse_format import (DEFAULT_BLOCK, BlockSparseWeight,
-                            balanced_capacity, pack, pack_nibbles)
+from .quant import quantize_weight_int8
+from .sparse_format import DEFAULT_BLOCK, BlockSparseWeight, pack, \
+    pack_nibbles
 
 MODES = ("bf16", "int8", "int4")
 
@@ -46,29 +44,6 @@ def default_predicate(path: str, leaf: Any) -> bool:
     return any(name == k or name.endswith("/" + k) for k in LINEAR_KEYS)
 
 
-def _fit_block(dim: int, pref: int) -> int:
-    """Shrink the preferred block edge for small tensors; keep multiples of
-    8 so bitmaps stay word-aligned."""
-    if dim >= pref:
-        return pref
-    return max(-(-dim // 8) * 8, 8)
-
-
-def _plan_leaf(spec: mod.ParamSpec, block=DEFAULT_BLOCK) -> Tuple[int, int]:
-    k, n = spec.shape[-2:]
-    return (_fit_block(k, block[0]), _fit_block(n, block[1]))
-
-
-def _is_sparsifiable(path: str, spec) -> bool:
-    """2D weights, or layer-stacked 2D weights (leading 'layers' axis)."""
-    if not mod.is_spec(spec) or not default_predicate(path, spec):
-        return False
-    if len(spec.shape) == 2:
-        return True
-    axes = spec.axes or ()
-    return len(spec.shape) == 3 and len(axes) == 3 and axes[0] == "layers"
-
-
 def _to_int4(sw: BlockSparseWeight) -> BlockSparseWeight:
     """int8-valued packed weight -> nibble-packed int4 (the capacity is a
     multiple of 128, hence even)."""
@@ -76,55 +51,16 @@ def _to_int4(sw: BlockSparseWeight) -> BlockSparseWeight:
                              sw.shape, sw.block, packed4=True)
 
 
-def _pack_one(w2: torch.Tensor, cfg, blk, cap, mode: str
-              ) -> BlockSparseWeight:
-    if mode != "int4":
-        # packed bf16 values whatever the model dtype (as the reference)
-        return _pack_leaf(w2, cfg.sparsity, cfg.sparse_policy, blk, mode,
-                          (1, 1), cap)
-    mask = make_mask(w2, cfg.sparsity, cfg.sparse_policy, blk)
-    q, scale = quantize_weight_int4(torch.where(mask, w2, 0))
-    return _to_int4(pack(q, mask, blk, capacity=cap, scale=scale))
-
-
 def convert_concrete(params: Any, spec_tree: Any, cfg, mode: str = "bf16",
                      block=DEFAULT_BLOCK,
                      device: Optional[torch.device] = None) -> Any:
     """Prune + pack (and for ``mode="int8"|"int4"`` quantise) every linear
     weight of ``params`` on ``device`` (the CUDA device unless the caller
-    asks for the CPU)."""
-    if mode not in MODES:
-        raise ValueError(f"unknown conversion mode {mode!r}")
-    dev = resolve_device(device)
-    density = 1.0 - cfg.sparsity
-
-    def one(path: str, pair):
-        spec, leaf = pair
-        leaf = leaf.to(dev)
-        if not _is_sparsifiable(path, spec):
-            return leaf
-        blk = _plan_leaf(spec, block)
-        cap = balanced_capacity(density, blk)
-        if leaf.ndim == 3:                  # layer-stacked: pack per layer
-            packed = [_pack_one(leaf[i], cfg, blk, cap, mode)
-                      for i in range(leaf.shape[0])]
-            return BlockSparseWeight(
-                bitmap=torch.stack([p.bitmap for p in packed]),
-                values=torch.stack([p.values for p in packed]),
-                scale=(None if packed[0].scale is None
-                       else torch.stack([p.scale for p in packed])),
-                shape=packed[0].shape, block=blk,
-                packed4=packed[0].packed4)
-        return _pack_one(leaf, cfg, blk, cap, mode)
-
-    return mod.map_with_path(one, _zip(spec_tree, params),
-                             is_leaf=lambda x: isinstance(x, tuple))
-
-
-def _zip(spec_tree, params):
-    if isinstance(spec_tree, dict):
-        return {k: _zip(v, params[k]) for k, v in spec_tree.items()}
-    return (spec_tree, params)
+    asks for the CPU): the single-rank case (``NULL_CTX``) of
+    :func:`repro_torch.distributed.convert_plan.convert_concrete`."""
+    from repro_torch.distributed import NULL_CTX, convert_plan
+    return convert_plan.convert_concrete(params, spec_tree, cfg, NULL_CTX,
+                                         mode, block, device)
 
 
 def _pack_leaf(w: torch.Tensor, sparsity: float, policy: str,

@@ -13,6 +13,7 @@ int32 is arithmetic, so every bit test is written ``(w >> b) & 1``.
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
@@ -289,6 +290,41 @@ def unpack(sw: BlockSparseWeight, trim: bool = True) -> torch.Tensor:
                                          device=values.device))
     shape = sw.shape if trim else sw.padded_shape
     return _from_blocks(dense_flat, sw.block, shape)
+
+
+# decompressed CPU weights (:func:`unpack_padded`), least recently used
+# first out; each entry holds its packed arrays' storages, so no other
+# tensor can take their addresses while it lives
+_DENSE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_DENSE_MAX = 256
+
+
+def _storage_key(t: torch.Tensor) -> tuple:
+    return (t.untyped_storage().data_ptr(), t.storage_offset(),
+            tuple(t.shape), t.stride(), t.dtype, t._version)
+
+
+def unpack_padded(sw: BlockSparseWeight) -> torch.Tensor:
+    """``unpack(sw, trim=False)``: the padded dense weight the plain
+    matmuls multiply by.  On the CPU the result is kept for the same packed
+    arrays (same storage, offset, shape, strides and version counter), so
+    the weights a serving loop runs every tick decompress once; the values
+    are those :func:`unpack` returns, bit for bit.  Device tensors
+    decompress at every call."""
+    if sw.values.device.type != "cpu":
+        return unpack(sw, trim=False)
+    key = (_storage_key(sw.bitmap), _storage_key(sw.values), sw.block,
+           sw.shape, sw.packed4)
+    hit = _DENSE.get(key)
+    if hit is not None:
+        _DENSE.move_to_end(key)
+        return hit[0]
+    w = unpack(sw, trim=False)
+    _DENSE[key] = (w, sw.bitmap.untyped_storage(),
+                   sw.values.untyped_storage())
+    if len(_DENSE) > _DENSE_MAX:
+        _DENSE.popitem(last=False)
+    return w
 
 
 def balanced_capacity(density: float,

@@ -4,7 +4,8 @@ Each kernel wrapper launches its CUDA kernel for CUDA tensors and takes its
 plain version only for CPU tensors, so the device of the operands is the
 only switch.  The dispatch rules are the reference's:
 
-* at most 8 rows go to the gemv kernel (``ops.py:87``), more to the matmul;
+* at most 8 rows go to the gemv kernel (``ops.py:87``), more to the matmul
+  (counted over the whole panel on a mesh: :func:`panel_shards`);
 * int8 and int4 weights take the int kernel at every row count (the
   reference has no gemv split for them); the activations are quantised
   per row in plain PyTorch first, outside the kernel, as in the reference;
@@ -17,6 +18,7 @@ only switch.  The dispatch rules are the reference's:
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -54,10 +56,28 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(*lead, w.shape[-1])
 
 
+# the data shards a mesh rank's decode or verify panel is one of (1 off a
+# mesh): the rank's rows are its slots, and the gemv and the sparse matmul
+# give a row different bits, so the sparse linears pick their kernel by
+# the whole panel's rows, as one rank would
+_PANEL_SHARDS = [1]
+
+
+@contextlib.contextmanager
+def panel_shards(n: int):
+    """Inside, the sparse linears dispatch as if ``x`` had ``n`` times its
+    rows (a mesh rank's share of a panel of ``n`` data shards)."""
+    prev, _PANEL_SHARDS[0] = _PANEL_SHARDS[0], n
+    try:
+        yield
+    finally:
+        _PANEL_SHARDS[0] = prev
+
+
 def sparse_matmul(x: torch.Tensor, sw: BlockSparseWeight,
                   out_dtype=None) -> torch.Tensor:
     x2, lead = _flatten_leading(x)
-    if x2.shape[0] <= MAX_ROWS:
+    if x2.shape[0] * _PANEL_SHARDS[0] <= MAX_ROWS:
         out = sparse_gemv(x2, sw, out_dtype)
     else:
         out = _sparse_matmul_kernel(x2, sw, out_dtype)

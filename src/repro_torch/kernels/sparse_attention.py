@@ -41,7 +41,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.sparse_format import BlockSparseWeight, unpack
+from repro_torch.core.sparse_format import BlockSparseWeight, unpack_padded
 from . import build
 
 _SRC = "sparse_attention.cu"
@@ -117,10 +117,12 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 def _dense_prefix(bitmap, values, bs, d):
     """Kernel-layout compressed blocks ``[B, Hkv, Sb, X]`` -> dense
-    ``[B, Hkv, Sb*bs, D]``."""
+    ``[B, Hkv, Sb*bs, D]`` (kept on the CPU for a pool's unchanged prefix:
+    ``unpack_padded``)."""
     sb = bitmap.shape[2]
-    return unpack(BlockSparseWeight(bitmap[:, :, :, None], values[:, :, :, None],
-                                    None, (sb * bs, d), (bs, d)))
+    return unpack_padded(BlockSparseWeight(
+        bitmap[:, :, :, None], values[:, :, :, None], None, (sb * bs, d),
+        (bs, d)))
 
 
 def sparse_decode_attention_fused_plain(
@@ -266,13 +268,15 @@ def gather_paged(table: torch.Tensor, bitmap: torch.Tensor,
     possibly rewritten or poisoned — never reach the arithmetic, as in the
     kernel, which does not read them at all."""
     idx = table.long().clamp(0, bitmap.shape[0] - 1)
-    sb = table.shape[1]
+    b, sb = table.shape
     live = (torch.arange(sb, device=table.device)[None]
             < n_blocks.to(table.device).long()[:, None])      # [B, Sb]
-    bm = bitmap[idx].permute(0, 2, 1, 3)
+    rows = lambda a: a.index_select(0, idx.reshape(-1)).reshape(
+        b, sb, *a.shape[1:]).permute(0, 2, 1, 3)
+    bm = rows(bitmap)
     bm = torch.where(live[:, None, :, None], bm, torch.zeros((), dtype=bm.dtype,
                                                              device=bm.device))
-    return bm, values[idx].permute(0, 2, 1, 3)
+    return bm, rows(values)
 
 
 def sparse_decode_attention_fused_paged_plain(

@@ -33,7 +33,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sparse_format import BlockSparseWeight, unpack
+from repro_torch.core.sparse_format import BlockSparseWeight, unpack_padded
 from . import build
 
 _SRC = "sparse_matmul.cu"
@@ -88,7 +88,7 @@ def sparse_matmul_plain(x: torch.Tensor, sw: BlockSparseWeight,
                         out_dtype=None) -> torch.Tensor:
     """Plain version (twin of ``kernels/ref.py:sparse_matmul_ref``):
     decompress, then one f32-accumulated product."""
-    w = unpack(sw, trim=False)
+    w = unpack_padded(sw)
     kp = w.shape[0]
     xp = F.pad(x, (0, max(kp - x.shape[1], 0)))[:, :kp]
     out = xp.to(torch.float32) @ w.to(torch.float32)

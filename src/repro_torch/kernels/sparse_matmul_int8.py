@@ -35,7 +35,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sparse_format import BlockSparseWeight, unpack
+from repro_torch.core.sparse_format import BlockSparseWeight, unpack_padded
 from . import build
 from .sparse_matmul import M_CHUNK, Plan, _align16, launch_plan
 
@@ -72,16 +72,15 @@ def sparse_matmul_int8_plain(xq: torch.Tensor, sx: torch.Tensor,
     """Plain version (twin of ``kernels/ref.py:sparse_matmul_int8_ref``
     from the quantised activations on); int8 and nibble-packed int4 alike.
 
-    The integer product must be exact.  The CPU sums in int64.  CUDA has no
-    general integer matmul, and an f32 sum is not exact here (127 * 127 *
-    3072 > 2**24), so on the card the sum runs in float64, exact below
-    2**53; either way the f32 epilogue then sees the exact int32 sum."""
+    The integer product must be exact.  Torch has no fast general integer
+    matmul, and an f32 sum is not exact here (127 * 127 * 3072 > 2**24), so
+    the sum runs in float64, exact below 2**53 in any order: the f32
+    epilogue sees the exact int32 sum."""
     _check_int_weight(sw)
-    w = unpack(sw, trim=False)                        # int8, padded
+    w = unpack_padded(sw)                             # int8, padded
     kp = w.shape[0]
     xq = F.pad(xq, (0, max(kp - xq.shape[1], 0)))[:, :kp]
-    wide = torch.int64 if xq.device.type == "cpu" else torch.float64
-    acc = (xq.to(wide) @ w.to(wide)).to(torch.float32)
+    acc = (xq.to(torch.float64) @ w.to(torch.float64)).to(torch.float32)
     out = acc * sx.to(torch.float32)[:, None] * sw.scale[None, : w.shape[1]]
     n = min(sw.shape[1], w.shape[1])
     return out[:, :n].to(out_dtype)

@@ -1,6 +1,5 @@
 """Serving launcher: sparse weights + sparse KV (twin of
-``repro.launch.serve`` without ``--audit`` and ``--mesh``, which wait for
-the sharded part of the port).
+``repro.launch.serve`` without ``--audit``).
 
 * **stream mode** (the default) drives the continuous-batching engine with
   a stream of requests of mixed prompt and output lengths;
@@ -36,6 +35,19 @@ the newest snapshot under DIR on start (a cold start says why when there
 is none) and snapshots it once the stream drains, or at a server's
 shutdown.  ``REPRO_CHECKIFY=1`` builds the sanitized pool (a device error
 word the engine reads with each tick's tokens).
+
+``--mesh DP,TP`` serves the stream on a data x model mesh of
+``torch.distributed`` ranks, as the reference's ``--mesh`` does on a
+device mesh: it spawns ``DP * TP`` ranks (``launch/mesh.py::spawn``), each
+runs this stream through ``ContinuousEngine(mesh=...)`` (slots over data,
+KV heads over model, weights replicated; greedy output token-identical to
+one rank), and rank 0 prints the reference's ``[serve] mesh DPxTP (data x
+model): ...`` line, the placement and the summary.  ``--backend`` is
+explicit: ``gloo`` (the default; CPU ranks, or ranks sharing one card; its
+collectives cannot be captured, so the ranks run their entries eagerly)
+or ``nccl`` (a card for each rank, refused otherwise).  A mesh serves the
+stream alone: ``--server``, ``--one-shot``, ``--snapshot-dir`` and the
+telemetry flags are refused with it.
 
 ``--server`` swaps the synthetic request stream for the asyncio HTTP
 frontend (``repro_torch.serving.frontend``: ``POST /v1/generate`` streams
@@ -84,6 +96,12 @@ the pooled sparse-KV cache.
       --prefill-chunk 16 --max-queue 8 --metrics-port 0
   python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
       --device cpu --paged --prefill-chunk 16 --snapshot-dir /tmp/snap
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
+      --device cpu --mesh 2,2 --requests 4 --slots 4 --prompt-len 24 \\
+      --steps 8
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --device cuda \\
+      --mesh 2,2 --backend gloo --requests 4 --slots 4 --prompt-len 256 \\
+      --steps 24 --prefill-chunk 256
   python -m repro_torch.launch.serve --arch qwen3-0.6b --device cuda \\
       --one-shot --batch 4 --prompt-len 512 --steps 160 [--dense]
   python -m repro_torch.launch.serve --arch llama3-8b --device cuda \\
@@ -101,6 +119,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import time
 
@@ -111,13 +130,57 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.convert import convert_concrete, sparsity_report
 from repro_torch.data.pipeline import DataConfig, host_batch
+from repro_torch.distributed import serving_sharding
+from repro_torch.distributed.sharding import STATS as COLLECTIVES
+from repro_torch.distributed.sharding import reset_stats
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
 from repro_torch.serving import (ContinuousEngine, Engine, SamplingParams,
                                  SpecConfig, stable_trace_counts)
 
 
-def main(argv=None) -> int:
+def _mesh_rank(rank: int, world: int, argv, dp: int, tp: int,
+               device: str) -> int:
+    """One rank of ``--mesh``: the stream through this rank's engine; only
+    rank 0 prints."""
+    torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    mesh = mesh_lib.make_mesh(
+        (dp, tp), ("data", "model"),
+        "cpu" if device == "cpu" else torch.cuda.current_device())
+    out = contextlib.nullcontext() if rank == 0 else \
+        contextlib.redirect_stdout(io.StringIO())
+    with out:
+        return main(argv, _mesh=mesh)
+
+
+def _serve_mesh(ap, args, argv) -> int:
+    """Check ``--mesh`` and spawn its ranks."""
+    try:
+        dp, tp = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        ap.error(f"--mesh wants DP,TP (e.g. --mesh 2,2), got {args.mesh!r}")
+    alone = {"--server": args.server, "--one-shot": args.one_shot,
+             "--snapshot-dir": args.snapshot_dir,
+             "--metrics-port": args.metrics_port >= 0,
+             "--trace-file": args.trace_file,
+             "--profile-dir": args.profile_dir,
+             "--report-every": args.report_every}
+    bad = [k for k, v in alone.items() if v]
+    if bad:
+        ap.error(f"--mesh serves the request stream alone; {bad} are "
+                 "single-rank options")
+    dev = resolve_device(args.device)
+    device = "cpu" if dev.type == "cpu" else "cuda"
+    try:
+        mesh_lib.spawn(_mesh_rank, dp * tp, (argv, dp, tp, device),
+                       backend=args.backend, device=device)
+    except ValueError as e:
+        ap.error(str(e))
+    return 0
+
+
+def main(argv=None, _mesh=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true")
@@ -213,7 +276,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the CUDA device (raises without one)")
+    ap.add_argument("--mesh", default="",
+                    help="stream mode: serve on a DP,TP mesh of ranks, e.g. "
+                         "--mesh 2,2: slots shard over the data axis, KV "
+                         "heads over the model axis; greedy output is "
+                         "token-identical to one rank")
+    ap.add_argument("--backend", default="gloo",
+                    choices=mesh_lib.BACKENDS,
+                    help="with --mesh: the ranks' process-group backend "
+                         "(gloo: CPU ranks or ranks sharing one card, "
+                         "entries run eagerly; nccl: a card for each rank)")
     args = ap.parse_args(argv)
+    if args.mesh and _mesh is None:
+        return _serve_mesh(ap, args, argv)
     if args.spec_adaptive and not args.spec_k:
         ap.error("--spec-adaptive requires --spec-k >= 1")
     if args.degrade_queue and not args.spec_k:
@@ -236,6 +311,8 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
     cfg = dataclasses.replace(cfg, sparsity=args.sparsity)
+    if _mesh is not None:
+        dev = _mesh.device
     params = lm.init_params(cfg, seed=0, device=dev)
     if not args.dense:
         params = convert_concrete(params, lm.model_specs(cfg), cfg,
@@ -294,6 +371,11 @@ def main(argv=None) -> int:
         # a bit-exact round trip at full per-block capacity
         cfg = dataclasses.replace(cfg, kv_k_sparsity=0.0, kv_v_sparsity=0.0)
     slots = args.slots or args.batch
+    if _mesh is not None:
+        print(f"[serve] mesh {_mesh.shape['data']}x{_mesh.shape['model']} "
+              f"(data x model): {slots} slots over data, {cfg.n_kv} KV "
+              f"heads over model; {_mesh.backend} ranks on {dev}"
+              + (", eager entries" if _mesh.backend == "gloo" else ""))
     obs = metrics_server = None
     if args.metrics_port >= 0 or args.trace_file or args.report_every:
         from repro_torch.obs import MetricsServer, Observability
@@ -311,7 +393,16 @@ def main(argv=None) -> int:
         spec=SpecConfig(k=args.spec_k, adaptive=args.spec_adaptive)
         if args.spec_k else None, max_queue=args.max_queue,
         degrade_queue=args.degrade_queue, obs=obs,
-        overlap=not args.no_overlap)
+        overlap=not args.no_overlap, mesh=_mesh,
+        graphs=_mesh is None or _mesh.backend != "gloo")
+    if _mesh is not None:
+        full = dataclasses.replace(eng.pool, slots=slots, kv_heads=cfg.n_kv,
+                                   device=torch.device("meta"))
+        place = serving_sharding.describe(eng.ctx, full.init_state(),
+                                          full.state_axes())
+        kv_key = next(k for k in place if k.endswith("k_values"))
+        print(f"[serve] placement: pos={place['pos']} "
+              f"kv={ {kv_key: place[kv_key]} }")
     if args.paged:
         print(f"[serve] paged pool: {eng.pool.n_phys} physical blocks of "
               f"{eng.pool.bs} tokens behind {slots}x"
@@ -391,6 +482,7 @@ def main(argv=None) -> int:
             .tensorboard_trace_handler(args.profile_dir))
     rng = np.random.default_rng(0)
     reset_launch_counts()
+    reset_stats()
     t0 = time.time()
     rids = []
     with profile:
@@ -454,6 +546,11 @@ def main(argv=None) -> int:
     print("[serve] sample:", list(out[rids[0]].token_ids[:16]))
     print(f"[serve] kernel launches: {launch_counts()} (graph replays "
           f"included)")
+    if _mesh is not None:
+        print(f"[serve] collectives (rank 0): {COLLECTIVES['calls']} calls, "
+              f"{COLLECTIVES['bytes'] / 1e6:.3f} MB, "
+              f"{COLLECTIVES['seconds']:.3f} s "
+              f"({COLLECTIVES['staged']} staged through host memory)")
     if obs is not None:
         print(obs.report_line())
     if args.snapshot_dir:

@@ -12,6 +12,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.sparse_format import unpack
+from repro_torch.distributed.cp_attention import sparse_decode_attention_cp
+from repro_torch.distributed.sharding import all_gather
 from repro_torch.core.sparse_kv import (NAN_CHECK, SparseKVCache,
                                          append_tail_panel, append_token,
                                          flag_, pooled_view)
@@ -82,6 +84,37 @@ def _project_kv(p, x, cfg):
     return k, v
 
 
+def _head_shard(ctx, cfg) -> Tuple[int, int]:
+    """``(first KV head, KV heads)`` this rank attends over: its model
+    shard of the KV heads on a mesh (all of them where they replicate),
+    every head without one."""
+    if ctx is None or ctx.mesh is None:
+        return 0, cfg.n_kv
+    return ctx.shard_range("kv_heads", cfg.n_kv)
+
+
+def _local_heads(ctx, cfg, q, k, v, dim: int):
+    """q ``[..., Hq, hd]`` and k, v ``[..., Hkv, hd]`` (heads at ``dim``)
+    cut to this rank's KV heads and their query groups; returns them and
+    the local KV head count."""
+    h0, hl = _head_shard(ctx, cfg)
+    if hl == cfg.n_kv:
+        return q, k, v, hl
+    g = cfg.padded_heads // cfg.n_kv
+    return (q.narrow(dim, h0 * g, hl * g).contiguous(),
+            k.narrow(dim, h0, hl).contiguous(),
+            v.narrow(dim, h0, hl).contiguous(), hl)
+
+
+def _gather_heads(ctx, cfg, o: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every model rank's head outputs, concatenated in head order along
+    ``dim`` (``o`` itself where the heads replicate)."""
+    if ctx is None or ctx.mesh is None:
+        return o
+    axis = ctx.spec(("kv_heads",), (cfg.n_kv,))[0]
+    return all_gather(o, ctx.mesh, axis, dim)
+
+
 def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
     """``[B, Hkv, S, D]`` -> ``[B, Hkv * g, S, D]`` (prefill and the dense
     decode only; the decode kernels expand the groups in registers)."""
@@ -137,14 +170,17 @@ def attn_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def attn_decode(p, x_t: torch.Tensor, cache: Any, cfg,
-                position: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+                position: torch.Tensor, ctx=None
+                ) -> Tuple[torch.Tensor, Any]:
     """One new token ``x_t [B, d]`` at ``position`` (an int32 scalar on the
     device) over a :class:`DenseKVCache` or
     :class:`~repro_torch.core.sparse_kv.SparseKVCache`.  The token's K/V
     are written into the cache **in place** and the cache is returned.
     The sparse cache runs the fused prefix + tail kernel
     (``ops.sparse_decode_attention``); the dense cache is plain PyTorch, as
-    the reference's is plain ``jnp``."""
+    the reference's is plain ``jnp``.  Under ``cfg.cp_decode`` with a
+    mesh ``ctx`` the structured sparse cache takes the context-parallel
+    path (``distributed/cp_attention.py``), as the reference's does."""
     b, _ = x_t.shape
     hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
     q = _project_q(p, x_t, cfg)                              # [B,Hq,hd]
@@ -155,9 +191,13 @@ def attn_decode(p, x_t: torch.Tensor, cache: Any, cfg,
     sm = 1.0 / hd ** 0.5
     if isinstance(cache, SparseKVCache):
         append_token(cache, k_new, v_new)
-        o = ops.sparse_decode_attention(q, cache.k_sp, cache.v_sp, hkv, sm,
-                                        cache.k_tail, cache.v_tail,
-                                        cache.tail_len)
+        if (cfg.cp_decode and ctx is not None and ctx.mesh is not None
+                and cache.k_sp.bitmap.dim() == 5):
+            o = sparse_decode_attention_cp(q, cache, hkv, sm, ctx)
+        else:
+            o = ops.sparse_decode_attention(q, cache.k_sp, cache.v_sp, hkv,
+                                            sm, cache.k_tail, cache.v_tail,
+                                            cache.tail_len)
     else:
         idx = cache.length.long().reshape(1)
         cache.k.index_copy_(2, idx, k_new[:, :, None].to(cache.k.dtype))
@@ -195,7 +235,8 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
                       positions: torch.Tensor, prefix_blocks: torch.Tensor,
                       tail_len: torch.Tensor, slot_mask: torch.Tensor,
                       bs: int, table: Optional[torch.Tensor] = None,
-                      err: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      err: Optional[torch.Tensor] = None,
+                      ctx=None) -> torch.Tensor:
     """One ``[B, Qn]`` query panel per slot over one layer's pooled cache.
 
     The ``Qn`` fresh K/V land in each live slot's tail ring **in place**
@@ -206,14 +247,21 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
     compressed leaves are then ``[n_phys, Hkv, X]`` and each slot reaches
     its blocks through its table row.  ``err`` (the sanitized pool's error
     word) gets the NaN bit where a live slot appends a NaN.  Returns the
-    attention output projected by ``wo``, ``[B, Qn, d]``."""
+    attention output projected by ``wo``, ``[B, Qn, d]``.
+
+    On a mesh (``ctx``) the rows are this rank's slots and ``kv`` holds its
+    KV heads: q/k/v run on the replicated weights as without one, the rank
+    keeps its heads and their query groups, attends over them, and the
+    head outputs are all-gathered over the model axis, in head order,
+    before ``wo``."""
     b, qn, _ = x.shape
-    hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
+    hq, hd = cfg.padded_heads, cfg.hd
     q = _project_q(p, x, cfg)                                 # [B,Qn,Hq,hd]
     k_new, v_new = _project_kv(p, x, cfg)                     # [B,Qn,Hkv,hd]
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)     # [B,Qn,hd//2]
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
+    q, k_new, v_new, hkv = _local_heads(ctx, cfg, q, k_new, v_new, 2)
     sm = 1.0 / hd ** 0.5
 
     live = slot_mask.to(torch.int32)
@@ -237,6 +285,7 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
         o = ops.sparse_decode_attention(q, k_sp, v_sp, hkv, sm,
                                         kv["k_tail"], kv["v_tail"], t_att,
                                         prefix_len=prefix_blocks * bs)
+    o = _gather_heads(ctx, cfg, o, 2)
     return ops.linear(o.reshape(b, qn, hq * hd).to(x.dtype), p["wo"])
 
 
@@ -244,7 +293,8 @@ def pooled_attn_prefill_chunk(p, x: torch.Tensor,
                               kv: Dict[str, torch.Tensor], cfg,
                               positions: torch.Tensor, ctx_len: torch.Tensor,
                               bs: int, slot: torch.Tensor,
-                              table_row: Optional[torch.Tensor] = None
+                              table_row: Optional[torch.Tensor] = None,
+                              ctx=None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Chunked-prefill attention for ONE slot: causal within the chunk plus
@@ -258,16 +308,20 @@ def pooled_attn_prefill_chunk(p, x: torch.Tensor,
     means these are blocks another request froze).  Causal masking keeps
     any padding rows behind the valid ones unseen by them.  Returns ``(out
     [1, C, d], k_chunk, v_chunk [1, Hkv, C, hd])`` post-RoPE for the caller
-    to freeze."""
+    to freeze.  On a mesh (``ctx``) the rank attends over its KV heads
+    (``kv`` holds them) and their query groups, returns its heads' chunk
+    K/V, and gathers the head outputs over the model axis before ``wo``,
+    as :func:`pooled_attn_panel` does."""
     b, c, _ = x.shape
-    hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
-    g = hq // hkv
+    hq, hd = cfg.padded_heads, cfg.hd
     q = _project_q(p, x, cfg)                                # [1,C,Hq,hd]
     k, v = _project_kv(p, x, cfg)                            # [1,C,Hkv,hd]
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)    # [C, hd//2]
-    q = apply_rope(q, cos[None], sin[None]).transpose(1, 2)  # [1,Hq,C,hd]
-    k = apply_rope(k, cos[None], sin[None]).transpose(1, 2)  # [1,Hkv,C,hd]
-    v = v.transpose(1, 2)
+    q = apply_rope(q, cos[None], sin[None])
+    k = apply_rope(k, cos[None], sin[None])
+    q, k, v, hkv = _local_heads(ctx, cfg, q, k, v, 2)
+    hql, g = q.shape[2], q.shape[2] // hkv
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     keys = ("k_bitmap", "k_values", "v_bitmap", "v_values")
     if table_row is not None:
@@ -285,10 +339,11 @@ def pooled_attn_prefill_chunk(p, x: torch.Tensor,
                           torch.ones(c, dtype=torch.bool, device=dev)])[None]
     def per_query_head(a):              # [1, Hkv, S, hd] -> [1, Hq, S, hd]
         return a[:, :, None].expand(b, hkv, g, *a.shape[2:]).reshape(
-            b, hq, *a.shape[2:])
+            b, hql, *a.shape[2:])
     kk = per_query_head(torch.cat([k_ctx.to(k.dtype), k], dim=2))
     vv = per_query_head(torch.cat([v_ctx.to(v.dtype), v], dim=2))
     o = full_attention(q, kk, vv, 1.0 / hd ** 0.5, causal=True,
                        kv_valid=kv_valid)
+    o = _gather_heads(ctx, cfg, o, 1)
     o = o.transpose(1, 2).reshape(b, c, hq * hd)
     return ops.linear(o, p["wo"]), k, v

@@ -393,7 +393,8 @@ def _write_state_(views: Dict[str, torch.Tensor],
             views[k].copy_(t)
 
 
-def _sublayer_decode(x_t, p, kind, cache_j, cfg, position, cross_kv=None):
+def _sublayer_decode(x_t, p, kind, cache_j, cfg, position, cross_kv=None,
+                     ctx=None):
     """One layer of the decode step on ``x_t [B, d]``; ``cache_j`` holds
     this layer's views of the cache (an attention layer's ``"kv"``, a
     recurrent layer's ``"state"``), written in place."""
@@ -408,7 +409,7 @@ def _sublayer_decode(x_t, p, kind, cache_j, cfg, position, cross_kv=None):
         return x_t + h
     h = rms_norm(x_t, p["ln1"])
     if mixer == "attn":
-        h, _ = attn_decode(p["mixer"], h, cache_j["kv"], cfg, position)
+        h, _ = attn_decode(p["mixer"], h, cache_j["kv"], cfg, position, ctx)
     else:
         h, st = mamba_decode(p["mixer"], h, cache_j["state"], cfg)
         _write_state_(cache_j["state"], st)
@@ -422,11 +423,12 @@ def _sublayer_decode(x_t, p, kind, cache_j, cfg, position, cross_kv=None):
 
 
 def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
-                   cfg) -> Tuple[torch.Tensor, Dict]:
+                   cfg, ctx=None) -> Tuple[torch.Tensor, Dict]:
     """``tokens [B, 1]`` -> ``(logits [B, V] f32, cache)``: one decode step
     over the legacy cache, whose tails (or dense rows), lengths and
     recurrent states are written **in place**, ``cache["pos"]`` advanced by
-    one.  An encoder-decoder's layers attend to ``cache["cross"]``."""
+    one.  An encoder-decoder's layers attend to ``cache["cross"]``.  A mesh
+    ``ctx`` reaches the attention (its context-parallel decode)."""
     kinds = _kinds(cfg)
     x_t = embed_apply(params["embed"], tokens[:, 0], cfg)
     position = cache["pos"]
@@ -439,7 +441,7 @@ def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
             cache_j = ({"kv": leaf["kv"].layer(i)} if "kv" in leaf else
                        {"state": {k: a[i] for k, a in leaf["state"].items()}})
             x_t = _sublayer_decode(x_t, pp[f"l{j}"], kinds[j], cache_j, cfg,
-                                   position, ck)
+                                   position, ck, ctx)
     x_t = rms_norm(x_t, params["final_norm"])
     logits = unembed_apply(params["embed"], x_t, cfg)
     cache["pos"] += 1
@@ -461,13 +463,16 @@ def _pooled_ffn(pj, kind, h2: torch.Tensor, cfg) -> torch.Tensor:
 
 def forward_panel_pooled(params, state: Dict[str, Any],
                          tokens: torch.Tensor, slot_mask: torch.Tensor,
-                         cfg, bs: int) -> Tuple[torch.Tensor, Dict]:
+                         cfg, bs: int, ctx=None) -> Tuple[torch.Tensor, Dict]:
     """THE per-token serving forward: score a ``[B, Qn]`` token panel per
     slot over the pooled cache (``Qn == 1`` is a decode tick).
 
     Every live slot's ``Qn`` fresh K/V are appended to its tail ring and
     its ``pos`` / ``tail_len`` advance by ``Qn``; masked slots are left
-    untouched.  Returns ``(logits [B, Qn, V] f32, state)``."""
+    untouched.  Returns ``(logits [B, Qn, V] f32, state)``.  On a mesh
+    (``ctx``) the panel's rows are this rank's slots and the state its
+    shard: only the attention's heads cross the model axis (gathered
+    before ``wo``), and nothing crosses the data axis."""
     qn = tokens.shape[1]
     kinds = _attn_kinds(cfg)
     x = embed_apply(params["embed"], tokens, cfg)             # [B, Qn, d]
@@ -486,7 +491,7 @@ def forward_panel_pooled(params, state: Dict[str, Any],
             h = pooled_attn_panel(pj["mixer"], rms_norm(x, pj["ln1"]), kv,
                                   cfg, positions, prefix_blocks, tail_len,
                                   slot_mask, bs, table=table,
-                                  err=state.get("err"))
+                                  err=state.get("err"), ctx=ctx)
             x = x + h
             x = x + _pooled_ffn(pj, kinds[j], rms_norm(x, pj["ln2"]), cfg)
     x = rms_norm(x, params["final_norm"])
@@ -504,7 +509,7 @@ ARENA_KEYS = ("k_bitmap", "k_values", "v_bitmap", "v_values")
 
 def forward_prefill_chunk(params, state: Dict[str, Any],
                           tokens: torch.Tensor, slot, cfg, bs: int,
-                          new_ids=None, length=None, write=None
+                          new_ids=None, length=None, write=None, ctx=None
                           ) -> Tuple[torch.Tensor, Dict]:
     """Prefill one prompt chunk ``tokens [1, W]`` for pool slot ``slot``.
 
@@ -530,7 +535,8 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
     the fresh arena pages ``new_ids`` (int64 ``[W // bs]``, host-allocated;
     entries past ``nb`` are ignored), appended to the table row with
     refcount 1 — never into shared storage, which is the copy-on-write
-    guarantee."""
+    guarantee.  On a mesh (``ctx``) the slot is one of this rank's and the
+    state its shard: the rank freezes its KV heads' blocks."""
     w = tokens.shape[1]
     nbw = w // bs                       # blocks a chunk of this width holds
     kinds = _attn_kinds(cfg)
@@ -584,7 +590,7 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
             h, k_c, v_c = pooled_attn_prefill_chunk(
                 pj["mixer"], rms_norm(x, pj["ln1"]),
                 {k: kvl[k][i] for k in ARENA_KEYS}, cfg, positions, ctx_len,
-                bs, slot, table_row=table_row)
+                bs, slot, table_row=table_row, ctx=ctx)
             x = x + h
             # an MoE takes the capacity of the L valid rows, as the
             # reference's chunk of length L does
@@ -600,7 +606,8 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
                 frozen = freeze_chunk_blocks(
                     k_c[:, :, :nbw * bs], v_c[:, :, :nbw * bs],
                     cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs,
-                    kvl["k_values"].shape[-1], kvl["v_values"].shape[-1])
+                    kvl["k_values"].shape[-1], kvl["v_values"].shape[-1],
+                    ctx, cfg.n_kv)
                 for key, upd in zip(ARENA_KEYS, frozen):
                     rows = upd[0].transpose(0, 1)        # [W//bs, Hkv, X]
                     if paged:                            # [n_phys, Hkv, X]

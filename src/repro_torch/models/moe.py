@@ -27,7 +27,7 @@ computes it, and the padding rows (after the valid ones, so they never
 move a valid row's queue position) are kept out of the buffers.
 
 The mesh paths (``moe_apply`` under a mesh, the expert-parallel
-``moe_apply_ep``) wait for ROADMAP Queue 1 item 4 and raise.
+``moe_apply_ep``) wait for ROADMAP Queue 1 item 3 and raise.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ from .layers import mlp_apply, mlp_specs
 from .module import ParamSpec
 
 _MESH_ITEM = ("the MoE mesh paths (moe_apply under a mesh, moe_apply_ep) "
-              "wait for ROADMAP Queue 1 item 4 (distribution)")
+              "wait for ROADMAP Queue 1 item 3 (the training mesh)")
 
 
 def moe_specs(cfg) -> Dict[str, ParamSpec]:

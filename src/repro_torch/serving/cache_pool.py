@@ -59,6 +59,13 @@ from repro_torch.core.sparse_kv import (CHECKS, NAN_CHECK, append_tail_panel,
 from repro_torch.models import lm
 from repro_torch.models.lm import ARENA_KEYS
 
+
+def checkify_from_env() -> bool:
+    """The sanitized mode's default: ``REPRO_CHECKIFY`` set to anything
+    but ``0``."""
+    return os.environ.get("REPRO_CHECKIFY", "0") not in ("", "0")
+
+
 @dataclasses.dataclass(frozen=True)
 class CachePool:
     """Geometry + state transitions of the pooled serving cache."""
@@ -73,13 +80,15 @@ class CachePool:
     paged: bool = False      # pool-global arena + per-slot block table
     n_phys: int = 0          # physical blocks in the paged arena
     checkify: bool = False   # sanitized mode: the device error word
+    kv_heads: int = 0        # KV heads held here (0: all of cfg.n_kv; a
+                             # mesh rank holds its model shard of them)
 
     @classmethod
     def build(cls, cfg, slots: int, max_tokens: int, bs: int = 0,
               capacity_slack: float = 1.25,
               device: Optional[torch.device] = None, paged: bool = False,
-              n_phys: int = 0, checkify: Optional[bool] = None
-              ) -> "CachePool":
+              n_phys: int = 0, checkify: Optional[bool] = None,
+              kv_heads: int = 0) -> "CachePool":
         """Size a pool for ``slots`` requests of up to ``max_tokens`` context
         each; per-block capacity is the nominal density times the block
         size, times ``capacity_slack``, rounded to the lane size.
@@ -88,7 +97,8 @@ class CachePool:
         ``n_phys`` blocks (default ``slots * max_blocks``, the flat pool's
         prefix bytes) behind per-slot block tables.  ``checkify`` (default:
         ``REPRO_CHECKIFY`` set to anything but ``0``) builds the sanitized
-        mode."""
+        mode.  ``kv_heads`` (default ``cfg.n_kv``) sizes the KV-head axis of
+        every layer leaf: a mesh rank's pool holds its slots and its heads."""
         lm._attn_kinds(cfg)
         bs = bs or min(128, cfg.kv_tail)
         if cfg.kv_tail % bs != 0:
@@ -108,12 +118,13 @@ class CachePool:
         if paged:
             n_phys = n_phys or slots * max_blocks
         if checkify is None:
-            checkify = os.environ.get("REPRO_CHECKIFY", "0") not in ("", "0")
+            checkify = checkify_from_env()
         return cls(cfg=cfg, slots=slots, max_blocks=max_blocks, bs=bs,
                    tail=cfg.kv_tail, cap_k=cap(cfg.kv_k_sparsity),
                    cap_v=cap(cfg.kv_v_sparsity),
                    device=resolve_device(device), paged=paged,
-                   n_phys=n_phys if paged else 0, checkify=bool(checkify))
+                   n_phys=n_phys if paged else 0, checkify=bool(checkify),
+                   kv_heads=kv_heads or cfg.n_kv)
 
     @property
     def capacity_tokens(self) -> int:
@@ -158,7 +169,7 @@ class CachePool:
         bitmaps are int32 bit-views."""
         cfg = self.cfg
         n_periods = cfg.n_layers // lm.period_len(cfg)
-        hkv, hd, dt = cfg.n_kv, cfg.hd, cfg.cdtype
+        hkv, hd, dt = self.kv_heads or cfg.n_kv, cfg.hd, cfg.cdtype
         b, sb, w = self.slots, self.max_blocks, self.bs * hd // 32
         z = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
                                              device=self.device)
@@ -189,8 +200,38 @@ class CachePool:
             state["err"] = z((1,), torch.int32)
         return state
 
+    def state_axes(self) -> Dict[str, Any]:
+        """Logical axes of :meth:`init_state`, leaf for leaf (the
+        reference's ``CachePool.state_axes``): the pool's own description
+        of how its storage may shard (``distributed/serving_sharding``
+        turns it into specs).  The ``[slots]`` vectors and every flat layer
+        leaf ``[P, slots, Hkv, ...]`` put slots on the data axes and KV
+        heads on the model axis.  Paged: the table shards with its slots;
+        the arena's physical-block axis is replicated while its KV-head
+        axis shards; the refcount (and the sanitized mode's error word)
+        is replicated."""
+        def kv_axes():
+            comp = ((None, None, "kv_heads", None) if self.paged
+                    else (None, "slots", "kv_heads", None, None))
+            tail = (None, "slots", "kv_heads", None, None)
+            return {**{k: comp for k in ARENA_KEYS},
+                    "k_tail": tail, "v_tail": tail}
+        axes = {
+            "pos": ("slots",),
+            "prefix_blocks": ("slots",),
+            "tail_len": ("slots",),
+            "layers": {f"l{j}": {"kv": kv_axes()}
+                       for j in range(lm.period_len(self.cfg))},
+        }
+        if self.paged:
+            axes["table"] = ("slots", None)
+            axes["refcount"] = (None,)
+        if self.checkify:
+            axes["err"] = (None,)
+        return axes
+
     def refreeze(self, state: Dict[str, Any], new_ids=None,
-                 write=None) -> Dict[str, Any]:
+                 write=None, ctx=None) -> Dict[str, Any]:
         """Fold every full tail into its slot's next free prefix blocks.
 
         At static shapes, without a host read: ``full = tail_len >= tail``
@@ -209,7 +250,10 @@ class CachePool:
         device, or host values) carries a fresh physical id per (full
         slot, tail block) from the host allocator; rows of slots that are
         not full are ignored.  The blocks land at those ids in the arena and
-        in each full slot's table row, and the ids' refcounts go to 1."""
+        in each full slot's table row, and the ids' refcounts go to 1.  A
+        mesh rank's pool passes its ``ctx``: the tails' threshold spans
+        every KV head (:func:`~repro_torch.core.sparse_kv.freeze_chunk_blocks`).
+        """
         cfg, dev = self.cfg, self.device
         t, tb, b = self.tail, self.tail // self.bs, self.slots
         if self.paged and new_ids is None:
@@ -243,7 +287,7 @@ class CachePool:
             frozen = freeze_chunk_blocks(
                 flat(kv["k_tail"]), flat(kv["v_tail"]),
                 cfg.kv_k_sparsity, cfg.kv_v_sparsity, self.bs,
-                self.cap_k, self.cap_v)
+                self.cap_k, self.cap_v, ctx, cfg.n_kv)
             for key, upd in zip(ARENA_KEYS, frozen):
                 # [P*B, Hkv, tb, X] -> rows [P, B*tb, Hkv, X]
                 rows = upd.reshape(p_, b, hkv, tb, -1).permute(

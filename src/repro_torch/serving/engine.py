@@ -22,9 +22,27 @@ One engine tick (:meth:`step`):
    under its own lane.
 
 Host <-> device traffic per tick is one token vector and one chosen-token
-logprob vector; slot lengths are mirrored on the host.  Arguments that
-belong to a later slice of the port (``ctx``, ``mesh``) raise
-``NotImplementedError``.
+logprob vector; slot lengths are mirrored on the host.
+
+**On a mesh** (``mesh=`` a :class:`repro_torch.launch.mesh.Mesh` of
+``torch.distributed`` ranks, or ``ctx=`` a serving ``ShardCtx``; the twin
+of the reference's ``ContinuousEngine(mesh=...)``): every rank runs this
+engine on the same submissions, so every rank's host scheduler, allocator
+and mirrors stay identical.  A rank holds its data shard of the slots
+(their rows of the pool, the lanes and the seeded generators) and its
+model shard of the KV heads, with replicated weights; a slot dimension or
+a head count that does not divide its axis replicates.  The forwards take
+the ctx (heads gathered over the model axis before ``wo``; nothing crosses
+the data axis inside a forward).  The tick's one token read all-gathers
+the sampled tokens, logprobs and accept counts over the data axes; a
+prefill's first token comes from the slot's data shard in the same way.
+Paged: the table shards with its slots, the arena's pages replicate over
+data with their KV heads split over model, and every page a rank writes
+in a tick, with the refcount changes, is all-gathered over data into
+every rank's arena in that tick (:meth:`ContinuousEngine._share_pages`).
+``ctx=`` with ``mesh=``, ``checkify`` and snapshots are refused, as in the
+reference; under the ``gloo`` backend nothing can be captured, so
+``graphs=True`` raises (build with ``graphs=False``).
 
 **Captured entries** (the twin of the reference's ``jax.jit`` entries,
 ``engine.py:401-481``).  The decode forward (``[slots, 1]``), the verify
@@ -115,6 +133,7 @@ free of host syncs: their bits surface at the next token read.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
@@ -124,13 +143,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.core.convert import LINEAR_KEYS
 from repro_torch.core.sparse_format import repack_capacity
 from repro_torch.core.sparse_kv import SparseKVCache, freeze_prefix, refreeze
+from repro_torch.distributed import NULL_CTX, all_gather, serving_sharding
 from repro_torch.models import lm
 from repro_torch.models.attention import DenseKVCache
 from . import sampling
-from .cache_pool import BlockAllocator, CachePool, check_errors
+from .cache_pool import (BlockAllocator, CachePool, check_errors,
+                         checkify_from_env)
 from .cache_pool import tensors as _leaves
 from .faults import (CANCEL_PREFILL, CANCEL_SPEC, DOUBLE_RELEASE,
                      DRAFTER_ERROR, PAGE_EXHAUSTION, FaultPlan)
@@ -180,10 +202,15 @@ class Engine:
 
     It runs **eagerly**: every refreeze grows the prefix (a new shape), so
     the reference retraces its jitted decode at each one, and a CUDA graph
-    would have to be captured again just as often."""
+    would have to be captured again just as often.
+
+    ``ctx`` (a ``ShardCtx`` on a mesh of ranks, each fed its own batch
+    rows) with ``cfg.cp_decode`` runs the decode attention context-parallel
+    over the model axis (``distributed/cp_attention.py``), as the
+    reference's ``Engine(ctx=...)`` does."""
 
     def __init__(self, params, cfg, kv_mode: str = "sparse",
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, ctx=None):
         if kv_mode not in ("sparse", "dense"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
         lm._kinds(cfg)
@@ -191,6 +218,7 @@ class Engine:
         self.params = params_to(params, self.device)
         self.cfg = cfg
         self.kv_mode = kv_mode
+        self.ctx = ctx if ctx is not None else NULL_CTX
         self._tail = 0            # host mirror of every layer's tail_len
 
     def prefill(self, batch: Dict[str, Any]):
@@ -285,7 +313,8 @@ class Engine:
             if self.kv_mode == "sparse":
                 cache = self._maybe_refreeze(cache)
             logits, cache = lm.forward_decode(self.params, cache,
-                                              tok[:, None], self.cfg)
+                                              tok[:, None], self.cfg,
+                                              self.ctx)
             self._tail += 1
             tok, _ = sampling.sample_step(logits, lanes, gens, live, exact)
         toks.append(tok)
@@ -461,18 +490,24 @@ class CapturedEntry:
 
 
 def panel_entry(params, state: Dict[str, Any], cfg, bs: int, qn: int,
-                eager: bool = False) -> CapturedEntry:
+                eager: bool = False, ctx=None, shards: int = 1
+                ) -> CapturedEntry:
     """One panel forward over the pool at a fixed width ``Q`` (the decode
     entry at ``Q = 1``, the verify entry at ``k + 1``): static inputs
     ``tokens`` (int64 ``[B, Q]``) and ``mask`` (bool ``[B]``, all false at
     the warm-up and capture, which then write nothing); the output is the
-    logits (f32 ``[B, Q, V]``)."""
+    logits (f32 ``[B, Q, V]``).  On a mesh the rows are one of ``shards``
+    data shards of the panel (``ops.panel_shards``)."""
     dev = state["pos"].device
     b = state["pos"].shape[0]
     inp = {"tokens": torch.zeros((b, qn), dtype=torch.long, device=dev),
            "mask": torch.zeros(b, dtype=torch.bool, device=dev)}
-    return CapturedEntry(state, inp, lambda: lm.forward_panel_pooled(
-        params, state, inp["tokens"], inp["mask"], cfg, bs)[0], eager)
+
+    def fn():
+        with ops.panel_shards(shards):
+            return lm.forward_panel_pooled(params, state, inp["tokens"],
+                                           inp["mask"], cfg, bs, ctx)[0]
+    return CapturedEntry(state, inp, fn, eager)
 
 
 def _writing_entry(state: Dict[str, Any], inputs: Dict[str, torch.Tensor],
@@ -488,7 +523,7 @@ def _writing_entry(state: Dict[str, Any], inputs: Dict[str, torch.Tensor],
 
 
 def prefill_entry(params, state: Dict[str, Any], cfg, bs: int, w: int,
-                  eager: bool = False) -> CapturedEntry:
+                  eager: bool = False, ctx=None) -> CapturedEntry:
     """The prefill chunk at width class ``w`` (a multiple of ``bs``):
     static inputs ``tokens`` (int64 ``[1, w]``, valid tokens first),
     ``slot`` and ``length`` (int64 ``[1]``), ``write`` and, on the paged
@@ -503,11 +538,11 @@ def prefill_entry(params, state: Dict[str, Any], cfg, bs: int, w: int,
     return _writing_entry(state, inp, lambda: lm.forward_prefill_chunk(
         params, state, inp["tokens"], inp["slot"], cfg, bs,
         new_ids=inp.get("ids"), length=inp["length"],
-        write=inp["write"])[0], eager)
+        write=inp["write"], ctx=ctx)[0], eager)
 
 
 def refreeze_entry(pool: CachePool, state: Dict[str, Any],
-                   eager: bool = False) -> CapturedEntry:
+                   eager: bool = False, ctx=None) -> CapturedEntry:
     """The refreeze: static inputs ``write`` and, on the paged pool, ``ids``
     (the fresh pages, int64 ``[slots, tail // bs]``, rows of slots that are
     not full ignored); no output."""
@@ -517,7 +552,7 @@ def refreeze_entry(pool: CachePool, state: Dict[str, Any],
                                  dtype=torch.long, device=pool.device)
 
     def fn():
-        pool.refreeze(state, inp.get("ids"), inp["write"])
+        pool.refreeze(state, inp.get("ids"), inp["write"], ctx)
     return _writing_entry(state, inp, fn, eager)
 
 
@@ -591,7 +626,8 @@ class ContinuousEngine:
     captured :class:`CapturedEntry` (tests and oracles only).
     ``max_queue``, ``degrade_queue``, ``faults``, ``obs``,
     ``capacity_slack`` and ``checkify`` mean what they mean in the
-    reference."""
+    reference.  ``mesh`` (or ``ctx``) serves on a mesh of ranks: see the
+    module docstring; ``device`` must be the mesh's."""
 
     def __init__(self, params, cfg, slots: int = 4, max_tokens: int = 0,
                  bs: int = 0, prefill_chunk: Optional[int] = None,
@@ -602,13 +638,27 @@ class ContinuousEngine:
                  capacity_slack: float = 1.25, max_queue: int = 0,
                  degrade_queue: int = 0, faults: Optional[FaultPlan] = None,
                  obs=None, overlap: bool = False, graphs: bool = True):
-        later = {"ctx": ctx is not None, "mesh": mesh is not None}
-        unported = [k for k, v in later.items() if v]
-        if unported:
-            raise NotImplementedError(
-                f"ContinuousEngine options {unported} belong to the sharded "
-                "slice of the port")
+        if mesh is not None and ctx is not None and ctx is not NULL_CTX:
+            raise ValueError(
+                "pass either ctx= or mesh=, not both: mesh= derives its own "
+                "serving ShardCtx (slots over data, KV heads over model)")
+        if mesh is not None or (ctx is not None and ctx.mesh is not None):
+            if checkify if checkify is not None else checkify_from_env():
+                raise ValueError("checkify mode is unsharded-only: the "
+                                 "device error word has no mesh placement")
+            if mesh is not None:
+                ctx = serving_sharding.serving_ctx(mesh, cfg)
+            if graphs and ctx.mesh.backend == "gloo":
+                raise ValueError(
+                    "graphs=True: collectives of the gloo backend cannot be "
+                    "captured in a CUDA graph; build a gloo mesh's engine "
+                    "with graphs=False")
+        self.ctx = ctx if ctx is not None else NULL_CTX
+        self.mesh = self.ctx.mesh
         self.device = resolve_device(device)
+        if self.mesh is not None and self.device.type != self.mesh.device.type:
+            raise ValueError(f"the engine runs on {self.device}, its mesh's "
+                             f"ranks on {self.mesh.device}")
         # the device and stream every device call of this engine runs on,
         # whichever thread makes it (:meth:`_on_stream`)
         self.stream: Optional[torch.cuda.Stream] = None
@@ -629,13 +679,33 @@ class ContinuousEngine:
                                     capacity_slack=capacity_slack,
                                     device=self.device, paged=paged,
                                     n_phys=phys_blocks, checkify=checkify)
+        # this rank's global slots (every slot without a mesh) and the mesh
+        # axes the slots shard over (None where they replicate); its pool
+        # holds those slots' rows and its KV heads, the arena every page
+        self.slots = slots
+        self._rows = serving_sharding.local_slots(self.ctx, slots)
+        self._slot_axis = self.ctx.spec(("slots",), (slots,))[0]
+        if self.mesh is not None:
+            self.pool = dataclasses.replace(
+                self.pool, slots=len(self._rows),
+                kv_heads=len(serving_sharding.local_heads(self.ctx,
+                                                          cfg.n_kv)))
         self.state = self.pool.init_state()
-        self.lanes = sampling.init_lanes(slots, self.device)
-        # per-slot request generators (sampled requests only) and whether
-        # the slot's request needs the sampler's exact sort (host copy of
-        # the masker's branch, so the sampler never waits for the device)
+        self.lanes = sampling.init_lanes(self.pool.slots, self.device)
+        # per-slot request generators (sampled requests on this rank's
+        # slots only), whether the slot's request samples, and whether it
+        # needs the sampler's exact sort (host copy of the masker's branch,
+        # so the sampler never waits for the device)
         self._gens: List[Optional[torch.Generator]] = [None] * slots
+        self._sampled = [False] * slots
         self._exact = [False] * slots
+        # paged pool on a mesh: the pages each data shard wrote since the
+        # last share, whether a refcount changed, and the refcount as last
+        # shared (:meth:`_share_pages`)
+        self._fresh: Dict[int, List[int]] = {}
+        self._rc_dirty = False
+        self._rc_base = (self.state["refcount"].clone()
+                         if paged and self._slot_axis is not None else None)
         self.params = params_to(params, self.device)
         sch_kw = {} if clock is None else {"clock": clock}
         self.scheduler = Scheduler(slots, self.pool.capacity_tokens,
@@ -823,6 +893,7 @@ class ContinuousEngine:
         events: List[RequestOutput] = []
         self._sync_inflight(events)
         self._flush_releases()
+        self._share_pages()
         return events
 
     def trace_counts(self) -> Dict[str, int]:
@@ -898,15 +969,19 @@ class ContinuousEngine:
         if name in ("decode", "verify"):
             qn = 1 if name == "decode" else self._spec.k + 1
             fwd = panel_entry(self.params, self.state, self.cfg,
-                              self.pool.bs, qn, eager=eager)
+                              self.pool.bs, qn, eager=eager, ctx=self.ctx,
+                              shards=self.slots // self.pool.slots)
         elif name == "prefill_chunk":
             fwd = prefill_entry(self.params, self.state, self.cfg,
-                                self.pool.bs, width, eager=eager)
+                                self.pool.bs, width, eager=eager,
+                                ctx=self.ctx)
         elif name == "set_lane":
             fwd = set_lane_entry(self.lanes, eager=eager)
+        elif name == "refreeze":
+            fwd = refreeze_entry(self.pool, self.state, eager=eager,
+                                 ctx=self.ctx)
         else:
-            make = {"refreeze": refreeze_entry, "release": release_entry,
-                    "assign": assign_entry}[name]
+            make = {"release": release_entry, "assign": assign_entry}[name]
             fwd = make(self.pool, self.state, eager=eager)
         self._entries[key] = fwd
         return fwd
@@ -918,12 +993,121 @@ class ContinuousEngine:
         ``Q`` tokens are appended to its tail.  Returns the logits (the
         entry's static output: read them before the entry runs again)."""
         fwd = self._entry(name)
-        fwd.set(tokens=tokens, mask=[bool(m) for m in mask])
+        fwd.set(tokens=self._local(tokens),
+                mask=[bool(m) for m in self._local(mask)])
         return fwd.run()
 
     def _exact_for(self, live: Sequence[bool]) -> bool:
-        return any(self._exact[s] for s in range(self.pool.slots)
-                   if live[s] and self._gens[s] is not None)
+        return any(self._exact[s] for s in range(self.slots)
+                   if live[s] and self._sampled[s])
+
+    # -- the mesh: this rank's rows and the token reads -----------------------
+    def _local(self, x):
+        """This rank's rows of a slot-indexed host list, array or tensor
+        (``x`` itself when its first dim is not the global slot count, or
+        without a mesh)."""
+        if self.mesh is None or len(x) != self.slots:
+            return x
+        return x[self._rows.start:self._rows.stop]
+
+    def _local_slot(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's pool, or None on another data
+        shard."""
+        return slot - self._rows.start if slot in self._rows else None
+
+    def _owner(self, slot: int) -> int:
+        """The data shard holding ``slot``."""
+        return slot // len(self._rows)
+
+    def _lane_mask(self, slots: Sequence[int]) -> torch.Tensor:
+        """A bool mask over this rank's rows, true at ``slots``."""
+        return sampling.lane_mask(
+            self.pool.slots, [s - self._rows.start for s in slots
+                              if s in self._rows], self.device)
+
+    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """``[local slots, ...]`` -> ``[slots, ...]``: every data shard's
+        rows, in slot order (``t`` itself where the slots replicate)."""
+        if self._slot_axis is None:
+            return t
+        return all_gather(t, self.mesh, self._slot_axis, 0)
+
+    def _read_tick(self, tok: torch.Tensor, logp: torch.Tensor,
+                   ncommit: Optional[torch.Tensor] = None):
+        """The tick's token read: host lists of every slot's tokens,
+        chosen-token logprobs and (speculation) accept counts.  On a mesh
+        the three are all-gathered over the data axes in one collective
+        (packed as f64 columns, exact for these values) before the read."""
+        if self.mesh is not None:
+            n = tok.shape[0]
+            w = tok.reshape(n, -1).shape[1]
+            cols = [tok.reshape(n, w).double(), logp.reshape(n, w).double()]
+            if ncommit is not None:
+                cols.append(ncommit.reshape(n, 1).double())
+            rows = self._gather_slots(torch.cat(cols, 1)).cpu()
+            tok = rows[:, :w].long().reshape(-1, *tok.shape[1:])
+            logp = rows[:, w:2 * w].float().reshape(-1, *logp.shape[1:])
+            if ncommit is not None:
+                ncommit = rows[:, 2 * w].long()
+        return (self._tokens(tok), logp.tolist(),
+                None if ncommit is None else ncommit.tolist())
+
+    def _first_token(self, slot: int, logits: Optional[torch.Tensor]):
+        """A final chunk's first token and its logprob, sampled on the
+        slot's data shard (whose ``logits`` these are) and, on a mesh,
+        all-gathered from it over the data axes."""
+        ls = self._local_slot(slot)
+        if ls is not None:
+            lane = {k: v[ls:ls + 1] for k, v in self.lanes.items()}
+            tok, logp = sampling.sample_step(logits, lane, [self._gens[slot]],
+                                             [True], self._exact[slot])
+        if self._slot_axis is None:
+            return self._tokens(tok), [float(logp[0])]
+        row = (torch.stack([tok[0].double(), logp[0].double()])
+               if ls is not None else
+               torch.zeros(2, dtype=torch.float64, device=self.device))
+        tok_, logp_ = self._gather_slots(row[None])[self._owner(slot)].tolist()
+        return [int(tok_)], [logp_]
+
+    def _share_pages(self) -> None:
+        """Paged pool on a data-sharded mesh: all-gather over the data
+        axes every arena page a data shard wrote since the last share
+        (chunk freezes and refreezes, whose ids the shared host allocator
+        handed out, so no two shards write one page) and each shard's
+        refcount changes, so the arena and the refcount stay replicated
+        over data.  One collective; a no-op when nothing changed (the host
+        state that decides it is identical on every rank)."""
+        if self._rc_base is None or not (self._fresh or self._rc_dirty):
+            return
+        fresh, self._fresh, self._rc_dirty = self._fresh, {}, False
+        width = max((len(v) for v in fresh.values()), default=0)
+        me = self._owner(self._rows.start)
+        mine = fresh.get(me, [])
+        idx = torch.tensor(mine + [0] * (width - len(mine)), dtype=torch.long,
+                           device=self.device)
+        leaves = [leaf for layer in self.pool.arena_leaves(self.state).values()
+                  for leaf in layer.values()]
+        rc = self.state["refcount"]
+        parts = [leaf.index_select(1, idx).contiguous().view(torch.uint8)
+                 .reshape(-1) for leaf in leaves]
+        parts.append((rc - self._rc_base).view(torch.uint8))
+        rows = self._gather_slots(torch.cat(parts)[None])
+        total = self._rc_base.clone()
+        for j in range(rows.shape[0]):
+            off, row = 0, rows[j]
+            for leaf in leaves:
+                shape = (leaf.shape[0], width) + tuple(leaf.shape[2:])
+                n = int(np.prod(shape)) * leaf.element_size()
+                got = fresh.get(j, [])
+                if j != me and got:
+                    pages = row[off:off + n].clone().view(leaf.dtype).reshape(
+                        shape)
+                    leaf.index_copy_(1, torch.tensor(got, device=self.device),
+                                     pages[:, :len(got)])
+                off += n
+            total += row[off:].clone().view(torch.int32)
+        rc.copy_(total)
+        self._rc_base = total
 
     def generate_batch(self, prompts, params: Optional[SamplingParams] = None
                        ) -> np.ndarray:
@@ -947,6 +1131,9 @@ class ContinuousEngine:
             raise ValueError(f"{what} needs the paged pool: only the shared "
                              "arena + prefix index persist (build the "
                              "engine with paged=True)")
+        if self.mesh is not None:
+            raise ValueError(f"{what} is unsharded-only: arena leaves are "
+                             "persisted as full host tensors")
 
     @_on_device
     def save_snapshot(self, directory: str) -> int:
@@ -1066,11 +1253,12 @@ class ContinuousEngine:
                 # the release path again; the flush must absorb it as a
                 # counted warning and the device release as a no-op
                 cand = (list(self._pending_release)
-                        or [s for s in range(self.pool.slots)
+                        or [s for s in range(self.slots)
                             if s not in self.scheduler.active])
                 if cand and self._faults.take(DOUBLE_RELEASE, self._tick_no):
                     self._pending_release.append(self._faults.choose(cand))
             self._flush_releases()
+            self._share_pages()
             self._in_tick = False
             if obs is not None:
                 sch = self.scheduler
@@ -1078,7 +1266,7 @@ class ContinuousEngine:
                     start=t_start, now=sch.clock(), tick_no=self._tick_no,
                     committed=self._tick_committed,
                     queue_depth=len(sch.queue), active=len(sch.active),
-                    slots=self.pool.slots, counters=self.fault_counters,
+                    slots=self.slots, counters=self.fault_counters,
                     free_blocks=(self._alloc.free_blocks()
                                  if self._alloc is not None else None),
                     n_phys=(self.pool.n_phys
@@ -1109,16 +1297,20 @@ class ContinuousEngine:
             if self._slot_live[s]:
                 self._slot_live[s] = False
                 self._gens[s] = None
+                self._sampled[s] = False
                 live.append(s)
             else:
                 doubles += 1
         self._pending_release = []
         self.fault_counters["double_release"] += doubles
+        mine = [s - self._rows.start for s in seen if s in self._rows]
         vec = np.full(self.pool.slots, -1, np.int32)
-        vec[:len(seen)] = seen
+        vec[:len(mine)] = mine
         fwd = self._entry("release")
         fwd.set(slots=vec)
         fwd.run()
+        if self._rc_base is not None:
+            self._rc_dirty = True
         if self._alloc is not None:
             for s in live:
                 ids = self._blocks.pop(s, [])
@@ -1170,9 +1362,13 @@ class ContinuousEngine:
             alloc.incref(hits)
             ids = np.zeros(self.pool.max_blocks, np.int64)
             ids[:len(hits)] = hits
-            fwd = self._entry("assign")
-            fwd.set(slot=[req.slot], ids=ids, n=[len(hits)])
-            fwd.run()
+            ls = self._local_slot(req.slot)
+            if ls is not None:
+                fwd = self._entry("assign")
+                fwd.set(slot=[ls], ids=ids, n=[len(hits)])
+                fwd.run()
+            if self._rc_base is not None:
+                self._rc_dirty = True
             req.prefill_done = len(hits) * bs   # shared prefix: no prefill
             self._tail_len[req.slot] = 0
         return req
@@ -1180,14 +1376,17 @@ class ContinuousEngine:
     def _set_lane(self, slot: int, params: SamplingParams) -> None:
         """Write an admitted request's sampling lane through the
         ``set_lane`` entry (its values as device operands) and keep its
-        generator and sort branch on the host."""
-        fwd = self._entry("set_lane")
-        fwd.set(slot=[slot], temperature=[params.temperature],
-                top_k=[params.top_k], top_p=[params.top_p])
-        fwd.run()
-        self._gens[slot] = (
-            sampling.request_generator(params, self.device)
-            if params.temperature > 0 else None)
+        generator (on the slot's data shard) and sort branch on the host."""
+        ls = self._local_slot(slot)
+        sampled = params.temperature > 0
+        if ls is not None:
+            fwd = self._entry("set_lane")
+            fwd.set(slot=[ls], temperature=[params.temperature],
+                    top_k=[params.top_k], top_p=[params.top_p])
+            fwd.run()
+        self._gens[slot] = (sampling.request_generator(params, self.device)
+                            if sampled and ls is not None else None)
+        self._sampled[slot] = sampled
         self._exact[slot] = sampling.needs_exact_sort(params, self.cfg.vocab)
 
     def _step_inner(self) -> List[RequestOutput]:
@@ -1245,7 +1444,7 @@ class ContinuousEngine:
             return self._spec_tick(slots, events)
         if self.overlap:
             return self._overlap_decode_tick(slots, events)
-        b = self.pool.slots
+        b = self.slots
         t_dec = sch.clock() if self._obs is not None else 0.0
         tokens = torch.zeros((b, 1), dtype=torch.long)
         mask = [False] * b
@@ -1254,9 +1453,10 @@ class ContinuousEngine:
             mask[s] = True
         logits = self._panel_logits("decode", tokens, mask)
         tok, logp = sampling.sample_step(logits[:, 0], self.lanes,
-                                         self._gens, mask,
+                                         self._local(self._gens),
+                                         self._local(mask),
                                          self._exact_for(mask))
-        picked, logps = self._tokens(tok), logp.tolist()
+        picked, logps, _ = self._read_tick(tok, logp)
         if self._obs is not None:
             # dispatch through the token read
             self._obs.decode_tick(t_dec, sch.clock() - t_dec, len(slots),
@@ -1280,7 +1480,7 @@ class ContinuousEngine:
         at dispatch (a decode appends exactly one token), which keeps the
         next refreeze decision exact without waiting."""
         sch = self.scheduler
-        b = self.pool.slots
+        b = self.slots
         t_dec = sch.clock() if self._obs is not None else 0.0
         rec = self._inflight
         mask = [False] * b
@@ -1301,14 +1501,16 @@ class ContinuousEngine:
             ov = torch.zeros(b, dtype=torch.long)
             for s in broken:
                 ov[s] = self._last_tok[s]
-            ovm = sampling.lane_mask(b, broken, self.device)
-            tokens = torch.where(ovm, ov.to(self.device, non_blocking=True),
-                                 rec["chain"])[:, None]
+            ovm = self._lane_mask(broken)
+            tokens = torch.where(
+                ovm, self._local(ov).to(self.device, non_blocking=True),
+                rec["chain"])[:, None]
         else:
             tokens = rec["chain"][:, None]
         logits = self._panel_logits("decode", tokens, mask)
         tok, logp = sampling.sample_step(logits[:, 0], self.lanes,
-                                         self._gens, mask,
+                                         self._local(self._gens),
+                                         self._local(mask),
                                          self._exact_for(mask))
         for s in slots:
             self._tail_len[s] += 1
@@ -1328,8 +1530,10 @@ class ContinuousEngine:
         """Start copying a dispatched tick's outputs to the host right
         behind the work that makes them, before the next tick is enqueued
         (a copy enqueued later would wait for that tick too); the event
-        marks their arrival.  On the CPU they are already there."""
-        if self.device.type != "cuda":
+        marks their arrival.  On the CPU they are already there; on a mesh
+        they stay where they are until the sync, whose read gathers them
+        over the data axes."""
+        if self.device.type != "cuda" or self.mesh is not None:
             return {**outs, "ready": None}
         host = {k: None if v is None else v.to("cpu", non_blocking=True)
                 for k, v in outs.items()}
@@ -1378,9 +1582,14 @@ class ContinuousEngine:
         sch = self.scheduler
         if rec["ready"] is not None:
             rec["ready"].synchronize()
-        picked = self._split_err(rec["tok"], rec["tok_shape"])
-        logps = rec["logp"].tolist()
-        ncs = rec["ncommit"].tolist() if rec["ncommit"] is not None else None
+        if self.mesh is not None:
+            picked, logps, ncs = self._read_tick(rec["tok"], rec["logp"],
+                                                 rec["ncommit"])
+        else:
+            picked = self._split_err(rec["tok"], rec["tok_shape"])
+            logps = rec["logp"].tolist()
+            ncs = (rec["ncommit"].tolist() if rec["ncommit"] is not None
+                   else None)
         if self._obs is not None:
             # dispatch to the delayed read: the device's wall time, host
             # work included only where it failed to hide
@@ -1411,8 +1620,9 @@ class ContinuousEngine:
         fwd = self._entries["verify"]
         tok, logp, nc = sampling.accept_step(
             logits, fwd.inputs["tokens"],
-            dlen.to(self.device, non_blocking=True), self.lanes, self._gens,
-            mask, self._exact_for(mask))
+            self._local(dlen).to(self.device, non_blocking=True), self.lanes,
+            self._local(self._gens), self._local(mask),
+            self._exact_for(mask))
         self.pool.rollback(self.state,
                            qn * fwd.inputs["mask"].to(torch.int32) - nc)
         return tok, logp, nc
@@ -1433,7 +1643,7 @@ class ContinuousEngine:
         its window with the stop scan inside it."""
         sch = self.scheduler
         t_dec = sch.clock() if self._obs is not None else 0.0
-        b, k = self.pool.slots, self._spec.k
+        b, k = self.slots, self._spec.k
         degraded = (self._degrade_queue > 0
                     and len(sch.queue) >= self._degrade_queue)
         if degraded:
@@ -1485,8 +1695,7 @@ class ContinuousEngine:
                               "tok_shape": tuple(tok.shape), "dlen": dlen,
                               "slots": slot_rids, "t0": t_dec}
             return events
-        picked, logps, ncs = (self._tokens(tok), logp.tolist(),
-                              ncommit.tolist())
+        picked, logps, ncs = self._read_tick(tok, logp, ncommit)
         if self._obs is not None:
             # drafting and the verify dispatch through the token read
             self._obs.decode_tick(t_dec, sch.clock() - t_dec, len(slots),
@@ -1509,7 +1718,7 @@ class ContinuousEngine:
         ``tail_len == tail`` exactly, so the host decides whether to fold
         (and which slots get pages) and the device finds the same slots
         itself: nothing waits for the device."""
-        full = [s for s in range(self.pool.slots)
+        full = [s for s in range(self.slots)
                 if self._tail_len[s] >= self.pool.tail]
         if not full:
             return
@@ -1525,17 +1734,18 @@ class ContinuousEngine:
                 # pipeline first: the commit releases the finished slots
                 self._sync_inflight(events if events is not None else [])
                 self._flush_releases()
-                full = [s for s in range(self.pool.slots)
+                full = [s for s in range(self.slots)
                         if self._tail_len[s] >= self.pool.tail]
                 if not full:
                     return
-            ids = np.zeros((self.pool.slots, tb), np.int64)
+            ids = np.zeros((self.slots, tb), np.int64)
             for s in full:
                 fresh = self._alloc.alloc(tb)    # CoW: never shared pages
                 ids[s] = fresh
                 self._blocks.setdefault(s, []).extend(fresh)
                 self._reserved[s] = max(0, self._reserved.get(s, 0) - tb)
-            fwd.set(ids=ids)
+                self._wrote(s, fresh)
+            fwd.set(ids=self._local(ids))
         fwd.run()
         for s in full:
             self._tail_len[s] = 0
@@ -1560,13 +1770,17 @@ class ContinuousEngine:
         toks[0, :n] = chunk
         fwd = self._entry("prefill_chunk", w)
         fresh = None
+        ls = self._local_slot(req.slot)      # None: another data shard's
         if self._alloc is not None:
             fresh = self._alloc.alloc(n // bs)
             ids = np.zeros(w // bs, np.int64)
             ids[:len(fresh)] = fresh
             fwd.set(ids=ids)
-        fwd.set(tokens=toks, slot=[req.slot], length=[n])
-        logits = fwd.run()
+            self._wrote(req.slot, fresh)
+        logits = None
+        if ls is not None:
+            fwd.set(tokens=toks, slot=[ls], length=[n])
+            logits = fwd.run()
         if fresh is not None:
             self._blocks.setdefault(req.slot, []).extend(fresh)
             self._reserved[req.slot] = max(
@@ -1585,16 +1799,20 @@ class ContinuousEngine:
         # block-aligned)
         self._tail_len[req.slot] = req.prefill_done % bs
         if final:
-            s = req.slot
-            lane = {k: v[s:s + 1] for k, v in self.lanes.items()}
-            tok, logp = sampling.sample_step(logits, lane, [self._gens[s]],
-                                             [True], self._exact[s])
-            self._emit(s, self._tokens(tok), [float(logp[0])], events)
+            self._emit(req.slot, *self._first_token(req.slot, logits),
+                       events)
         if self._obs is not None:
             # a non-final chunk is its dispatch; the final one includes
             # the first token's read
             self._obs.prefill_chunk(req.rid, req.slot, t_pf,
                                     sch.clock() - t_pf, n, final)
+
+    def _wrote(self, slot: int, pages: List[int]) -> None:
+        """Note arena pages written for ``slot`` this tick (a data-sharded
+        paged mesh shares them at the tick's end)."""
+        if self._rc_base is not None:
+            self._fresh.setdefault(self._owner(slot), []).extend(pages)
+            self._rc_dirty = True
 
     def _emit(self, slot: int, toks: List[int], logprobs: List[float],
               events: List[RequestOutput]) -> None:
@@ -1611,12 +1829,15 @@ class ContinuousEngine:
         self._tick_committed += len(req.generated) - before
         out = req.output()
         events.append(out)
+        if finished and self._obs is not None:
+            # before the last snapshot reaches the caller, as a cancel and
+            # an expiry record theirs: a client that saw its request end
+            # finds it in the metrics
+            self._obs.request_finished(out, self.scheduler.clock())
         cb = self._callbacks.get(req.rid)
         if cb is not None:
             cb(out)
         if finished:
-            if self._obs is not None:
-                self._obs.request_finished(out, self.scheduler.clock())
             self._callbacks.pop(req.rid, None)
             self._pending_release.append(slot)
             self._tail_len[slot] = 0

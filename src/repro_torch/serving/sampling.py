@@ -176,6 +176,14 @@ def init_lanes(slots: int, device: torch.device) -> Dict[str, torch.Tensor]:
     }
 
 
+def lane_axes() -> Dict[str, tuple]:
+    """Logical axes of :func:`init_lanes` (the reference's ``lane_axes``
+    without its RNG key, which the port keeps as a host generator on the
+    slot's rank): every lane vector puts its slots on the data axes."""
+    return {"temperature": ("slots",), "top_k": ("slots",),
+            "top_p": ("slots",)}
+
+
 def broadcast_lanes(params: SamplingParams, batch: int,
                     device: torch.device) -> Dict[str, torch.Tensor]:
     """Uniform lanes for a static batch (the one-shot engine): every row

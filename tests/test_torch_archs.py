@@ -58,14 +58,6 @@ NEW = PORTED[1:]
 MOE = ["phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _fields(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
@@ -468,7 +460,7 @@ def test_kernel_plans_fit_the_new_shapes(name):
     are those ``convert_concrete`` packs (its attention, Scout's shared
     expert); a period's every position counts (Jamba: 7 Mamba mixers of
     two sparse linears, 4 dense MLPs of three, one attention of four)."""
-    from repro_torch.core.convert import _is_sparsifiable
+    from repro_torch.distributed.convert_plan import _is_sparsifiable
     from repro_torch.core.sparse_format import DEFAULT_BLOCK
     from repro_torch.kernels import dense_matmul as dm
     from repro_torch.kernels.sparse_attention import attention_plan

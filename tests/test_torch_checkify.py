@@ -23,6 +23,7 @@ from repro.serving.cache_pool import checkified_raw as jax_checkified_raw
 
 from repro_torch.configs import get_config as torch_config
 from repro_torch.core.sparse_kv import CHECKS
+from repro_torch.distributed import NULL_CTX, ShardCtx
 from repro_torch.serving import ContinuousEngine, SamplingParams
 from repro_torch.serving.cache_pool import (CachePool, PoolCheckError,
                                             checkified, checkified_raw)
@@ -313,12 +314,16 @@ def test_checked_engine_same_tokens(setup, overlap):
 
 
 def test_later_guard_names_only_ctx_and_mesh(setup):
+    """No option waits for a later slice any more (``ctx`` and ``mesh``
+    are taken): the sanitized pool builds with a mesh-less ``ctx``; on a
+    mesh it meets the reference's refusal, which names it, as ``ctx=``
+    with ``mesh=`` names those two."""
     cfg, params = setup
-    for kw, name in ((dict(ctx=object()), "ctx"), (dict(mesh=object()),
-                                                    "mesh")):
-        with pytest.raises(NotImplementedError) as ei:
-            _engine(params, cfg, **kw)
-        assert name in str(ei.value) and "checkify" not in str(ei.value)
+    assert _engine(params, cfg, checkify=True, ctx=NULL_CTX).mesh is None
+    with pytest.raises(ValueError, match="checkify mode is unsharded-only"):
+        _engine(params, cfg, checkify=True, mesh=object())
+    with pytest.raises(ValueError, match="ctx= or mesh="):
+        _engine(params, cfg, ctx=ShardCtx(), mesh=object())
 
 
 @pytest.mark.parametrize("overlap", [False, True])

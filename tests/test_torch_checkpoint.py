@@ -20,6 +20,10 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.manager import _flatten
 from repro_torch.serving import corrupt_snapshot
 
+# one intra-op torch thread: the port's tests run tiny tensors, which many
+# threads only slow down, and the suite's workers share the cores
+torch.set_num_threads(1)
+
 
 def _tree(seed=0):
     g = torch.Generator().manual_seed(seed)

@@ -35,14 +35,6 @@ NAME = "seamless-m4t-medium"
 TOL = 1e-5
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def model():
     """(jax cfg, port cfg, jax params, port params), drawn once per

@@ -12,6 +12,7 @@ from repro.serving import ContinuousEngine as JaxEngine
 from repro.serving import SamplingParams as JaxParams
 from repro.serving import sampling as jsampling
 
+from repro_torch.distributed import ShardCtx
 from repro_torch.obs import Observability
 from repro_torch.serving import (CachePool, ContinuousEngine, FaultPlan,
                                  SamplingParams, SpecConfig)
@@ -46,12 +47,18 @@ def test_greedy_tokens_identical_to_reference_across_refreeze():
     assert port == ref
 
 
-@pytest.mark.parametrize("option", [{"ctx": object()}, {"mesh": object()}],
-                         ids=lambda o: next(iter(o)))
+@pytest.mark.parametrize("option", [
+    {"ctx": ShardCtx(), "mesh": object()},
+    {"mesh": object(), "checkify": True},
+], ids=["ctx", "mesh"])
 def test_later_slice_options_raise(option):
+    """The refusals that remain under a mesh, before the mesh is touched:
+    ``ctx=`` together with ``mesh=`` and the sanitized pool (reference
+    ``engine.py:343-352``, ``:367-369``)."""
     jcfg, tcfg = configs("float32")
     _, tparams = sparse_params(jcfg, tcfg)
-    with pytest.raises(NotImplementedError):
+    want = "ctx= or mesh=" if "ctx" in option else "unsharded-only"
+    with pytest.raises(ValueError, match=want):
         ContinuousEngine(tparams, tcfg, slots=1, device="cpu", **option)
 
 

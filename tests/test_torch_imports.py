@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch``,
 serving on the CPU (Qwen3 stream, paged int8 and speculative; Llama-3-8B
-stream; InternVL2 through the one-shot fallback) and importing
+stream; InternVL2 through the one-shot fallback; Qwen3 on a 2 x 2 mesh of
+gloo ranks) and importing
 ``chip_smoke`` load no JAX and nothing of the reference package; the entry points refuse to run without a CUDA card
 unless the caller asks for the CPU; ``chip_smoke.py`` fails without a card
 and without the repository around it."""
@@ -13,6 +14,10 @@ from pathlib import Path
 
 import pytest
 import torch
+
+# one intra-op torch thread: the port's tests run tiny tensors, which many
+# threads only slow down, and the suite's workers share the cores
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -38,6 +43,9 @@ serve.main(["--arch", "llama3-8b", "--reduced", "--device", "cpu",
             "--steps", "4", "--prefill-chunk", "16"])
 serve.main(["--arch", "internvl2-1b", "--reduced", "--device", "cpu",
             "--batch", "2", "--prompt-len", "24", "--steps", "3"])
+serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+            "--requests", "2", "--slots", "2", "--prompt-len", "24",
+            "--steps", "4", "--mesh", "2,2"])
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -47,12 +55,15 @@ print("FOREIGN", bad)
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     out = subprocess.run(
         [sys.executable, "-c", _PROBE.format(src=str(SRC), root=str(ROOT))],
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout[-2000:]
-    assert out.stdout.count("[serve] stream: 2 requests") == 4
+    assert out.stdout.count("[serve] stream: 2 requests") == 5
+    assert "[serve] mesh 2x2 (data x model): 2 slots over data" in out.stdout
+    assert "[serve] collectives (rank 0):" in out.stdout
     assert "falling back to the one-shot engine" in out.stdout
     assert "[serve] one-shot: 3 tokens x 2 reqs" in out.stdout
     assert "[serve] kernel launches:" in out.stdout
@@ -116,7 +127,7 @@ def _tiny():
                                    "convert_int8", "convert_int4", "engine",
                                    "engine_paged", "engine_spec", "pool",
                                    "pool_paged", "serve", "serve_paged_int8",
-                                   "serve_spec"])
+                                   "serve_spec", "serve_mesh"])
 def test_entry_points_raise_without_a_card(no_card, entry):
     from repro_torch.core.convert import convert_concrete
     from repro_torch.launch import serve
@@ -145,6 +156,8 @@ def test_entry_points_raise_without_a_card(no_card, entry):
             ["--reduced", "--requests", "1", "--paged", "--int8"]),
         "serve_spec": lambda: serve.main(
             ["--reduced", "--requests", "1", "--spec-k", "2"]),
+        "serve_mesh": lambda: serve.main(
+            ["--reduced", "--requests", "1", "--mesh", "2,2"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -24,6 +24,10 @@ from repro_torch.kernels import dense_matmul as dm
 from repro_torch.kernels import sparse_gemv as gv
 from repro_torch.models import lm
 
+# one intra-op torch thread: the port's tests run tiny tensors, which many
+# threads only slow down, and the suite's workers share the cores
+torch.set_num_threads(1)
+
 CFG = get_config("qwen3-0.6b")
 SMEM_LIMIT = 232448         # bytes of shared memory a Hopper block may use
 SM_SMEM = 233472            # bytes of shared memory on one SM

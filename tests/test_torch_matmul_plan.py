@@ -25,6 +25,10 @@ from repro_torch.kernels import sparse_matmul_int4 as mm4
 from repro_torch.kernels import sparse_matmul_int8 as mm8
 from repro_torch.models import lm
 
+# one intra-op torch thread: the port's tests run tiny tensors, which many
+# threads only slow down, and the suite's workers share the cores
+torch.set_num_threads(1)
+
 M_VALUES = (9, 16, 20, 256, 300)
 INT_M_VALUES = (1, 4, 8) + M_VALUES     # the int kernels serve every M
 VERIFY_ROWS = 20            # 4 slots x (k = 4 drafts + 1)

@@ -45,14 +45,6 @@ from repro_torch.serving import Engine, SamplingParams
 from torch_parity import as_np, configs, rand, sparse_params, to_numpy
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _dense_params(jcfg, tcfg, seed=0):
     jparams = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
     return jparams, bridge.params_from_numpy(to_numpy(jparams), tcfg, "cpu")

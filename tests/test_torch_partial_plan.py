@@ -21,6 +21,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels import sparse_attention as sa
 from repro_torch.serving.cache_pool import CachePool
 
+# one intra-op torch thread: the port's tests run tiny tensors, which many
+# threads only slow down, and the suite's workers share the cores
+torch.set_num_threads(1)
+
 CFG = get_config("qwen3-0.6b")
 HKV, D = CFG.n_kv, CFG.hd
 G = CFG.padded_heads // CFG.n_kv            # 2

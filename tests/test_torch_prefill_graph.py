@@ -39,17 +39,6 @@ LENGTHS = (1, BS - 1, BS, BS + 1, W - 1, W)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The reduced model's ops are too small to split across threads: one
-    intra-op thread runs this file faster alone and leaves the cores to
-    the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def setup():
     jcfg, tcfg = configs("float32", kv_k_sparsity=0.3, kv_v_sparsity=0.5,

@@ -28,17 +28,6 @@ from torch_parity import configs, sparse_params
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The reduced model's ops are too small to split across threads: one
-    intra-op thread runs this file faster alone and leaves the cores to
-    the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_params_from_json_whitelist():
     body = {"temperature": 0.5, "top_k": 3, "max_new_tokens": 4, "seed": 9,
             "deadline_s": 2.5, "unknown_field": 1, "stop_ids": [2, 3]}

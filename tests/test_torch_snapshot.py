@@ -176,7 +176,8 @@ def test_crash_restart_parity(tmp_path):
     must restore every page, admit the follow-up wave on trie hits and
     emit A's greedy tokens."""
     snap = str(tmp_path / "snap")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
 
     def run_worker(phase):
         out = subprocess.run([sys.executable, __file__, phase, snap],

@@ -37,14 +37,6 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # of the reference's range
 B = 2
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _model(name, dtype):
     """(jax cfg, port cfg, jax params, port params) of a reduced config,
     the reference's draw bridged; drawn once per process

@@ -51,14 +51,6 @@ from torch_parity import as_np, rand, reference_model, to_numpy
 B, S = 2, 16
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _batch(cfg, b=B, s=S):
     """(reference batch, port batch) of the same numpy arrays: the data
     pipeline's tokens, plus ``src_embeds`` / ``frontend_embeds`` where the

@@ -24,16 +24,12 @@ from repro_torch.optim import (OptConfig, adamw_step, global_norm,
                                init_opt_state, lr_schedule)
 from repro_torch.train import make_train_step
 
+# one intra-op torch thread: the port's tests run tiny tensors, which many
+# threads only slow down, and the suite's workers share the cores
+torch.set_num_threads(1)
+
 CFG = get_config("qwen3-0.6b").reduced()
 DC = DataConfig(vocab=CFG.vocab, seq_len=32, global_batch=4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_loss_decreases():

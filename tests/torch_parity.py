@@ -7,6 +7,7 @@ import dataclasses
 import numpy as np
 import jax
 import jax.numpy as jnp
+import torch
 
 from repro.configs import get_config as jax_config
 from repro.core.sparse_format import BlockSparseWeight as JaxSparse
@@ -16,6 +17,10 @@ from repro.models import lm as jlm
 
 from repro_torch import bridge
 from repro_torch.configs import get_config as torch_config
+
+# one intra-op torch thread: the port's tests run tiny tensors, which many
+# threads only slow down, and the suite's workers share the cores
+torch.set_num_threads(1)
 
 
 def configs(dtype="float32", **kw):
