@@ -62,7 +62,7 @@ Phases, each of which exits non-zero on failure:
    identical to the serial run's, and tok/s, TPOT and TTFT reported for
    both beside the last eager-tick figures (``EAGER_TICKS``):
 
-   * flat pool, bf16 sparse weights: four requests; the traced decode tick
+   * flat pool, bf16 sparse weights: six requests; the traced decode tick
      must run the gemv as one launch per linear (no ``sum_partials``);
    * speculative decoding, flat bf16, ``SpecConfig(k=4)``: four prompts of
      a repeated motif and two random ones, timed beside the same traffic
@@ -75,7 +75,7 @@ Phases, each of which exits non-zero on failure:
      near-tie; then flat f32 ``k=4`` and ``k=8`` (a verify panel of 18
      query rows) each against flat f32 without speculation under the same
      rule;
-   * paged shared-prefix pool, int8 sparse weights: six requests sharing
+   * paged shared-prefix pool, int8 sparse weights: eight requests sharing
      a 512-token prefix (prefix-cache hits and shared blocks required; one
      decode tick and one 256-token prefill chunk traced), then the same
      requests on the flat pool, whose greedy tokens must be identical;
@@ -113,16 +113,16 @@ Phases, each of which exits non-zero on failure:
      decode step and the decode graph's replay with and without the checks;
      a planted device double free raises at a following token read, naming
      its check;
-   * the one-shot ``Engine`` (``one_shot``), bf16: 2 prompts of 512 tokens,
-     136 new (a refreeze grows the prefix from 4 to 5 blocks), eager: the
-     gemv, fused attention, sparse matmul (the prefill at M = 1024) and
+   * the one-shot ``Engine`` (``one_shot``), bf16: 4 prompts of 512 tokens,
+     160 new (a refreeze grows the prefix from 4 to 5 blocks), eager: the
+     gemv, fused attention, sparse matmul (the prefill at M = 2048) and
      unembedding launched exactly once per linear, layer and step; the
      first 8 decode ticks' logits within 5e-2 of the plain range of the
      same ticks through the plain versions; greedy tokens equal to the
      all-plain engine's but at bf16 near-ties; at f32 with KV sparsity 0
      the sparse-KV and dense-KV engines within 1e-3 of the range; tok/s
      and the median decode and prefill step reported.  The kernel phase
-     also holds, times and row-gates the bf16 sparse matmul at M = 1024.
+     also holds, times and row-gates the bf16 sparse matmul at M = 2048.
      ``--only one_shot,snapshot,checkify`` runs the build and these
      phases alone.
 5. **the other dense configs and the VLM** at their published widths:
@@ -141,8 +141,8 @@ Phases, each of which exits non-zero on failure:
      at its ragged K = 896 (its decode batch and one-shot prefill rows);
    * ``llama3_8b``: Llama-3-8B at full width and depth (32 layers), bf16
      sparse weights from seed 0 on the card, the flat pool, every entry
-     captured when the engine is built, overlapped ticks: 4 requests of
-     200-1000 tokens, 32 new, one seeded, through 4 slots and 256-token
+     captured when the engine is built, overlapped ticks: 6 requests of
+     200-1000 tokens, 64 new, one seeded, through 4 slots and 256-token
      chunks.  Gates: decode logits within 5e-2 of the plain range and
      top-1 where the margin is clear; greedy tokens equal to an all-plain
      engine's (serial, eager) but at bf16 near-ties (below ``TOP1_CLEAR``,
@@ -194,12 +194,12 @@ Phases, each of which exits non-zero on failure:
    prefill step, the weights' GB, the peak memory and one traced decode
    step (device busy, idle share, top kernels):
    * ``rwkv6``: RWKV-6-7B at full width and depth (32 layers, d 4096, 64
-     heads of 64, d_ff 14336, untied 65536-row head), 4 prompts of 256
+     heads of 64, d_ff 14336, untied 65536-row head), 4 prompts of 512
      tokens, 32 new: 256 gemv launches a decode step (8 a layer) and one
      head launch, no attention; the prefill's 256 sparse matmuls at
-     M = 1024 and its recurrences (plain torch, a loop over time).  Its
+     M = 2048 and its recurrences (plain torch, a loop over time).  Its
      kernel rows first: the gemv at its linears at M = 1 and 4, the sparse
-     matmul at M = 1024, the head at M = 1 and 4, and the dense kernel at
+     matmul at M = 2048, the head at M = 1 and 4, and the dense kernel at
      ``w_cv``'s K = 14336 (x streamed in K panels) at M = 1, 4, 16, 64 and
      300, each row bit-equal across M.  Random weights make its 32 layers
      chaotic in bf16 (two correct bf16 paths end about 5e-2 of the range
@@ -227,7 +227,7 @@ Phases, each of which exits non-zero on failure:
    at D = 64, G = 1 (QG = 1), each beside its bound, plain version and
    library call.
 6. **train** (the sixteenth slice): full-width, full-depth Qwen3-0.6B
-   trains 4 steps of 8 x 1024 tokens through ``launch.train.train_loop``
+   trains 8 steps of 8 x 1024 tokens through ``launch.train.train_loop``
    (bf16 params, f32 master and moments, remat): the loss falls, every
    leaf's gradient is finite, every param keeps its layout (the dense
    linears column-major), and the dense kernel launches exactly the count
@@ -265,10 +265,10 @@ Phases, each of which exits non-zero on failure:
    mode on each rank's 8 of 32 blocks), its logits within 5e-2 (bf16) and
    1e-3 (f32) of the range of the one-rank kernels' logits teacher-forced
    with the ranks' tokens, top-1 equal where the margin is clear.  The
-   one-rank references run while the ranks do (the gates compare tokens
-   and logits, not times).  First, the flat, paged and partial attention over each model
-   shard's KV heads must equal those heads of the full launch bit for
-   bit.  Every rank's launches are counted per path (each path's kernels
+   one-rank references run before the spawn, so neither side's times are
+   taken with the card shared.  First, the flat, paged and partial
+   attention over each model shard's KV heads must equal those heads of
+   the full launch bit for bit.  Every rank's launches are counted per path (each path's kernels
    at least once on every rank; ``mesh_launches`` in the kernel table);
    tok/s, tick times and a tick's collective calls, bytes and seconds are
    printed per mesh.  ``--only mesh`` runs the build and this phase alone.
@@ -289,7 +289,6 @@ import json
 import statistics
 import subprocess
 import sys
-import threading
 import time
 from pathlib import Path
 
@@ -302,13 +301,13 @@ INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 SLOTS = 4
 PREFILL_CHUNK = 256
-N_REQUESTS = 4              # 6 until the mesh phase joined the script
+N_REQUESTS = 6
 NEW_TOKENS = 160
 PROMPT_RANGE = (200, 600)
 # the paged phases: a shared system prefix plus each request's own suffix
 SHARED_PREFIX = 512
 SUFFIX_RANGE = (40, 200)
-PAGED_REQUESTS, PAGED_NEW_TOKENS = 6, 64   # 8, 96 before the mesh phase
+PAGED_REQUESTS, PAGED_NEW_TOKENS = 8, 96
 IDENTITY_TOKENS = 32
 INT4_REQUESTS, INT4_NEW_TOKENS = 4, 32
 LOGIT_TICKS = 25
@@ -324,8 +323,7 @@ TWO_PASS_TOL = 1e-5         # max|two-pass - fused| / max|fused logit|
 TIE_MARGIN = 1e-4
 # the spec phase: 4 prompts of a 24-token motif repeated 8 times (n-gram
 # hits) and 2 random ones (misses)
-# SPEC_TOKENS was 128 until the mesh phase joined the script
-SPEC_K, SPEC_TOKENS, SPEC_IDENTITY_TOKENS = 4, 64, 48
+SPEC_K, SPEC_TOKENS, SPEC_IDENTITY_TOKENS = 4, 128, 48
 SPEC_LOGIT_TICKS = 10       # verify ticks of the spec phase's logits check
 SPEC_F32_K = (SPEC_K, 8)    # the f32 spec phases' windows (8: 18 rows)
 MOTIF, MOTIF_REPEATS, N_MOTIF, N_RANDOM = 24, 8, 4, 2
@@ -356,9 +354,7 @@ CHECK_REPLAYS = 50          # decode graph replays per engine for the A/B time
 # and the refreeze grows the prefix from 4 to 5 blocks); logits held to the
 # plain versions over the first ONESHOT_LOGIT_TICKS decode ticks, and the
 # f32 sparse-KV and dense-KV engines over ONESHOT_F32_TICKS
-# 136 new tokens (160 before the mesh phase): 135 decode steps refreeze the
-# 128-token tail once
-ONESHOT_BATCH, ONESHOT_PROMPT, ONESHOT_TOKENS = 2, 512, 136   # was 4 x 160
+ONESHOT_BATCH, ONESHOT_PROMPT, ONESHOT_TOKENS = 4, 512, 160
 ONESHOT_M = ONESHOT_BATCH * ONESHOT_PROMPT
 ONESHOT_LOGIT_TICKS, ONESHOT_F32_TICKS = 8, 4
 ONESHOT_TOL = {"bf16": 5e-2, "f32": 1e-3}   # max|diff| over the plain range
@@ -426,13 +422,12 @@ WIDE_UNEMBED_M = (1, SLOTS, SLOTS * (SPEC_K + 1))
 WIDE_ATTN_Q = {"flat": (1, 2, SPEC_K + 1, 9, 17),
                "paged": (1, 2, SPEC_K + 1, 9, 17)}
 WIDE_ATTN_TIMED_Q = {"flat": (1, SPEC_K + 1), "paged": (1, SPEC_K + 1)}
-# Llama-3-8B served at full width and depth: 4 requests of 200-1000
-# tokens, 32 new, one seeded (6 and 64 until the mesh phase joined the
-# script); Phi-3-mini at full width, PHI_LAYERS of its 32 layers, 4
-# requests, 32 new; InternVL2-1B at full width and depth
+# Llama-3-8B served at full width and depth: 6 requests of 200-1000
+# tokens, 64 new, one seeded; Phi-3-mini at full width, PHI_LAYERS of its
+# 32 layers, 4 requests, 32 new; InternVL2-1B at full width and depth
 # through the one-shot engine: VLM_BATCH prompts of VLM_PROMPT tokens after
 # its 256 seeded frontend embeddings, VLM_TOKENS new
-LLAMA_REQUESTS, LLAMA_NEW_TOKENS, LLAMA_PROMPT_RANGE = 4, 32, (200, 600)
+LLAMA_REQUESTS, LLAMA_NEW_TOKENS, LLAMA_PROMPT_RANGE = 6, 64, (200, 1000)
 PHI_LAYERS, PHI_REQUESTS, PHI_NEW_TOKENS = 8, 4, 32
 PHI_PROMPT_RANGE = PROMPT_RANGE
 VLM_BATCH, VLM_PROMPT, VLM_TOKENS = 2, 128, 32
@@ -448,12 +443,12 @@ MOE_LAYERS = {"phi3.5-moe-42b-a6.6b": 8, "llama4-scout-17b-a16e": 4}
 PHI_MOE_REQUESTS, PHI_MOE_NEW_TOKENS = 6, 32
 SCOUT_REQUESTS, SCOUT_NEW_TOKENS = 4, 32
 # the recurrent, hybrid and encoder-decoder families (one-shot only):
-# RWKV-6-7B at full width and depth, 4 prompts of 256 tokens, 32 new;
+# RWKV-6-7B at full width and depth, 4 prompts of 512 tokens, 32 new;
 # SeamlessM4T-medium at full width and depth, 4 x (256 seeded frames of
 # src_embeds + 128 prompt tokens), 32 new; Jamba reduced, 4 x 256, 32 new;
 # one Mamba mixer at Jamba's full width: mamba_apply over 4 x 256 rows,
 # then MAMBA_STEPS decode steps from its state
-RWKV_BATCH, RWKV_PROMPT, RWKV_TOKENS = 4, 256, 32   # 512 until the mesh phase
+RWKV_BATCH, RWKV_PROMPT, RWKV_TOKENS = 4, 512, 32
 SEAMLESS_BATCH, SEAMLESS_FRAMES, SEAMLESS_PROMPT, SEAMLESS_TOKENS = \
     4, 256, 128, 32
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_TOKENS = 4, 256, 32
@@ -487,7 +482,7 @@ MOE_ROWS = (SLOTS, PREFILL_CHUNK)
 # the whole model and its f32 state would take 8.4 GB); one step and one
 # one-shot prefill of TRAIN_LONG tokens (past full_attn_max: the blocked
 # attention); one step of each other family's reduced config
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 8, 1024, 4, 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 8, 1024, 8, 4
 # the traced step: 1 x 1024 tokens (on an H100 80GB HBM3 at 700 W, reading
 # the trace of a whole 8 x 1024 step, 160 K kernel records, took 84.7 s of
 # a 181 s phase, and of a 2 x 1024 step 35 s); the microbatch check at
@@ -526,12 +521,12 @@ TRACE_CLASSES = (("gemv", ("sparse_gemv<",)),
 # following layers amplify that (measured: 5.6e-2 of the logit range over
 # 25 ticks, 5.2e-2 within single ticks).  So the gated int comparison runs
 # the attention kernel in both paths, holding each of its launches to its
-# plain version on the same inputs.  (The all-plain comparison, reported
-# beside it until the mesh phase joined the script, measured 3.9e-2 to
-# 4.4e-2 of the range on an H100 80GB HBM3 at 700 W; it is no longer run.)
+# plain version on the same inputs, and the all-plain comparison is
+# reported beside it.
 FLAT_CHECKS = (("bf16", "bf16", (), True), ("f32", "f32", (), True))
 INT_CHECKS = (("bf16, attention launches held one by one", "bf16",
-               ("sparse_decode_attention_fused_paged",), True),)
+               ("sparse_decode_attention_fused_paged",), True),
+              ("bf16, all plain", "bf16", (), False))
 # decode logits, kernels vs plain versions on one state: max |diff| over
 # max |plain|.  In bf16 a one-ulp rounding difference anywhere in 28 layers
 # moves the logits of a random-weight model by about 2 % of their range;
@@ -5380,11 +5375,11 @@ def rwkv_phase(torch):
     """RWKV-6-7B at full width and depth (32 layers, d 4096, 64 heads of
     64, d_ff 14336, untied 65536-row head): its kernel rows first (the
     gemv at its eight linears at M = 1 and 4, the sparse matmul at the
-    prefill's M = 1024, the head at M = 1 and 4, the dense kernel at
+    prefill's M = 2048, the head at M = 1 and 4, the dense kernel at
     ``w_cv``'s K = 14336, x streamed in K panels), then the one-shot
     engine on RWKV_BATCH x RWKV_PROMPT tokens, RWKV_TOKENS new: per decode
     step 256 gemv launches (8 a layer) and one head launch, no attention;
-    the prefill's 256 sparse matmuls at M = 1024 and its 8 K recurrence
+    the prefill's 256 sparse matmuls at M = 2048 and its 16 K recurrence
     steps (plain torch, as the reference's ``lax.scan``).  Its logits and
     token gates run on the same traffic served at f32 activations
     (``new_family_phase``)."""
@@ -6464,23 +6459,7 @@ def mesh_phase(torch):
               for p in _shared_prompts(cfg, MESH_PAGED_REQUESTS)]]
     cp_toks = torch.randint(0, cfg.vocab, (1, MESH_CP_PROMPT), generator=gen,
                             device="cuda")
-    # the ranks run while this process serves the one-rank references (the
-    # gates compare tokens and logits, not times; the tok/s of both are
-    # taken with the card shared)
-    box = {}
-
-    def ranks():
-        t0 = time.perf_counter()
-        try:
-            box["recs"] = spawn(mesh_rank, MESH_WORLD, ({
-                "waves": waves, "paged": paged,
-                "cp_toks": cp_toks.cpu().tolist()},),
-                backend="gloo", device="cuda", timeout=900)
-        except BaseException as e:         # re-raised below
-            box["error"] = e
-        box["spawn_s"] = time.perf_counter() - t0
-    thread = threading.Thread(target=ranks, daemon=True)
-    thread.start()
+    # the one-rank references first: the ranks then have the card alone
     params = _model(torch, cfg, "bf16")
     one = {"flat": mesh_drive(torch, _mesh_engine(cfg, params), waves)}
     eng = _mesh_engine(cfg, params, spec_k=MESH_SPEC_K)
@@ -6492,14 +6471,15 @@ def mesh_phase(torch):
                                    paged)
     del p8
     torch.cuda.empty_cache()
-    say(f"mesh: one-rank eager references served beside the ranks (flat "
+    say(f"mesh: one-rank eager references (flat "
         f"{one['flat']['tok_s']:.1f} tok/s, spec k={MESH_SPEC_K} "
         f"{one['spec']['tok_s']:.1f} tok/s, paged int8 "
         f"{one['paged_int8']['tok_s']:.1f} tok/s)")
-    thread.join()
-    if "error" in box:
-        raise box["error"]
-    recs = box["recs"]
+    t0 = time.perf_counter()
+    recs = spawn(mesh_rank, MESH_WORLD, ({
+        "waves": waves, "paged": paged, "cp_toks": cp_toks.cpu().tolist()},),
+        backend="gloo", device="cuda", timeout=900)
+    spawn_s = time.perf_counter() - t0
     # the one-rank kernels' decode logits, teacher-forced with the tokens
     # rank 0's context-parallel decode fed itself (every rank feeds the same)
     cp = dataclasses.replace(cfg, cp_decode=True)
@@ -6515,7 +6495,6 @@ def mesh_phase(torch):
         one["cp"][dtype] = {"logits": logits, "launches": counts}
     del params, p32
     torch.cuda.empty_cache()
-    spawn_s = box["spawn_s"]
     res["spawn_s"] = spawn_s
     # gates: tokens, accepts, logits, launches
     for path in ("flat", "spec", "paged_int8"):

@@ -292,9 +292,10 @@ def unpack(sw: BlockSparseWeight, trim: bool = True) -> torch.Tensor:
     return _from_blocks(dense_flat, sw.block, shape)
 
 
-# decompressed CPU weights (:func:`unpack_padded`), least recently used
-# first out; each entry holds its packed arrays' storages, so no other
-# tensor can take their addresses while it lives
+# decompressed CPU weights (:func:`unpack_padded`, which only the plain
+# matmuls call: their weights persist), least recently used first out;
+# each entry holds its packed arrays' storages, so no other tensor can take
+# their addresses while it lives
 _DENSE: "OrderedDict[tuple, tuple]" = OrderedDict()
 _DENSE_MAX = 256
 

@@ -196,8 +196,7 @@ def abstract_cache(batch: int, hkv: int, prefix: int, d: int,
 
 def freeze_chunk_blocks(k: torch.Tensor, v: torch.Tensor,
                         k_sparsity: float, v_sparsity: float,
-                        bs: int, cap_k: int, cap_v: int, ctx=None,
-                        n_kv: int = 0):
+                        bs: int, cap_k: int, cap_v: int):
     """Compress a block-aligned chunk ``k/v [B, Hkv, C, D]`` (``C % bs ==
     0``) -> ``(k_bitmap [B, Hkv, Cb, bs*D//32], k_values [B, Hkv, Cb,
     cap_k], v_bitmap, v_values)``.
@@ -205,24 +204,7 @@ def freeze_chunk_blocks(k: torch.Tensor, v: torch.Tensor,
     The magnitude threshold is per (batch entry, token block) over
     ``(Hkv, bs, D)``, so a frozen block's bytes depend only on its own
     tokens; each ``(bs, D)`` block is then packed at the static capacity,
-    overflow dropped from bitmap and values together.
-
-    On a mesh (``ctx``, with the model's ``n_kv`` heads) ``k``/``v`` hold
-    this rank's KV heads.  The threshold spans every head, so a pruned
-    chunk's heads are all-gathered over the model axis first and the rank
-    keeps its heads' blocks: the bytes equal the unsharded freeze's.  At
-    zero sparsity every head packs alone and nothing is gathered."""
-    if ctx is not None and ctx.mesh is not None and (k_sparsity > 0
-                                                     or v_sparsity > 0):
-        h0, hl = ctx.shard_range("kv_heads", n_kv)
-        if hl != n_kv:
-            from repro_torch.distributed.sharding import all_gather
-            axis = ctx.spec(("kv_heads",), (n_kv,))[0]
-            full = freeze_chunk_blocks(
-                all_gather(k, ctx.mesh, axis, 1),
-                all_gather(v, ctx.mesh, axis, 1), k_sparsity, v_sparsity, bs,
-                cap_k, cap_v)
-            return tuple(t.narrow(1, h0, hl).contiguous() for t in full)
+    overflow dropped from bitmap and values together."""
     b, hkv, c, d = k.shape
     if c % bs != 0:
         raise ValueError(f"context {c} not a multiple of block {bs}")

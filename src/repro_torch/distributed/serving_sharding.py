@@ -27,7 +27,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence
 
-from .sharding import PartitionSpec, ShardCtx, default_rules, local_shard
+import torch
+
+from repro_torch.core.sparse_kv import freeze_chunk_blocks
+from .sharding import (PartitionSpec, ShardCtx, all_gather, default_rules,
+                       local_shard)
 
 
 def serving_ctx(mesh, cfg=None) -> ShardCtx:
@@ -127,3 +131,22 @@ def local_heads(ctx: ShardCtx, hkv: int) -> range:
     start, n = ctx.shard_range("kv_heads", hkv)
     return range(start, start + n)
 
+
+def freeze_heads(k: torch.Tensor, v: torch.Tensor, k_sparsity: float,
+                 v_sparsity: float, bs: int, cap_k: int, cap_v: int, ctx,
+                 n_kv: int):
+    """``freeze_chunk_blocks`` of a chunk whose ``k``/``v`` ``[B, Hkv, C,
+    D]`` hold this rank's KV heads (all ``n_kv`` off a mesh).  The
+    magnitude threshold spans every head, so where the model axis splits
+    the heads a pruned chunk's heads are all-gathered over it first and the
+    rank keeps its heads' blocks: the bytes equal the unsharded freeze's.
+    At zero sparsity every head packs alone and nothing is gathered."""
+    h0, hl = (0, n_kv) if ctx is None else ctx.shard_range("kv_heads", n_kv)
+    if hl == n_kv or (k_sparsity == 0 and v_sparsity == 0):
+        return freeze_chunk_blocks(k, v, k_sparsity, v_sparsity, bs, cap_k,
+                                   cap_v)
+    axis = ctx.spec(("kv_heads",), (n_kv,))[0]
+    full = freeze_chunk_blocks(all_gather(k, ctx.mesh, axis, 1),
+                               all_gather(v, ctx.mesh, axis, 1), k_sparsity,
+                               v_sparsity, bs, cap_k, cap_v)
+    return tuple(t.narrow(1, h0, hl).contiguous() for t in full)

@@ -5,7 +5,7 @@ plain version only for CPU tensors, so the device of the operands is the
 only switch.  The dispatch rules are the reference's:
 
 * at most 8 rows go to the gemv kernel (``ops.py:87``), more to the matmul
-  (counted over the whole panel on a mesh: :func:`panel_shards`);
+  (a mesh rank's share of a panel passes the whole panel's ``rows``);
 * int8 and int4 weights take the int kernel at every row count (the
   reference has no gemv split for them); the activations are quantised
   per row in plain PyTorch first, outside the kernel, as in the reference;
@@ -18,7 +18,6 @@ only switch.  The dispatch rules are the reference's:
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
@@ -56,28 +55,14 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(*lead, w.shape[-1])
 
 
-# the data shards a mesh rank's decode or verify panel is one of (1 off a
-# mesh): the rank's rows are its slots, and the gemv and the sparse matmul
-# give a row different bits, so the sparse linears pick their kernel by
-# the whole panel's rows, as one rank would
-_PANEL_SHARDS = [1]
-
-
-@contextlib.contextmanager
-def panel_shards(n: int):
-    """Inside, the sparse linears dispatch as if ``x`` had ``n`` times its
-    rows (a mesh rank's share of a panel of ``n`` data shards)."""
-    prev, _PANEL_SHARDS[0] = _PANEL_SHARDS[0], n
-    try:
-        yield
-    finally:
-        _PANEL_SHARDS[0] = prev
-
-
 def sparse_matmul(x: torch.Tensor, sw: BlockSparseWeight,
-                  out_dtype=None) -> torch.Tensor:
+                  out_dtype=None, rows: Optional[int] = None) -> torch.Tensor:
+    """The gemv for at most MAX_ROWS rows, else the matmul.  ``rows`` (x's
+    own by default) is what picks: the two kernels give a row different
+    bits, so a mesh rank, whose rows are its slots of a panel, passes the
+    whole panel's rows and picks as one rank would."""
     x2, lead = _flatten_leading(x)
-    if x2.shape[0] * _PANEL_SHARDS[0] <= MAX_ROWS:
+    if (x2.shape[0] if rows is None else rows) <= MAX_ROWS:
         out = sparse_gemv(x2, sw, out_dtype)
     else:
         out = _sparse_matmul_kernel(x2, sw, out_dtype)
@@ -100,13 +85,15 @@ def sparse_matmul_int8(x: torch.Tensor, sw: BlockSparseWeight,
     return out.reshape(*lead, out.shape[-1])
 
 
-def linear(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, out_dtype=None,
+           rows: Optional[int] = None) -> torch.Tensor:
     """A linear layer whose weight is dense, sparse-bf16, or sparse-int8 /
-    int4: callers never branch on the storage format."""
+    int4: callers never branch on the storage format.  ``rows``: the rows
+    that pick the sparse bf16 kernel (:func:`sparse_matmul`)."""
     if isinstance(w, BlockSparseWeight):
         if w.packed4 or w.values.dtype == torch.int8:
             return sparse_matmul_int8(x, w, out_dtype)
-        return sparse_matmul(x, w, out_dtype)
+        return sparse_matmul(x, w, out_dtype, rows)
     return dense_matmul(x, w, out_dtype)
 
 

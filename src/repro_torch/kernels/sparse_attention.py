@@ -41,7 +41,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.sparse_format import BlockSparseWeight, unpack_padded
+from repro_torch.core.sparse_format import BlockSparseWeight, unpack
 from . import build
 
 _SRC = "sparse_attention.cu"
@@ -117,12 +117,10 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 def _dense_prefix(bitmap, values, bs, d):
     """Kernel-layout compressed blocks ``[B, Hkv, Sb, X]`` -> dense
-    ``[B, Hkv, Sb*bs, D]`` (kept on the CPU for a pool's unchanged prefix:
-    ``unpack_padded``)."""
+    ``[B, Hkv, Sb*bs, D]``."""
     sb = bitmap.shape[2]
-    return unpack_padded(BlockSparseWeight(
-        bitmap[:, :, :, None], values[:, :, :, None], None, (sb * bs, d),
-        (bs, d)))
+    return unpack(BlockSparseWeight(bitmap[:, :, :, None], values[:, :, :, None],
+                                    None, (sb * bs, d), (bs, d)))
 
 
 def sparse_decode_attention_fused_plain(

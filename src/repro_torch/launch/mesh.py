@@ -10,6 +10,8 @@ jax ``Mesh.shape`` does), :meth:`Mesh.coordinate` is this rank's index
 along an axis and :meth:`Mesh.group` the process group of the ranks that
 differ from it only along that axis.  The backend is explicit: ``gloo``
 (CPU ranks, or ranks that share one card) or ``nccl`` (one card a rank).
+Ranks compute on the card unless the caller passes ``device="cpu"``; with
+no card that default raises, as every entry point of the port does.
 
 Functions, never module-level meshes: importing this module touches no
 process group.
@@ -32,6 +34,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch import resolve_device
 
 BACKENDS = ("gloo", "nccl")
 
@@ -69,18 +73,22 @@ class Mesh:
                 f"{self.device})")
 
 
-def _check_backend(backend: str, device: torch.device, world: int) -> None:
+def _check_backend(backend: str, device, world: int) -> torch.device:
+    """The backend's name, what NCCL needs, then the device (the card
+    unless ``device`` says otherwise: no card raises).  Returns the
+    resolved device."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
     if backend == "nccl":
-        if device.type != "cuda":
+        if torch.device(device or "cuda").type != "cuda":
             raise ValueError("the nccl backend needs CUDA ranks")
         if torch.cuda.device_count() < world:
             raise ValueError(
                 f"the nccl backend needs a card for each rank: {world} "
                 f"ranks, {torch.cuda.device_count()} cards (NCCL refuses "
                 "two ranks on one device; use --backend gloo)")
+    return resolve_device(device)
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
@@ -88,16 +96,15 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     """A mesh of ``shape`` over every rank of the initialized process
     group (whose size must be the product of ``shape``), axes named
     ``axes``.  ``device`` (where this rank computes) defaults to
-    ``cuda:<current>`` when the group runs NCCL, else to the CPU."""
+    ``cuda:<current>``; the CPU only when asked for."""
     from torch.distributed.device_mesh import init_device_mesh
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(launch the ranks through spawn)")
     backend = backend or dist.get_backend()
-    if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if backend == "nccl" else torch.device("cpu"))
-    device = torch.device(device)
     world = dist.get_world_size()
     if int(np.prod(shape)) != world:
         raise ValueError(f"a {shape} mesh needs {int(np.prod(shape))} "
@@ -167,18 +174,19 @@ def _rank_main(rank: int, world: int, port: int, backend: str, device: str,
 
 
 def spawn(fn: Callable, world: int, args: Sequence[Any] = (),
-          backend: str = "gloo", device: str = "cpu",
+          backend: str = "gloo", device: Optional[str] = None,
           timeout: float = 900.0) -> List[Any]:
     """Run ``fn(rank, world, *args)`` on ``world`` fresh processes joined in
     one ``backend`` process group (``device``: where each rank computes:
-    ``"cpu"``, ``"cuda"`` for card ``rank % cards`` (all on one card when
-    there is one) or one named card they share).  ``fn`` and
+    ``"cuda"`` (the default) for card ``rank % cards`` (all on one card when
+    there is one), one named card they share, or ``"cpu"`` when asked
+    for).  ``fn`` and
     ``args`` must pickle (``fn`` a module-level function).  Returns the
     results by rank; raises ``RuntimeError`` with the first failing rank's
     traceback.  Every process is joined, or killed at ``timeout``."""
     import queue as queue_mod
     import torch.multiprocessing as mp
-    _check_backend(backend, torch.device(device), world)
+    device = str(_check_backend(backend, device, world))
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = free_port()

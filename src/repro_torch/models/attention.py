@@ -67,18 +67,19 @@ def attn_specs(cfg, cross: bool = False) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _project_q(p, x, cfg):
+def _project_q(p, x, cfg, rows=None):
     b = x.shape[:-1]
-    q = ops.linear(x, p["wq"]).reshape(*b, cfg.padded_heads, cfg.hd)
+    q = ops.linear(x, p["wq"], rows=rows).reshape(*b, cfg.padded_heads,
+                                                  cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
     return q
 
 
-def _project_kv(p, x, cfg):
+def _project_kv(p, x, cfg, rows=None):
     b = x.shape[:-1]
-    k = ops.linear(x, p["wk"]).reshape(*b, cfg.n_kv, cfg.hd)
-    v = ops.linear(x, p["wv"]).reshape(*b, cfg.n_kv, cfg.hd)
+    k = ops.linear(x, p["wk"], rows=rows).reshape(*b, cfg.n_kv, cfg.hd)
+    v = ops.linear(x, p["wv"], rows=rows).reshape(*b, cfg.n_kv, cfg.hd)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"])
     return k, v
@@ -236,7 +237,7 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
                       tail_len: torch.Tensor, slot_mask: torch.Tensor,
                       bs: int, table: Optional[torch.Tensor] = None,
                       err: Optional[torch.Tensor] = None,
-                      ctx=None) -> torch.Tensor:
+                      ctx=None, rows: Optional[int] = None) -> torch.Tensor:
     """One ``[B, Qn]`` query panel per slot over one layer's pooled cache.
 
     The ``Qn`` fresh K/V land in each live slot's tail ring **in place**
@@ -253,11 +254,12 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
     KV heads: q/k/v run on the replicated weights as without one, the rank
     keeps its heads and their query groups, attends over them, and the
     head outputs are all-gathered over the model axis, in head order,
-    before ``wo``."""
+    before ``wo``.  ``rows``: the whole panel's rows, which pick the sparse
+    linears' kernel (``ops.sparse_matmul``)."""
     b, qn, _ = x.shape
     hq, hd = cfg.padded_heads, cfg.hd
-    q = _project_q(p, x, cfg)                                 # [B,Qn,Hq,hd]
-    k_new, v_new = _project_kv(p, x, cfg)                     # [B,Qn,Hkv,hd]
+    q = _project_q(p, x, cfg, rows)                           # [B,Qn,Hq,hd]
+    k_new, v_new = _project_kv(p, x, cfg, rows)               # [B,Qn,Hkv,hd]
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)     # [B,Qn,hd//2]
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
@@ -286,7 +288,8 @@ def pooled_attn_panel(p, x: torch.Tensor, kv: Dict[str, torch.Tensor], cfg,
                                         kv["k_tail"], kv["v_tail"], t_att,
                                         prefix_len=prefix_blocks * bs)
     o = _gather_heads(ctx, cfg, o, 2)
-    return ops.linear(o.reshape(b, qn, hq * hd).to(x.dtype), p["wo"])
+    return ops.linear(o.reshape(b, qn, hq * hd).to(x.dtype), p["wo"],
+                      rows=rows)
 
 
 def pooled_attn_prefill_chunk(p, x: torch.Tensor,

@@ -79,9 +79,10 @@ def mlp_specs(cfg, d_in: Optional[int] = None,
     }
 
 
-def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(ops.linear(x, p["w_gate"])) * ops.linear(x, p["w_up"])
-    return ops.linear(h, p["w_down"])
+def mlp_apply(p, x: torch.Tensor, rows=None) -> torch.Tensor:
+    h = F.silu(ops.linear(x, p["w_gate"], rows=rows)) * \
+        ops.linear(x, p["w_up"], rows=rows)
+    return ops.linear(h, p["w_down"], rows=rows)
 
 
 def norm_spec(cfg, d: Optional[int] = None) -> ParamSpec:

@@ -41,8 +41,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.core.sparse_format import BlockSparseWeight
 from repro_torch.core.sparse_kv import (NAN_CHECK, device_ids, distinct_ids,
-                                         flag_, freeze_chunk_blocks,
-                                         put_rows_)
+                                         flag_, put_rows_)
+from repro_torch.distributed.serving_sharding import freeze_heads
 from . import module as mod
 from repro_torch.core.sparse_kv import SparseKVCache, abstract_cache
 from .attention import (DenseKVCache, attn_apply, attn_decode, attn_specs,
@@ -176,12 +176,14 @@ def logits_fn(params, hidden: torch.Tensor, cfg) -> torch.Tensor:
     return unembed_apply(params["embed"], hidden, cfg)
 
 
-def _ffn(p, kind, h2: torch.Tensor, cfg, length=None) -> torch.Tensor:
+def _ffn(p, kind, h2: torch.Tensor, cfg, length=None,
+         rows=None) -> torch.Tensor:
     """The MLP or MoE half of a block on ``h2 [B, S, d]`` (an MoE routes
-    all ``B * S`` rows; ``length``: a padded chunk's valid rows)."""
+    all ``B * S`` rows; ``length``: a padded chunk's valid rows; ``rows``:
+    the rows that pick the MLP's sparse kernel)."""
     if kind[1] == "moe":
         return moe_apply(p["ffn"], h2, cfg, length=length)
-    return mlp_apply(p["ffn"], h2)
+    return mlp_apply(p["ffn"], h2, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -452,18 +454,19 @@ def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
 # the pooled serving cache
 # ---------------------------------------------------------------------------
 
-def _pooled_ffn(pj, kind, h2: torch.Tensor, cfg) -> torch.Tensor:
+def _pooled_ffn(pj, kind, h2: torch.Tensor, cfg, rows=None) -> torch.Tensor:
     """The MLP or MoE half of a pooled panel block, run on rows (the panel
     width is invisible to it, as in the reference): an MoE routes all
     ``B * Qn`` rows, masked slots included, in row order."""
-    rows = h2.reshape(-1, h2.shape[-1])
-    out = _ffn(pj, kind, rows[:, None, :], cfg)[:, 0]
+    flat = h2.reshape(-1, h2.shape[-1])
+    out = _ffn(pj, kind, flat[:, None, :], cfg, rows=rows)[:, 0]
     return out.reshape(*h2.shape[:-1], out.shape[-1])
 
 
 def forward_panel_pooled(params, state: Dict[str, Any],
                          tokens: torch.Tensor, slot_mask: torch.Tensor,
-                         cfg, bs: int, ctx=None) -> Tuple[torch.Tensor, Dict]:
+                         cfg, bs: int, ctx=None, shards: int = 1
+                         ) -> Tuple[torch.Tensor, Dict]:
     """THE per-token serving forward: score a ``[B, Qn]`` token panel per
     slot over the pooled cache (``Qn == 1`` is a decode tick).
 
@@ -472,8 +475,11 @@ def forward_panel_pooled(params, state: Dict[str, Any],
     untouched.  Returns ``(logits [B, Qn, V] f32, state)``.  On a mesh
     (``ctx``) the panel's rows are this rank's slots and the state its
     shard: only the attention's heads cross the model axis (gathered
-    before ``wo``), and nothing crosses the data axis."""
+    before ``wo``), and nothing crosses the data axis.  The panel is then
+    one of ``shards`` data shards, and the sparse linears pick their kernel
+    by the whole panel's rows, as one rank would."""
     qn = tokens.shape[1]
+    rows = None if shards == 1 else tokens.shape[0] * qn * shards
     kinds = _attn_kinds(cfg)
     x = embed_apply(params["embed"], tokens, cfg)             # [B, Qn, d]
     positions = state["pos"][:, None] + torch.arange(
@@ -491,9 +497,10 @@ def forward_panel_pooled(params, state: Dict[str, Any],
             h = pooled_attn_panel(pj["mixer"], rms_norm(x, pj["ln1"]), kv,
                                   cfg, positions, prefix_blocks, tail_len,
                                   slot_mask, bs, table=table,
-                                  err=state.get("err"), ctx=ctx)
+                                  err=state.get("err"), ctx=ctx, rows=rows)
             x = x + h
-            x = x + _pooled_ffn(pj, kinds[j], rms_norm(x, pj["ln2"]), cfg)
+            x = x + _pooled_ffn(pj, kinds[j], rms_norm(x, pj["ln2"]), cfg,
+                                rows)
     x = rms_norm(x, params["final_norm"])
     logits = logits_fn(params, x, cfg)
     grow = qn * slot_mask.to(state["pos"].dtype)
@@ -603,7 +610,7 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
             # this layer's attention has read the slot's prefix: freeze the
             # chunk into it now (layers never read each other's storage)
             if nbw:
-                frozen = freeze_chunk_blocks(
+                frozen = freeze_heads(
                     k_c[:, :, :nbw * bs], v_c[:, :, :nbw * bs],
                     cfg.kv_k_sparsity, cfg.kv_v_sparsity, bs,
                     kvl["k_values"].shape[-1], kvl["v_values"].shape[-1],

@@ -55,7 +55,8 @@ from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core.sparse_format import LANE, _ceil_to
 from repro_torch.core.sparse_kv import (CHECKS, NAN_CHECK, append_tail_panel,
                                          device_ids, distinct_ids, flag_,
-                                         freeze_chunk_blocks, put_rows_)
+                                         put_rows_)
+from repro_torch.distributed.serving_sharding import freeze_heads
 from repro_torch.models import lm
 from repro_torch.models.lm import ARENA_KEYS
 
@@ -252,7 +253,7 @@ class CachePool:
         not full are ignored.  The blocks land at those ids in the arena and
         in each full slot's table row, and the ids' refcounts go to 1.  A
         mesh rank's pool passes its ``ctx``: the tails' threshold spans
-        every KV head (:func:`~repro_torch.core.sparse_kv.freeze_chunk_blocks`).
+        every KV head (:func:`~repro_torch.distributed.serving_sharding.freeze_heads`).
         """
         cfg, dev = self.cfg, self.device
         t, tb, b = self.tail, self.tail // self.bs, self.slots
@@ -284,7 +285,7 @@ class CachePool:
             kv = leaf["kv"]
             p_, _, hkv, _, hd = kv["k_tail"].shape
             flat = lambda a: a.reshape(p_ * b, hkv, t, hd)
-            frozen = freeze_chunk_blocks(
+            frozen = freeze_heads(
                 flat(kv["k_tail"]), flat(kv["v_tail"]),
                 cfg.kv_k_sparsity, cfg.kv_v_sparsity, self.bs,
                 self.cap_k, self.cap_v, ctx, cfg.n_kv)

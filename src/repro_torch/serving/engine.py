@@ -143,7 +143,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels, resolve_device
-from repro_torch.kernels import ops
 from repro_torch.core.convert import LINEAR_KEYS
 from repro_torch.core.sparse_format import repack_capacity
 from repro_torch.core.sparse_kv import SparseKVCache, freeze_prefix, refreeze
@@ -497,16 +496,15 @@ def panel_entry(params, state: Dict[str, Any], cfg, bs: int, qn: int,
     ``tokens`` (int64 ``[B, Q]``) and ``mask`` (bool ``[B]``, all false at
     the warm-up and capture, which then write nothing); the output is the
     logits (f32 ``[B, Q, V]``).  On a mesh the rows are one of ``shards``
-    data shards of the panel (``ops.panel_shards``)."""
+    data shards of the panel (``lm.forward_panel_pooled``)."""
     dev = state["pos"].device
     b = state["pos"].shape[0]
     inp = {"tokens": torch.zeros((b, qn), dtype=torch.long, device=dev),
            "mask": torch.zeros(b, dtype=torch.bool, device=dev)}
 
     def fn():
-        with ops.panel_shards(shards):
-            return lm.forward_panel_pooled(params, state, inp["tokens"],
-                                           inp["mask"], cfg, bs, ctx)[0]
+        return lm.forward_panel_pooled(params, state, inp["tokens"],
+                                       inp["mask"], cfg, bs, ctx, shards)[0]
     return CapturedEntry(state, inp, fn, eager)
 
 
@@ -988,13 +986,13 @@ class ContinuousEngine:
 
     def _panel_logits(self, name: str, tokens: torch.Tensor,
                       mask: Sequence[bool]) -> torch.Tensor:
-        """One ``[slots, Q]`` panel forward through entry ``name`` on
-        ``tokens`` (host or device) and the slot mask; every live slot's
-        ``Q`` tokens are appended to its tail.  Returns the logits (the
-        entry's static output: read them before the entry runs again)."""
+        """One panel forward through entry ``name`` on this rank's rows of
+        the ``[slots, Q]`` tokens (host or device) and the engine's slot
+        mask; every live slot's ``Q`` tokens are appended to its tail.
+        Returns the logits (the entry's static output: read them before the
+        entry runs again)."""
         fwd = self._entry(name)
-        fwd.set(tokens=self._local(tokens),
-                mask=[bool(m) for m in self._local(mask)])
+        fwd.set(tokens=tokens, mask=[bool(m) for m in self._local(mask)])
         return fwd.run()
 
     def _exact_for(self, live: Sequence[bool]) -> bool:
@@ -1004,10 +1002,12 @@ class ContinuousEngine:
     # -- the mesh: this rank's rows and the token reads -----------------------
     def _local(self, x):
         """This rank's rows of a slot-indexed host list, array or tensor
-        (``x`` itself when its first dim is not the global slot count, or
-        without a mesh)."""
-        if self.mesh is None or len(x) != self.slots:
+        (``x`` itself without a mesh)."""
+        if self.mesh is None:
             return x
+        if len(x) != self.slots:
+            raise ValueError(f"a slot-indexed value has {len(x)} rows, the "
+                             f"engine {self.slots} slots")
         return x[self._rows.start:self._rows.stop]
 
     def _local_slot(self, slot: int) -> Optional[int]:
@@ -1451,7 +1451,7 @@ class ContinuousEngine:
         for s in slots:
             tokens[s, 0] = self._last_tok[s]
             mask[s] = True
-        logits = self._panel_logits("decode", tokens, mask)
+        logits = self._panel_logits("decode", self._local(tokens), mask)
         tok, logp = sampling.sample_step(logits[:, 0], self.lanes,
                                          self._local(self._gens),
                                          self._local(mask),
@@ -1497,6 +1497,7 @@ class ContinuousEngine:
             tokens = torch.zeros((b, 1), dtype=torch.long)
             for s in slots:
                 tokens[s, 0] = self._last_tok[s]
+            tokens = self._local(tokens)
         elif broken:
             ov = torch.zeros(b, dtype=torch.long)
             for s in broken:
@@ -1616,7 +1617,7 @@ class ContinuousEngine:
         to the live slots' tails), accept per lane, and roll each live
         slot's tail back to ``1 + accepted`` of the appended tokens."""
         qn = tokens.shape[1]
-        logits = self._panel_logits("verify", tokens, mask)
+        logits = self._panel_logits("verify", self._local(tokens), mask)
         fwd = self._entries["verify"]
         tok, logp, nc = sampling.accept_step(
             logits, fwd.inputs["tokens"],

@@ -127,10 +127,11 @@ def _tiny():
                                    "convert_int8", "convert_int4", "engine",
                                    "engine_paged", "engine_spec", "pool",
                                    "pool_paged", "serve", "serve_paged_int8",
-                                   "serve_spec", "serve_mesh"])
+                                   "serve_spec", "serve_mesh", "make_mesh",
+                                   "spawn"])
 def test_entry_points_raise_without_a_card(no_card, entry):
     from repro_torch.core.convert import convert_concrete
-    from repro_torch.launch import serve
+    from repro_torch.launch import mesh, serve
     from repro_torch.models import lm
     from repro_torch.serving import ContinuousEngine, SpecConfig
     from repro_torch.serving.cache_pool import CachePool
@@ -158,6 +159,8 @@ def test_entry_points_raise_without_a_card(no_card, entry):
             ["--reduced", "--requests", "1", "--spec-k", "2"]),
         "serve_mesh": lambda: serve.main(
             ["--reduced", "--requests", "1", "--mesh", "2,2"]),
+        "make_mesh": lambda: mesh.make_mesh((1, 1), ("data", "model")),
+        "spawn": lambda: mesh.spawn(print, 1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -590,6 +590,25 @@ def test_paged_prefix_hit_skips_prefill_and_shares_pages():
     assert flat.run()[fid].token_ids == out[rid].token_ids
 
 
+def test_paged_plain_decode_keeps_only_the_weights():
+    """The plain matmuls keep each CPU weight's decompressed copy; the
+    paged attention's prefix, gathered afresh at every call, is not kept:
+    once the weights are in, further decode ticks add no entry."""
+    from repro_torch.core import sparse_format
+    _, tcfg, _, tparams = _params("bf16")
+    eng = ContinuousEngine(tparams, tcfg, paged=True, slots=2, max_tokens=128,
+                           bs=16, prefill_chunk=32, device="cpu")
+    prompt = np.random.default_rng(3).integers(0, tcfg.vocab, (40,)).tolist()
+    eng.submit(prompt, SamplingParams(max_new_tokens=12))
+    for _ in range(4):                      # the prefill and first ticks
+        eng.step()
+    kept = len(sparse_format._DENSE)
+    assert 0 < kept < sparse_format._DENSE_MAX
+    for _ in range(6):
+        eng.step()
+    assert len(sparse_format._DENSE) == kept
+
+
 def test_paged_eviction_invalidates_trie_and_stays_correct():
     """A tiny arena: new traffic must LRU-evict the cached shared prefix
     (trie entries drop), and a later request with that prefix re-prefills
