@@ -272,9 +272,39 @@ Phases, each of which exits non-zero on failure:
    at least once on every rank; ``mesh_launches`` in the kernel table);
    tok/s, tick times and a tick's collective calls, bytes and seconds are
    printed per mesh.  ``--only mesh`` runs the build and this phase alone.
+8. **train_mesh** (the eighteenth slice): full-width, full-depth
+   Qwen3-0.6B trained by one spawn of 4 gloo ranks sharing the card
+   through ``launch.train.train_loop(mesh=)`` (params at
+   ``tree_param_specs``, ZeRO-1 ``master`` / ``m`` / ``v``, each rank's
+   data shard of 8 x 256 tokens a step): 3 f32 steps on (2, 2), (4, 1)
+   and (1, 4), losses within rtol 1e-4, atol 1e-4 of one rank's on the
+   same card; the first step's gradient (layers 0 and 27, the norms, 512
+   table rows a model shard) within 1e-3 of each leaf's range of one
+   rank's, and the ZeRO-1 update of it within ROADMAP Queue 3's AdamW bar
+   of one rank's step on the same gradient; every ZeRO-1 block 1/dp of
+   its param block; a checkpoint of (2, 2) after two steps restored onto
+   (1, 4), the third loss one rank's; 3 bf16 steps on (2, 2) (1e-2); every
+   dense kernel call of these runs held to its plain version (2^-7 of its
+   output) and its launches counted per rank; the compressed gradients
+   at (4, 1) (bf16 within a bf16 ulp of ``bf16(sum q_i) / 4``, int8
+   equal to the oracle, error rows the residuals, from the gradients the
+   four ranks reduced, which lie within 1e-3 of each leaf's range of one
+   rank's gradients of the same rows); Phi-3.5-MoE's layer 0 MoE at full width, f32, forward and
+   backward, expert-parallel at (4, 1) and ``d_ff`` over the model axis
+   at (1, 4), against one rank's ``moe_apply`` on all the tokens.  Step
+   time, tok/s, peak memory per rank and a step's collectives are printed
+   per mesh: placement and collectives, not speed.  The dense kernel at
+   the shard shapes is timed first (``mesh_kernel_rows``).  ``--only
+   train_mesh`` runs the build and this phase alone.
 
-Every traced tick and chunk reports the unembedding's and the gemv's
-device time and launches.  The lines before the last carry the kernel
+Each phase's seconds are printed as it ends (``[phase] name``) and
+together before the kernel table.  ``--profile`` also runs what only
+measures by reading a trace: the traced ticks, chunks and refreezes of
+every serve phase (without it only the flat serve run's decode tick is
+traced, graph and eager: its gemv kernel counts are a gate), the kernels'
+traced device times and the train phase's traced step.  Every traced tick
+and chunk reports the unembedding's and the gemv's device time and
+launches.  The lines before the last carry the kernel
 table (one JSON object) and the serving numbers; the last line is the
 device JSON.  ``--out PATH`` also
 writes every measurement (per-shape kernel rows, serving, the decode
@@ -557,6 +587,23 @@ TOP1_MIN_COUNTED = 50
 # (``forced_replay``) and excuses a divergence of the served engine only
 # after a routing decision shown to differ
 ROUTER_TIE = 5e-2
+
+
+# --profile: the traced profiles, the kernels' traced device times and
+# the training step's traced step (measurements that read a trace); off,
+# only the decode tick traces whose kernel counts gate the flat serve run
+PROFILE = False
+PHASE_S = {}                    # the seconds of each phase of this run
+
+
+def run_phase(name: str, fn, *args):
+    """``fn(*args)``, its seconds added to ``PHASE_S[name]`` and printed."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
+        say(f"[phase] {name}: {PHASE_S[name]:.1f} s")
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -1736,7 +1783,7 @@ def _decode_inputs(torch, eng):
     return slots, mask, tokens
 
 
-def decode_profile(torch, eng, cfg, n_ticks=8):
+def decode_profile(torch, eng, cfg, n_ticks=8, trace=False):
     """Wall time per decode tick through the kernels (forward, sampler and
     the token sync, from a copy of the live state), and the device time of
     the same ticks from a ``torch.profiler`` trace: the device's busy and
@@ -1769,7 +1816,7 @@ def decode_profile(torch, eng, cfg, n_ticks=8):
         tok.tolist(), nc.tolist()
 
     res = {"ticks": n_ticks, "slots": len(slots), "panel": k + 1}
-    return _profiled(torch, tick, n_ticks, res)
+    return _profiled(torch, tick, n_ticks, res, trace)
 
 
 def graph_against_eager(torch, eng, cfg, qn, n_ticks=3):
@@ -1817,7 +1864,7 @@ def _flat_leaves(tree):
     return [tree]
 
 
-def graph_profile(torch, eng, cfg, n_ticks=8):
+def graph_profile(torch, eng, cfg, n_ticks=8, trace=False):
     """The engine's tick as the main path runs it, on a copy of the live
     state: one replay of a forward captured over the copy (``[slots, 1]``,
     or ``[slots, k+1]`` for a speculating engine, no drafts), the sampler
@@ -1853,7 +1900,7 @@ def graph_profile(torch, eng, cfg, n_ticks=8):
 
     res = {"ticks": n_ticks, "slots": len(slots), "panel": k + 1,
            "capture_s": capture_s, "graph_held_launches": fwd.held}
-    _profiled(torch, tick, n_ticks, res)
+    _profiled(torch, tick, n_ticks, res, trace)
     if "named" in res and fwd.held.get("dense_matmul") and \
             not res["named"]["unembed"]["per_tick"]:
         # every graph holds the unembedding: a trace without it lacks the
@@ -1891,11 +1938,12 @@ def _replay_ms(torch, replay, reps):
     return a.elapsed_time(b) / reps
 
 
-def _profiled(torch, fn, n, res):
-    """Wall time per call of ``fn`` (each ends in a sync), then a
-    ``torch.profiler`` trace of ``n`` more calls: device busy time, idle
-    share, the top device kernels and the top host ops by self CPU time
-    (inflated by the profiler's own cost), all per call, into ``res``."""
+def _profiled(torch, fn, n, res, trace=False):
+    """Wall time per call of ``fn`` (each ends in a sync), then, with
+    ``--profile`` or ``trace``, a ``torch.profiler`` trace of ``n`` more
+    calls: device busy time, idle share, the top device kernels and the top
+    host ops by self CPU time (inflated by the profiler's own cost), all
+    per call, into ``res``."""
     from repro_torch import kernels
     fn()
     torch.cuda.synchronize()
@@ -1908,6 +1956,9 @@ def _profiled(torch, fn, n, res):
     # the trace below may lose a kernel record now and then
     res["wrapper_launches"] = {
         k: (v - before[k]) / n for k, v in kernels.launch_counts().items()}
+    if not (PROFILE or trace):
+        res["device"] = "not measured: traces run under --profile"
+        return res
     # the profiler is a measurement, not a check: its own failures are
     # reported; a failing call fails the run
     try:
@@ -2319,11 +2370,18 @@ def serve_stream(torch, eng, cfg, prompts, params_of, paused, ready=None,
                 if graph_qn:
                     graph.append(chunk_graph_against_eager(torch, eng, cfg))
                     graph.append(refreeze_graph_against_eager(torch, eng))
-                profile = graph_profile(torch, eng, cfg)
-                profile["eager"] = decode_profile(torch, eng, cfg)
-                profile["refreeze"] = refreeze_profile(torch, eng)
-                if prefill:
-                    profile["prefill"] = prefill_profile(torch, eng, cfg)
+                # measurements; the flat serve run's decode tick traces
+                # gate its gemv launches, so they run without --profile
+                if PROFILE or label == "serve":
+                    profile = graph_profile(torch, eng, cfg,
+                                            trace=label == "serve")
+                    profile["eager"] = decode_profile(torch, eng, cfg,
+                                                      trace=label == "serve")
+                if PROFILE:
+                    profile["refreeze"] = refreeze_profile(torch, eng)
+                    if prefill:
+                        profile["prefill"] = prefill_profile(torch, eng,
+                                                             cfg)
                 kernels.set_launch_counts(saved)
                 if rows is not None:
                     rows.clear()
@@ -3208,7 +3266,10 @@ def panel_rows():
 
 def device_ms_per_call(torch, fn, n=20):
     """Device time per call of ``fn`` from a ``torch.profiler`` trace (every
-    kernel ``fn`` launches), or a "not measured" reason."""
+    kernel ``fn`` launches; under ``--profile``), or a "not measured"
+    reason."""
+    if not PROFILE:
+        return "not measured: traces run under --profile"
     try:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -5623,8 +5684,9 @@ def wide_phases(torch, only=WIDE_PHASES):
     t0 = time.perf_counter()
     if "wide_kernels" in only:
         res["wide_kernels"], detail = wide_kernels(torch, Timer(torch))
+        PHASE_S["wide_kernels"] = time.perf_counter() - t0
         say(f"wide_kernels: every kernel agrees with its plain version at "
-            f"the new configs' shapes ({time.perf_counter() - t0:.1f} s)")
+            f"the new configs' shapes ({PHASE_S['wide_kernels']:.1f} s)")
     for phase, args in (("llama3_8b", ("llama3-8b", LLAMA_REQUESTS,
                                        LLAMA_NEW_TOKENS, LLAMA_PROMPT_RANGE)),
                         ("phi3_mini", ("phi3-mini-3.8b", PHI_REQUESTS,
@@ -5634,11 +5696,13 @@ def wide_phases(torch, only=WIDE_PHASES):
             res[phase] = wide_serve_phase(torch, *args)
             gc.collect()
             torch.cuda.empty_cache()
-            say(f"{phase}: passed ({time.perf_counter() - t0:.1f} s)")
+            PHASE_S[phase] = time.perf_counter() - t0
+            say(f"{phase}: passed ({PHASE_S[phase]:.1f} s)")
     if "internvl2" in only:
         t0 = time.perf_counter()
         res["internvl2"] = vlm_phase(torch)
-        say(f"internvl2: passed ({time.perf_counter() - t0:.1f} s)")
+        PHASE_S["internvl2"] = time.perf_counter() - t0
+        say(f"internvl2: passed ({PHASE_S['internvl2']:.1f} s)")
     for phase, args in (("phi35_moe", ("phi3.5-moe-42b-a6.6b",
                                        PHI_MOE_REQUESTS, PHI_MOE_NEW_TOKENS)),
                         ("scout", ("llama4-scout-17b-a16e", SCOUT_REQUESTS,
@@ -5649,7 +5713,8 @@ def wide_phases(torch, only=WIDE_PHASES):
             detail += rows
             gc.collect()
             torch.cuda.empty_cache()
-            say(f"{phase}: passed ({time.perf_counter() - t0:.1f} s)")
+            PHASE_S[phase] = time.perf_counter() - t0
+            say(f"{phase}: passed ({PHASE_S[phase]:.1f} s)")
     for phase, fn in NEW_FAMILY_PHASES:
         if phase in only:
             t0 = time.perf_counter()
@@ -5657,7 +5722,8 @@ def wide_phases(torch, only=WIDE_PHASES):
             detail += rows
             gc.collect()
             torch.cuda.empty_cache()
-            say(f"{phase}: passed ({time.perf_counter() - t0:.1f} s)")
+            PHASE_S[phase] = time.perf_counter() - t0
+            say(f"{phase}: passed ({PHASE_S[phase]:.1f} s)")
     return res, detail
 
 
@@ -5892,6 +5958,46 @@ def train_kernel_rows(torch, cfg, timer, gen, detail):
     return out, layer
 
 
+def _train_traced_step(torch, cfg, optc, params, opt, res):
+    """A traced train step of TRAIN_TRACE_BATCH x TRAIN_SEQ tokens after
+    three untraced ones (``train_profile``), into ``res["train"]``."""
+    from repro_torch.train import make_train_step
+    batch = _train_batch(torch, cfg, TRAIN_TRACE_BATCH, TRAIN_SEQ)
+    step_fn = make_train_step(cfg, optc)
+
+    def one_step():
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_step()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    prof = train_profile(torch, one_step, statistics.median(times))
+    prof.update(seconds=time.perf_counter() - t0, batch=TRAIN_TRACE_BATCH,
+                untraced_step_s=times,
+                launches=train_launches(cfg, TRAIN_TRACE_BATCH, TRAIN_SEQ))
+    res["train"]["profile"] = prof
+    if isinstance(prof.get("device_ms"), float):
+        bwd = prof.get("backward_matmul_share")
+        say(f"train: traced step of {TRAIN_TRACE_BATCH} x {TRAIN_SEQ} tokens "
+            f"(untraced median {statistics.median(times) * 1e3:.1f} ms): "
+            f"{prof['wall_ms']:.1f} ms wall under the profiler "
+            f"({prof['seconds']:.1f} s with the trace's reading), device "
+            f"busy {prof['device_ms']:.1f} ms: idle share "
+            f"{prof['idle_share']:.3f} of the untraced median step "
+            f"({prof['idle_share_traced']:.3f} of the traced wall); dense "
+            f"kernel ({prof['launches']} launches a step) "
+            f"{prof['dense_ms']:.1f} ms ({prof['dense_share']:.3f} of busy, "
+            f"{prof['dense_traced_launches']:.0f} launches traced); backward "
+            "torch.matmul "
+            + (f"{prof['backward_matmul_ms']:.1f} ms ({bwd:.3f} of busy)"
+               if bwd is not None else str(prof["backward_matmul_ms"])))
+    else:
+        say(f"train: traced step: {prof.get('device')}")
+
+
 def train_phase(torch):
     """The training stack on the card (the sixteenth slice):
 
@@ -6002,42 +6108,12 @@ def train_phase(torch):
         f"{launched['dense_matmul']} in the run), every gradient finite, "
         f"every layout kept")
 
-    # -- a traced step ----------------------------------------------------
-    batch = _train_batch(torch, cfg, TRAIN_TRACE_BATCH, TRAIN_SEQ)
-    step_fn = make_train_step(cfg, optc)
-
-    def one_step():
-        step_fn(params, opt, batch)
-        torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        one_step()
-        times.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    prof = train_profile(torch, one_step, statistics.median(times))
-    prof.update(seconds=time.perf_counter() - t0, batch=TRAIN_TRACE_BATCH,
-                untraced_step_s=times,
-                launches=train_launches(cfg, TRAIN_TRACE_BATCH, TRAIN_SEQ))
-    res["train"]["profile"] = prof
-    if isinstance(prof.get("device_ms"), float):
-        bwd = prof.get("backward_matmul_share")
-        say(f"train: traced step of {TRAIN_TRACE_BATCH} x {TRAIN_SEQ} tokens "
-            f"(untraced median {statistics.median(times) * 1e3:.1f} ms): "
-            f"{prof['wall_ms']:.1f} ms wall under the profiler "
-            f"({prof['seconds']:.1f} s with the trace's reading), device "
-            f"busy {prof['device_ms']:.1f} ms: idle share "
-            f"{prof['idle_share']:.3f} of the untraced median step "
-            f"({prof['idle_share_traced']:.3f} of the traced wall); dense "
-            f"kernel ({prof['launches']} launches a step) "
-            f"{prof['dense_ms']:.1f} ms ({prof['dense_share']:.3f} of busy, "
-            f"{prof['dense_traced_launches']:.0f} launches traced); backward "
-            "torch.matmul "
-            + (f"{prof['backward_matmul_ms']:.1f} ms ({bwd:.3f} of busy)"
-               if bwd is not None else str(prof["backward_matmul_ms"])))
+    # -- a traced step (under --profile) ------------------------------------
+    if PROFILE:
+        _train_traced_step(torch, cfg, optc, params, opt, res)
     else:
-        say(f"train: traced step: {prof.get('device')}")
-    del params, opt, batch, step_fn
+        say("train: the traced step runs under --profile")
+    del params, opt
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6598,6 +6674,774 @@ def mesh_phase(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the training mesh (the eighteenth slice)
+# ---------------------------------------------------------------------------
+
+TM_SHAPES = ((2, 2), (4, 1), (1, 4))        # (data, model)
+TM_STEPS, TM_BATCH, TM_SEQ = 3, 8, 256      # f32 and bf16 runs, each mesh
+TM_ROWS = 512           # tied-table rows sampled from each model shard
+TM_STRIDE = 97          # of those slices, every TM_STRIDE-th element
+TM_MOE = "phi3.5-moe-42b-a6.6b"             # layer 0's MoE, full width
+TM_MOE_BATCH, TM_MOE_SEQ, TM_MOE_SAMPLE = 4, 256, 64
+# losses (rtol, atol: the reference test's own bar); a gradient leaf of
+# the first step (of its range: the kernels sum f32 products in other
+# orders, as TRAIN_TOL["grad_f32"]); the MoE's output and input gradient
+# (of the range) and its expert gradients (of each leaf's range)
+TM_TOL = {"loss": (1e-4, 1e-4), "grad": 1e-3, "moe_out": 1e-5,
+          "moe_w": 1e-3}
+TM_EPS = 1e-8           # OptConfig().eps: the AdamW bar's |g| threshold
+
+
+def _f32(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def _tm_rows(v: int, m: int):
+    """The tied-table rows of the sample: the first TM_ROWS of each of the
+    ``m`` model shards of a ``v``-row table."""
+    return [s * (v // m) + i for s in range(m) for i in range(TM_ROWS)]
+
+
+def _tm_sample(torch, tree, m, path=""):
+    """The sample of a full (one-rank) tree a mesh of model size ``m``
+    returns: of layers 0 and -1 of every layer-stacked leaf, the tied
+    table's ``_tm_rows`` and every other leaf whole, every TM_STRIDE-th
+    element in row-major order; on the host."""
+    if isinstance(tree, dict):
+        return {k: _tm_sample(torch, v, m, f"{path}/{k}")
+                for k, v in tree.items()}
+    if path.startswith("/blocks"):
+        tree = tree[[0, -1]]
+    elif path == "/embed/tok":
+        tree = tree[_tm_rows(tree.shape[0], m)]
+    return tree.detach().reshape(-1)[::TM_STRIDE].float().cpu()
+
+
+def _tm_local_sample(torch, tree, pspecs, mesh, data_sum=False, path=""):
+    """``_tm_sample`` of a placed tree, cut from this rank's blocks and
+    gathered over the model axis (every rank takes part; ``data_sum``
+    sums gradient shares over the data axis first)."""
+    from repro_torch.distributed.sharding import all_gather, all_reduce
+    if isinstance(tree, dict):
+        return {k: _tm_local_sample(torch, v, pspecs[k], mesh, data_sum,
+                                    f"{path}/{k}") for k, v in tree.items()}
+    t = tree.detach()
+    if path.startswith("/blocks"):
+        t = t[[0, -1]]
+    elif path == "/embed/tok":
+        t = t[:TM_ROWS]
+    t = t.float().contiguous()
+    if data_sum:
+        t = all_reduce(t, mesh, ("data",))
+    for dim, entry in enumerate(pspecs):
+        t = all_gather(t.contiguous(), mesh, entry, dim)
+    return t.reshape(-1)[::TM_STRIDE].cpu()
+
+
+def tm_run(torch, cfg, dc, optc, mesh, ckpt_dir=None, ckpt_every=0,
+           sample=False):
+    """``launch.train.train_loop`` on ``mesh`` (the main path), every step
+    timed between syncs with its collectives; with ``sample``, the first
+    step's gradient (summed over data) and params sampled; the dense
+    kernel's launches zeroed before and read after."""
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import ShardCtx, default_rules
+    from repro_torch.distributed.sharding import (STATS, reset_stats,
+                                                  zero1_dim)
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.step import train_specs
+    pspecs, zspecs = train_specs(cfg, ShardCtx(mesh, default_rules(False,
+                                                                   cfg)))
+    make, vg = train_mod.make_train_step, step_mod.value_and_grad
+    steps, first = [], {}
+
+    def quiet(fn):
+        saved = dict(STATS)
+        out = fn()
+        STATS.update(saved)
+        return out
+
+    def watched_vg(*a, **k):
+        loss, g = vg(*a, **k)
+        if sample and "grads" not in first:
+            first["grads"] = quiet(lambda: _tm_local_sample(
+                torch, g, pspecs, mesh, data_sum=True))
+        return loss, g
+
+    def watched_make(*a, **k):
+        fn = make(*a, **k)
+
+        def step(params, opt, batch):
+            torch.cuda.synchronize()
+            reset_stats()
+            t0 = time.perf_counter()
+            out = fn(params, opt, batch)
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t0,
+                          "loss": float(out[2]["loss"]),
+                          "grad_norm": float(out[2]["grad_norm"]),
+                          "lr": float(out[2]["lr"]),
+                          "collectives": dict(STATS)})
+            if sample and "params" not in first:
+                first["params"] = quiet(lambda: _tm_local_sample(
+                    torch, out[0], pspecs, mesh))
+            return out
+        return step
+    ck = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(train_mod, "make_train_step", watched_make), \
+            patched(step_mod, "value_and_grad", watched_vg):
+        params, opt, losses = train_mod.train_loop(
+            cfg, TM_STEPS, dc, ckpt=ck, ckpt_every=ckpt_every, mesh=mesh,
+            optc=optc)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    nbytes, wrong = 0, []
+    for i, (mst, p, ps, zs) in enumerate(zip(
+            tree_leaves(opt["master"]), tree_leaves(params),
+            tree_leaves(pspecs), tree_leaves(zspecs))):
+        nbytes += 3 * mst.numel() * 4
+        dim, axes = zero1_dim(ps, zs)
+        want = p.numel() // (mesh.shape["data"] if dim is not None else 1)
+        if mst.numel() != want:
+            wrong.append(i)
+    import torch.distributed as dist
+    # the samples are whole on every rank: rank 0 returns them
+    return {"losses": losses, "steps": steps,
+            "first": first if dist.get_rank() == 0 else None,
+            "seconds": time.perf_counter() - t0, "launches": launched,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "state_bytes": nbytes, "zero1_wrong": wrong,
+            "coord": {a: mesh.coordinate(a) for a in mesh.axis_names}}
+
+
+def tm_compressed(torch, cfg, dc, mesh):
+    """``make_compressed_grads`` at ``mesh`` (data only) in both schemes
+    from the launcher's params: the loss, this rank's own gradient (its
+    sample and every leaf's largest magnitude, as the reduction saw it),
+    the samples of ``g_hat`` and of this rank's error row, the seconds and
+    the collectives."""
+    from repro_torch.data.pipeline import sharded_batch
+    from repro_torch.distributed import ShardCtx, default_rules, place
+    from repro_torch.distributed.sharding import STATS, reset_stats
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.serving.engine import params_to
+    from repro_torch.train import init_dp_error_state, make_compressed_grads
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.step import train_specs
+    dev = mesh.device
+    pspecs, _ = train_specs(cfg, ShardCtx(mesh, default_rules(False, cfg)))
+    params = params_to(place(lm.init_params(cfg, seed=cfg.n_layers,
+                                            device=dev), pspecs, mesh), dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in sharded_batch(dc, 0, mesh).items()}
+    vg, seen = step_mod.value_and_grad, {}
+
+    def watched_vg(*a, **k):
+        loss, g = vg(*a, **k)
+        seen.update(grads=_tm_sample(torch, g, 1),
+                    amax=[float(t.abs().max()) for t in tree_leaves(g)])
+        return loss, g
+    out = {}
+    for scheme in ("bf16", "int8"):
+        fn = make_compressed_grads(cfg, scheme, mesh=mesh)
+        torch.cuda.synchronize()
+        reset_stats()
+        t0 = time.perf_counter()
+        with patched(step_mod, "value_and_grad", watched_vg):
+            loss, g_hat, err = fn(params, init_dp_error_state(params), batch)
+        torch.cuda.synchronize()
+        out[scheme] = {"loss": float(loss),
+                       "seconds": time.perf_counter() - t0,
+                       "collectives": dict(STATS), **seen,
+                       "g_hat": _tm_sample(torch, g_hat, 1),
+                       "err": _tm_sample(torch, tree_map(lambda e: e[0],
+                                                         err), 1)}
+        del g_hat, err
+    return out
+
+
+def _tm_moe_inputs(torch, mcfg, dev):
+    from repro_torch.models import moe
+    from repro_torch.models import module as mod
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x = torch.randn((TM_MOE_BATCH, TM_MOE_SEQ, mcfg.d_model), generator=gen,
+                    device=dev)
+    r = torch.randn(x.shape, generator=gen, device=dev)
+    return mod.initialize(moe.moe_specs(mcfg), 24, dev), x, r
+
+
+def _tm_moe_grads(torch, fn, p, x, r):
+    """``fn(p, x)`` and the gradients of ``sum(fn(p, x) * r)`` in ``x``
+    and every leaf of ``p``; the forward and backward's seconds."""
+    from repro_torch.models.module import tree_map
+    p = tree_map(lambda t: t.detach().requires_grad_(), p)
+    x = x.detach().clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(p, x)
+    (out * r).sum().backward()
+    torch.cuda.synchronize()
+    return (out.detach(), x.grad, tree_map(lambda t: t.grad, p),
+            time.perf_counter() - t0)
+
+
+def tm_moe(torch, mesh, ep):
+    """Layer 0's MoE of TM_MOE at full width, f32, forward and backward:
+    expert-parallel (``ep``; 4 experts a rank at (4, 1)) or with ``d_ff``
+    over the model axis; this rank's rows of the output and the input
+    gradient, the router's gradient, every expert leaf's gradient norm and
+    its first TM_MOE_SAMPLE rows."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (ShardCtx, default_rules, place,
+                                         tree_param_specs)
+    from repro_torch.models import moe
+    from repro_torch.models import module as mod
+    # the layer alone, FSDP off (cfg.fsdp under a mesh is ROADMAP item 4)
+    mcfg = dataclasses.replace(_f32(get_config(TM_MOE)), ep_moe=ep,
+                               fsdp=False)
+    dev = mesh.device
+    full, x, r = _tm_moe_inputs(torch, mcfg, dev)
+    ctx = ShardCtx(mesh, default_rules(False, mcfg))
+    specs = moe.moe_specs(mcfg)
+    pspecs = tree_param_specs(ctx, specs, mod.abstract(specs))
+    p = place(full, pspecs, mesh)
+    del full
+    rows = TM_MOE_BATCH // mesh.shape["data"]
+    r0 = mesh.coordinate("data") * rows
+    out, gx, gp, dt = _tm_moe_grads(
+        torch, lambda pp, xx: moe.moe_apply(pp, xx, mcfg, ctx), p,
+        x[r0:r0 + rows], r[r0:r0 + rows])
+    return {"rows": (r0, rows), "seconds": dt,
+            "coord": {a: mesh.coordinate(a) for a in mesh.axis_names},
+            "specs": {k: tuple(pspecs[k]) for k in ("w_gate", "w_up",
+                                                     "w_down")},
+            "out": out.cpu(), "gx": gx.cpu(), "router": gp["router"].cpu(),
+            "norms": {k: float(gp[k].double().square().sum())
+                      for k in ("w_gate", "w_up", "w_down")},
+            "sample": {k: gp[k][:, :TM_MOE_SAMPLE].cpu()
+                       for k in ("w_gate", "w_up", "w_down")}}
+
+
+@contextlib.contextmanager
+def held_dense(torch, held):
+    """Every call of the dense kernel (``ops._dense_kernel``, under
+    autograd too) also runs its plain version on the same inputs; the
+    largest error over the largest plain output stays on the device, read
+    once when the block ends (no sync a call), into ``held`` with the
+    calls."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dense_matmul import dense_matmul_plain
+    kernel = ops._dense_kernel
+    worst = [torch.zeros((), device="cuda")]
+
+    def launch(x, w_nk, out_dtype=None):
+        out = kernel(x, w_nk, out_dtype)
+        ref = dense_matmul_plain(x, w_nk, out_dtype).float()
+        err = (out.float() - ref).abs().max() / ref.abs().max().clamp(
+            min=1e-30)
+        worst[0] = torch.maximum(worst[0], err)
+        held["calls"] = held.get("calls", 0) + 1
+        return out
+    try:
+        with patched(ops, "_dense_kernel", launch):
+            yield
+    finally:
+        held["max_rel_err"] = float(worst[0])
+
+
+def train_mesh_rank(rank, world, spec):
+    """One rank of the train_mesh phase (gloo, sharing the card): the f32
+    runs on every mesh of TM_SHAPES (the (2, 2) run saving a checkpoint
+    after two steps), the restore onto (1, 4), the bf16 run at (2, 2),
+    every dense launch held to the plain version; then the compressed
+    gradients at (4, 1) and the MoE layer, expert-parallel at (4, 1) and
+    tensor-parallel at (1, 4)."""
+    import torch
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(MESH_RANK_THREADS)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import OptConfig
+    dev = torch.cuda.current_device()
+    cfg = get_config("qwen3-0.6b")
+    cfg32 = _f32(cfg)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TM_SEQ, global_batch=TM_BATCH)
+    optc = OptConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=TM_STEPS)
+    meshes = {shape: make_mesh(shape, ("data", "model"), dev)
+              for shape in TM_SHAPES}
+    runs = [("f32 2x2", cfg32, (2, 2), dict(ckpt_dir=spec["ckpt"],
+                                            ckpt_every=2, sample=True)),
+            ("f32 4x1", cfg32, (4, 1), dict(sample=True)),
+            ("f32 1x4", cfg32, (1, 4), dict(sample=True)),
+            ("elastic 1x4", cfg32, (1, 4), dict(ckpt_dir=spec["ckpt"])),
+            ("bf16 2x2", cfg, (2, 2), {})]
+    out = {"runs": {}, "seconds": {"start": time.perf_counter() - t0}}
+
+    def timed(key, fn, *args, **kw):
+        t = time.perf_counter()
+        out[key] = fn(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["seconds"][key] = time.perf_counter() - t
+    for label, c, shape, kw in runs:
+        held = {}
+        with held_dense(torch, held):
+            out["runs"][label] = tm_run(torch, c, dc, optc, meshes[shape],
+                                        **kw)
+        out["runs"][label]["held"] = held
+        out["seconds"][label] = out["runs"][label]["seconds"]
+    timed("compressed", tm_compressed, torch, cfg32, dc, meshes[(4, 1)])
+    timed("moe_ep", tm_moe, torch, meshes[(4, 1)], ep=True)
+    timed("moe_tp", tm_moe, torch, meshes[(1, 4)], ep=False)
+    return out
+
+
+def mesh_kernel_rows(torch, cfg, timer, gen, detail):
+    """The dense kernel at the shard shapes of the training mesh (f32, as
+    the phase's f32 runs give it): for model 2 and 4, each distinct (K, N)
+    of a layer's linears with the model axis cut (``wq``, ``wk`` / ``wv``,
+    ``w_gate`` / ``w_up`` over N; ``wo``, ``w_down`` over K) and the tied
+    table's shard, at the rank's rows (TM_BATCH * TM_SEQ over the data
+    axis), through ``dense_rows``; each row with its launches a step.
+    Returns the rows and the (1, 4) layer's sum."""
+    from repro_torch.kernels.dense_matmul import launch_rows
+    out, layer = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                      "bound_ms": 0.0, "max_abs_err": 0.0}
+    lin = _layer_linears(cfg)
+    cut = {"wq": 1, "wk": 1, "wv": 1, "w_gate": 1, "w_up": 1, "wo": 0,
+           "w_down": 0}
+    for data, model in ((2, 2), (1, 4)):
+        m = TM_BATCH * TM_SEQ // data
+        shapes = {}
+        for name, k, n in lin:
+            kn = (k // model, n) if cut[name] == 0 else (k, n // model)
+            shapes[kn] = shapes.get(kn, 0) + 1
+        shapes[(cfg.d_model, cfg.vocab // model)] = 0      # the tied head
+        for (k, n), count in sorted(shapes.items()):
+            w = (torch.randn((n, k), generator=gen, device="cuda")
+                 / k ** 0.5).t()
+            xs = torch.randn((m, k), generator=gen, device="cuda")
+            what = (f"[{k}, {n}] x {count} a layer" if count else
+                    f"tied head shard [{k}, {n}]")
+            row = dense_rows(torch, timer, detail,
+                             f"train_mesh {data}x{model} dense_matmul "
+                             f"{what}", w, xs, (m,),
+                             {"config": cfg.name, "train_mesh":
+                              f"{data}x{model}", "f32": True})[m]
+            row["per_layer"] = count
+            row["launches_per_step"] = (
+                2 * cfg.n_layers * count * -(-m // launch_rows(k, 4))
+                if count else -(-m // launch_rows(k, 4)))
+            out[f"{data}x{model} {k}x{n}"] = row
+            if model == 4 and count:
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    layer[key] += count * row[key]
+                layer["max_abs_err"] = max(layer["max_abs_err"],
+                                           row["max_abs_err"])
+            del w, xs
+    layer["bound_by"] = "bytes" if all(
+        r["bound_by"] == "bytes" for k, r in out.items()
+        if k.startswith("1x4")) else "operations"
+    return out, layer
+
+
+def _tm_one_rank(torch, cfg, dc, optc):
+    """One rank's run of the launcher's params (seed ``cfg.n_layers``):
+    TM_STEPS steps through ``value_and_grad`` and ``adamw_step`` (the
+    train step's own pieces), the losses, the first step's gradient and
+    the params before it sampled for each model size, the first step's
+    ``lr``."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_step, init_opt_state
+    from repro_torch.serving.engine import params_to
+    from repro_torch.train import value_and_grad
+    from repro_torch.data.pipeline import host_batch
+    cuda = torch.device("cuda")
+    params = params_to(lm.init_params(cfg, seed=cfg.n_layers, device=cuda),
+                       cuda)
+    opt = init_opt_state(params)
+    models = sorted({m for _, m in TM_SHAPES})
+    res = {"losses": [], "p0": {m: _tm_sample(torch, params, m)
+                                for m in models}}
+    for i in range(TM_STEPS):
+        batch = {k: torch.as_tensor(v, device=cuda)
+                 for k, v in host_batch(dc, i).items()}
+        loss, g = value_and_grad(params, batch, cfg)
+        if i == 0:
+            res["grads"] = {m: _tm_sample(torch, g, m) for m in models}
+        params, opt, mets = adamw_step(g, opt, optc, params_like=params)
+        res["losses"].append(float(loss))
+        if i == 0:
+            res["lr"] = float(mets["lr"])
+        del g
+    del params, opt
+    return res
+
+
+def _tm_shard_grads(torch, cfg, dc):
+    """One rank's gradients of each data shard of (4, 1) (the launcher's
+    params), sampled."""
+    from repro_torch.data.pipeline import host_batch
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import params_to
+    from repro_torch.train import value_and_grad
+    cuda = torch.device("cuda")
+    params = params_to(lm.init_params(cfg, seed=cfg.n_layers, device=cuda),
+                       cuda)
+    full = {k: torch.as_tensor(v, device=cuda)
+            for k, v in host_batch(dc, 0).items()}
+    rows = TM_BATCH // 4
+    samples = []
+    for j in range(4):
+        _, g = value_and_grad(params, {k: v[j * rows:(j + 1) * rows]
+                                       for k, v in full.items()}, cfg)
+        samples.append(_tm_sample(torch, g, 1))
+        del g
+    del params
+    return samples
+
+
+def _bf16_ulp(torch, x):
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def _tm_gate_compressed(torch, recs, one):
+    """Per scheme, the oracle from the gradients the four data ranks
+    reduced: each leaf of ``g_hat``'s sample within one bf16 ulp of
+    ``bf16(sum q_i) / 4`` (bf16) and equal to it (int8: the scale from the
+    ranks' largest magnitudes over the whole leaf); each rank's error row
+    its residual; and those gradients within TM_TOL["grad"] of each leaf's
+    range of one rank's gradients of the same rows (``one``).  The oracle
+    runs on the card, as the ranks' arithmetic did (there the int8 scale's
+    division by 127 rounds as it does in the ranks)."""
+    from repro_torch.models.module import tree_leaves
+    worst = {"bf16": 0.0, "int8": 0.0, "err": 0.0, "grad": 0.0}
+    n = len(recs)
+    for scheme in ("bf16", "int8"):
+        grads = [tree_leaves(r["compressed"][scheme]["grads"]) for r in recs]
+        for li in range(len(grads[0])):
+            g = [gr[li].cuda() for gr in grads]
+            if scheme == "bf16":
+                q = [t.to(torch.bfloat16).float() for t in g]
+                tot = q[0]
+                for t in q[1:]:
+                    tot = tot + t
+                want = tot.to(torch.bfloat16).float() / n
+                res = [a - b for a, b in zip(g, q)]
+            else:
+                amax = max(r["compressed"][scheme]["amax"][li] for r in recs)
+                scale = torch.clamp(torch.tensor(amax, device="cuda"),
+                                    min=1e-12) / 127.0
+                q = [torch.clamp(torch.round(t / scale), -127, 127)
+                     .to(torch.int8) for t in g]
+                tot = q[0].int()
+                for t in q[1:]:
+                    tot = tot + t.int()
+                want = tot.float() * scale / n
+                res = [a - b.float() * scale for a, b in zip(g, q)]
+            for rank, rec in enumerate(recs):
+                c = rec["compressed"][scheme]
+                d = (tree_leaves(c["g_hat"])[li].cuda() - want).abs()
+                if scheme == "bf16":
+                    d = d / _bf16_ulp(torch, want)
+                worst[scheme] = max(worst[scheme], float(d.max()))
+                worst["err"] = max(worst["err"], float(
+                    (tree_leaves(c["err"])[li].cuda() - res[rank]).abs()
+                    .max()))
+                ref = tree_leaves(one[rank])[li].cuda()
+                worst["grad"] = max(worst["grad"], float(
+                    (g[rank] - ref).abs().max() / ref.abs().max()))
+    if not (worst["bf16"] <= 1.0 and worst["int8"] == 0.0
+            and worst["err"] == 0.0 and worst["grad"] <= TM_TOL["grad"]):
+        fail(f"train_mesh compressed: g_hat {worst['bf16']:.2f} bf16 ulps "
+             f"from bf16(sum q_i)/4 (tol 1), int8 {worst['int8']:.3e} from "
+             f"the oracle (exact), error rows {worst['err']:.3e} from the "
+             f"ranks' residuals (exact), the ranks' gradients "
+             f"{worst['grad']:.2e} of the range from one rank's (tol "
+             f"{TM_TOL['grad']})")
+    return worst
+
+
+def _tm_local(t, spec, shape, coord):
+    """A rank's block of a full tensor under ``spec`` (mesh sizes
+    ``shape``, the rank's ``coord``)."""
+    for dim, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        n, idx = 1, 0
+        for a in axes:
+            n *= shape[a]
+            idx = idx * shape[a] + coord[a]
+        if n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, idx * size, size)
+    return t
+
+
+def _tm_gate_moe(torch, label, recs, key, one, shape):
+    """The MoE ranks against one rank's ``moe_apply`` on all the tokens:
+    output and input gradient rows (of the range), the router's gradient
+    (the ranks' shares summed, or each rank's where it is whole), every
+    expert leaf's gradient sample (of the leaf's range) and norm."""
+    out, gx, gp = one
+    errs = {"out": 0.0, "gx": 0.0, "w": 0.0, "norm": 0.0, "router": 0.0}
+    rng = lambda t: float(t.max() - t.min())
+    router = torch.zeros_like(gp["router"])
+    norms = {k: 0.0 for k in ("w_gate", "w_up", "w_down")}
+    for rank, rec in enumerate(recs):
+        m = rec[key]
+        r0, n = m["rows"]
+        errs["out"] = max(errs["out"], float(
+            (m["out"] - out[r0:r0 + n]).abs().max()) / rng(out))
+        errs["gx"] = max(errs["gx"], float(
+            (m["gx"] - gx[r0:r0 + n]).abs().max()) / rng(gx))
+        router = router + m["router"] if key == "moe_ep" else m["router"]
+        if key == "moe_tp":
+            errs["router"] = max(errs["router"], float(
+                (m["router"] - gp["router"]).abs().max()) / rng(gp["router"]))
+        for k in norms:
+            norms[k] += m["norms"][k]
+            want = _tm_local(gp[k], m["specs"][k], shape,
+                             m["coord"])[:, :TM_MOE_SAMPLE]
+            errs["w"] = max(errs["w"], float(
+                (m["sample"][k] - want).abs().max())
+                / float(gp[k].abs().max()))
+    if key == "moe_ep":
+        errs["router"] = float((router - gp["router"]).abs().max()) / \
+            rng(gp["router"])
+    for k, v in norms.items():
+        want = float(gp[k].double().square().sum())
+        errs["norm"] = max(errs["norm"], abs(v - want) / want)
+    if not (errs["out"] <= TM_TOL["moe_out"] and errs["gx"] <= TM_TOL[
+            "moe_out"] and errs["w"] <= TM_TOL["moe_w"] and errs["norm"]
+            <= TM_TOL["moe_w"] and errs["router"] <= TM_TOL["moe_w"]):
+        fail(f"train_mesh {label}: output {errs['out']:.2e} and input "
+             f"gradient {errs['gx']:.2e} of the range (tol "
+             f"{TM_TOL['moe_out']}), expert gradients {errs['w']:.2e} of "
+             f"their range, norms {errs['norm']:.2e}, router "
+             f"{errs['router']:.2e} (tol {TM_TOL['moe_w']}) from one rank's")
+    return errs
+
+
+def train_mesh_phase(torch):
+    """The training mesh: full-width, full-depth Qwen3-0.6B trained by one
+    spawn of MESH_WORLD gloo ranks sharing the card through
+    ``launch.train.train_loop(mesh=)``, held against one rank on the same
+    card; the compressed gradients and the MoE layer's mesh paths."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import moe
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.optim import OptConfig, adamw_step, init_opt_state
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    cfg32 = _f32(cfg)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TM_SEQ, global_batch=TM_BATCH)
+    optc = OptConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=TM_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    detail, res = [], {}
+    t0 = time.perf_counter()
+    res["kernel_rows"], res["kernel_layer"] = mesh_kernel_rows(
+        torch, cfg, Timer(torch, reps=3, warmup=1), gen, detail)
+    res["kernel_rows_s"] = time.perf_counter() - t0
+    # one rank first: the ranks then have the card alone
+    t0 = time.perf_counter()
+    one = _tm_one_rank(torch, cfg32, dc, optc)
+    _, _, one_bf16 = train_mod.train_loop(cfg, TM_STEPS, dc, optc=optc,
+                                          device="cuda")
+    shard_grads = _tm_shard_grads(torch, cfg32, dc)
+    mcfg = _f32(get_config(TM_MOE))
+    p, x, r = _tm_moe_inputs(torch, mcfg, torch.device("cuda"))
+    *moe_one, moe_s = _tm_moe_grads(
+        torch, lambda pp, xx: moe.moe_apply(pp, xx, mcfg), p, x, r)
+    moe_one = [t.cpu() if torch.is_tensor(t) else
+               {k: v.cpu() for k, v in t.items()} for t in moe_one]
+    del p, x, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["one_rank_s"] = time.perf_counter() - t0
+    say(f"train_mesh: one-rank references in {res['one_rank_s']:.1f} s: "
+        f"f32 losses {one['losses']}, bf16 {one_bf16}; the MoE layer "
+        f"forward and backward {moe_s * 1e3:.0f} ms")
+    ckpt = tempfile.mkdtemp(prefix="train_mesh_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        recs = spawn(train_mesh_rank, MESH_WORLD, ({"ckpt": ckpt},),
+                     backend="gloo", device="cuda", timeout=900)
+        res["spawn_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    res["rank_seconds"] = [rec["seconds"] for rec in recs]
+    say(f"train_mesh: the dense kernel's rows {res['kernel_rows_s']:.1f} s, "
+        f"one-rank references {res['one_rank_s']:.1f} s, the spawn "
+        f"{res['spawn_s']:.1f} s; rank 0's parts (s): "
+        + json.dumps({k: round(v, 1) for k, v in recs[0]["seconds"].items()}))
+    # gates: losses, the first step's gradient and AdamW update, ZeRO-1,
+    # launches and held launches
+    rtol, atol = TM_TOL["loss"]
+    close = lambda a, b: len(a) == len(b) and all(
+        abs(x - y) <= atol + rtol * abs(y) for x, y in zip(a, b))
+    res["runs"] = {}
+    for label in recs[0]["runs"]:
+        want = (one_bf16 if label.startswith("bf16") else
+                one["losses"][2:] if label.startswith("elastic") else
+                one["losses"])
+        for rank, rec in enumerate(recs):
+            run = rec["runs"][label]
+            got = run["losses"]
+            ok = (all(abs(x - y) <= TRAIN_TOL["loss_bf16"] * abs(y)
+                      for x, y in zip(got, want)) and len(got) == len(want)
+                  if label.startswith("bf16") else close(got, want))
+            if not ok:
+                fail(f"train_mesh {label}: rank {rank}'s losses {got} "
+                     f"against one rank's {want}")
+            # every call of the dense kernel goes through the held wrapper
+            held = run["held"]
+            if run["launches"]["dense_matmul"] <= 0 or \
+                    held.get("calls", 0) <= 0 or not \
+                    held["max_rel_err"] <= HELD_TOL["_dense_kernel"]:
+                fail(f"train_mesh {label}: rank {rank} launched the dense "
+                     f"kernel {run['launches']['dense_matmul']} times in "
+                     f"{held.get('calls', 0)} calls, each held to the plain "
+                     f"version: largest error {held.get('max_rel_err')} of "
+                     f"its output (tol {HELD_TOL['_dense_kernel']})")
+            if run["zero1_wrong"]:
+                fail(f"train_mesh {label}: rank {rank}'s ZeRO-1 blocks of "
+                     f"leaves {run['zero1_wrong']} are not 1/dp of their "
+                     "param blocks")
+        r0 = recs[0]["runs"][label]
+        steps = r0["steps"]
+        step_s = statistics.median(s["s"] for s in steps) if steps else 0.0
+        coll = steps[-1]["collectives"] if steps else {}
+        res["runs"][label] = {
+            "losses": r0["losses"], "step_s": [s["s"] for s in steps],
+            "median_step_s": step_s,
+            "tok_s": TM_BATCH * TM_SEQ / step_s if step_s else None,
+            "peak_gib": [rec["runs"][label]["peak_gib"] for rec in recs],
+            "state_gb": [rec["runs"][label]["state_bytes"] / 1e9
+                         for rec in recs],
+            "collectives_per_step": coll, "seconds": r0["seconds"],
+            "launches": [rec["runs"][label]["launches"]["dense_matmul"]
+                         for rec in recs],
+            "held_max_rel_err": max(rec["runs"][label]["held"][
+                "max_rel_err"] for rec in recs)}
+        say(f"train_mesh {label}: losses {r0['losses']} equal one rank's "
+            f"{want} on every rank; the run {r0['seconds']:.1f} s, median "
+            f"step {step_s * 1e3:.0f} ms "
+            f"({res['runs'][label]['tok_s'] or 0:.0f} tok/s, placement and "
+            f"collectives, not speed: 4 ranks share the card and stage "
+            f"through host memory); a step's collectives "
+            f"{coll.get('calls', 0)} calls, {coll.get('bytes', 0) / 1e9:.3f}"
+            f" GB, {coll.get('seconds', 0.0):.2f} s; peak per rank "
+            f"{max(res['runs'][label]['peak_gib']):.2f} GiB; master + m + v "
+            f"{res['runs'][label]['state_gb'][0]:.3f} GB a rank; dense "
+            f"launches {res['runs'][label]['launches']} (each call held to "
+            f"the plain version, max "
+            f"{res['runs'][label]['held_max_rel_err']:.1e} of its output)")
+    # the first step: gradient and the ZeRO-1 AdamW update
+    one_state = OptConfig(peak_lr=optc.peak_lr, warmup_steps=1,
+                          decay_steps=TM_STEPS, clip_norm=0.0)
+    res["first_step"] = {}
+    for label in ("f32 2x2", "f32 4x1", "f32 1x4"):
+        model = int(label[-1])
+        first = recs[0]["runs"][label]["first"]
+        g_err = 0.0
+        for a, b in zip(tree_leaves(first["grads"]),
+                        tree_leaves(one["grads"][model])):
+            g_err = max(g_err, float((a - b).abs().max())
+                        / float(b.abs().max()))
+        if not g_err <= TM_TOL["grad"]:
+            fail(f"train_mesh {label}: the first step's gradient is "
+                 f"{g_err:.2e} of a leaf's range from one rank's (tol "
+                 f"{TM_TOL['grad']})")
+        gn = recs[0]["runs"][label]["steps"][0]["grad_norm"]
+        scale = min(1.0, optc.clip_norm / max(gn, 1e-9))
+        g = tree_map(lambda t: t * scale, first["grads"])
+        p0 = one["p0"][model]
+        want, _, _ = adamw_step(g, init_opt_state(p0), one_state,
+                                params_like=p0)
+        lr = one["lr"]
+        worst_big, worst = 0.0, 0.0
+        for gg, got, w in zip(tree_leaves(first["grads"]),
+                              tree_leaves(first["params"]),
+                              tree_leaves(want)):
+            d = (got - w).abs()
+            big = gg.abs() > 100 * TM_EPS
+            if big.any():
+                worst_big = max(worst_big, float(d[big].max()) / lr)
+            worst = max(worst, float(d.max()) / lr)
+        if not (worst_big <= 1e-3 and worst <= 5e-2):
+            fail(f"train_mesh {label}: the first ZeRO-1 step moved the "
+                 f"sampled params {worst_big:.2e} of lr from one rank's "
+                 f"AdamW step on the same gradient where |g| > 100 eps "
+                 f"(tol 1e-3), {worst:.2e} anywhere (tol 5e-2)")
+        res["first_step"][label] = {"grad_rel_range": g_err,
+                                    "adamw_lr_big": worst_big,
+                                    "adamw_lr_any": worst}
+    say(f"train_mesh: the first step's gradient (layers 0 and "
+        f"{cfg.n_layers - 1}, the norms, the sampled table rows) within "
+        f"{max(v['grad_rel_range'] for v in res['first_step'].values()):.2e}"
+        " of each leaf's range of one rank's on every mesh; the ZeRO-1 "
+        "update within "
+        f"{max(v['adamw_lr_big'] for v in res['first_step'].values()):.2e} "
+        "of lr of one rank's AdamW step on it where |g| > 100 eps")
+    res["compressed"] = _tm_gate_compressed(torch, recs, shard_grads)
+    c = recs[0]["compressed"]
+    say(f"train_mesh compressed 4x1: bf16 g_hat within "
+        f"{res['compressed']['bf16']:.2f} bf16 ulp of bf16(sum q_i)/4, int8 "
+        f"equal to the oracle, error rows the ranks' residuals (from the "
+        f"gradients the ranks reduced, "
+        f"{res['compressed']['grad']:.2e} of the range from one rank's "
+        f"gradients of the same rows); bf16 "
+        f"{c['bf16']['seconds']:.2f} s "
+        f"({c['bf16']['collectives']['bytes'] / 1e9:.2f} GB), int8 "
+        f"{c['int8']['seconds']:.2f} s "
+        f"({c['int8']['collectives']['bytes'] / 1e9:.2f} GB)")
+    res["moe_ep"] = _tm_gate_moe(torch, "moe ep 4x1", recs, "moe_ep",
+                                 moe_one, {"data": 4, "model": 1})
+    res["moe_tp"] = _tm_gate_moe(torch, "moe tp 1x4", recs, "moe_tp",
+                                 moe_one, {"data": 1, "model": 4})
+    say(f"train_mesh moe: {TM_MOE} layer 0 at full width, f32, "
+        f"{TM_MOE_BATCH} x {TM_MOE_SEQ} tokens: expert-parallel at 4x1 "
+        f"(output {res['moe_ep']['out']:.1e}, input gradient "
+        f"{res['moe_ep']['gx']:.1e} of the range, experts "
+        f"{res['moe_ep']['w']:.1e}) and d_ff over the model axis at 1x4 "
+        f"({res['moe_tp']['out']:.1e}, {res['moe_tp']['gx']:.1e}, "
+        f"{res['moe_tp']['w']:.1e}) against one rank's; forward and "
+        f"backward {recs[0]['moe_ep']['seconds'] * 1e3:.0f} / "
+        f"{recs[0]['moe_tp']['seconds'] * 1e3:.0f} ms a rank, one rank "
+        f"{moe_s * 1e3:.0f} ms")
+    res["mesh_launches"] = [sum(r["launches"]["dense_matmul"]
+                                for r in rec["runs"].values())
+                            for rec in recs]
+    res["seconds"] = time.perf_counter() - t_phase
+    say(f"train_mesh: passed (spawn of {MESH_WORLD} ranks "
+        f"{res['spawn_s']:.1f} s, phase {res['seconds']:.1f} s)")
+    return res, detail
+
+
 SOURCES = {
     "sparse_gemv": ("src/repro_torch/kernels/csrc/sparse_gemv.cu",
                     "src/repro/kernels/sparse_gemv.py:47"),
@@ -6643,11 +7487,16 @@ def main() -> int:
                     help="build, then run these of the phases one_shot, "
                          "snapshot, checkify, wide_kernels, llama3_8b, "
                          "phi3_mini, internvl2, phi35_moe, scout, rwkv6, "
-                         "seamless, jamba, jamba_mamba, train and mesh alone "
-                         "(comma-separated; "
+                         "seamless, jamba, jamba_mamba, train, mesh and "
+                         "train_mesh alone (comma-separated; "
                          "checkify without the paged int8 run to compare "
                          "with) and print no result line")
+    ap.add_argument("--profile", action="store_true",
+                    help="also run the traced profiles, the kernels' traced "
+                         "device times and the train phase's traced step")
     args = ap.parse_args()
+    global PROFILE
+    PROFILE = args.profile
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository", code=2)
@@ -6677,7 +7526,7 @@ def main() -> int:
         res = {}
         only = set(args.only.split(","))
         unknown = only - {"one_shot", "snapshot", "checkify", "train",
-                          "mesh", *WIDE_PHASES}
+                          "mesh", "train_mesh", *WIDE_PHASES}
         if unknown:
             fail(f"--only: no phase {sorted(unknown)}")
         if "one_shot" in only:
@@ -6701,46 +7550,57 @@ def main() -> int:
             res["train"], res["train_detail"] = train_phase(torch)
             say(f"train: passed ({res['train']['seconds']:.1f} s)")
         if "mesh" in only:
-            res["mesh"] = mesh_phase(torch)
+            res["mesh"] = run_phase("mesh", mesh_phase, torch)
+        if "train_mesh" in only:
+            res["train_mesh"], res["train_mesh_detail"] = run_phase(
+                "train_mesh", train_mesh_phase, torch)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(res, indent=1, default=str))
         say(f"phases {sorted(only)} alone passed; total "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
-    t0 = time.perf_counter()
-    summary, detail = kernel_phase(torch, cfg)
-    say(f"kernels: all {len(SOURCES)} agree with their plain versions "
-        f"({time.perf_counter() - t0:.1f} s)")
+    PHASE_S["build"] = t_build
+    summary, detail = run_phase("kernels", kernel_phase, torch, cfg)
+    say(f"kernels: all {len(SOURCES)} agree with their plain versions")
     serve = {}
-    serve["serve"], params = serve_phase(torch, cfg)
-    serve["spec"] = spec_phase(torch, cfg, params)
+    serve["serve"], params = run_phase("serve", serve_phase, torch, cfg)
+    serve["spec"] = run_phase("spec", spec_phase, torch, cfg, params)
     cfg32, params32 = _widened(torch, cfg, params)
-    serve["two_pass"] = two_pass_phase(torch, cfg32, params32, Timer(torch))
-    spec_f32 = spec_identity_f32(torch, cfg32, params32)
+    serve["two_pass"] = run_phase("two_pass", two_pass_phase, torch, cfg32,
+                                  params32, Timer(torch))
+    spec_f32 = run_phase("spec_f32", spec_identity_f32, torch, cfg32,
+                         params32)
     serve["spec_f32"], serve["spec_f32_k8"] = spec_f32[SPEC_K], spec_f32[8]
-    serve["one_shot"] = oneshot_phase(torch, cfg, params, cfg32, params32)
+    serve["one_shot"] = run_phase("one_shot", oneshot_phase, torch, cfg,
+                                  params, cfg32, params32)
     del params, params32
-    serve["paged_int8"], params8, prompts, run8 = paged_phase(
-        torch, cfg, "int8", PAGED_REQUESTS, PAGED_NEW_TOKENS,
-        "sparse_matmul_int8")
-    serve["identity"] = identity_phase(torch, cfg, params8, prompts, run8)
-    serve["spec_paged_int8"] = spec_paged_phase(torch, cfg, params8,
-                                                prompts)
-    serve["server"] = server_phase(torch, cfg, params8)
-    serve["snapshot"] = snapshot_phase(torch, cfg, params8)
-    serve["checkify"] = checkify_phase(torch, cfg, params8, prompts, run8)
+    serve["paged_int8"], params8, prompts, run8 = run_phase(
+        "paged_int8", paged_phase, torch, cfg, "int8", PAGED_REQUESTS,
+        PAGED_NEW_TOKENS, "sparse_matmul_int8")
+    serve["identity"] = run_phase("identity", identity_phase, torch, cfg,
+                                  params8, prompts, run8)
+    serve["spec_paged_int8"] = run_phase("spec_paged_int8", spec_paged_phase,
+                                         torch, cfg, params8, prompts)
+    serve["server"] = run_phase("server", server_phase, torch, cfg, params8)
+    serve["snapshot"] = run_phase("snapshot", snapshot_phase, torch, cfg,
+                                  params8)
+    serve["checkify"] = run_phase("checkify", checkify_phase, torch, cfg,
+                                  params8, prompts, run8)
     del params8, run8
-    serve["paged_int4"] = paged_phase(
-        torch, cfg, "int4", INT4_REQUESTS, INT4_NEW_TOKENS,
-        "sparse_matmul_int4")[0]
-    wide, wide_detail = wide_phases(torch)
+    serve["paged_int4"] = run_phase(
+        "paged_int4", paged_phase, torch, cfg, "int4", INT4_REQUESTS,
+        INT4_NEW_TOKENS, "sparse_matmul_int4")[0]
+    wide, wide_detail = run_phase("wide", wide_phases, torch)
     serve.update(wide)
     detail += wide_detail
-    serve["train"], train_detail = train_phase(torch)
+    serve["train"], train_detail = run_phase("train", train_phase, torch)
     detail += train_detail
     say(f"train: passed ({serve['train']['seconds']:.1f} s)")
-    serve["mesh"] = mesh_phase(torch)
+    serve["mesh"] = run_phase("mesh", mesh_phase, torch)
+    serve["train_mesh"], tm_detail = run_phase("train_mesh",
+                                               train_mesh_phase, torch)
+    detail += tm_detail
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -6766,6 +7626,22 @@ def main() -> int:
         "plain_ms": layer["plain_ms"], "bound_ms": layer["bound_ms"],
         "bound_by": layer["bound_by"], "library_ms": layer["library_ms"],
         "mesh_launches": [0] * MESH_WORLD})
+    # the dense kernel on the training mesh's path: launches of the phase's
+    # runs over every rank, its numbers a (1, 4) rank's layer of seven
+    # linears at f32 (M = TM_BATCH * TM_SEQ, the model axis cut)
+    tm = serve["train_mesh"]
+    layer = tm["kernel_layer"]
+    kernels.append({
+        "name": "dense_matmul (train_mesh)", "route": "cuda",
+        "source": SOURCES["dense_matmul"][0],
+        "replaces": SOURCES["dense_matmul"][1],
+        "launches": sum(tm["mesh_launches"]),
+        "max_abs_err": layer["max_abs_err"], "ms": layer["ms"],
+        "plain_ms": layer["plain_ms"], "bound_ms": layer["bound_ms"],
+        "bound_by": layer["bound_by"], "library_ms": layer["library_ms"],
+        "mesh_launches": tm["mesh_launches"]})
+    say("phase seconds: " + json.dumps({k: round(v, 1)
+                                        for k, v in PHASE_S.items()}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     if args.out:
         out = Path(args.out)

@@ -1,6 +1,5 @@
-"""Fault-tolerant checkpoints: atomic, asynchronous, keep-k (twin of
-``repro.checkpoint.manager``; the reference's mesh placement on restore
-belongs to the sharded part of the port).
+"""Fault-tolerant checkpoints: atomic, asynchronous, keep-k, elastic (twin
+of ``repro.checkpoint.manager``).
 
 The files are the reference's, byte for byte in layout, so either package
 restores what the other saved: ``<dir>/step_NNNNNNNNNN/arrays.npz`` holds
@@ -17,6 +16,11 @@ indices (``arena/l0/k_bitmap``, ``hashes``), beside ``manifest.json``.
 * **keep-k + manifest**: ``manifest.json`` records the step, the time and
   the caller's metadata; older checkpoints are pruned once the newer one
   is durable.
+* **on a mesh** (``shardings=(spec tree, mesh)``): :meth:`save` gathers
+  each leaf's blocks from every rank, one leaf at a time, and rank 0
+  writes the full tree; :meth:`restore` cuts each rank's block of each
+  leaf as it reads it, on any mesh (elastic: the file holds the full
+  tree, so a checkpoint of one mesh restores onto another).
 
 Two dtypes need care between the packages.  numpy has no bf16: the
 reference writes ml_dtypes bf16, which ``np.load`` returns as 2-byte void
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import gather_tree, local_slices
 
 
 def _host(leaf: Any) -> np.ndarray:
@@ -69,6 +74,22 @@ def _walk(tree: Any, prefix: str = ""):
 
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
     return {key: _host(leaf) for key, leaf in _walk(tree)}
+
+
+def _gathered_host(tree: Any, specs: Any, mesh, keep: bool,
+                   prefix: str = "") -> Dict[str, np.ndarray]:
+    """Every leaf of a placed ``tree`` gathered whole over ``mesh`` (each
+    rank takes part in every gather), kept as host arrays only where
+    ``keep``; one full leaf at a time is on the device."""
+    if isinstance(tree, dict):
+        out: Dict[str, np.ndarray] = {}
+        for k, v in tree.items():
+            out.update(_gathered_host(v, None if specs is None else specs[k],
+                                      mesh, keep,
+                                      f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    full = tree if specs is None else gather_tree(tree, specs, mesh)
+    return {prefix: _host(full)} if keep else {}
 
 
 def _bits16(arr: np.ndarray) -> Optional[np.ndarray]:
@@ -104,18 +125,23 @@ def _to_torch(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _unflatten_into(tree: Any, arrays: Dict[str, np.ndarray],
-                    prefix: str = "") -> Any:
+                    prefix: str = "", specs: Any = None, mesh=None) -> Any:
     """A tree shaped like ``tree`` with each leaf read from ``arrays``:
     torch leaves come back as CPU tensors of the leaf's dtype, numpy (or
     anything with a ``dtype``) as arrays of that dtype, other leaves as
-    stored.  Raises a readable ``ValueError`` naming the first missing or
+    stored; with ``specs`` (a matching spec tree, None leaves whole) each
+    torch leaf is cut to this rank's block of ``mesh`` as it is read.
+    Raises a readable ``ValueError`` naming the first missing or
     misshapen leaf."""
+    sub = lambda k: None if specs is None else specs[k]
     if isinstance(tree, dict):
         return {k: _unflatten_into(v, arrays, f"{prefix}/{k}" if prefix
-                                   else str(k)) for k, v in tree.items()}
+                                   else str(k), sub(k), mesh)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         out = [_unflatten_into(v, arrays, f"{prefix}/{i}" if prefix
-                               else str(i)) for i, v in enumerate(tree)]
+                               else str(i), sub(i), mesh)
+               for i, v in enumerate(tree)]
         return type(tree)(out)
     key = prefix
     if key not in arrays:
@@ -131,6 +157,8 @@ def _unflatten_into(tree: Any, arrays: Dict[str, np.ndarray],
             f"expects shape {tuple(want_shape)}, checkpoint holds "
             f"{tuple(arr.shape)}")
     if torch.is_tensor(tree):
+        if specs is not None:               # copy this rank's block alone
+            arr = arr[local_slices(arr.shape, specs, mesh)]
         return _to_torch(arr, tree.dtype)
     want = getattr(tree, "dtype", None)
     return arr if want is None else _as(arr, np.dtype(want))
@@ -152,6 +180,30 @@ def _place(tree: Any, like: Any, device: Optional[torch.device]) -> Any:
     return tree.to(dev)
 
 
+class _Corrupt(Exception):
+    """A member of ``arrays.npz`` that did not read back."""
+
+
+class _Lazy:
+    """An open ``np.load`` archive read one array at a time; a damaged
+    member raises :class:`_Corrupt`."""
+
+    def __init__(self, z):
+        self.z = z
+
+    def __contains__(self, key) -> bool:
+        return key in self.z.files
+
+    def __iter__(self):
+        return iter(self.z.files)
+
+    def __getitem__(self, key) -> np.ndarray:
+        try:
+            return self.z[key]
+        except (zipfile.BadZipFile, EOFError, OSError, ValueError) as e:
+            raise _Corrupt() from e
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -162,12 +214,30 @@ class CheckpointManager:
 
     # -- write ------------------------------------------------------------
     def save(self, step: int, state: Any, meta: Optional[Dict] = None,
-             blocking: bool = False) -> None:
+             blocking: bool = False, shardings: Any = None) -> None:
         """Write ``state`` (nested dicts and lists of tensors, arrays or
         scalars) as checkpoint ``step``.  Every leaf is copied to host
         memory before this returns; the files are written by one
-        background thread unless ``blocking``."""
+        background thread unless ``blocking``.
+
+        ``shardings=(spec tree, mesh)``: ``state`` holds this rank's
+        blocks (a None spec: a whole leaf); every rank must call, each
+        leaf is gathered whole, rank 0 writes the files, and every rank
+        returns once they are in place."""
+        if shardings is not None:
+            import torch.distributed as dist
+            specs, mesh = shardings
+            writer = dist.get_rank() == 0
+            host = _gathered_host(state, specs, mesh, writer)
+            if writer:
+                self._write(step, host, meta, blocking=True)
+            dist.barrier()
+            return
         host = _flatten(state)          # device -> host copies happen here
+        self._write(step, host, meta, blocking)
+
+    def _write(self, step: int, host: Dict[str, np.ndarray],
+               meta: Optional[Dict], blocking: bool) -> None:
         self.wait()                     # one in-flight save at a time
 
         def write():
@@ -221,8 +291,8 @@ class CheckpointManager:
                 f"overwritten): {e}") from None
 
     def restore(self, step: int, like: Any, to_device: bool = True,
-                device: Optional[torch.device] = None
-                ) -> Tuple[Any, Dict]:
+                device: Optional[torch.device] = None,
+                shardings: Any = None) -> Tuple[Any, Dict]:
         """Restore checkpoint ``step`` into the structure of ``like``;
         returns ``(tree, manifest)``.
 
@@ -234,6 +304,10 @@ class CheckpointManager:
         come back as host arrays of their dtype either way (an int64 hash
         chain stays exact).
 
+        ``shardings=(spec tree, mesh)`` (a None spec: the whole leaf)
+        cuts each tensor leaf to this rank's block as it is read, on any
+        mesh: ``like`` describes the full tree.
+
         Every failure is a readable ``ValueError``: a truncated or
         overwritten ``arrays.npz``, a missing array or a shape that
         differs from the template's (which leaf, expected and found); the
@@ -241,20 +315,39 @@ class CheckpointManager:
         restore never half-applies."""
         path = os.path.join(self.dir, f"step_{step:010d}")
         npz = os.path.join(path, "arrays.npz")
+        specs, mesh = shardings if shardings is not None else (None, None)
         try:
             with np.load(npz) as z:
-                arrays = {k: z[k] for k in z.files}
+                # on a mesh each array is read when its leaf is cut, so a
+                # rank holds one full leaf on the host at a time
+                arrays = _Lazy(z) if specs is not None else \
+                    {k: z[k] for k in z.files}
+                state = _unflatten_into(like, arrays, "", specs, mesh) \
+                    if specs is not None else None
         except FileNotFoundError:
             raise ValueError(
                 f"checkpoint step {step} not found under {self.dir!r} "
                 f"(available steps: {self.steps()})") from None
-        except (zipfile.BadZipFile, EOFError, OSError, ValueError) as e:
+        except _Corrupt as e:
+            raise ValueError(
+                f"checkpoint arrays {npz!r} are corrupt (truncated or "
+                f"overwritten — atomic rename means this was damaged after "
+                f"the save): {e.__cause__}") from None
+        except (zipfile.BadZipFile, EOFError, OSError) as e:
+            raise ValueError(
+                f"checkpoint arrays {npz!r} are corrupt (truncated or "
+                f"overwritten — atomic rename means this was damaged after "
+                f"the save): {e}") from None
+        except ValueError as e:
+            if specs is not None:       # a template mismatch, already read
+                raise
             raise ValueError(
                 f"checkpoint arrays {npz!r} are corrupt (truncated or "
                 f"overwritten — atomic rename means this was damaged after "
                 f"the save): {e}") from None
         manifest = self.read_manifest(step)
-        state = _unflatten_into(like, arrays)
+        if state is None:
+            state = _unflatten_into(like, arrays)
         if to_device:
             state = _place(state, like, device)
         return state, manifest

@@ -1,8 +1,10 @@
 """Deterministic synthetic token batches (numpy only; a copy of the
 generator in ``repro.data.pipeline``, so both packages draw the same tokens
 from the same seed).  Each example is a Zipf-distributed unigram mixture
-with repeated motifs.  ``sharded_batch`` waits for ROADMAP Queue 1 item 3
-(the mesh).
+with repeated motifs.  On a mesh, :func:`sharded_batch` draws a data
+rank's rows of the global batch alone (the reference's
+``make_array_from_callback`` for one shard), so a different data degree
+re-slices the same global batch by example index.
 """
 from __future__ import annotations
 
@@ -50,6 +52,29 @@ def host_batch(dc: DataConfig, step: int) -> Dict[str, np.ndarray]:
     toks = _example_tokens(dc, step, idx)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
             "mask": np.ones((dc.global_batch, dc.seq_len), np.float32)}
+
+
+def sharded_batch(dc: DataConfig, step: int, mesh=None
+                  ) -> Dict[str, np.ndarray]:
+    """This data rank's rows of ``host_batch(dc, step)``, bit for bit,
+    drawn from those rows' seeds only: the global batch's rows split in
+    order over the mesh's data axes (``pod`` major, then ``data``; every
+    row without a mesh).  The rows must divide evenly."""
+    start, n = 0, dc.global_batch
+    if mesh is not None:
+        axes = [a for a in ("pod", "data") if a in mesh.shape]
+        shards, idx = 1, 0
+        for a in axes:
+            shards *= mesh.shape[a]
+            idx = idx * mesh.shape[a] + mesh.coordinate(a)
+        if dc.global_batch % shards:
+            raise ValueError(f"a global batch of {dc.global_batch} rows "
+                             f"does not split over {shards} data shards")
+        n = dc.global_batch // shards
+        start = idx * n
+    toks = _example_tokens(dc, step, np.arange(start, start + n))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            "mask": np.ones((n, dc.seq_len), np.float32)}
 
 
 def iterate(dc: DataConfig, start_step: int = 0

@@ -32,6 +32,27 @@ The serving forwards keep the residual stream replicated over the model
 axis: ``seq`` is placement only in the reference, and the port's pooled
 forwards gather the attention heads before ``wo`` instead
 (``models/attention.py``).
+
+**Training** (the reference's jitted train step under ``NamedSharding``s)
+places each rank's shard of the params with :func:`place` (the specs of
+:func:`tree_param_specs`; :func:`gather_tree` is its inverse) and runs the
+forward and backward through four ``torch.autograd.Function`` classes in the
+Megatron pattern, each a call of :func:`all_gather` or :func:`all_reduce`
+(so :data:`STATS` counts them, and gloo stages them):
+
+  :func:`copy_to`        identity forward, all-reduce backward (the input
+                         of a column-parallel product);
+  :func:`reduce_from`    all-reduce forward, identity backward (the output
+                         of a row-parallel product);
+  :func:`gather_dim`     all-gather forward, this rank's slice backward;
+  :func:`reduce_scatter` all-reduce and this rank's slice forward,
+                         all-gather backward.
+
+The loss on every rank is the same replicated value, so a leaf's gradient
+on a rank is its share of the whole gradient: the model code puts a
+:func:`copy_to` on every model-replicated leaf whose use differs between
+model ranks (``q_norm``, ``k_norm``, the router), and the train step sums
+the data axes that do not shard a leaf (``train/step.py``).
 """
 from __future__ import annotations
 
@@ -114,6 +135,14 @@ class ShardCtx:
     def axis_size(self, logical: str) -> int:
         return mesh_axis_size(self.mesh, self.rules.get(logical))
 
+    def mesh_axes(self, logical: str) -> Tuple[str, ...]:
+        """The mesh axes of size above 1 that ``logical`` maps to (``()``
+        without a mesh): the axes a collective over it must cross."""
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in _axes(self.rules.get(logical))
+                     if a in self.mesh.shape and self.mesh.shape[a] > 1)
+
     def shard_range(self, logical: str, size: int) -> Tuple[int, int]:
         """``(start, count)`` of this rank's block of a ``size``-long dim on
         the logical axis ``logical`` (the whole dim when it replicates)."""
@@ -195,8 +224,8 @@ def tree_param_specs(ctx: ShardCtx, spec_tree: Any, params_tree: Any) -> Any:
 
 def zero1_specs(pspec_tree: Any, params_tree: Any, cfg, ctx: ShardCtx) -> Any:
     """ZeRO-1: optimizer-state specs = param specs + data-parallel sharding
-    on the first unsharded, dp-divisible dim (derivation only: the port's
-    training stack runs one rank)."""
+    on the first unsharded, dp-divisible dim.  The train step keeps each
+    rank's ``master`` / ``m`` / ``v`` at these specs (``optim/adamw.py``)."""
     dp = tuple(a for a in _axes(ctx.rules.get("batch")) if a is not None)
 
     def one(spec: PartitionSpec, leaf):
@@ -251,25 +280,39 @@ def shard_index(mesh, axes: Tuple[str, ...]) -> int:
     return i
 
 
-def local_shard(tensor: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
-    """This rank's block of ``tensor`` under ``spec`` (a view)."""
-    out = tensor
+def local_slices(shape: Sequence[int], spec: Sequence, mesh
+                 ) -> Tuple[slice, ...]:
+    """The index of this rank's block of an array of ``shape`` under
+    ``spec``, one slice a dim (a torch tensor or a numpy array)."""
+    out = [slice(None)] * len(shape)
     for dim, entry in enumerate(spec):
         axes = _axes(entry)
         n = mesh_axis_size(mesh, axes)
-        if n == 1:
-            continue
-        size = tensor.shape[dim] // n
-        out = out.narrow(dim, shard_index(mesh, axes) * size, size)
-    return out
+        if n > 1:
+            size = shape[dim] // n
+            i = shard_index(mesh, axes) * size
+            out[dim] = slice(i, i + size)
+    return tuple(out)
+
+
+def local_shard(tensor: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """This rank's block of ``tensor`` under ``spec`` (a view)."""
+    return tensor[local_slices(tensor.shape, spec, mesh)]
 
 
 def _staged(t: torch.Tensor, mesh) -> bool:
     return mesh.backend == "gloo" and t.is_cuda
 
 
-def _host(t: torch.Tensor) -> torch.Tensor:
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+def _host(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` copied into ``mesh``'s pinned staging buffer of its dtype (a
+    view, valid until the next staged call: every collective here blocks
+    until its result is back on the device)."""
+    buf = mesh.staging.get(t.dtype)
+    if buf is None or buf.numel() < t.numel():
+        buf = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+        mesh.staging[t.dtype] = buf
+    host = buf[:t.numel()].view(t.shape)
     host.copy_(t)
     return host
 
@@ -296,7 +339,7 @@ def all_gather(tensor: torch.Tensor, mesh, axis, dim: int = 0
             continue
         t0 = time.perf_counter()
         staged = _staged(tensor, mesh)
-        src = _host(tensor) if staged else tensor.contiguous()
+        src = _host(tensor, mesh) if staged else tensor.contiguous()
         parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=mesh.group(a))
         out = torch.cat(parts, dim=dim)
@@ -319,8 +362,154 @@ def all_reduce(tensor: torch.Tensor, mesh, axis, op: str = "sum"
             continue
         t0 = time.perf_counter()
         staged = _staged(tensor, mesh)
-        buf = _host(tensor) if staged else tensor.clone()
+        buf = _host(tensor, mesh) if staged else \
+            tensor.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(buf, op=red, group=mesh.group(a))
         tensor = buf.to(tensor.device) if staged else buf
         _count(buf, staged, t0)
     return tensor
+
+
+def slice_of(tensor: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """This rank's block of ``tensor`` along ``dim`` over ``axis`` (a name
+    or a tuple of names, the first major): the inverse of
+    :func:`all_gather`."""
+    axes = _axes(axis)
+    n = mesh_axis_size(mesh, axes)
+    if n == 1:
+        return tensor
+    size = tensor.shape[dim] // n
+    return tensor.narrow(dim, shard_index(mesh, axes) * size, size)
+
+
+# ---------------------------------------------------------------------------
+# collectives under autograd (the Megatron pattern)
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (slice_of(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None,
+                None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return slice_of(all_reduce(x, mesh, axis), mesh, axis,
+                        dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def _trivial(mesh, axis) -> bool:
+    return mesh is None or mesh_axis_size(mesh, _axes(axis)) == 1
+
+
+def copy_to(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """``x`` itself; its gradient is summed over ``axis``."""
+    return x if _trivial(mesh, axis) else _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axis``; the gradient passes
+    through as it is."""
+    return x if _trivial(mesh, axis) else _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_dim(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` over ``axis``; the
+    gradient is this rank's slice of the output's."""
+    return x if _trivial(mesh, axis) else \
+        _GatherDim.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of every rank's ``x``
+    over ``axis``; the gradient is every rank's slice gradient gathered."""
+    return x if _trivial(mesh, axis) else \
+        _ReduceScatter.apply(x, mesh, axis, dim)
+
+
+# ---------------------------------------------------------------------------
+# placement of whole trees
+# ---------------------------------------------------------------------------
+
+def _spec_map(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over the tensor leaves of nested dicts; a spec of
+    None leaves its leaf as it is."""
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, v, specs[k]) for k, v in tree.items()}
+    return tree if specs is None else fn(tree, specs)
+
+
+def place(tree: Any, spec_tree: Any, mesh) -> Any:
+    """This rank's shard of every leaf of the full ``tree`` under
+    ``spec_tree`` (fresh contiguous tensors that own their storage; a
+    layer-stacked linear cut along K is laid out again by whoever stores
+    it for the dense kernel, ``serving/engine.py::params_to``)."""
+    return _spec_map(lambda t, s: local_shard(t, s, mesh).contiguous()
+                     .clone(), tree, spec_tree)
+
+
+def gather_tree(tree: Any, spec_tree: Any, mesh) -> Any:
+    """The full tensors of a placed ``tree`` (every rank gets them): the
+    inverse of :func:`place`."""
+    def full(t, spec):
+        for dim, entry in enumerate(spec):
+            t = all_gather(t.contiguous(), mesh, entry, dim)
+        return t
+    return _spec_map(full, tree, spec_tree)
+
+
+def spec_axes(spec: Sequence) -> Tuple[str, ...]:
+    """Every mesh axis a spec shards over, in spec order."""
+    return tuple(a for entry in spec for a in _axes(entry))
+
+
+def zero1_dim(pspec: Sequence, zspec: Sequence) -> Tuple[Optional[int],
+                                                         Tuple[str, ...]]:
+    """Where ZeRO-1 cut a leaf further than its param spec: ``(dim, axes)``
+    of the entry :func:`zero1_specs` added, or ``(None, ())``."""
+    base = list(pspec) + [None] * (len(zspec) - len(pspec))
+    for dim, (z, p) in enumerate(zip(zspec, base)):
+        if _axes(z) != _axes(p):
+            return dim, _axes(z)
+    return None, ()
+
+
+def zero1_shard(t: torch.Tensor, pspec: Sequence, zspec: Sequence,
+                mesh) -> torch.Tensor:
+    """This rank's ZeRO-1 block of ``t``, a leaf already placed at
+    ``pspec``: its slice along the dim :func:`zero1_specs` added."""
+    dim, axes = zero1_dim(pspec, zspec)
+    return t if dim is None else slice_of(t, mesh, axes, dim)

@@ -53,6 +53,11 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names, sizes))
         self.device = torch.device(device)
         self.backend = backend
+        # pinned host buffers, one a dtype, that a gloo collective of a CUDA
+        # tensor stages through (``distributed/sharding.py``), grown to the
+        # largest call: a fresh pinned allocation per call costs more than
+        # the copy
+        self.staging: Dict[torch.dtype, torch.Tensor] = {}
         rank = dist.get_rank()
         self._coord = dict(zip(self.axis_names,
                                (int(c) for c in np.unravel_index(rank,

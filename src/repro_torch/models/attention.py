@@ -3,7 +3,14 @@ prefill (self-attention, or an encoder-decoder's cross attention over the
 encoder's memory), the one-token decode over the legacy dense or sparse KV
 cache and its cross attention over the encoder's dense K/V, and the panel
 and chunk attention of the pooled serving cache.  Sequences longer than
-``cfg.full_attn_max`` take the blocked attention, as in the reference."""
+``cfg.full_attn_max`` take the blocked attention, as in the reference.
+
+The training forward's self-attention runs tensor-parallel under a
+training ``ctx`` (:func:`attn_apply`): each rank projects its columns of
+``wq`` / ``wk`` / ``wv`` and ``wo`` is row-parallel, then a sum over the
+model axis.  Where a rank's columns are not whole heads with their GQA
+groups, the projections are gathered over the model axis first and every
+rank attends over every head (ROADMAP Queue 3, "heads cut mid-way")."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,13 +20,14 @@ import torch
 
 from repro_torch.core.sparse_format import unpack
 from repro_torch.distributed.cp_attention import sparse_decode_attention_cp
-from repro_torch.distributed.sharding import all_gather
+from repro_torch.distributed.sharding import (all_gather, copy_to,
+                                             gather_dim, reduce_from)
 from repro_torch.core.sparse_kv import (NAN_CHECK, SparseKVCache,
                                          append_tail_panel, append_token,
                                          flag_, pooled_view)
 from repro_torch.kernels import ops
 from .flash import blocked_attention, full_attention
-from .layers import apply_rope, rms_norm, rope_angles
+from .layers import apply_rope, rms_norm, rope_angles, tp_axes
 from .module import ParamSpec
 
 
@@ -129,7 +137,7 @@ def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
 def attn_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor,
                memory: Optional[torch.Tensor] = None,
                causal: Optional[bool] = None, attn_impl: str = "masked",
-               return_kv: bool = False):
+               return_kv: bool = False, ctx=None):
     """Attention of ``x [B, S, d]`` at ``positions [S]``: self-attention,
     or, given ``memory [B, Sm, d]`` (an encoder-decoder's encoder output),
     cross attention whose K/V are projected from the memory.  As in the
@@ -138,9 +146,15 @@ def attn_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     ``return_kv`` also the (post-RoPE) ``(k, v)`` ``[B, Hkv, Sm, hd]`` for
     the cache.  Up to ``cfg.full_attn_max`` tokens on both sides run as
     one unblocked attention, longer sequences as the blocked attention in
-    the ``attn_impl`` schedule, as in the reference."""
+    the ``attn_impl`` schedule, as in the reference.  Under a training
+    ``ctx`` whose model axis cut ``wo``, self-attention runs
+    tensor-parallel (:func:`_attn_tp`)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
+    if memory is None and tp_axes(ctx) and p["wo"].shape[0] < hq * hd:
+        if return_kv:
+            raise ValueError("a tensor-parallel attention keeps no KV cache")
+        return _attn_tp(p, x, cfg, positions, ctx, attn_impl)
     q = _project_q(p, x, cfg)                                # [B,S,Hq,hd]
     k, v = _project_kv(p, x if memory is None else memory,
                        cfg)                                  # [B,Sm,Hkv,hd]
@@ -151,19 +165,71 @@ def attn_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    thr = getattr(cfg, "full_attn_max", 4096)
-    g = hq // hkv
-    sm = 1.0 / hd ** 0.5
-    if s <= thr and k.shape[2] <= thr:
-        o = full_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), sm,
-                           causal=causal)
-    else:
-        o = blocked_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), sm,
-                              causal=causal, impl=attn_impl)
+    o = _sdpa(q, k, v, cfg, causal, attn_impl)
     out = ops.linear(o.transpose(1, 2).reshape(b, s, hq * hd), p["wo"])
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _sdpa(q, k, v, cfg, causal, attn_impl):
+    """``q [B, Hq, S, hd]`` over ``k``, ``v`` ``[B, Hkv, Sm, hd]`` (GQA),
+    unblocked up to ``cfg.full_attn_max`` tokens, else blocked."""
+    g = q.shape[1] // k.shape[1]
+    sm = 1.0 / cfg.hd ** 0.5
+    thr = getattr(cfg, "full_attn_max", 4096)
+    if q.shape[2] <= thr and k.shape[2] <= thr:
+        return full_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), sm,
+                              causal=causal)
+    return blocked_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), sm,
+                             causal=causal, impl=attn_impl)
+
+
+def _attn_tp(p, x, cfg, positions, ctx, attn_impl):
+    """Causal self-attention of ``x [B, S, d]`` with ``wo`` cut over the
+    model axis (row-parallel) and ``wq`` / ``wk`` / ``wv`` cut or whole:
+    each rank's share of ``out``, summed over the model axis.
+
+    Aligned (every projection cut into whole heads, the KV heads' GQA
+    groups on the same rank): a rank attends over its own heads.  Else
+    each cut projection is gathered over the model axis (its gradient
+    summed over it before the slice is taken) and every rank attends over
+    every head, then keeps the heads of its ``wo`` rows.  ``q_norm`` /
+    ``k_norm`` act on a rank's heads only, so their gradient is summed
+    over the model axis."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.padded_heads, cfg.n_kv, cfg.hd
+    mesh, tp = ctx.mesh, tp_axes(ctx)
+    n = hq * hd // p["wo"].shape[0]                      # model shards
+    x = copy_to(x, mesh, tp)
+    widths = {"wq": hq * hd, "wk": hkv * hd, "wv": hkv * hd}
+    cut = {key: p[key].shape[-1] < full for key, full in widths.items()}
+    aligned = all(cut.values()) and hq % n == 0 and hkv % n == 0
+    norm = {key: copy_to(p[key], mesh, tp)
+            for key in ("q_norm", "k_norm") if key in p}
+
+    def project(key):
+        if not cut[key]:            # a whole weight used for part of out
+            return ops.linear(x, copy_to(p[key], mesh, tp)).reshape(
+                b, s, -1, hd)
+        y = ops.linear(x, p[key])
+        if not aligned:
+            y = copy_to(gather_dim(y, mesh, tp, -1), mesh, tp)
+        return y.reshape(b, s, -1, hd)
+
+    q, k, v = project("wq"), project("wk"), project("wv")
+    if cfg.qk_norm:
+        q = rms_norm(q, norm["q_norm"])
+        k = rms_norm(k, norm["k_norm"])
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    o = _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cfg,
+              True, attn_impl).transpose(1, 2)           # [B, S, H, hd]
+    o = o.reshape(b, s, -1)
+    if not aligned:                    # this rank's rows of wo: its heads
+        r0, rn = ctx.shard_range("heads", hq * hd)
+        o = o[..., r0:r0 + rn]
+    return reduce_from(ops.linear(o, p["wo"]), mesh, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -172,18 +172,23 @@ def _layers(tree: Any) -> List[Any]:
     return list(tree.unbind(0))
 
 
-def logits_fn(params, hidden: torch.Tensor, cfg) -> torch.Tensor:
-    return unembed_apply(params["embed"], hidden, cfg)
+def logits_fn(params, hidden: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
+    """f32 logits of ``hidden``; under a training ``ctx`` whose model axis
+    cut the head, this rank's vocabulary columns (the reference constrains
+    them to ``("batch", None, "vocab")``)."""
+    return unembed_apply(params["embed"], hidden, cfg, ctx)
 
 
-def _ffn(p, kind, h2: torch.Tensor, cfg, length=None,
-         rows=None) -> torch.Tensor:
+def _ffn(p, kind, h2: torch.Tensor, cfg, length=None, rows=None,
+         ctx=None) -> torch.Tensor:
     """The MLP or MoE half of a block on ``h2 [B, S, d]`` (an MoE routes
     all ``B * S`` rows; ``length``: a padded chunk's valid rows; ``rows``:
-    the rows that pick the MLP's sparse kernel)."""
+    the rows that pick the MLP's sparse kernel; ``ctx``: the mesh, where
+    an MoE routes this data shard's rows and a cut layer runs
+    tensor-parallel)."""
     if kind[1] == "moe":
-        return moe_apply(p["ffn"], h2, cfg, length=length)
-    return mlp_apply(p["ffn"], h2, rows)
+        return moe_apply(p["ffn"], h2, cfg, ctx, length)
+    return mlp_apply(p["ffn"], h2, rows, ctx, cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +196,8 @@ def _ffn(p, kind, h2: torch.Tensor, cfg, length=None,
 # layer's K/V or state (one-shot engine)
 # ---------------------------------------------------------------------------
 
-def _sublayer(x, p, kind, cfg, positions, memory=None, attn_impl="masked"):
+def _sublayer(x, p, kind, cfg, positions, memory=None, attn_impl="masked",
+              ctx=None):
     """One layer of the full forward (the reference's ``_sublayer`` and
     ``_sublayer_prefill``, whose values are the same); returns ``x`` and
     what the decode needs of it: ``{"k", "v"}`` for attention,
@@ -201,7 +207,8 @@ def _sublayer(x, p, kind, cfg, positions, memory=None, attn_impl="masked"):
     hd]``, projected once (the reference projects them a second time for
     the cache, to the same values).  Training drops the second part.
     ``attn_impl`` is the blocked attention's schedule past
-    ``cfg.full_attn_max``."""
+    ``cfg.full_attn_max``.  Under a training ``ctx`` (a mesh) the layer
+    runs tensor-parallel and returns nothing for a cache."""
     mixer, _ = kind
     if mixer == "rwkv":
         xin1 = rms_norm(x, p["ln1"])
@@ -211,7 +218,11 @@ def _sublayer(x, p, kind, cfg, positions, memory=None, attn_impl="masked"):
         h = rwkv_channel_mix(p["tmix"], xin2, cfg)
         return x + h, {"state": {**st, "cm_x": xin2.float()[:, -1]}}
     h = rms_norm(x, p["ln1"])
-    if mixer == "attn":
+    if mixer == "attn" and ctx is not None:
+        h = attn_apply(p["mixer"], h, cfg, positions, attn_impl=attn_impl,
+                       ctx=ctx)
+        got = {}
+    elif mixer == "attn":
         h, (k, v) = attn_apply(p["mixer"], h, cfg, positions,
                                attn_impl=attn_impl, return_kv=True)
         got = {"k": k, "v": v}
@@ -224,11 +235,11 @@ def _sublayer(x, p, kind, cfg, positions, memory=None, attn_impl="masked"):
                                      cfg, positions, memory=memory,
                                      return_kv=True)
         x = x + h
-    return x + _ffn(p, kind, rms_norm(x, p["ln2"]), cfg), got
+    return x + _ffn(p, kind, rms_norm(x, p["ln2"]), cfg, ctx=ctx), got
 
 
 def _stack_forward(blocks, x: torch.Tensor, cfg, positions: torch.Tensor,
-                   kinds, memory=None, attn_impl: str = "masked"
+                   kinds, memory=None, attn_impl: str = "masked", ctx=None
                    ) -> torch.Tensor:
     """``x`` through every period of the layer-stacked ``blocks``.  With
     ``cfg.remat``, under autograd, each period is recomputed in the
@@ -238,7 +249,7 @@ def _stack_forward(blocks, x: torch.Tensor, cfg, positions: torch.Tensor,
         def body(xc, pp=pp):
             for j, kind in enumerate(kinds):
                 xc, _ = _sublayer(xc, pp[f"l{j}"], kind, cfg, positions,
-                                  memory, attn_impl)
+                                  memory, attn_impl, ctx)
             return xc
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(body, x, use_reentrant=False,
@@ -258,25 +269,50 @@ def _encode(params, src: torch.Tensor, cfg) -> torch.Tensor:
     return rms_norm(src, params["enc_norm"])
 
 
+# what a training mesh does not run yet, and the ROADMAP item of each
+FSDP_ITEM = ("cfg.fsdp (the embed dim over the data axes: weight gathers) "
+             "under a training mesh is ROADMAP Queue 1 item 4")
+FAMILY_ITEM = ("the {} family under a training mesh is ROADMAP Queue 1 "
+               "item 5 (the recurrent and encoder-decoder families)")
+
+
+def check_train_mesh(cfg) -> None:
+    """Raise for what a training mesh does not run: ``cfg.fsdp`` and the
+    families other than dense, VLM and MoE, each naming its item."""
+    if cfg.family not in ("dense", "vlm", "moe"):
+        raise NotImplementedError(FAMILY_ITEM.format(cfg.family))
+    if cfg.fsdp:
+        raise NotImplementedError(FSDP_ITEM)
+
+
 def forward_train(params, batch: Dict[str, torch.Tensor], cfg,
-                  attn_impl: str = "masked") -> torch.Tensor:
+                  attn_impl: str = "masked", ctx=None) -> torch.Tensor:
     """The training forward over ``batch["tokens"] [B, S]`` (after a
     frontend config's ``batch["frontend_embeds"] [B, F, d]``; an
     encoder-decoder's decoder cross-attending to the encoder over
     ``batch["src_embeds"] [B, Sm, d]``, the reference's
     ``_encdec_forward``): the final hidden states ``[B, S (+ F), d]``.
     The loss computes the logits in chunks, so the ``[B, S, V]`` tensor
-    never exists."""
+    never exists.
+
+    On a mesh (``ctx``, params placed by ``tree_param_specs``) ``batch``
+    is this rank's data shard; the layers run tensor-parallel over the
+    model axis and the residual stream stays replicated over it
+    (``seq`` sharding is the reference's placement only)."""
+    if ctx is not None and ctx.mesh is None:
+        ctx = None
+    if ctx is not None:
+        check_train_mesh(cfg)
     memory = None
     if cfg.family == "encdec":
         memory = _encode(params, batch["src_embeds"].to(cfg.cdtype), cfg)
-    x = embed_apply(params["embed"], batch["tokens"], cfg)
+    x = embed_apply(params["embed"], batch["tokens"], cfg, ctx)
     if cfg.frontend and "frontend_embeds" in batch:
         x = torch.cat([batch["frontend_embeds"].to(x.device, x.dtype), x],
                       dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _stack_forward(params["blocks"], x, cfg, positions, _kinds(cfg),
-                       memory, attn_impl)
+                       memory, attn_impl, ctx)
     return rms_norm(x, params["final_norm"])
 
 
@@ -420,7 +456,8 @@ def _sublayer_decode(x_t, p, kind, cache_j, cfg, position, cross_kv=None,
         x_t = x_t + cross_attn_decode(p["cross"], rms_norm(x_t, p["ln_cross"]),
                                       cross_kv[0], cross_kv[1], cfg)
     # an MoE sees the B tokens as [B, 1, d], as in the reference
-    h2 = _ffn(p, kind, rms_norm(x_t, p["ln2"])[:, None, :], cfg)[:, 0]
+    h2 = _ffn(p, kind, rms_norm(x_t, p["ln2"])[:, None, :], cfg,
+              ctx=ctx)[:, 0]
     return x_t + h2
 
 
@@ -454,12 +491,14 @@ def forward_decode(params, cache: Dict[str, Any], tokens: torch.Tensor,
 # the pooled serving cache
 # ---------------------------------------------------------------------------
 
-def _pooled_ffn(pj, kind, h2: torch.Tensor, cfg, rows=None) -> torch.Tensor:
+def _pooled_ffn(pj, kind, h2: torch.Tensor, cfg, rows=None,
+                ctx=None) -> torch.Tensor:
     """The MLP or MoE half of a pooled panel block, run on rows (the panel
     width is invisible to it, as in the reference): an MoE routes all
-    ``B * Qn`` rows, masked slots included, in row order."""
+    ``B * Qn`` rows, masked slots included, in row order (on a mesh this
+    rank's slots' rows)."""
     flat = h2.reshape(-1, h2.shape[-1])
-    out = _ffn(pj, kind, flat[:, None, :], cfg, rows=rows)[:, 0]
+    out = _ffn(pj, kind, flat[:, None, :], cfg, rows=rows, ctx=ctx)[:, 0]
     return out.reshape(*h2.shape[:-1], out.shape[-1])
 
 
@@ -500,7 +539,7 @@ def forward_panel_pooled(params, state: Dict[str, Any],
                                   err=state.get("err"), ctx=ctx, rows=rows)
             x = x + h
             x = x + _pooled_ffn(pj, kinds[j], rms_norm(x, pj["ln2"]), cfg,
-                                rows)
+                                rows, ctx)
     x = rms_norm(x, params["final_norm"])
     logits = logits_fn(params, x, cfg)
     grow = qn * slot_mask.to(state["pos"].dtype)
@@ -600,7 +639,8 @@ def forward_prefill_chunk(params, state: Dict[str, Any],
                 bs, slot, table_row=table_row, ctx=ctx)
             x = x + h
             # an MoE takes the capacity of the L valid rows, as the
-            # reference's chunk of length L does
+            # reference's chunk of length L does; no ctx: the chunk runs on
+            # its slot's data group alone, so nothing may cross data ranks
             x = x + _ffn(pj, kinds[jj], rms_norm(x, pj["ln2"]), cfg,
                          length=ln)
             if err is not None:

@@ -26,8 +26,14 @@ capacity comes from that length, as the reference's chunk of that length
 computes it, and the padding rows (after the valid ones, so they never
 move a valid row's queue position) are kept out of the buffers.
 
-The mesh paths (``moe_apply`` under a mesh, the expert-parallel
-``moe_apply_ep``) wait for ROADMAP Queue 1 item 3 and raise.
+On a mesh (``ctx``; a rank's ``x`` is its data shard's rows, as
+everywhere in the port) :func:`moe_apply` routes those rows alone, so the
+capacity, and with it which tokens drop, follows the data shard, as the
+reference's ``shard_map`` body calls ``moe_local`` per shard (ROADMAP
+Queue 3, "per-shard MoE capacity"); where the model axis cut the experts'
+``d_ff`` (a training placement), each rank runs its hidden units and the
+outputs are summed over the model axis.  :func:`moe_apply_ep` puts the
+experts over the data axes instead.  Both run under autograd.
 """
 from __future__ import annotations
 
@@ -38,11 +44,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sparse_format import BlockSparseWeight, unpack
-from .layers import mlp_apply, mlp_specs
+from repro_torch.distributed.sharding import (copy_to, gather_dim,
+                                              mesh_axis_size, reduce_from,
+                                              reduce_scatter, shard_index)
+from .layers import mlp_apply, mlp_specs, tp_axes
 from .module import ParamSpec
-
-_MESH_ITEM = ("the MoE mesh paths (moe_apply under a mesh, moe_apply_ep) "
-              "wait for ROADMAP Queue 1 item 3 (the training mesh)")
 
 
 def moe_specs(cfg) -> Dict[str, ParamSpec]:
@@ -162,16 +168,98 @@ def moe_apply(p, x: torch.Tensor, cfg, ctx=None,
               length: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x [B, S, d]`` -> ``[B, S, d]``: every ``B * S`` row routed in row
     order, then Scout's shared expert added in ``x.dtype``.  ``length``:
-    a padded chunk's valid rows (``B == 1``), as :func:`moe_local`."""
-    if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(_MESH_ITEM)
+    a padded chunk's valid rows (``B == 1``), as :func:`moe_local`.
+
+    On a mesh ``ctx``: ``cfg.ep_moe`` takes :func:`moe_apply_ep` where the
+    experts divide the data axes; else the rows are routed here (this
+    data shard's capacity) and, where the model axis cut ``d_ff``, the
+    router's and ``x``'s gradients are summed over it and so is the
+    output."""
     b, s, d = x.shape
-    out = moe_local(p, x.reshape(-1, d), cfg, length).reshape(b, s, d)
-    if cfg.shared_expert:
+    if getattr(ctx, "mesh", None) is not None and cfg.ep_moe:
+        out = moe_apply_ep(p, x, cfg, ctx)
+        if out is not None:
+            return out
+    tp = tp_axes(ctx) if p["w_gate"].shape[-1] < cfg.d_ff else ()
+    if not tp:
+        out = moe_local(p, x.reshape(-1, d), cfg, length).reshape(b, s, d)
+        if cfg.shared_expert:
+            out = out + mlp_apply(p["shared"], x)
+        return out
+    mesh = ctx.mesh
+    x = copy_to(x, mesh, tp)
+    out = moe_local({**p, "router": copy_to(p["router"], mesh, tp)},
+                    x.reshape(-1, d), cfg, length).reshape(b, s, d)
+    if cfg.shared_expert:                # this rank's units, summed below
         out = out + mlp_apply(p["shared"], x)
-    return out
+    return reduce_from(out, mesh, tp)
 
 
-def moe_apply_ep(p, x, cfg, ctx):
-    """The expert-parallel variant needs a mesh."""
-    raise NotImplementedError(_MESH_ITEM)
+def moe_apply_ep(p, x: torch.Tensor, cfg, ctx) -> Optional[torch.Tensor]:
+    """Expert-parallel MoE: the experts split over the data axes (``E /
+    ep`` a data rank; ``w_*`` either already this rank's experts, the
+    training placement under ``cfg.ep_moe``, or all of them, sliced here),
+    ``d_ff`` over the model axis where it is cut.  The tokens of every
+    data rank are gathered, routed (the capacity of all of them, as one
+    rank's ``moe_local`` on the whole batch), each rank computes its
+    experts' contributions and the shared expert on data index 0 only,
+    and the f32 sum over the model axis is reduce-scattered back to each
+    data rank's rows.  Returns None where the data axes do not divide the
+    experts (the caller takes the tensor-parallel path), as the reference
+    does."""
+    mesh = ctx.mesh
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dp = ctx.mesh_axes("batch")
+    ep = mesh_axis_size(mesh, dp)
+    if ep <= 1 or e % ep != 0:
+        return None
+    e_loc = e // ep
+    idx = shard_index(mesh, dp)
+    e0 = idx * e_loc
+    w = {key: p[key][e0:e0 + e_loc] if p[key].shape[0] == e else p[key]
+         for key in ("w_gate", "w_up", "w_down")}
+    tp = tp_axes(ctx) if w["w_gate"].shape[-1] < cfg.d_ff else ()
+    xa = copy_to(gather_dim(x, mesh, dp, 0), mesh, dp + tp)
+    tok = xa.reshape(-1, d)
+    t = tok.shape[0]
+    dev = x.device
+    c = _capacity(t, k, e, cfg.capacity_factor)
+    top_p, top_i = route({"router": copy_to(p["router"], mesh, tp)}, tok, k)
+    row = torch.arange(t, device=dev)
+    experts = torch.arange(e_loc, device=dev)
+    bufs = []
+    for slot in range(k):
+        eid = top_i[:, slot]
+        mine = (eid >= e0) & (eid < e0 + e_loc)
+        # this rank's expert id; e_loc for another rank's
+        le = torch.where(mine, eid - e0, e_loc)
+        oh = (le[:, None] == experts).to(torch.int64)
+        pos = (torch.cumsum(oh, 0) - oh).gather(
+            1, le.clamp(max=e_loc - 1)[:, None])[:, 0]
+        keep = mine & (pos < c)
+        # row e_loc and column c take the writes of other ranks' and
+        # dropped tokens
+        buf = torch.full((e_loc + 1, c + 1), t, dtype=torch.int64,
+                         device=dev)
+        buf.view(-1).scatter_(0, le * (c + 1) + torch.where(keep, pos, c),
+                              row)
+        bufs.append(buf[:e_loc, :c])
+    ids = torch.stack(bufs, 1).reshape(-1)
+    x_pad = torch.cat([tok, tok.new_zeros((1, d))])
+    xg = x_pad.index_select(0, ids).reshape(e_loc, k * c, d)
+    h = (F.silu(torch.bmm(xg, w["w_gate"])) * torch.bmm(xg, w["w_up"])
+         ).to(x.dtype)
+    o = torch.bmm(h, w["w_down"]).reshape(e_loc, k, c, d)
+    w_pad = torch.cat([top_p, top_p.new_zeros((1, k))])
+    out = torch.zeros((t + 1, d), dtype=torch.float32, device=dev)
+    for slot in range(k):
+        ib = bufs[slot].reshape(-1)
+        wc = w_pad[:, slot].index_select(0, ib)
+        out = out.index_add(0, ib, o[:, slot].reshape(-1, d).float()
+                            * wc[:, None])
+    out = out[:t]
+    if cfg.shared_expert and idx == 0:
+        out = out + mlp_apply(p["shared"], tok).float()
+    out = reduce_from(out.reshape(-1, s, d), mesh, tp)
+    return reduce_scatter(out, mesh, dp, 0).to(x.dtype)

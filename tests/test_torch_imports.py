@@ -106,6 +106,10 @@ def test_no_import_of_jax_or_the_reference_in_the_sources():
              ROOT / "tools" / "int_reduction_probe.py",
              ROOT / "tools" / "attention_probe.py",
              ROOT / "tools" / "gemv_probe.py",
+             ROOT / "tools" / "phase_times.py",
+             ROOT / "tools" / "collective_probe.py",
+             ROOT / "tests" / "torch_mesh_worker.py",
+             ROOT / "tests" / "torch_train_mesh_worker.py",
              *sorted((SRC / "repro_torch").rglob("*.py"))]
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits

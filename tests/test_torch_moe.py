@@ -268,10 +268,19 @@ def test_moe_reads_no_tensor_value_on_the_host(models, monkeypatch):
     moe.moe_apply(tp, x.reshape(48, 1, -1), tcfg)
 
 
-def test_mesh_paths_raise_by_item():
-    _, tcfg = _pair(PHI)
-    mesh_ctx = type("Ctx", (), {"mesh": object()})()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        moe.moe_apply({}, torch.zeros(1, 1, tcfg.d_model), tcfg, mesh_ctx)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        moe.moe_apply_ep({}, None, tcfg, mesh_ctx)
+def test_mesh_paths_raise_by_item(models):
+    """On a mesh of one rank (every axis of size 1) ``moe_apply`` is the
+    unsharded layer bit for bit, with ``ep_moe`` too: the expert-parallel
+    path declines (None) where the data axes do not split the experts, as
+    the reference's does.  The ranks' paths are held in
+    ``tests/test_torch_train_mesh.py``."""
+    _, tcfg, jparams, _ = models[PHI]
+    _, tp = _ffn0(jparams, tcfg)
+    from repro_torch.distributed import ShardCtx, default_rules
+    mesh = type("Mesh", (), {"shape": {"data": 1, "model": 1}})()
+    ep_cfg = dataclasses.replace(tcfg, ep_moe=True)
+    ctx = ShardCtx(mesh, default_rules(False, ep_cfg))
+    x = torch.from_numpy(rand((2, 8, tcfg.d_model), seed=4))
+    want = moe.moe_apply(tp, x, tcfg)
+    assert torch.equal(moe.moe_apply(tp, x, ep_cfg, ctx), want)
+    assert moe.moe_apply_ep(tp, x, ep_cfg, ctx) is None

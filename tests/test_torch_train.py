@@ -37,6 +37,7 @@ from repro.optim import adamw as jadamw
 from repro.optim import grad_compress as jcompress
 from repro.train import step as jstep
 
+from repro_torch.configs import get_config as tconfig
 from repro_torch.data.pipeline import DataConfig, iterate
 from repro_torch.kernels import ops
 from repro_torch.kernels.dense_matmul import (DenseMatmulGrad,
@@ -229,7 +230,7 @@ def test_compress_and_reduce_matches_the_reference(scheme):
             tree_map(torch.tensor, g), t_err, (), scheme)
         _assert_tree_close(t_hat, to_numpy(j_hat), 1e-6, "g_hat")
         _assert_tree_close(t_err, to_numpy(j_err), 1e-6, "err")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         tcompress.compress_and_reduce(t_hat, t_err, ("dp",), scheme)
 
 
@@ -249,8 +250,15 @@ def test_compressed_grads_over_one_process():
     assert tree_map(lambda e: e.shape[0], new_err)["final_norm"] == 1
     with pytest.raises(ValueError, match="DP-replicated"):
         tstep.make_compressed_grads(dataclasses.replace(tcfg, fsdp=True))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tstep.make_compressed_grads(tcfg, mesh=object())
+    mesh = type("Mesh", (), {"shape": {"data": 2, "model": 1}})()
+    for name, item in (("rwkv6-7b", "item 5"), ("seamless-m4t-medium",
+                                                "item 5")):
+        with pytest.raises(NotImplementedError, match=item):
+            tstep.make_compressed_grads(tconfig(name).reduced(), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tstep.make_train_step(dataclasses.replace(tcfg, fsdp=True),
+                              tadamw.OptConfig(),
+                              ctx=tstep.ShardCtx(mesh, {"batch": "data"}))
 
 
 def test_abstract_params_and_opt_state_match_the_reference():

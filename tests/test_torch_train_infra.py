@@ -108,7 +108,7 @@ def test_global_norm():
 def test_train_cli_resumes_after_an_injected_failure(tmp_path):
     """``main`` with ``--fail-at 3 --retries 1``: the first attempt saves
     step 2 and fails at step 3; the retry resumes from step 2 and
-    finishes.  A mesh is refused with the item it waits for."""
+    finishes.  A mesh backend other than gloo or nccl is refused."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = train_cli.main(["--reduced", "--device", "cpu", "--steps", "4",
@@ -122,4 +122,5 @@ def test_train_cli_resumes_after_an_injected_failure(tmp_path):
     assert "[train] done" in text
     assert CheckpointManager(str(tmp_path)).latest_step() == 4
     with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
-        train_cli.main(["--reduced", "--device", "cpu", "--data", "2"])
+        train_cli.main(["--reduced", "--device", "cpu", "--data", "2",
+                        "--backend", "mpi"])
